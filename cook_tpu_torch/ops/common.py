@@ -1,0 +1,126 @@
+"""Shared kernel utilities: padding/bucketing and multi-key sorting helpers.
+
+Port of `cook_tpu/ops/common.py`.  The padded power-of-two buckets stay:
+they keep the problem shapes the reference solves, so the two packages
+see identical tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+# A value larger than any real DRU/score; used instead of +inf so arithmetic
+# on padded lanes stays finite.
+BIG = 1e30
+
+
+def fetch_result(tree):
+    """Materialize a device result (a tensor, or a tuple/list of them) as
+    host numpy.
+
+    This is THE definition of "the solve finished": PyTorch returns before
+    the card does, and the device-to-host copy is what waits for it.  Every
+    timed solve ends in this call so a timing means the same thing
+    everywhere."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    items = [fetch_result(t) for t in tree]
+    # a NamedTuple takes its fields positionally, a list/tuple an iterable
+    return type(tree)(*items) if hasattr(tree, "_fields") \
+        else type(tree)(items)
+
+
+class PendingResult:
+    """Handle to a dispatched device computation; `fetch()` is the one
+    completion observation (same semantics as `fetch_result`)."""
+
+    __slots__ = ("_tree",)
+
+    def __init__(self, tree):
+        self._tree = tree
+
+    def fetch(self):
+        """Block until the device result is materialized host-side."""
+        return fetch_result(self._tree)
+
+
+def dispatch(fn, *args, **kwargs) -> PendingResult:
+    """Run a kernel entry point and wrap its (still in-flight) device
+    output without observing completion."""
+    return PendingResult(fn(*args, **kwargs))
+
+
+def binpack_fitness(used0, used1, d0, d1, denom0, denom1):
+    """cpuMemBinPacker fitness (Fenzo's default, config.clj:108): mean
+    post-placement utilization across mem and cpus.  Plain arithmetic so
+    the ONE definition serves the torch kernels' plain versions and the
+    numpy host-side top-up — callers broadcast shapes."""
+    return ((used0 + d0) / denom0 + (used1 + d1) / denom1) * 0.5
+
+
+def bucket_size(n: int, minimum: int = 64) -> int:
+    """Round n up to the next power-of-two bucket (>= minimum)."""
+    if n <= minimum:
+        return minimum
+    return 1 << math.ceil(math.log2(n))
+
+
+def pad_to(arr: np.ndarray, size: int, fill=0) -> np.ndarray:
+    """Pad axis 0 of arr to `size` with `fill`."""
+    n = arr.shape[0]
+    if n == size:
+        return arr
+    if n > size:
+        raise ValueError(f"cannot pad {n} down to {size}")
+    pad_width = [(0, size - n)] + [(0, 0)] * (arr.ndim - 1)
+    return np.pad(arr, pad_width, constant_values=fill)
+
+
+def lexsort_perm(*keys: torch.Tensor) -> torch.Tensor:
+    """Permutation (int64) sorting rows ascending by keys, keys[0] MOST
+    significant.  The reference runs one fused multi-key `lax.sort`; here
+    it is chained stable sorts, least-significant key first, which gives
+    the same permutation."""
+    perm = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for key in reversed(keys):
+        perm = perm[torch.sort(key[perm], stable=True).indices]
+    return perm
+
+
+def segment_starts(sorted_ids: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of positions where a new segment begins in a sorted id
+    vector."""
+    prev = torch.cat([sorted_ids[:1] - 1, sorted_ids[:-1]])
+    return sorted_ids != prev
+
+
+def segment_first(starts: torch.Tensor) -> torch.Tensor:
+    """Index of each row's segment start, carried forward with a running
+    max (`lax.cummax` in the reference)."""
+    idx = torch.arange(starts.shape[0], device=starts.device)
+    return torch.cummax(torch.where(starts, idx, 0), dim=0).values
+
+
+def segmented_cumsum(values: torch.Tensor,
+                     sorted_ids: torch.Tensor) -> torch.Tensor:
+    """Cumulative sum of `values` restarting at each new id in `sorted_ids`
+    (which must be sorted): plain cumsum minus the running total at each
+    segment start."""
+    total = torch.cumsum(values, dim=0)
+    seg_first = segment_first(segment_starts(sorted_ids))
+    base = total[(seg_first - 1).clamp_min(0)]
+    nonzero = seg_first > 0
+    if values.ndim > 1:
+        nonzero = nonzero.reshape((-1,) + (1,) * (values.ndim - 1))
+    base = torch.where(nonzero, base, torch.zeros_like(base))
+    return total - base
+
+
+def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv[perm[i]] = i."""
+    n = perm.shape[0]
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(n, dtype=perm.dtype, device=perm.device)
+    return inv

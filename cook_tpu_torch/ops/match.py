@@ -1,0 +1,320 @@
+"""Jobs x nodes bin-packing as a device solve: the Fenzo replacement.
+
+Port of `cook_tpu/ops/match.py` (see its docstring for the scheme):
+
+  * `greedy_match`: the exact sequential greedy (the reference's
+    `lax.scan` becomes a Python loop of vectorized [N] steps).
+  * `chunked_match`: the fast path — per chunk of K jobs, a candidate pass
+    then `rounds` conflict-resolution rounds on [K, kc] candidate tensors.
+    The candidate pass is an exact top-kc (`xla`), a class-shared top-kc
+    (`bucketed`), or the hand-written Hopper `best_node` kernel (`pallas`,
+    the backend name kept from the reference's configs).
+
+The reference's `approx_max_k` / `top_k` pick becomes an exact top-kc that
+breaks ties by first index (a stable descending sort): `torch.topk` orders
+ties differently from JAX.  Assignments are int32 at the public functions;
+index sites convert to int64.  `index_add_` on CUDA adds in atomic order;
+the simulator's demands are integers and halves in float32, so its sums
+are exact whatever the order.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from cook_tpu_torch.ops.best_node import best_node
+from cook_tpu_torch.ops.common import (
+    BIG,
+    binpack_fitness,
+    lexsort_perm,
+    segment_first,
+)
+
+
+class MatchProblem(NamedTuple):
+    """One pool's padded matching problem (field names and layouts of the
+    reference's MatchProblem)."""
+
+    demands: torch.Tensor     # [J, R] f32 (mem, cpus, gpus[, disk...])
+    job_valid: torch.Tensor   # [J] bool
+    avail: torch.Tensor       # [N, R] f32 currently-available resources
+    totals: torch.Tensor      # [N, 2] f32 (mem, cpus) capacity
+    node_valid: torch.Tensor  # [N] bool
+    feasible: Optional[torch.Tensor] = None  # [J, N] bool constraint mask
+    # [N] additive score term (topology distance bonus); the pallas
+    # candidate backend ignores it, as the reference's does
+    node_bonus: Optional[torch.Tensor] = None
+
+
+class MatchResult(NamedTuple):
+    assignment: torch.Tensor  # [J] int32 node index or -1
+    new_avail: torch.Tensor   # [N, R] availability after placements
+
+
+def from_numpy(demands, job_valid, avail, totals, node_valid, feasible=None,
+               node_bonus=None, *, device) -> MatchProblem:
+    """The numpy arrays a reference `MatchProblem` is built from, as the
+    port's tensors on `device` (floats to float32 and masks to bool, the
+    dtypes the reference's arrays take with 64-bit mode off)."""
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+
+    def b(a):
+        return torch.as_tensor(np.asarray(a, dtype=bool), device=device)
+
+    return MatchProblem(
+        demands=f32(demands), job_valid=b(job_valid), avail=f32(avail),
+        totals=f32(totals), node_valid=b(node_valid),
+        feasible=None if feasible is None else b(feasible),
+        node_bonus=None if node_bonus is None else f32(node_bonus))
+
+
+def backend_flags(backend: str) -> dict:
+    """Map a candidate-pass backend name to chunked_match flags; the ONE
+    place backend strings are interpreted (and rejected)."""
+    if backend not in ("xla", "pallas", "bucketed"):
+        raise ValueError(f"unknown match backend {backend!r} "
+                         "(expected xla | pallas | bucketed)")
+    return {"use_pallas": backend == "pallas",
+            "bucketed": backend == "bucketed"}
+
+
+def greedy_match(problem: MatchProblem) -> MatchResult:
+    """Sequential-order greedy matcher (exact Fenzo-order semantics; J
+    steps of O(N) vector work each, with no host synchronisation)."""
+    avail = problem.avail.clone()
+    totals, node_valid = problem.totals, problem.node_valid
+    denom = totals.clamp_min(1e-30)
+    j = problem.demands.shape[0]
+    assignment = torch.empty(j, dtype=torch.int32, device=avail.device)
+    for i in range(j):
+        demand = problem.demands[i]
+        fits = (avail >= demand[None, :]).all(-1)
+        feasible = fits & node_valid & problem.job_valid[i]
+        if problem.feasible is not None:
+            feasible = feasible & problem.feasible[i]
+        used = totals - avail[:, :2]
+        fit = binpack_fitness(used[:, 0], used[:, 1], demand[0], demand[1],
+                              denom[:, 0], denom[:, 1])
+        if problem.node_bonus is not None:
+            fit = fit + problem.node_bonus
+        score = torch.where(feasible, fit, torch.full_like(fit, -BIG))
+        best = torch.argmax(score)
+        placed = score[best] > -BIG
+        avail[best] -= torch.where(placed, demand, torch.zeros_like(demand))
+        assignment[i] = torch.where(placed, best, -1)
+    return MatchResult(assignment=assignment, new_avail=avail)
+
+
+def _segment_rank(keys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its run of equal keys, where runs are
+    taken over `keys` sorted with tie-break `order`.  Returns int32 ranks
+    in the original index space."""
+    k = keys.shape[0]
+    perm = lexsort_perm(keys, order)
+    sk = keys[perm]
+    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device),
+                        sk[1:] != sk[:-1]])
+    rank_sorted = torch.arange(k, device=keys.device) - segment_first(starts)
+    out = torch.empty(k, dtype=torch.int32, device=keys.device)
+    out[perm] = rank_sorted.to(torch.int32)
+    return out
+
+
+def _first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Per row, the index of the first True (0 when none) — jnp.argmax over
+    a bool row."""
+    return torch.argmax(mask.to(torch.uint8), dim=1)
+
+
+def conflict_round(avail, assignment, cand_val, cand_idx, d, n, *,
+                   recheck_mask=None):
+    """One conflict-resolution round over candidate lists — THE shared
+    acceptance step of every chunked candidate backend:
+
+      1. each unplaced job takes its first still-feasible candidate;
+      2. contenders for the same node spread onto their c-th feasible
+         alternates (skipped for single-candidate lists);
+      3. a pick is accepted iff the node holds the cumulative demand of
+         earlier accepted picks (segmented prefix-sum over sorted picks,
+         with the reference's 1e-9 tolerance);
+      4. accepted demand is scatter-subtracted from availability.
+
+    `recheck_mask` ([K, N] bool) re-applies a constraint mask on the
+    candidate gather.  Returns (new_avail, assignment)."""
+    k = cand_idx.shape[0]
+    dev = avail.device
+    order = torch.arange(k, device=dev)
+    ci = cand_idx.long()
+    cand_ok = cand_val > -BIG                                  # [K, kc]
+    unplaced = assignment < 0
+    feas_cand = ((avail[ci] >= d[:, None, :]).all(-1)
+                 & cand_ok & unplaced[:, None])
+    if recheck_mask is not None:
+        feas_cand &= torch.gather(recheck_mask, 1, ci)
+    has = feas_cand.any(dim=1)
+    f0 = _first_true(feas_cand)
+    pick0 = torch.where(has, cand_idx.gather(1, f0[:, None])[:, 0], n)
+    if cand_idx.shape[1] == 1:
+        pick, take = pick0, has
+    else:
+        # contention spreading: c-th contender takes its c-th feasible
+        # candidate
+        c = _segment_rank(pick0, order)
+        cum = torch.cumsum(feas_cand, dim=1)
+        sel = (cum == (c + 1)[:, None]) & feas_cand
+        pick = cand_idx.gather(1, _first_true(sel)[:, None])[:, 0]
+        take = has & sel.any(dim=1)
+    pick_key = torch.where(take, pick, n)
+    # prefix-accept: per-node cumulative demand among this round's picks
+    # must fit availability (segmented over sorted picks)
+    perm2 = lexsort_perm(pick_key, order)
+    sp2 = pick_key[perm2]
+    d2 = torch.where((sp2 < n)[:, None], d[perm2], 0.0)
+    cums = torch.cumsum(d2, dim=0)
+    starts2 = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                         sp2[1:] != sp2[:-1]])
+    seg_first2 = segment_first(starts2)
+    base = torch.where((seg_first2 > 0)[:, None],
+                       cums[(seg_first2 - 1).clamp_min(0)], 0.0)
+    segcum = cums - base
+    have2 = avail[sp2.clamp(0, n - 1).long()]
+    accept2 = (sp2 < n) & (segcum <= have2 + 1e-9).all(-1)
+    accept = torch.empty(k, dtype=torch.bool, device=dev)
+    accept[perm2] = accept2
+    assignment = torch.where(accept, pick, assignment).to(torch.int32)
+    delta = torch.zeros_like(avail).index_add_(
+        0, torch.where(accept, pick, n - 1).long(),
+        torch.where(accept[:, None], d, 0.0))
+    return avail - delta, assignment
+
+
+def _top_kc(score: torch.Tensor, kc: int):
+    """Exact top-kc per row, ties to the first index (jax `top_k`'s
+    order)."""
+    s = torch.sort(score, dim=1, descending=True, stable=True)
+    return s.values[:, :kc], s.indices[:, :kc].to(torch.int32)
+
+
+def _bucket_ids(d: torch.Tensor, active: torch.Tensor, n_res: int):
+    """Demand classes: 8 log-mem levels x 4 log-cpu levels x gpu bit (x
+    disk bit when the resource column exists)."""
+    def levels(x, n_levels):
+        lo = torch.where(active, x, torch.inf).min()
+        hi = torch.where(active, x, -torch.inf).max()
+        scale = torch.clamp_min(hi - lo, 1e-6)
+        lv = torch.floor((x - lo) / scale * n_levels)
+        return torch.clamp(lv, 0, n_levels - 1).to(torch.int32)
+
+    b = levels(torch.log(d[:, 0].clamp_min(1e-3)), 8) * 4
+    b = b + levels(torch.log(d[:, 1].clamp_min(1e-3)), 4)
+    b = b * 2 + (d[:, 2] > 0).to(torch.int32)
+    if n_res > 3:
+        b = b * 2 + (d[:, 3] > 0).to(torch.int32)
+    return b
+
+
+def chunked_match(
+    problem: MatchProblem,
+    *,
+    chunk: int = 1024,
+    rounds: int = 4,
+    kc: int = 128,
+    use_approx: bool = True,
+    passes: int = 2,
+    use_pallas: bool = False,
+    bucketed: bool = False,
+) -> MatchResult:
+    """Fast chunked greedy matcher (see `cook_tpu/ops/match.py`).
+
+    `use_approx` is kept for the reference's signature; the port's top-kc
+    is exact either way (the reference's `approx_max_k` equals `top_k` on
+    a CPU, which is what the parity tests compare).  `use_pallas` swaps
+    the candidate pass for the `best_node` kernel, which returns each
+    job's single best node (kc is effectively 1, so give it more
+    `passes`).  `bucketed` computes one candidate list per demand class
+    and needs passes >= 2 (the final pass is the exact per-job cleanup)."""
+    j, n = problem.demands.shape[0], problem.avail.shape[0]
+    if j % chunk:
+        raise ValueError(f"pad jobs ({j}) to a multiple of chunk ({chunk})")
+    if use_pallas and bucketed:
+        raise ValueError("pick one candidate backend")
+    if bucketed and passes < 2:
+        raise ValueError("bucketed candidate mode requires passes >= 2 "
+                         "(the final pass is the exact per-job cleanup)")
+    kc = min(kc, n)
+    n_res = problem.demands.shape[-1]
+    totals, node_valid = problem.totals, problem.node_valid
+    denom = totals.clamp_min(1e-30)
+    n_buckets = 8 * 4 * 2 * (2 if n_res > 3 else 1)
+    # best_node: with a mask, node validity rides in the mask (as in the
+    # reference's candidate pass)
+    valid_arg = (node_valid if problem.feasible is None
+                 else torch.ones_like(node_valid))
+
+    def score_topk(avail, demand_matrix, gate):
+        """Shared candidate scoring: feasibility x fitness over the rows of
+        `demand_matrix` ([M, R], jobs or demand classes), gated by `gate`
+        ([M, N]-broadcastable), -> top-kc per row."""
+        fits = (avail[None, :, :] >= demand_matrix[:, None, :]).all(-1)
+        feasible = fits & gate
+        used0 = totals[:, 0] - avail[:, 0]
+        used1 = totals[:, 1] - avail[:, 1]
+        fit = binpack_fitness(used0[None, :], used1[None, :],
+                              demand_matrix[:, 0:1], demand_matrix[:, 1:2],
+                              denom[None, :, 0], denom[None, :, 1])
+        if problem.node_bonus is not None:
+            fit = fit + problem.node_bonus[None, :]
+        return _top_kc(torch.where(feasible, fit, -BIG), kc)
+
+    avail = problem.avail
+    out = []
+    for c0 in range(0, j, chunk):
+        d = problem.demands[c0:c0 + chunk]
+        ok = problem.job_valid[c0:c0 + chunk]
+        fr = (problem.feasible[c0:c0 + chunk]
+              if problem.feasible is not None else None)
+        mask_arg = (fr & node_valid[None, :]
+                    if use_pallas and fr is not None else None)
+
+        def candidate_pass(avail, assignment, use_bucket):
+            # full fitness pass for still-unplaced jobs vs current avail
+            unplaced = assignment < 0
+            if use_bucket:
+                active = ok & unplaced
+                bid = _bucket_ids(d, active, n_res).long()
+                bdem = torch.zeros((n_buckets, n_res), dtype=d.dtype,
+                                   device=d.device).scatter_reduce_(
+                    0, bid[:, None].expand(-1, n_res),
+                    torch.where(active[:, None], d, 0.0), "amax")
+                bval, bidx = score_topk(avail, bdem, node_valid[None, :])
+                return (torch.where(active[:, None], bval[bid], -BIG),
+                        bidx[bid])
+            if use_pallas:
+                # placed/invalid jobs are excluded by an unsatisfiable
+                # demand
+                d_eff = torch.where((ok & unplaced)[:, None], d, 2 * BIG)
+                val, idx = best_node(d_eff, avail, totals, valid_arg,
+                                     mask_arg)
+                return val[:, None], idx.clamp_min(0)[:, None]
+            gate = node_valid[None, :] & (ok & unplaced)[:, None]
+            if fr is not None:
+                gate = gate & fr
+            return score_topk(avail, d, gate)
+
+        assignment = torch.full((d.shape[0],), -1, dtype=torch.int32,
+                                device=d.device)
+        recheck = fr if bucketed else None
+        for p in range(passes):
+            # bucketed mode: class-shared candidates for the early passes,
+            # then ONE exact per-job pass for the stragglers
+            cand_val, cand_idx = candidate_pass(
+                avail, assignment, use_bucket=bucketed and p < passes - 1)
+            for _ in range(rounds):
+                avail, assignment = conflict_round(
+                    avail, assignment, cand_val, cand_idx, d, n,
+                    recheck_mask=recheck)
+        out.append(assignment)
+    return MatchResult(assignment=torch.cat(out), new_avail=avail)

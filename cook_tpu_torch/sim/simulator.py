@@ -1,0 +1,334 @@
+"""Faster-than-real-time trace simulator: the framework's acceptance rig.
+
+Port of `cook_tpu/sim/simulator.py`: drive the REAL scheduler against the
+in-memory mock backend with frozen, manually-advanced virtual time; each
+cycle is: flush completions -> submit due jobs -> rank -> match.  Inputs
+are a job trace + host list (the same JSON both packages read); output is
+a run trace (job, task, submit/start/end, host, status) whose CSV is
+byte-compatible with the reference's, so `sim.cli compare` works across
+the two packages.  Per-phase wall times are recorded beside the decisions.
+
+Rebalance, elastic, speculation, residency, fault schedules, health and
+metrics history are later slices, and so are gang traces (their
+all-or-nothing placement lives in the gang slice): a trace with gangs is
+refused rather than placed member by member.
+"""
+from __future__ import annotations
+
+import csv
+import io
+import json
+import time
+from dataclasses import dataclass, field
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from cook_tpu_torch.cluster.mock import MockCluster, MockHost
+from cook_tpu_torch.models.entities import DruMode, Job, Pool, Resources
+from cook_tpu_torch.models.store import JobStore
+from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
+
+
+@dataclass
+class TraceJob:
+    """One job in the input trace."""
+
+    uuid: str
+    user: str
+    submit_time_ms: int
+    runtime_ms: int
+    mem: float
+    cpus: float
+    gpus: float = 0.0
+    priority: int = 50
+    pool: str = "default"
+    # gang tag of the reference's trace format (one member of the named
+    # gang); the port refuses traces that use it
+    gang: str = ""
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TraceJob":
+        return cls(
+            uuid=str(d["uuid"]),
+            user=d["user"],
+            submit_time_ms=int(d["submit_time_ms"]),
+            runtime_ms=int(d["runtime_ms"]),
+            mem=float(d["mem"]),
+            cpus=float(d["cpus"]),
+            gpus=float(d.get("gpus", 0.0)),
+            priority=int(d.get("priority", 50)),
+            pool=d.get("pool", "default"),
+            gang=str(d.get("gang", "")),
+        )
+
+
+@dataclass
+class TraceHost:
+    node_id: str
+    hostname: str
+    mem: float
+    cpus: float
+    gpus: float = 0.0
+    pool: str = "default"
+    attributes: tuple = ()
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TraceHost":
+        return cls(
+            node_id=str(d["node_id"]),
+            hostname=d.get("hostname", str(d["node_id"])),
+            mem=float(d["mem"]),
+            cpus=float(d["cpus"]),
+            gpus=float(d.get("gpus", 0.0)),
+            pool=d.get("pool", "default"),
+            attributes=tuple(sorted(d.get("attributes", {}).items())),
+        )
+
+
+@dataclass
+class SimConfig:
+    cycle_ms: int = 30_000           # virtual time per cycle
+    max_cycles: int = 10_000
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    pools: tuple = (("default", "default"),)  # (name, dru_mode)
+
+
+@dataclass
+class SimResult:
+    rows: list[dict]                 # run trace
+    cycles: int
+    virtual_ms: int
+    phase_wall_s: dict[str, float]
+    cycle_wall_s: list[float]        # per-cycle total scheduling wall time
+
+    def queued_wait_ms(self) -> list[int]:
+        """Per-started-task queued wait (start - submit)."""
+        return [r["start_ms"] - r["submit_ms"] for r in self.rows
+                if r["start_ms"] is not None]
+
+    def utilization(self, hosts: Sequence[TraceHost]) -> float:
+        """Fraction of total cpu-ms capacity actually used by completed
+        work over the simulated span."""
+        cap = sum(h.cpus for h in hosts) * max(self.virtual_ms, 1)
+        used = sum(
+            r["cpus"] * max(0, (r["end_ms"] or 0) - (r["start_ms"] or 0))
+            for r in self.rows
+            if r["start_ms"] is not None
+        )
+        return used / cap if cap else 0.0
+
+    def to_csv(self) -> str:
+        buf = io.StringIO()
+        writer = csv.DictWriter(
+            buf,
+            fieldnames=[
+                "job_uuid", "task_id", "user", "mem", "cpus", "gpus",
+                "submit_ms", "start_ms", "end_ms", "host", "status",
+            ],
+        )
+        writer.writeheader()
+        for r in self.rows:
+            writer.writerow({k: r[k] for k in writer.fieldnames})
+        return buf.getvalue()
+
+
+class Simulator:
+    def __init__(self, jobs: Sequence[TraceJob], hosts: Sequence[TraceHost],
+                 config: Optional[SimConfig] = None, *,
+                 device: Optional[Union[str, torch.device]] = None):
+        gangs = sorted({j.gang for j in jobs if j.gang})
+        if gangs:
+            raise ValueError(
+                f"trace has gang members ({len(gangs)} gangs); gang "
+                "placement is not ported yet — replay it with cook_tpu.sim")
+        self.trace_jobs = sorted(jobs, key=lambda j: (j.submit_time_ms, j.uuid))
+        self.trace_hosts = list(hosts)
+        self.config = config or SimConfig()
+        self.now_ms = 0
+
+        # pools: configured list extended by any pool the trace mentions
+        pool_names = {name for name, _ in self.config.pools}
+        extra = sorted(
+            ({j.pool for j in jobs} | {h.pool for h in hosts}) - pool_names
+        )
+        self.config.pools = tuple(self.config.pools) + tuple(
+            (name, "default") for name in extra
+        )
+        self.store = JobStore(clock=lambda: self.now_ms)
+        for name, mode in self.config.pools:
+            self.store.set_pool(Pool(name=name, dru_mode=DruMode(mode)))
+        self.cluster = MockCluster(
+            "sim",
+            [
+                MockHost(
+                    node_id=h.node_id,
+                    hostname=h.hostname,
+                    mem=h.mem,
+                    cpus=h.cpus,
+                    gpus=h.gpus,
+                    attributes=h.attributes,
+                    pool=h.pool,
+                )
+                for h in hosts
+            ],
+            clock=lambda: self.now_ms,
+        )
+        self.scheduler = Scheduler(
+            self.store, [self.cluster], self.config.scheduler, device=device
+        )
+
+    def run(self) -> SimResult:
+        cfg = self.config
+        submitted = 0
+        # rank and match, then match's own split into encode / solve /
+        # launch (MatchOutcome.phase_wall_s)
+        phase_wall: dict[str, float] = {"rank": 0.0, "match": 0.0,
+                                        "encode": 0.0, "solve": 0.0,
+                                        "launch": 0.0}
+        cycle_wall: list[float] = []
+        pools = [self.store.pools[name] for name, _ in cfg.pools]
+        cycle = 0
+        while cycle < cfg.max_cycles:
+            cycle += 1
+            # 1. flush completions at current virtual time
+            self.cluster.advance_to(self.now_ms)
+            # 2. submit due jobs, one batch per cycle
+            due: list[TraceJob] = []
+            while (
+                submitted < len(self.trace_jobs)
+                and self.trace_jobs[submitted].submit_time_ms <= self.now_ms
+            ):
+                due.append(self.trace_jobs[submitted])
+                submitted += 1
+            if due:
+                self.store.submit_jobs([
+                    Job(
+                        uuid=tj.uuid,
+                        user=tj.user,
+                        pool=tj.pool,
+                        priority=tj.priority,
+                        resources=Resources(mem=tj.mem, cpus=tj.cpus,
+                                            gpus=tj.gpus),
+                        expected_runtime_ms=tj.runtime_ms,
+                        command="sim",
+                        max_retries=5,
+                    )
+                    for tj in due
+                ])
+            # 3. rank -> match per pool
+            t_cycle = time.perf_counter()
+            for pool in pools:
+                t0 = time.perf_counter()
+                self.scheduler.rank_cycle(pool)
+                t1 = time.perf_counter()
+                outcome = self.scheduler.match_cycle(pool)
+                t2 = time.perf_counter()
+                phase_wall["rank"] += t1 - t0
+                phase_wall["match"] += t2 - t1
+                for name, wall in outcome.phase_wall_s.items():
+                    phase_wall[name] += wall
+            cycle_wall.append(time.perf_counter() - t_cycle)
+            # 4. advance virtual time
+            self.now_ms += cfg.cycle_ms
+            # stop when all work is done
+            if submitted == len(self.trace_jobs):
+                all_done = all(
+                    self.store.jobs[j.uuid].state.value == "completed"
+                    for j in self.trace_jobs
+                )
+                if all_done:
+                    break
+        # final flush so trailing completions land in the trace
+        self.cluster.advance_to(self.now_ms)
+        return SimResult(
+            rows=self._collect_rows(),
+            cycles=cycle,
+            virtual_ms=self.now_ms,
+            phase_wall_s=phase_wall,
+            cycle_wall_s=cycle_wall,
+        )
+
+    def _collect_rows(self) -> list[dict]:
+        # a job the run never submitted (max_cycles ended first) has no
+        # instances and reports "unscheduled"; the reference raises
+        # KeyError there (its sim/simulator.py:597)
+        rows = []
+        for tj in self.trace_jobs:
+            insts = self.store.job_instances(tj.uuid)
+            if not insts:
+                rows.append(self._row(tj, None))
+            for inst in insts:
+                rows.append(self._row(tj, inst))
+        return rows
+
+    def _row(self, tj: TraceJob, inst) -> dict:
+        return {
+            "job_uuid": tj.uuid,
+            "task_id": inst.task_id if inst else "",
+            "user": tj.user,
+            "mem": tj.mem,
+            "cpus": tj.cpus,
+            "gpus": tj.gpus,
+            "submit_ms": tj.submit_time_ms,
+            "start_ms": inst.start_time_ms if inst else None,
+            "end_ms": inst.end_time_ms if inst else None,
+            "host": inst.hostname if inst else "",
+            "status": inst.status.value if inst else "unscheduled",
+        }
+
+
+def load_trace(path: str) -> tuple[list[TraceJob], list[TraceHost]]:
+    with open(path) as f:
+        data = json.load(f)
+    return (
+        [TraceJob.from_dict(d) for d in data["jobs"]],
+        [TraceHost.from_dict(d) for d in data["hosts"]],
+    )
+
+
+def synth_trace(
+    n_jobs: int,
+    n_hosts: int,
+    *,
+    n_users: int = 10,
+    seed: int = 0,
+    mean_runtime_ms: int = 120_000,
+    submit_span_ms: int = 300_000,
+    host_mem: float = 64_000.0,
+    host_cpus: float = 32.0,
+    pool: str = "default",
+) -> tuple[list[TraceJob], list[TraceHost]]:
+    """Deterministic synthetic workload with a skewed user mix (the shape of
+    the reference benchmark's 50k-job generator, benchmark.clj:37-77); the
+    same seed gives the same trace as the reference's `synth_trace`."""
+    rng = np.random.default_rng(seed)
+    user_weights = rng.zipf(1.5, size=n_users).astype(float)
+    user_weights /= user_weights.sum()
+    jobs = []
+    for i in range(n_jobs):
+        user = int(rng.choice(n_users, p=user_weights))
+        jobs.append(
+            TraceJob(
+                uuid=f"job-{i:07d}",
+                user=f"user{user}",
+                submit_time_ms=int(rng.integers(0, submit_span_ms)),
+                runtime_ms=int(rng.exponential(mean_runtime_ms)) + 1000,
+                mem=float(rng.choice([512, 1024, 2048, 4096, 8192])),
+                cpus=float(rng.choice([0.5, 1, 2, 4])),
+                priority=int(rng.choice([25, 50, 75])),
+                pool=pool,
+            )
+        )
+    hosts = [
+        TraceHost(
+            node_id=f"node-{i:05d}",
+            hostname=f"host-{i:05d}",
+            mem=host_mem,
+            cpus=host_cpus,
+            pool=pool,
+        )
+        for i in range(n_hosts)
+    ]
+    return jobs, hosts

@@ -1,0 +1,99 @@
+"""The PyTorch port stands alone: no module of `cook_tpu_torch`, and not
+`chip_smoke.py`, imports JAX or anything of the `cook_tpu` reference, and
+its entry points refuse to run without a card unless asked for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+# one intra-op thread: the suite runs several pytest-xdist workers side
+# by side, and idle OpenMP threads spinning in each would crowd them
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "cook_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top.startswith("jax") or top == "cook_tpu"
+
+
+def test_importing_every_port_module_loads_no_jax_or_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import cook_tpu_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    cook_tpu_torch.__path__, 'cook_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0].startswith('jax')\n"
+        "             or m.split('.')[0] == 'cook_tpu')\n"
+        "print(len(names), bad)\n"
+        "assert len(names) >= 20 and not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _source_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _source_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_statement_names_jax_or_reference(path):
+    """Lazy imports inside functions count too (a module-level import
+    check alone would miss them)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
+    from cook_tpu_torch import device
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.scheduler.core import Scheduler
+    from cook_tpu_torch.sim.simulator import Simulator, synth_trace
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device.resolve()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Scheduler(JobStore(), [])
+    jobs, hosts = synth_trace(5, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(jobs, hosts)
+    assert Simulator(jobs, hosts, device="cpu").scheduler.device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported device"):
+        device.resolve("meta")
+
+
+def test_cli_run_needs_a_card_or_device_cpu(monkeypatch, tmp_path):
+    from cook_tpu_torch.sim import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trace = str(tmp_path / "t.json")
+    assert cli.main(["synth", "--jobs", "20", "--hosts", "4",
+                     "--out", trace]) == 0
+    run = ["run", "--trace", trace, "--chunk", "0", "--max-cycles", "3"]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main([*run, "--out", str(tmp_path / "a.csv")])
+    assert cli.main([*run, "--out", str(tmp_path / "b.csv"),
+                     "--device", "cpu"]) == 0
