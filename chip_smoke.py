@@ -6,33 +6,44 @@
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
-  1. device    — a CUDA card is present; its name and power limit as
-                 `nvidia-smi` reports them.
-  2. build     — the `best_node` kernel compiles from
-                 cook_tpu_torch/csrc/best_node.cu into cook_tpu_torch/_build/.
-  3. kernel    — `best_node` on the card against its plain PyTorch version
-                 (`best_node_reference`) on the same inputs: identical
-                 indices and bit-identical scores, at the cases listed in
-                 KERNEL_CASES; CUDA-event times of both (median of 20).
-  4. slice     — the simulator's CLI path on the card: a synthetic trace of
-                 100,000 jobs x 10,000 hosts replayed for 3 cycles with the
-                 chunked matcher on the `best_node` backend, with its launch
-                 count reset just before and read just after.  The
-                 arguments of every `best_node` call the matcher makes are
-                 kept.
-  5. launches  — every kept slice launch rerun and held against the plain
-                 version (identical indices, bit-identical scores); the
-                 kernel line's times are those of one of them.
-  6. agreement — a small trace replayed on the card and on the CPU, whose
-                 run traces must agree.
-  7. report    — a `{"kernels": [...]}` line, then the last line
-                 `{"ok": true, "device": {...}}`.
+  1. device     — a CUDA card is present; its name and power limit as
+                  `nvidia-smi` reports them.
+  2. build      — the three kernels compile from cook_tpu_torch/csrc/
+                  (`best_node.cu`, `best_block.cu`, `best_node_batched.cu`,
+                  sharing `score_tile.cuh`) into cook_tpu_torch/_build/,
+                  one `nvcc` each, all started together.
+  3. kernel     — each kernel on the card against its plain PyTorch
+                  version (`*_reference`) on the same inputs: identical
+                  indices and bit-identical scores, at the cases listed in
+                  KERNEL_CASES, BLOCK_CASES and BATCHED_CASES; CUDA-event
+                  times of both (median of 20) beside the bound.
+  4. slice      — the flat path, through the simulator's CLI: a synthetic
+                  trace of 100,000 jobs x 10,000 hosts replayed for 3
+                  cycles with the chunked matcher on the `best_node`
+                  backend, with the launch count reset just before and read
+                  just after.  The arguments of every `best_node` call the
+                  matcher makes are kept.
+  5. launches   — every kept `best_node` launch rerun and held against the
+                  plain version; the kernel line's times are those of one.
+  6. hier slice — the hierarchical path on the same trace: the simulator
+                  with `default_match_config(...)` routing every solve to
+                  the two-level matcher with both backends `pallas` (coarse
+                  on `best_block`, fine on `best_node_batched`), 3 cycles,
+                  counts reset just before and read just after; every
+                  kernel call kept.
+  7. hier launches — every kept `best_block` / `best_node_batched` launch
+                  rerun and held against its plain version, bit for bit.
+  8. agreement  — small traces replayed on the card and on the CPU, flat
+                  and hierarchical, whose run traces must agree.
+  9. report     — a `{"kernels": [...]}` line, then the last line
+                  `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -47,27 +58,87 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 
-# (label, K jobs, N nodes, kind), all with the simulator's R = 4 resource
-# columns (mem, cpus, gpus, disk; matcher.encode_problem_arrays):
+# name -> (module, source, the TPU kernel it replaces)
+KERNELS = {
+    "best_node": ("cook_tpu_torch.ops.best_node",
+                  "cook_tpu_torch/csrc/best_node.cu",
+                  "cook_tpu/ops/pallas_match.py:135"),
+    "best_block": ("cook_tpu_torch.ops.best_block",
+                   "cook_tpu_torch/csrc/best_block.cu",
+                   "cook_tpu/ops/pallas_match.py:218"),
+    "best_node_batched": ("cook_tpu_torch.ops.best_node_batched",
+                          "cook_tpu_torch/csrc/best_node_batched.cu",
+                          "cook_tpu/ops/pallas_match.py:316"),
+}
+
+# best_node: (label, K jobs, N nodes, kind), all with the simulator's R = 4
+# resource columns (mem, cpus, gpus, disk; matcher.encode_problem_arrays):
 #   bench      bench.make_problem's jobs and hosts 20-100% free, no mask
 #   mixed      the same plus gpu and disk columns in use, about half the
 #              mask set
 #   fleet      the slice's own fleet at a cycle's start: 10,000 identical
 #              empty hosts padded to 16384, every real host feasible, so
 #              every score ties and the first-index rule decides
+#   placed     mixed, with half the jobs marked placed (a 2 BIG demand, as
+#              the chunked matcher marks them), which the kernel answers
+#              without scoring
 #   infeasible demands no node can hold
 KERNEL_CASES = [
     ("bench 16384x2048", 16384, 2048, "bench"),
     ("mixed 1024x16384 masked", 1024, 16384, "mixed"),
     ("fleet 1024x16384 masked", 1024, 16384, "fleet"),
     ("prime 1021x2039 masked", 1021, 2039, "mixed"),
+    ("placed 1024x16384 masked", 1024, 16384, "placed"),
     ("infeasible 1024x2048", 1024, 2048, "infeasible"),
 ]
 FLEET_HOSTS = 10_000
+# best_block: (label, K jobs, B blocks, kind), at the coarse pass's shape
+# on the slice (coarse chunk 4096 x 16 blocks of 1024 hosts):
+#   bench      tests/test_hierarchical.py:140's draw with R = 4 (aggregate
+#              fit, max-node gate, ~20% invalid blocks)
+#   fleet      16 identical full blocks: every score ties, index 0 wins
+#   padded     10 real blocks partly used, 6 padded as the coarse pass pads
+#              them (max node -1, totals 1, invalid)
+#   placed     bench, with half the jobs marked placed
+#   infeasible demands no block can hold
+BLOCK_CASES = [
+    ("bench 4096x16", 4096, 16, "bench"),
+    ("fleet 4096x16", 4096, 16, "fleet"),
+    ("padded 4096x16", 4096, 16, "padded"),
+    ("placed 4096x16", 4096, 16, "placed"),
+    ("infeasible 4096x16", 4096, 16, "infeasible"),
+]
+# best_node_batched: (label, B blocks, S slots, N nodes per block, kind):
+#   mixed      the slice's fine shape, gpu/disk columns, half the mask set
+#   fleet      the slice's fine shape on its own fleet: 10,000 identical
+#              empty hosts over 16 blocks of 1024, node validity in the
+#              mask as the fine pass passes it
+#   bench      bench.py bench_match_xl's fine shape (32 blocks of 512 over
+#              10,000 of 16384 hosts, 8192 slots, R = 3), no mask
+#   placed     mixed, with 7 of 8 slots marked placed or empty, the share
+#              of the slice's full-cycle fine launches
+#   infeasible demands no node can hold
+# plus prime slot and node counts
+BATCHED_CASES = [
+    ("mixed 16x2048x1024 masked", 16, 2048, 1024, "mixed"),
+    ("fleet 16x2048x1024 masked", 16, 2048, 1024, "fleet"),
+    ("bench 32x8192x512", 32, 8192, 512, "bench"),
+    ("prime 7x1021x509 masked", 7, 1021, 509, "mixed"),
+    ("placed 16x2048x1024 masked", 16, 2048, 1024, "placed"),
+    ("infeasible 16x2048x1024", 16, 2048, 1024, "infeasible"),
+]
 
 SLICE_ARGS = ["--considerable", "16384", "--chunk", "1024",
               "--backend", "pallas", "--max-cycles", "3",
               "--cycle-ms", "30000"]
+# the hierarchical slice's matcher: the flat slice's knobs plus the
+# two-level path for every solve, both of its backends on the kernels;
+# the rest (nodes per block auto -> 1024, coarse chunk 4096, 8 coarse
+# passes, 16 fine passes, 2 refine rounds) are the defaults
+HIER_MATCH = dict(max_jobs_considered=16384, chunk=1024, backend="pallas",
+                  hierarchical_threshold=1,
+                  hierarchical_coarse_backend="pallas",
+                  hierarchical_fine_backend="pallas")
 
 
 def phase(name):
@@ -94,9 +165,34 @@ def build_phase():
 
     phase("build")
     t0 = time.perf_counter()
-    build.load("best_node")
-    print(f"best_node built and loaded in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    build.load_all(KERNELS)
+    print(f"{', '.join(KERNELS)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _slice_demands(rng, k):
+    """The simulator's job shapes (synth_trace): mem, cpus, no gpus/disk."""
+    import numpy as np
+
+    mem = rng.choice([512, 1024, 2048, 4096, 8192], k).astype(np.float32)
+    cpus = rng.choice([0.5, 1, 2, 4], k).astype(np.float32)
+    zeros_k = np.zeros(k, dtype=np.float32)
+    return np.stack([mem, cpus, zeros_k, zeros_k], axis=-1)
+
+
+def _place(rng, demands, share):
+    """Mark about `share` of the rows placed, as the matchers mark placed
+    and empty rows: a 2 BIG first demand."""
+    from cook_tpu_torch.ops.common import BIG
+
+    demands[rng.uniform(size=demands.shape[:-1]) < share, 0] = 2 * BIG
+
+
+def _put(arrays, device):
+    import torch
+
+    return tuple(None if a is None else torch.as_tensor(a, device=device)
+                 for a in arrays)
 
 
 def make_inputs(k, n, kind, device, seed=0):
@@ -104,13 +200,9 @@ def make_inputs(k, n, kind, device, seed=0):
     kind; node_valid is all set, as chunked_match passes it when a mask
     carries node validity."""
     import numpy as np
-    import torch
 
     rng = np.random.default_rng(seed)
-    mem = rng.choice([512, 1024, 2048, 4096, 8192], k).astype(np.float32)
-    cpus = rng.choice([0.5, 1, 2, 4], k).astype(np.float32)
-    zeros_k = np.zeros(k, dtype=np.float32)
-    demands = np.stack([mem, cpus, zeros_k, zeros_k], axis=-1)
+    demands = _slice_demands(rng, k)
     totals = np.stack([np.full(n, 65536.0, dtype=np.float32),
                        np.full(n, 32.0, dtype=np.float32)], axis=-1)
     frac = rng.uniform(0.2, 1.0, (n, 1)).astype(np.float32)
@@ -119,7 +211,7 @@ def make_inputs(k, n, kind, device, seed=0):
     mask = None
     if kind == "infeasible":
         demands[:, 0] = 1e9
-    elif kind == "mixed":
+    elif kind in ("mixed", "placed"):
         # one host in 8 carries 0-8 free gpus, every host 0-100 GB of free
         # disk; one job in 16 wants 1-2 gpus and half want 1-10 GB of disk
         gpu_host = rng.uniform(size=n) < 0.125
@@ -130,6 +222,8 @@ def make_inputs(k, n, kind, device, seed=0):
         demands[:, 3] = np.where(rng.uniform(size=k) < 0.5,
                                  rng.integers(1_000, 10_000, k), 0)
         mask = rng.uniform(size=(k, n)) < 0.5
+        if kind == "placed":
+            _place(rng, demands, 0.5)
     elif kind == "fleet":
         real = np.arange(n) < FLEET_HOSTS
         totals[~real] = 0.0
@@ -137,64 +231,208 @@ def make_inputs(k, n, kind, device, seed=0):
                                axis=-1)
         mask = np.broadcast_to(real, (k, n)).copy()
     valid = np.ones(n, dtype=bool)
-
-    def put(a):
-        return None if a is None else torch.as_tensor(a, device=device)
-
-    return put(demands), put(avail), put(totals), put(valid), put(mask)
+    return _put((demands, avail, totals, valid, mask), device)
 
 
-def cuda_ms(fn, reps=20):
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+def make_block_inputs(k, b, kind, device, seed=0):
+    """(demands, block_avail, block_max, block_totals, block_valid) for one
+    BLOCK_CASES kind."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind in ("bench", "placed"):
+        demands = rng.uniform(10, 500, (k, 4)).astype(np.float32)
+        bsum = rng.uniform(100, 2000, (b, 4)).astype(np.float32)
+        bmax = (bsum * rng.uniform(0.1, 1.0, (b, 4))).astype(np.float32)
+        btot = (bsum[:, :2] * 1.5).astype(np.float32)
+        valid = rng.uniform(size=b) > 0.2
+        if kind == "placed":
+            _place(rng, demands, 0.5)
+        return _put((demands, bsum, bmax, btot, valid), device)
+    demands = _slice_demands(rng, k)
+    host = np.float32([64000, 32, 0, 0])
+    bsum = np.tile(host * 1024, (b, 1))
+    bmax = np.tile(host, (b, 1))
+    btot = bsum[:, :2].copy()
+    valid = np.ones(b, dtype=bool)
+    if kind == "infeasible":
+        demands[:, 0] = 1e9
+    elif kind == "padded":
+        real = min(10, b)
+        # each real block has 0-1024 of its hosts' memory and cpus in use
+        bsum[:real, :2] -= (rng.integers(0, 1024, (real, 2))
+                            * np.float32([8192, 4]))
+        bsum[real:] = 0.0
+        bmax[real:] = -1.0
+        btot[real:] = 1.0
+        valid[real:] = False
+    return _put((demands, bsum, bmax, btot, valid), device)
+
+
+def make_batched_inputs(b, s, n, kind, device, seed=0):
+    """(demands, avail, totals, node_valid, mask) for one BATCHED_CASES
+    kind; with a mask, node_valid is all set and the mask carries node
+    validity, as the fused fine pass passes them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    demands = _slice_demands(rng, b * s).reshape(b, s, 4)
+    totals = np.tile(np.float32([65536.0, 32.0]), (b, n, 1))
+    frac = rng.uniform(0.2, 1.0, (b, n, 1)).astype(np.float32)
+    avail = np.concatenate([totals * frac, np.zeros((b, n, 2), np.float32)],
+                           axis=-1)
+    valid = np.ones((b, n), dtype=bool)
+    mask = None
+    if kind == "infeasible":
+        demands[..., 0] = 1e9
+    elif kind in ("mixed", "placed"):
+        gpu_host = rng.uniform(size=(b, n)) < 0.125
+        avail[..., 2] = np.where(gpu_host, rng.integers(0, 9, (b, n)), 0)
+        avail[..., 3] = rng.integers(0, 100_000, (b, n))
+        demands[..., 2] = np.where(rng.uniform(size=(b, s)) < 0.0625,
+                                   rng.integers(1, 3, (b, s)), 0)
+        demands[..., 3] = np.where(rng.uniform(size=(b, s)) < 0.5,
+                                   rng.integers(1_000, 10_000, (b, s)), 0)
+        mask = rng.uniform(size=(b, s, n)) < 0.5
+        if kind == "placed":
+            _place(rng, demands, 0.875)
+    elif kind == "fleet":
+        # the slice's 10,000 of 16384 hosts real, at this batch's size
+        real = (np.arange(b * n) < b * n * FLEET_HOSTS // 16384) \
+            .reshape(b, n)
+        totals = np.where(real[..., None], np.float32([64000, 32]),
+                          np.float32(0))
+        avail = np.concatenate([totals, np.zeros((b, n, 2), np.float32)],
+                               axis=-1)
+        mask = np.broadcast_to(real[:, None, :], (b, s, n)).copy()
+    elif kind == "bench":
+        # bench_match_xl: R = 3, the first 10,000 of 16384 hosts valid
+        demands = demands[..., :3].copy()
+        avail = avail[..., :3].copy()
+        valid = (np.arange(b * n) < b * n * FLEET_HOSTS // 16384) \
+            .reshape(b, n)
+    return _put((demands, avail, totals, valid, mask), device)
+
+
+def cuda_ms(fn, reps=20, spin_cycles=2_000_000):
+    """Median of `reps` CUDA-event timings of fn()'s device work (after
+    one warm-up).  Each timing is queued behind a spin of the card
+    (`torch.cuda._sleep`, ~1 ms at first), so the host has issued all of
+    fn's launches before the card reaches the start event: the two events
+    then hold the device work alone, not the host's dispatch (the
+    wrapper's checks, its allocations, the ctypes call).  A timing counts
+    only if the card was still short of the start event when the host
+    had queued the end one; otherwise the spin is lengthened and the
+    timings taken again."""
     import torch
 
     fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+    while True:
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin_cycles)
+            start.record()
+            fn()
+            end.record()
+            queued = not start.query()
+            end.synchronize()
+            if queued:
+                times.append(start.elapsed_time(end))
+        if len(times) == reps:
+            return sorted(times)[reps // 2]
+        if spin_cycles >= 2_000_000_000:
+            raise RuntimeError("cuda_ms: the host never queued the timed "
+                               "work ahead of the card")
+        spin_cycles *= 4
 
 
-def best_node_bound(demands, avail, totals, valid, mask):
-    """(bound_ms, bound_by) of one call on these inputs: each input read
-    once and each output written once over the HBM rate, against the
-    float32 operations of the (job, node) pairs the kernel scores — those
-    the mask and node_valid let through — at ~(R + 8) each (R fit compares;
-    two subtracts, two adds, two divides, a multiply and the running max)
-    over the float32 peak."""
-    k, r = demands.shape
-    n = avail.shape[0]
-    nbytes = (k * r * 4 + n * r * 4 + n * 2 * 4 + n
-              + (k * n if mask is not None else 0) + k * 8)
-    pairs = (int((mask & valid[None, :]).sum()) if mask is not None
-             else k * int(valid.sum()))
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the float32 operations over the float32 peak."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = pairs * (r + 8) / PEAK_F32_OPS_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_identical(label, args):
+def _live(demands):
+    """[..., K] bool: the rows a kernel scores, those whose first demand
+    is under BIG (score_tile.cuh `live`).  The matchers mark placed and
+    empty rows with a 2 BIG demand; their answer is (-BIG, -1) whatever
+    the mask says, so the work of a call is that of its live rows."""
+    from cook_tpu_torch.ops.common import BIG
+
+    return demands[..., 0] < BIG
+
+
+def best_node_bound(demands, avail, totals, valid, mask):
+    """Each input read once and each output written once, but only the
+    mask rows of live jobs, against the float32 operations of the (live
+    job, node) pairs the kernel scores — those the mask and node_valid let
+    through — at ~(R + 8) each (R fit compares; two subtracts, two adds,
+    two divides, a multiply and the running max)."""
+    k, r = demands.shape
+    n = avail.shape[0]
+    live = _live(demands)
+    k_live = int(live.sum())
+    nbytes = (k * r * 4 + n * r * 4 + n * 2 * 4 + n
+              + (k_live * n if mask is not None else 0) + k * 8)
+    pairs = (int((mask[live] & valid[None, :]).sum()) if mask is not None
+             else k_live * int(valid.sum()))
+    return _bound(nbytes, pairs * (r + 8))
+
+
+def best_block_bound(demands, block_avail, block_max, block_totals,
+                     block_valid):
+    """As best_node_bound, with two [B, R] capacity inputs and ~(2R + 8)
+    operations per (live job, valid block) pair (the aggregate and the
+    max-node fit)."""
+    k, r = demands.shape
+    b = block_avail.shape[0]
+    nbytes = k * r * 4 + 2 * b * r * 4 + b * 2 * 4 + b + k * 8
+    return _bound(nbytes, int(_live(demands).sum())
+                  * int(block_valid.sum()) * (2 * r + 8))
+
+
+def best_node_batched_bound(demands, avail, totals, valid, mask):
+    """best_node_bound over the batch: the mask rows of the live slots
+    are the stream that grows with the problem."""
+    b, s, r = demands.shape
+    n = avail.shape[1]
+    live = _live(demands)
+    nbytes = (b * s * r * 4 + b * n * r * 4 + b * n * 2 * 4 + b * n
+              + (int(live.sum()) * n if mask is not None else 0)
+              + b * s * 8)
+    pairs = (int((mask & valid[:, None, :])[live].sum())
+             if mask is not None
+             else int((live.sum(1) * valid.sum(1)).sum()))
+    return _bound(nbytes, pairs * (r + 8))
+
+
+BOUNDS = {"best_node": best_node_bound, "best_block": best_block_bound,
+          "best_node_batched": best_node_batched_bound}
+
+
+def _module(name):
+    return importlib.import_module(KERNELS[name][0])
+
+
+def check_identical(name, label, args):
     """Kernel and plain version on the same arguments: identical indices
     and bit-identical scores.  Returns (val, idx, max_abs_err)."""
     import torch
 
-    from cook_tpu_torch.ops import best_node as bn
-
-    val, idx = bn.best_node(*args)
-    rval, ridx = bn.best_node_reference(*args)
+    mod = _module(name)
+    val, idx = getattr(mod, name)(*args)
+    rval, ridx = getattr(mod, f"{name}_reference")(*args)
     torch.cuda.synchronize()
     if not torch.equal(idx, ridx):
         bad = int((idx != ridx).sum())
-        raise AssertionError(f"best_node {label}: {bad}/{idx.numel()} "
+        raise AssertionError(f"{name} {label}: {bad}/{idx.numel()} "
                              "indices differ from the plain version")
     if not torch.equal(val.view(torch.int32), rval.view(torch.int32)):
-        raise AssertionError(f"best_node {label}: scores not "
+        raise AssertionError(f"{name} {label}: scores not "
                              "bit-identical to the plain version")
     found = ridx >= 0
     err = (float((val[found] - rval[found]).abs().max())
@@ -202,37 +440,78 @@ def check_identical(label, args):
     return val, idx, err
 
 
-def time_case(args):
-    from cook_tpu_torch.ops import best_node as bn
-
-    ms = cuda_ms(lambda: bn.best_node(*args))
-    plain_ms = cuda_ms(lambda: bn.best_node_reference(*args))
-    bound_ms, bound_by = best_node_bound(*args)
+def time_case(name, args):
+    mod = _module(name)
+    kernel = getattr(mod, name)
+    plain = getattr(mod, f"{name}_reference")
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args))
+    bound_ms, bound_by = BOUNDS[name](*args)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
 
-def kernel_phase():
+def _print_row(name, label, row, extra=""):
+    print(f"{name} {label}: {extra}kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4g} ms "
+          f"({row['bound_by']})", flush=True)
+
+
+def _kernel_cases(name, cases, make):
+    """Check and time every case of one kernel; returns the max error."""
     import torch
 
-    phase("kernel")
     dev = torch.device("cuda")
     max_err = 0.0
-    for label, k, n, kind in KERNEL_CASES:
-        args = make_inputs(k, n, kind, dev)
-        _, idx, err = check_identical(label, args)
+    for label, *shape, kind in cases:
+        args = make(*shape, kind, dev)
+        _, idx, err = check_identical(name, label, args)
         max_err = max(max_err, err)
         if kind == "infeasible" and not bool((idx == -1).all()):
-            raise AssertionError("best_node infeasible case placed a job")
-        if kind == "fleet" and not bool((idx == 0).all()):
-            raise AssertionError("best_node fleet case: on identical hosts "
-                                 "every job must take the first host")
-        row = time_case(args)
-        print(f"best_node {label}: identical (found "
-              f"{int((idx >= 0).sum())}/{k})  kernel {row['ms']:.4f} ms  "
-              f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} "
-              f"ms ({row['bound_by']})", flush=True)
+            raise AssertionError(f"{name} infeasible case placed a job")
+        if kind == "fleet":
+            # identical hosts (or blocks): each job takes the first one
+            first = idx if idx.dim() == 1 else idx[:FLEET_HOSTS
+                                                   // shape[-1]]
+            if not bool((first == 0).all()):
+                raise AssertionError(f"{name} fleet case: on identical "
+                                     "hosts every job must take the first")
+        _print_row(name, label, time_case(name, args),
+                   f"identical (found {int((idx >= 0).sum())}/"
+                   f"{idx.numel()})  ")
+        del args
     return max_err
+
+
+def kernel_phase():
+    """Every kernel case; returns {kernel: max_abs_err}."""
+    import torch
+
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import best_node as bn
+
+    phase("kernel")
+    errs = {"best_node": _kernel_cases("best_node", KERNEL_CASES,
+                                       make_inputs),
+            "best_block": _kernel_cases("best_block", BLOCK_CASES,
+                                        make_block_inputs),
+            "best_node_batched": _kernel_cases(
+                "best_node_batched", BATCHED_CASES, make_batched_inputs)}
+    # the batched kernel is best_node run block by block
+    # (tests/test_device_state.py:577)
+    args = make_batched_inputs(16, 2048, 1024, "mixed",
+                               torch.device("cuda"), seed=1)
+    val, idx = bnb.best_node_batched(*args)
+    for k in range(args[0].shape[0]):
+        v1, i1 = bn.best_node(*(a[k] for a in args))
+        if not (torch.equal(idx[k], i1)
+                and torch.equal(val[k].view(torch.int32),
+                                v1.view(torch.int32))):
+            raise AssertionError(f"best_node_batched block {k} differs "
+                                 "from best_node on that block")
+    print("best_node_batched equals best_node run per block on "
+          f"{args[0].shape[0]} blocks", flush=True)
+    return errs
 
 
 def check_capacity(sim):
@@ -253,126 +532,201 @@ def check_capacity(sim):
 
 
 @contextlib.contextmanager
-def kept_best_node_calls(calls):
-    """Append the arguments of every `best_node` call that `chunked_match`
-    makes while the block runs.  The matcher builds fresh tensors for each
-    call and never writes them in place, so keeping references keeps the
-    exact inputs of each launch."""
-    from cook_tpu_torch.ops import match
-
-    original = match.best_node
+def kept_calls(module, name, calls):
+    """Append the arguments of every call of `module.name` while the block
+    runs.  The matchers build fresh tensors for each kernel call and never
+    write them in place, so keeping references keeps the exact inputs of
+    each launch."""
+    original = getattr(module, name)
 
     def keep(*args):
         calls.append(args)
         return original(*args)
 
-    match.best_node = keep
+    setattr(module, name, keep)
     try:
         yield calls
     finally:
-        match.best_node = original
+        setattr(module, name, original)
 
 
-def slice_phase(workdir, n_jobs=100_000, n_hosts=10_000):
+def _slice_summary(label, sim, hosts, result, wall, launches):
+    from cook_tpu_torch.sim import cli
+
+    summary = cli.run_summary(result, sim.trace_jobs, hosts)
+    matched = sum(1 for r in result.rows if r["start_ms"] is not None)
+    summary.update(matched=matched, launches=launches,
+                   replay_wall_s=round(wall, 2),
+                   cycle_wall_ms=[round(s * 1e3, 1)
+                                  for s in result.cycle_wall_s])
+    print(f"{label} " + json.dumps(summary), flush=True)
+    if sim.scheduler.device.type != "cuda":
+        raise AssertionError(f"the {label} solved on "
+                             f"{sim.scheduler.device}")
+    if matched <= 0:
+        raise AssertionError(f"the {label} placed no job")
+    print(f"capacity ok on {check_capacity(sim)} busy hosts", flush=True)
+
+
+def slice_phase(trace, workdir):
     from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
     from cook_tpu_torch.sim import cli
 
     phase("slice")
-    trace = os.path.join(workdir, "trace.json")
-    t0 = time.perf_counter()
-    cli.main(["synth", "--jobs", str(n_jobs), "--hosts", str(n_hosts),
-              "--users", "50", "--submit-span-ms", "60000",
-              "--out", trace])
-    print(f"synth {time.perf_counter() - t0:.1f} s", flush=True)
     args = cli.build_parser().parse_args(
         ["run", "--trace", trace, "--out", os.path.join(workdir, "run.csv"),
          "--device", "cuda", *SLICE_ARGS])
     calls = []
-    with kept_best_node_calls(calls):
+    with kept_calls(match, "best_node", calls):
         bn.launches = 0
         t0 = time.perf_counter()
         sim, hosts, result = cli.replay(args)
         wall = time.perf_counter() - t0
         launches = bn.launches
-    summary = cli.run_summary(result, sim.trace_jobs, hosts)
-    matched = sum(1 for r in result.rows if r["start_ms"] is not None)
-    summary.update(matched=matched, best_node_launches=launches,
-                   replay_wall_s=round(wall, 2),
-                   cycle_wall_ms=[round(s * 1e3, 1)
-                                  for s in result.cycle_wall_s])
-    print("slice " + json.dumps(summary), flush=True)
     # best_node counts only launches on CUDA tensors, so launches > 0 also
     # shows the solve's tensors were on the card
-    if sim.scheduler.device.type != "cuda" or launches <= 0:
-        raise AssertionError(f"the slice solved on {sim.scheduler.device} "
-                             f"with {launches} best_node launches")
-    if len(calls) != launches:
+    _slice_summary("slice", sim, hosts, result, wall,
+                   {"best_node": launches})
+    if launches <= 0 or len(calls) != launches:
         raise AssertionError(f"kept {len(calls)} best_node calls but the "
                              f"kernel counted {launches} launches")
-    if matched <= 0:
-        raise AssertionError("the slice placed no job")
-    busy = check_capacity(sim)
-    print(f"capacity ok on {busy} busy hosts", flush=True)
     return launches, calls
 
 
-def slice_launch_phase(calls):
-    """Every kept slice launch against the plain version; the times of the
-    full-chunk first-pass launch of the last cycle (the most jobs still
-    unplaced, latest first)."""
+def hier_slice_phase(trace):
+    """The hierarchical path on the flat slice's trace: every solve goes
+    coarse (best_block) -> scatter -> fine (best_node_batched) -> refine.
+    Returns ({kernel: launches}, {kernel: kept calls})."""
+    from cook_tpu_torch.ops import best_block as bb
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import hierarchical
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator, load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("hier slice")
+    jobs, hosts = load_trace(trace)
+    match = default_match_config(**HIER_MATCH)
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=3,
+        scheduler=SchedulerConfig(match=match)), device="cuda")
+    calls = {"best_block": [], "best_node_batched": []}
+    solves = []
+    solve = hierarchical.hierarchical_match
+
+    def keep_stats(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        solves.append(out[1])
+        return out
+
+    with kept_calls(hierarchical, "best_block", calls["best_block"]), \
+            kept_calls(hierarchical, "best_node_batched",
+                       calls["best_node_batched"]):
+        hierarchical.hierarchical_match = keep_stats
+        try:
+            bn.launches = bb.launches = bnb.launches = 0
+            t0 = time.perf_counter()
+            result = sim.run()
+            wall = time.perf_counter() - t0
+            launches = {"best_node": bn.launches,
+                        "best_block": bb.launches,
+                        "best_node_batched": bnb.launches}
+        finally:
+            hierarchical.hierarchical_match = solve
+    _slice_summary("hier slice", sim, hosts, result, wall, launches)
+    last = {k: solves[-1][k] for k in (
+        "blocks", "block_pad", "nodes_per_block", "jobs_per_block",
+        "fine_shape", "coarse_shape", "spilled", "refine_rounds",
+        "refine_placed", "placed", "backend", "coarse_backend", "coarse_s",
+        "fine_s", "refine_s")}
+    print(f"hier slice: {len(solves)} hierarchical solves; the last "
+          + json.dumps(last), flush=True)
+    if len(solves) != result.cycles:
+        raise AssertionError(f"{len(solves)} hierarchical solves in "
+                             f"{result.cycles} cycles")
+    for name, kept in calls.items():
+        if launches[name] <= 0 or len(kept) != launches[name]:
+            raise AssertionError(f"kept {len(kept)} {name} calls but the "
+                                 f"kernel counted {launches[name]} "
+                                 "launches")
+    return launches, calls
+
+
+def launch_phase(name, calls, active):
+    """Every kept launch of `name` against the plain version; the times
+    of the launch with the most jobs still unplaced (latest first).
+    `active(args)` counts a call's unplaced jobs."""
     import torch
 
-    from cook_tpu_torch.ops.common import BIG
-
-    phase("launches")
+    phase(f"{name} launches")
     max_err = 0.0
     shapes = set()
     for i, args in enumerate(calls):
-        _, _, err = check_identical(f"slice launch {i}", args)
+        _, _, err = check_identical(name, f"slice launch {i}", args)
         max_err = max(max_err, err)
-        shapes.add((tuple(args[0].shape), tuple(args[1].shape),
-                    args[4] is not None))
-    active = [int((a[0][:, 0] < BIG).sum()) for a in calls]
-    pick = max(range(len(calls)), key=lambda i: (active[i], i))
-    args = calls[pick]
+        shapes.add(tuple(tuple(a.shape) for a in args if a is not None))
+    counts = [active(a) for a in calls]
+    pick = max(range(len(calls)), key=lambda i: (counts[i], i))
     torch.cuda.synchronize()
-    row = time_case(args)
-    print(f"best_node slice launches: {len(calls)}/{len(calls)} identical "
-          f"to the plain version; shapes (demands, avail, masked) "
-          f"{sorted(shapes)}", flush=True)
-    print(f"best_node slice launch {pick} ({active[pick]} jobs unplaced): "
-          f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    row = time_case(name, calls[pick])
+    print(f"{name} slice launches: {len(calls)}/{len(calls)} identical "
+          f"to the plain version; input shapes {sorted(shapes)}",
+          flush=True)
+    _print_row(name, f"slice launch {pick} ({counts[pick]} jobs unplaced)",
+               row)
     return row, max_err
+
+
+def _unplaced(args):
+    """Jobs a kernel call still scores: its live rows."""
+    return int(_live(args[0]).sum())
+
+
+def _replay_rows(trace, out, device, match, cycles):
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator, load_trace
+
+    jobs, hosts = load_trace(trace)
+    result = Simulator(jobs, hosts, SimConfig(
+        max_cycles=cycles, scheduler=SchedulerConfig(match=match)),
+        device=device).run()
+    with open(out, "w") as f:
+        f.write(result.to_csv())
+    return cli.load_rows(out)
 
 
 def agreement_phase(workdir, n_jobs=3000, n_hosts=300):
     """A small trace replayed on the card and on the CPU (whose path the
     CPU tests hold against the JAX reference) must give the same run
-    trace."""
+    trace, on the flat path and on the hierarchical path."""
     from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.utils.config import default_match_config
 
     phase("agreement")
     trace = os.path.join(workdir, "small.json")
     cli.main(["synth", "--jobs", str(n_jobs), "--hosts", str(n_hosts),
               "--users", "50", "--submit-span-ms", "60000",
               "--out", trace])
-    rows = {}
-    for device in ("cuda", "cpu"):
-        out = os.path.join(workdir, f"small-{device}.csv")
-        args = cli.build_parser().parse_args(
-            ["run", "--trace", trace, "--out", out, "--device", device,
-             "--considerable", "16384", "--chunk", "1024",
-             "--backend", "pallas", "--max-cycles", "6"])
-        cli.replay(args)
-        rows[device] = cli.load_rows(out)
-    ok, diffs = cli.traces_equivalent(rows["cuda"], rows["cpu"])
-    if not ok:
-        raise AssertionError("card and CPU run traces differ:\n"
-                             + "\n".join(diffs))
-    placed = sum(1 for r in rows["cuda"] if r["start_ms"])
-    print(f"card and CPU traces equivalent ({placed} placements)",
-          flush=True)
+    configs = {
+        "flat": (dict(max_jobs_considered=16384, chunk=1024,
+                      backend="pallas"), 6),
+        "hier": ({**HIER_MATCH, "hierarchical_nodes_per_block": 64}, 6),
+    }
+    for label, (overrides, cycles) in configs.items():
+        rows = {device: _replay_rows(
+                    trace, os.path.join(workdir, f"{label}-{device}.csv"),
+                    device, default_match_config(**overrides), cycles)
+                for device in ("cuda", "cpu")}
+        ok, diffs = cli.traces_equivalent(rows["cuda"], rows["cpu"])
+        if not ok:
+            raise AssertionError(f"{label}: card and CPU run traces "
+                                 "differ:\n" + "\n".join(diffs))
+        placed = sum(1 for r in rows["cuda"] if r["start_ms"])
+        print(f"{label}: card and CPU traces equivalent ({placed} "
+              "placements)", flush=True)
 
 
 def main() -> int:
@@ -383,33 +737,49 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
 
+    from cook_tpu_torch.sim import cli
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = device_phase()
     build_phase()
-    max_err = kernel_phase()
+    errs = kernel_phase()
+    rows = {}
     with tempfile.TemporaryDirectory(prefix="cook-smoke-") as workdir:
-        launches, calls = slice_phase(workdir)
-        main_row, err = slice_launch_phase(calls)
-        max_err = max(max_err, err)
+        trace = os.path.join(workdir, "trace.json")
+        t0 = time.perf_counter()
+        cli.main(["synth", "--jobs", "100000", "--hosts", "10000",
+                  "--users", "50", "--submit-span-ms", "60000",
+                  "--out", trace])
+        print(f"synth {time.perf_counter() - t0:.1f} s", flush=True)
+        flat_launches, calls = slice_phase(trace, workdir)
+        launches = {"best_node": flat_launches}
+        rows["best_node"], err = launch_phase("best_node", calls, _unplaced)
+        errs["best_node"] = max(errs["best_node"], err)
         del calls
+        hier_launches, hier_calls = hier_slice_phase(trace)
+        for name in ("best_block", "best_node_batched"):
+            launches[name] = hier_launches[name]
+            rows[name], err = launch_phase(name, hier_calls.pop(name),
+                                           _unplaced)
+            errs[name] = max(errs[name], err)
         agreement_phase(workdir)
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{
-        "name": "best_node",
+        "name": name,
         "route": "cuda",
-        "source": "cook_tpu_torch/csrc/best_node.cu",
-        "replaces": "cook_tpu/ops/pallas_match.py:135",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        # no single PyTorch call computes a masked fit-and-argmax
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": rows[name]["ms"],
+        "plain_ms": rows[name]["plain_ms"],
+        "bound_ms": rows[name]["bound_ms"],
+        "bound_by": rows[name]["bound_by"],
+        # no single PyTorch call computes a gated fit-and-argmax
         "library_ms": None,
-    }]}))
+    } for name, (_, source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

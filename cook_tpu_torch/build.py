@@ -1,14 +1,17 @@
 """Build and load the port's hand-written CUDA kernels.
 
-`csrc/<name>.cu` compiles with `nvcc` into `_build/lib<name>.so`, a shared
-library with a plain C interface that the kernel's wrapper loads with
-`ctypes` (no PyTorch headers, so a build takes seconds).  The build
+`csrc/<name>.cu` (with the shared `csrc/score_tile.cuh`) compiles with
+`nvcc` into `_build/lib<name>.so`, a shared library with a plain C
+interface that the kernel's wrapper loads with `ctypes` (no PyTorch
+headers, so a build takes seconds).  The build
 happens at first use, inside the process that launches the kernel, and
 `_build/` is never committed.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import glob
 import os
 import shutil
 import subprocess
@@ -39,22 +42,81 @@ def nvcc() -> str:
                        "kernels build only on a machine with the toolkit")
 
 
+def _paths(name: str) -> tuple[str, str]:
+    return (os.path.join(CSRC_DIR, f"{name}.cu"),
+            os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def _stale(name: str) -> bool:
+    """True when `lib<name>.so` is missing, or older than its `.cu` or any
+    shared header `csrc/*.cuh` (an edited header must rebuild every kernel
+    that includes it)."""
+    src, path = _paths(name)
+    if not os.path.exists(path):
+        return True
+    sources = [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return os.path.getmtime(path) < max(map(os.path.getmtime, sources))
+
+
+def load_all(names) -> list[ctypes.CDLL]:
+    """The kernel libraries `names`, in order; every stale one is compiled
+    first, one `nvcc` per source, all started together.  Raises (after
+    every compiler has ended) if any build failed."""
+    names = list(names)
+    procs = {}
+    try:
+        for name in dict.fromkeys(names):
+            if name in _libs or not _stale(name):
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            src, path = _paths(name)
+            procs[name] = subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", path, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        outputs = {name: proc.communicate()[0]
+                   for name, proc in procs.items()}
+    finally:
+        # a compiler still running here was left by an exception
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):"
+              f"\n{outputs[name]}"
+              for name, proc in procs.items() if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(_paths(name)[1])
+    return [_libs[name] for name in names]
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, compiled first if missing or older than
-    its source."""
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    path = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if (not os.path.exists(path)
-            or os.path.getmtime(path) < os.path.getmtime(src)):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", path, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit "
-                               f"{proc.returncode}):\n{proc.stdout}"
-                               f"{proc.stderr}")
-    lib = _libs[name] = ctypes.CDLL(path)
-    return lib
+    """The kernel library `name`, compiled first if stale (`load_all`)."""
+    return load_all([name])[0]
+
+
+@functools.lru_cache(maxsize=None)
+def launcher(name: str, n_ptrs: int, n_ints: int):
+    """The C entry point `<name>_launch(ptr x n_ptrs, int x n_ints, stream)`
+    of kernel library `name` (built at first use), as a Python function
+    that raises when the launch returns a cudaError_t other than 0.  Every
+    pointer and the stream pass as c_void_p: a plain int would be cut to
+    32 bits."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    error_string = getattr(lib, f"{name}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+
+    def launch(*args):
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: "
+                               + error_string(err).decode())
+
+    return launch

@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel `best_node` of cook_tpu/ops/pallas_match.py
 // (entry :135, bodies _best_node_kernel :85 and _best_node_masked_kernel
 // :94, shared scoring _score_tile :31).  Same contract:
-//   feasible(k, n) = every one of the R demand columns fits avail[n]
+//   feasible(k, n) = job k is live (demand[0] < BIG; the chunked matcher
+//                    marks placed jobs 2*BIG and answers them at once)
+//                    && every one of the R demand columns fits avail[n]
 //                    && node_valid[n] && (no mask || mask[k, n])
 //   fit(k, n)      = ((tot0 - av0 + d0) / max(tot0, 1e-30)
 //                     + (tot1 - av1 + d1) / max(tot1, 1e-30)) * 0.5
@@ -31,17 +33,21 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see cook_tpu_torch/build.py)
 // --fmad=false keeps the fitness arithmetic rounded exactly as the plain
-// PyTorch version rounds it, so the two agree bit for bit.
+// PyTorch version rounds it, so the two agree bit for bit.  Feasibility,
+// fitness and the first-index reduction live in score_tile.cuh, shared
+// with best_block.cu and best_node_batched.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "score_tile.cuh"
+
 namespace {
 
+using score_tile::kBig;
+using score_tile::kMaxR;
+
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxR = 8;
-constexpr float kBig = 1e30f;
-constexpr int kNoIdx = 0x7fffffff;
 
 template <bool kMasked>
 __global__ void best_node_kernel(const float* __restrict__ demands,  // [K,R]
@@ -57,43 +63,30 @@ __global__ void best_node_kernel(const float* __restrict__ demands,  // [K,R]
   if (job >= K) return;  // whole warp exits together: no shuffle hazard
 
   float d[kMaxR];
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) d[r] = r < R ? demands[(int64_t)job * R + r] : 0.0f;
+  score_tile::load_demand(demands + (int64_t)job * R, R, d);
+  if (!score_tile::live(d)) {  // the same job for all 32 lanes
+    if (lane == 0)
+      score_tile::store_best(-kBig, score_tile::kNoIdx, out_val + job,
+                             out_idx + job);
+    return;
+  }
 
   float best = -kBig;
-  int idx = kNoIdx;
+  int idx = score_tile::kNoIdx;
   const uint8_t* mask_row = kMasked ? mask + (int64_t)job * N : nullptr;
   for (int n = lane; n < N; n += 32) {
     if (kMasked && !mask_row[n]) continue;
     if (!valid[n]) continue;
     const float* a = avail + (int64_t)n * R;
-    bool fits = true;
-#pragma unroll
-    for (int r = 0; r < kMaxR; ++r) fits = fits && (r >= R || a[r] >= d[r]);
-    if (!fits) continue;
-    const float tot0 = totals[2 * (int64_t)n];
-    const float tot1 = totals[2 * (int64_t)n + 1];
-    const float fit = ((tot0 - a[0] + d[0]) / fmaxf(tot0, 1e-30f)
-                       + (tot1 - a[1] + d[1]) / fmaxf(tot1, 1e-30f)) * 0.5f;
-    if (fit > best) {  // strict: this lane's earlier node keeps a tie
-      best = fit;
-      idx = n;
-    }
+    if (!score_tile::fits(a, d, R)) continue;
+    // strict `>` inside keep_best: this lane's earlier node keeps a tie
+    score_tile::keep_best(
+        score_tile::fitness(totals[2 * (int64_t)n], totals[2 * (int64_t)n + 1],
+                            a[0], a[1], d),
+        n, best, idx);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    if (ob > best || (ob == best && oi < idx)) {
-      best = ob;
-      idx = oi;
-    }
-  }
-  if (lane == 0) {
-    const bool found = best > -kBig;
-    out_val[job] = found ? best : -kBig;
-    out_idx[job] = found ? idx : -1;
-  }
+  score_tile::warp_argmax_first(best, idx);
+  if (lane == 0) score_tile::store_best(best, idx, out_val + job, out_idx + job);
 }
 
 }  // namespace

@@ -1,0 +1,91 @@
+// score_tile.cuh: the scoring rules every best-* kernel shares.
+//
+// Counterpart of `_score_tile` in cook_tpu/ops/pallas_match.py (:31): ONE
+// definition of feasibility, cpuMemBinPacker fitness and the first-index
+// (max, argmax) rule, so best_node, best_block and best_node_batched can
+// never rank candidates by diverging rules.
+//
+//   live(d)        = d[0] < BIG: the matchers mark placed and empty rows
+//                    with a 2*BIG demand, which no capacity holds, so a
+//                    row that is not live is answered (-BIG, -1) at once,
+//                    without reading its mask row or any node
+//   fits(a, d)     = every one of the R demand columns d[r] <= a[r]
+//   fitness        = ((tot0 - av0 + d0) / max(tot0, 1e-30)
+//                     + (tot1 - av1 + d1) / max(tot1, 1e-30)) * 0.5
+//   best           = (max fitness, first index of the max), kept by a
+//                    strict `>` in index order and, across a warp, by
+//                    `warp_argmax_first`
+//
+// The kernels build with --fmad=false (cook_tpu_torch/build.py), so the
+// fitness is rounded exactly as the plain PyTorch versions round it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace score_tile {
+
+constexpr int kMaxR = 8;
+constexpr float kBig = 1e30f;
+constexpr int kNoIdx = 0x7fffffff;
+
+// d[0..R) from one demand row; the columns past R are never read by `fits`
+__device__ __forceinline__ void load_demand(const float* __restrict__ row,
+                                            int R, float (&d)[kMaxR]) {
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) d[r] = r < R ? row[r] : 0.0f;
+}
+
+__device__ __forceinline__ bool live(const float (&d)[kMaxR]) {
+  return d[0] < kBig;
+}
+
+__device__ __forceinline__ bool fits(const float* __restrict__ a,
+                                     const float (&d)[kMaxR], int R) {
+  bool ok = true;
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) ok = ok && (r >= R || a[r] >= d[r]);
+  return ok;
+}
+
+__device__ __forceinline__ float fitness(float tot0, float tot1, float av0,
+                                         float av1, const float (&d)[kMaxR]) {
+  return ((tot0 - av0 + d[0]) / fmaxf(tot0, 1e-30f)
+          + (tot1 - av1 + d[1]) / fmaxf(tot1, 1e-30f)) * 0.5f;
+}
+
+// running (best, idx) over candidates visited in increasing index order:
+// strict `>`, so an earlier candidate keeps a tie
+__device__ __forceinline__ void keep_best(float fit, int n, float& best,
+                                          int& idx) {
+  if (fit > best) {
+    best = fit;
+    idx = n;
+  }
+}
+
+// combine the 32 lanes' (best, idx): the larger value or, on a tie, the
+// smaller index; every lane ends with the warp's result.  All 32 lanes
+// must call it.
+__device__ __forceinline__ void warp_argmax_first(float& best, int& idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
+    if (ob > best || (ob == best && oi < idx)) {
+      best = ob;
+      idx = oi;
+    }
+  }
+}
+
+// the kernels' output rule: (-BIG, -1) where nothing was feasible
+__device__ __forceinline__ void store_best(float best, int idx,
+                                           float* out_val, int32_t* out_idx) {
+  const bool found = best > -kBig;
+  *out_val = found ? best : -kBig;
+  *out_idx = found ? idx : -1;
+}
+
+}  // namespace score_tile

@@ -6,11 +6,13 @@ tensor `best_node` launches the hand-written Hopper kernel in
 plain PyTorch version of the same function, which is also what the kernel
 is held against on the card.  Nothing falls back: a CUDA call that cannot
 launch raises.
+
+`fits`, `score_argmax` and `check_inputs` are shared with the other two
+kernels' modules (`ops/best_block.py`, `ops/best_node_batched.py`), as the
+kernels share `csrc/score_tile.cuh`.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -25,26 +27,71 @@ MAX_R = 8
 launches = 0
 
 
+def fits(avail: torch.Tensor, demands: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] bool: every resource column of demand k fits node n
+    (avail [..., N, R], demands [..., K, R])."""
+    return (avail[..., None, :, :] >= demands[..., :, None, :]).all(-1)
+
+
+def score_argmax(demands: torch.Tensor, avail: torch.Tensor,
+                 totals: torch.Tensor, ok: torch.Tensor):
+    """The plain versions' shared scoring (the rules of
+    csrc/score_tile.cuh): the cpuMemBinPacker fitness of every (job, node)
+    pair, -BIG where `ok` [..., K, N] is False or the job's row is not
+    live, and a first-index argmax over the node axis (`torch.argmax`
+    returns the first maximal index).  A row is live while its first
+    demand is under BIG: the matchers mark placed and empty rows with a
+    2*BIG demand, which no capacity holds.  Returns (best_score [..., K]
+    f32, best_idx [..., K] int32), (-BIG, -1) where nothing is feasible."""
+    denom = totals.clamp_min(1e-30)
+    used = totals - avail[..., :2]
+    fit = ((used[..., None, :, 0] + demands[..., :, 0:1])
+           / denom[..., None, :, 0]
+           + (used[..., None, :, 1] + demands[..., :, 1:2])
+           / denom[..., None, :, 1]) * 0.5
+    ok = ok & (demands[..., :, 0:1] < BIG)
+    score = torch.where(ok, fit, torch.full_like(fit, -BIG))
+    idx = torch.argmax(score, dim=-1)
+    val = score.gather(-1, idx[..., None])[..., 0]
+    found = val > -BIG
+    return val, torch.where(found, idx, -1).to(torch.int32)
+
+
+def check_inputs(kernel: str, floats, bools) -> None:
+    """The wrappers' shared checks: every tensor on one device, `floats`
+    float32 and `bools` bool (None entries skipped), all contiguous, and
+    2..MAX_R resource columns in the first float tensor."""
+    bools = [t for t in bools if t is not None]
+    tensors = [*floats, *bools]
+    r = floats[0].shape[-1]
+    if not 2 <= r <= MAX_R:
+        raise ValueError(f"{kernel} takes 2..{MAX_R} resource columns, "
+                         f"got {r}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{kernel} inputs lie on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    for t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel} takes float32 demands/capacities, "
+                            f"got {t.dtype}")
+    for t in bools:
+        if t.dtype != torch.bool:
+            raise TypeError(f"{kernel} takes bool validity/mask, "
+                            f"got {t.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel} inputs must be contiguous")
+
+
 def best_node_reference(demands: torch.Tensor, avail: torch.Tensor,
                         totals: torch.Tensor, node_valid: torch.Tensor,
                         feasible: Optional[torch.Tensor] = None):
     """Plain PyTorch version: the full [K, N] score and a first-index
-    argmax (`torch.argmax` returns the first maximal index).  Returns
-    (best_score [K] f32, best_idx [K] int32), (-BIG, -1) where nothing
-    is feasible."""
-    fits = (avail[None, :, :] >= demands[:, None, :]).all(-1)
-    ok = fits & node_valid[None, :]
+    argmax.  Returns (best_score [K] f32, best_idx [K] int32), (-BIG, -1)
+    where nothing is feasible."""
+    ok = fits(avail, demands) & node_valid[None, :]
     if feasible is not None:
         ok = ok & feasible
-    denom = totals.clamp_min(1e-30)
-    used = totals - avail[:, :2]
-    fit = ((used[None, :, 0] + demands[:, 0:1]) / denom[None, :, 0]
-           + (used[None, :, 1] + demands[:, 1:2]) / denom[None, :, 1]) * 0.5
-    score = torch.where(ok, fit, torch.full_like(fit, -BIG))
-    idx = torch.argmax(score, dim=1)
-    val = score.gather(1, idx[:, None])[:, 0]
-    found = val > -BIG
-    return val, torch.where(found, idx, -1).to(torch.int32)
+    return score_argmax(demands, avail, totals, ok)
 
 
 def _check(demands, avail, totals, node_valid, feasible):
@@ -58,59 +105,25 @@ def _check(demands, avail, totals, node_valid, feasible):
             f"node_valid {tuple(node_valid.shape)}")
     if feasible is not None and feasible.shape != (k, n):
         raise ValueError(f"best_node mask {tuple(feasible.shape)} != {(k, n)}")
-    if not 2 <= r <= MAX_R:
-        raise ValueError(f"best_node takes 2..{MAX_R} resource columns, "
-                         f"got {r}")
-    tensors = [demands, avail, totals, node_valid] + (
-        [feasible] if feasible is not None else [])
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("best_node inputs lie on different devices: "
-                         f"{[str(t.device) for t in tensors]}")
-    for t in (demands, avail, totals):
-        if t.dtype != torch.float32:
-            raise TypeError(f"best_node takes float32 demands/avail/totals, "
-                            f"got {t.dtype}")
-    for t in tensors[3:]:
-        if t.dtype != torch.bool:
-            raise TypeError(f"best_node takes bool node_valid/mask, "
-                            f"got {t.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("best_node inputs must be contiguous")
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The compiled kernel (built at first use), its C signatures set."""
-    from cook_tpu_torch import build
-
-    lib = build.load("best_node")
-    # every pointer and the stream as c_void_p: a plain int would be cut
-    # to 32 bits
-    lib.best_node_launch.argtypes = ([ctypes.c_void_p] * 7
-                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.best_node_launch.restype = ctypes.c_int
-    lib.best_node_error_string.argtypes = [ctypes.c_int]
-    lib.best_node_error_string.restype = ctypes.c_char_p
-    return lib
+    check_inputs("best_node", (demands, avail, totals),
+                 (node_valid, feasible))
 
 
 def _launch(demands, avail, totals, node_valid, feasible):
     global launches
-    lib = _lib()
+    from cook_tpu_torch import build
+
+    launch = build.launcher("best_node", 7, 3)
     k, r = demands.shape
     n = avail.shape[0]
     with torch.cuda.device(demands.device):
         val = torch.empty(k, dtype=torch.float32, device=demands.device)
         idx = torch.empty(k, dtype=torch.int32, device=demands.device)
-        stream = torch.cuda.current_stream(demands.device).cuda_stream
-        err = lib.best_node_launch(
-            demands.data_ptr(), avail.data_ptr(), totals.data_ptr(),
-            node_valid.data_ptr(),
-            feasible.data_ptr() if feasible is not None else None,
-            val.data_ptr(), idx.data_ptr(), k, n, r, stream)
-    if err != 0:
-        raise RuntimeError("best_node kernel launch failed: "
-                           + lib.best_node_error_string(err).decode())
+        launch(demands.data_ptr(), avail.data_ptr(), totals.data_ptr(),
+               node_valid.data_ptr(),
+               feasible.data_ptr() if feasible is not None else None,
+               val.data_ptr(), idx.data_ptr(), k, n, r,
+               torch.cuda.current_stream(demands.device).cuda_stream)
     launches += 1
     return val, idx
 

@@ -1,0 +1,491 @@
+"""Hierarchical matcher: one giant pool via block decomposition.
+
+Port of `cook_tpu/ops/hierarchical.py` (see its docstring for the
+scheme).  Nodes group into B contiguous topology blocks and the pool
+solves in three passes:
+
+  1. **coarse** — jobs x blocks on the block aggregates (summed free
+     capacity, summed totals, the per-resource max single node as the
+     feasibility gate): the masked chunked matcher (`xla`) or, per chunk,
+     the hand-written Hopper `best_block` kernel plus single-candidate
+     conflict rounds (`pallas`, `_coarse_pallas`);
+  2. **fine** — jobs scatter to their blocks (host side, schedule order,
+     slot-cap overflow spills) and every block's [slots, nodes_per_block]
+     problem solves as one batch with blocks as the leading axis: a
+     chunked solve per block (`xla`) or, per pass, the hand-written Hopper
+     `best_node_batched` kernel plus batched conflict rounds (`pallas`,
+     `_fine_fused`);
+  3. **refine** — bounded extra coarse+fine rounds re-offer every leftover
+     against the updated availability, at the same shapes.
+
+The block axis pads to a power-of-two bucket with all-invalid lanes
+(`parallel/mesh.invalid_match_problem`), as in the reference; on one card
+there is no mesh to shard it over.  Not ported yet (ROADMAP Queue A): the
+superblock layer (`superblock_nodes > 0`: `gather_super`,
+`_coarse_batched_solve`, `coarse_two_level`) and gangs on this path
+(`gang_id` / `gang_need`, with `ops/gang.py`); both raise
+NotImplementedError.  The data-plane notes, metrics and compile
+observatory of the reference are the flight-recorder/telemetry slice.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cook_tpu_torch.ops.best_block import best_block
+from cook_tpu_torch.ops.best_node import fits
+from cook_tpu_torch.ops.best_node_batched import best_node_batched
+from cook_tpu_torch.ops.common import BIG, bucket_size, fetch_result
+from cook_tpu_torch.ops.match import (
+    MatchProblem,
+    MatchResult,
+    backend_flags,
+    chunked_match,
+    conflict_round,
+    conflict_round_batched,
+    vmap_safe_backend,
+)
+from cook_tpu_torch.parallel.mesh import invalid_match_problem
+
+# tuned buckets for nodes-per-block: power-of-two block widths so the
+# (block-bucket, job-slot, node-slot) shape lattice stays bounded
+NODE_BLOCK_BUCKETS = (64, 128, 256, 512, 1024)
+# aim for at least this many blocks (the reference's mesh lanes)
+MIN_BLOCKS = 8
+
+
+@dataclass
+class HierParams:
+    """Knobs of the two-level solve (the reference's HierParams; the
+    scheduler exposes a subset as MatchConfig.hierarchical_*)."""
+
+    nodes_per_block: int = 0      # 0 = auto from NODE_BLOCK_BUCKETS
+    jobs_per_block: int = 0       # 0 = auto (block_slack x J/B, bucketed)
+    block_slack: float = 2.0      # per-block job-slot headroom factor
+    refine_rounds: int = 2        # bounded re-offer rounds (0 disables)
+    # superblock (DCN-domain) layer; not ported yet — > 0 raises
+    superblock_nodes: int = 0
+    # fine-solve chunked-matcher knobs (MatchConfig equivalents)
+    chunk: int = 1024
+    rounds: int = 3
+    passes: int = 2
+    kc: int = 128
+    backend: str = "xla"          # fine candidate backend (vmap-safe)
+    # fine-solve schedule: "xla" (a chunked solve per block) or "pallas"
+    # (the best_node_batched kernel + batched conflict rounds)
+    fine_backend: str = "xla"
+    # fused-fine pass count: each pass re-picks every unplaced job's ONE
+    # best node against the updated availability
+    fine_passes: int = 16
+    # coarse block-scoring backend: "xla" (masked chunked_match) or
+    # "pallas" (the best_block kernel)
+    coarse_backend: str = "xla"
+    coarse_chunk: int = 4096
+    # single-candidate coarse rounds and passes (the reference's rationale:
+    # the prefix-accept admits contenders up to a block's aggregate
+    # capacity; passes re-pick blocks for jobs whose first choice filled)
+    coarse_rounds: int = 2
+    coarse_passes: int = 8
+
+    def __post_init__(self):
+        if self.coarse_backend not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown hierarchical coarse backend "
+                f"{self.coarse_backend!r} (expected xla | pallas)")
+        if self.fine_backend not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown hierarchical fine backend "
+                f"{self.fine_backend!r} (expected xla | pallas)")
+        backend_flags(self.backend)  # canonical validation + error
+
+
+def choose_nodes_per_block(n_nodes: int, override: int = 0) -> int:
+    """The largest bucket that still yields >= MIN_BLOCKS blocks, else the
+    largest yielding >= 2, else the smallest bucket."""
+    if override:
+        return override
+    for npb in reversed(NODE_BLOCK_BUCKETS):
+        if n_nodes // npb >= MIN_BLOCKS:
+            return npb
+    for npb in reversed(NODE_BLOCK_BUCKETS):
+        if n_nodes // npb >= 2:
+            return npb
+    return NODE_BLOCK_BUCKETS[0]
+
+
+def block_aggregates(avail, totals, node_valid, npb: int):
+    """Per-block coarse tensors from node-axis slices: summed free capacity
+    [B, R], per-resource max single node [B, R] (-1 where no node is
+    valid), summed totals [B, 2] and any-valid [B].  The sums are exact
+    while the values are (the simulator's MB and half-cpu amounts are),
+    whatever order the device adds in."""
+    n, r = avail.shape
+    b = n // npb
+    nv = node_valid.reshape(b, npb, 1)
+    block_sum = torch.where(nv, avail.reshape(b, npb, r), 0.0).sum(1)
+    block_max = torch.where(nv, avail.reshape(b, npb, r), -1.0).amax(1)
+    block_tot = torch.where(nv, totals.reshape(b, npb, 2), 0.0).sum(1)
+    return block_sum, block_max, block_tot, nv[..., 0].any(1)
+
+
+def _coarse_xla(demands, active, block_sum, block_max, block_tot,
+                block_valid, block_any, params: HierParams):
+    """Coarse jobs x blocks assignment on the aggregated problem via the
+    chunked matcher, gated by the max-node fit and, optionally, by
+    `block_any` (the constraint mask has a feasible node in the block)."""
+    feas = fits(block_max, demands)
+    if block_any is not None:
+        feas = feas & block_any
+    problem = MatchProblem(
+        demands=demands, job_valid=active, avail=block_sum,
+        totals=block_tot, node_valid=block_valid, feasible=feas)
+    # kc=1: single-candidate conflict rounds, exact top-1
+    return chunked_match(problem,
+                         chunk=_chunk_for(params.coarse_chunk,
+                                          demands.shape[0]),
+                         rounds=params.coarse_rounds,
+                         passes=params.coarse_passes, kc=1,
+                         use_approx=False, **backend_flags("xla")).assignment
+
+
+def _coarse_pallas(demands, active, block_sum, block_max, block_tot,
+                   block_valid, *, chunk: int, rounds: int, passes: int):
+    """Coarse pass on the `best_block` kernel: per chunk and pass, each
+    unplaced job's best block (aggregate fit + max-node gate + fitness +
+    argmax in one launch, no [J, B] mask), then the shared conflict rounds
+    accept against the aggregate availability."""
+    j = demands.shape[0]
+    b = block_sum.shape[0]
+    avail = block_sum
+    out = []
+    for c0 in range(0, j, chunk):
+        d = demands[c0:c0 + chunk]
+        ok = active[c0:c0 + chunk]
+        assignment = torch.full((d.shape[0],), -1, dtype=torch.int32,
+                                device=d.device)
+        for _ in range(passes):
+            d_eff = torch.where((ok & (assignment < 0))[:, None], d, 2 * BIG)
+            val, idx = best_block(d_eff, avail, block_max, block_tot,
+                                  block_valid)
+            cand_val, cand_idx = val[:, None], idx.clamp_min(0)[:, None]
+            for _ in range(rounds):
+                avail, assignment = conflict_round(avail, assignment,
+                                                   cand_val, cand_idx, d, b)
+        out.append(assignment)
+    return torch.cat(out)
+
+
+def scatter_to_blocks(coarse: np.ndarray, job_valid: np.ndarray,
+                      b: int, slots: int):
+    """Host-side scatter: per-block job-slot index matrix [b, slots]
+    (-1 padding), filling each block in schedule order so the ranked
+    queue's fairness order survives the decomposition.  Jobs beyond a
+    block's slot cap spill (True in the returned mask) to the refinement
+    round instead of silently dropping."""
+    j = coarse.shape[0]
+    active = (coarse >= 0) & (coarse < b) & job_valid
+    blocks = np.where(active, coarse, b)  # inactive jobs sort last
+    order = np.argsort(blocks, kind="stable")
+    sb = blocks[order]
+    first = np.searchsorted(sb, np.arange(b + 1))
+    job_idx = np.full((b, slots), -1, dtype=np.int32)
+    spilled = np.zeros(j, dtype=bool)
+    for bi in range(b):
+        seg = order[first[bi]:first[bi + 1]]
+        take = seg[:slots]
+        job_idx[bi, :len(take)] = take
+        if len(seg) > slots:
+            spilled[seg[slots:]] = True
+    return job_idx, spilled
+
+
+def gather_fine(demands, job_valid, feasible, avail, totals, node_valid,
+                job_idx, npb: int) -> MatchProblem:
+    """The batched per-block fine problems: demands gathered by the
+    scatter's slot matrix `job_idx` [B, S], node tensors sliced by
+    contiguous blocks, and the constraint mask gathered per (block, slot)
+    against the block's OWN node columns — no [B, S, N] blowup."""
+    b, s = job_idx.shape
+    r = demands.shape[-1]
+    safe = job_idx.clamp_min(0).long()
+    feas_f = None
+    if feasible is not None:
+        blocks = torch.arange(b, device=job_idx.device)[:, None]
+        feas_f = feasible.reshape(-1, b, npb)[safe, blocks, :]
+    return MatchProblem(demands=demands[safe],
+                        job_valid=(job_idx >= 0) & job_valid[safe],
+                        avail=avail.reshape(b, npb, r),
+                        totals=totals.reshape(b, npb, 2),
+                        node_valid=node_valid.reshape(b, npb),
+                        feasible=feas_f)
+
+
+def _pad_block_axis(problems: MatchProblem, count: int,
+                    n_res: int) -> MatchProblem:
+    """Extend the fine batch with `count` all-invalid lanes
+    (`invalid_match_problem`) so the block axis reaches its bucket."""
+    if count <= 0:
+        return problems
+    s, npb = problems.demands.shape[1], problems.avail.shape[1]
+    pad = invalid_match_problem(
+        s, npb, n_res=n_res, with_feasible=problems.feasible is not None,
+        dtype=problems.demands.dtype, device=problems.demands.device)
+    return MatchProblem(*(
+        None if real is None
+        else torch.cat([real, dead.expand((count,) + dead.shape)])
+        for real, dead in zip(problems, pad)))
+
+
+def _chunk_for(width: int, axis: int) -> int:
+    """Largest power-of-two chunk <= min(width, axis): the padded job
+    axes here are powers of two, so a pow2 chunk always divides them."""
+    chunk = max(1, min(width, axis))
+    return 1 << (chunk.bit_length() - 1)
+
+
+def _fine_fused(problems: MatchProblem, *, rounds: int,
+                passes: int) -> MatchResult:
+    """Fused fine batch solve: per pass, ONE `best_node_batched` launch
+    picks each unplaced job's best node in its block; the batched conflict
+    rounds then accept against the block's availability (single-candidate
+    picks, as in the pallas coarse pass)."""
+    b, s, _ = problems.demands.shape
+    npb = problems.avail.shape[1]
+    demands = problems.demands
+    avail = problems.avail
+    if problems.feasible is not None:
+        # node validity rides in the mask, as the reference passes it
+        feas_arg = problems.feasible & problems.node_valid[:, None, :]
+        valid_arg = torch.ones_like(problems.node_valid)
+    else:
+        feas_arg = None
+        valid_arg = problems.node_valid
+    assignment = torch.full((b, s), -1, dtype=torch.int32,
+                            device=demands.device)
+    for _ in range(passes):
+        active = problems.job_valid & (assignment < 0)
+        d_eff = torch.where(active[..., None], demands, 2 * BIG)
+        val, idx = best_node_batched(d_eff, avail, problems.totals,
+                                     valid_arg, feas_arg)
+        cand_val, cand_idx = val[..., None], idx.clamp_min(0)[..., None]
+        for _ in range(rounds):
+            avail, assignment = conflict_round_batched(
+                avail, assignment, cand_val, cand_idx, demands, npb)
+    return MatchResult(assignment=assignment, new_avail=avail)
+
+
+def _fine_solve(problems: MatchProblem, params: HierParams) -> MatchResult:
+    if params.fine_backend == "pallas":
+        return _fine_fused(problems, rounds=params.rounds,
+                           passes=max(params.passes, params.fine_passes))
+    # the reference's jax.vmap of chunked_match, as a loop over blocks
+    # (batching it is the *_pools work of ROADMAP Queue A item 1)
+    backend = vmap_safe_backend(params.backend)
+    chunk = _chunk_for(params.chunk, problems.demands.shape[1])
+    results = [
+        chunked_match(MatchProblem(*(None if t is None else t[i]
+                                     for t in problems)),
+                      chunk=chunk, rounds=params.rounds,
+                      passes=params.passes, kc=params.kc,
+                      **backend_flags(backend))
+        for i in range(problems.demands.shape[0])]
+    return MatchResult(
+        assignment=torch.stack([r.assignment for r in results]),
+        new_avail=torch.stack([r.new_avail for r in results]))
+
+
+def hierarchical_match(
+    problem: MatchProblem,
+    *,
+    params: Optional[HierParams] = None,
+    gang_id: Optional[np.ndarray] = None,
+    gang_need: Optional[np.ndarray] = None,
+) -> tuple[MatchResult, dict]:
+    """Solve one giant pool's match problem coarse-then-fine.
+
+    Returns (MatchResult, stats): the assignment is in the ORIGINAL node
+    index space (block * nodes_per_block + local), and `stats` carries the
+    reference's keys — phase walls (coarse_s / fine_s / refine_s, each
+    ending in the fetch that observes the device's result), block
+    geometry, per-block jobs/placed counts and spill/refine accounting.
+    The reference's `mesh`, `observatory` and `pool` arguments have no
+    counterpart here."""
+    params = params or HierParams()
+    if params.superblock_nodes > 0:
+        raise NotImplementedError(
+            "the superblock layer (superblock_nodes > 0) is not ported "
+            "yet (ROADMAP Queue A item 6)")
+    if gang_id is not None or gang_need is not None:
+        raise NotImplementedError(
+            "gangs on the hierarchical path are not ported yet (ROADMAP "
+            "Queue A item 2, with ops/gang.py)")
+    t_start = time.perf_counter()
+    dev = problem.demands.device
+    orig_j = int(problem.demands.shape[0])
+    n = int(problem.avail.shape[0])
+    n_res = int(problem.demands.shape[-1])
+    # power-of-two job axis so every chunk width divides it
+    j = bucket_size(orig_j)
+    demands, job_valid, feasible = (problem.demands, problem.job_valid,
+                                    problem.feasible)
+    if j != orig_j:
+        demands = torch.nn.functional.pad(demands, (0, 0, 0, j - orig_j))
+        job_valid = torch.nn.functional.pad(job_valid, (0, j - orig_j))
+        if feasible is not None:
+            feasible = torch.nn.functional.pad(feasible,
+                                               (0, 0, 0, j - orig_j))
+    npb = choose_nodes_per_block(n, params.nodes_per_block)
+    npb = min(npb, bucket_size(n))
+    b_real = -(-n // npb)
+    n_pad = b_real * npb
+
+    avail, totals, node_valid = problem.avail, problem.totals, \
+        problem.node_valid
+    if n_pad != n:
+        # pad the node axis to a whole number of blocks with dead nodes
+        pad_n = n_pad - n
+        avail = torch.nn.functional.pad(avail, (0, 0, 0, pad_n))
+        totals = torch.nn.functional.pad(totals, (0, 0, 0, pad_n),
+                                         value=1.0)
+        node_valid = torch.nn.functional.pad(node_valid, (0, pad_n))
+        if feasible is not None:
+            feasible = torch.nn.functional.pad(feasible, (0, pad_n))
+
+    # block axis pads to a power-of-two bucket: the fine batch shape is
+    # keyed by (b_pad, slots, npb), never by the raw block count
+    b_pad = bucket_size(b_real, minimum=MIN_BLOCKS)
+    if params.jobs_per_block:
+        # round an override up to a power of two: the chunked fine solve
+        # needs its chunk to divide the slot axis
+        slots = 1 << (params.jobs_per_block - 1).bit_length()
+    else:
+        slots = bucket_size(int(np.ceil(params.block_slack * j / b_real)))
+    slots = min(slots, bucket_size(j))
+
+    job_valid_np = fetch_result(job_valid)
+    out = np.full(j, -1, dtype=np.int32)
+    block_pad_axis = b_pad - b_real
+    fine_backend_label = ("pallas-fine" if params.fine_backend == "pallas"
+                          else vmap_safe_backend(params.backend))
+    block_any = None
+    if params.coarse_backend == "xla" and feasible is not None:
+        block_any = torch.nn.functional.pad(
+            feasible.reshape(j, b_real, npb).any(-1), (0, block_pad_axis))
+    coarse_s = fine_s = refine_s = 0.0
+    refine_placed = 0
+    avail_now = avail
+
+    def coarse_pass(active_mask: np.ndarray) -> np.ndarray:
+        """One coarse jobs x blocks assignment against the CURRENT block
+        availabilities (refine rounds re-enter with only the leftover
+        jobs active)."""
+        block_sum, block_max, block_tot, block_valid = block_aggregates(
+            avail_now, totals, node_valid, npb)
+        if block_pad_axis:
+            pad = (0, 0, 0, block_pad_axis)
+            block_sum = torch.nn.functional.pad(block_sum, pad)
+            block_max = torch.nn.functional.pad(block_max, pad, value=-1.0)
+            block_tot = torch.nn.functional.pad(block_tot, pad, value=1.0)
+            block_valid = torch.nn.functional.pad(block_valid,
+                                                  (0, block_pad_axis))
+        active = torch.as_tensor(active_mask, device=dev)
+        if params.coarse_backend == "pallas":
+            assignment = _coarse_pallas(
+                demands, active, block_sum, block_max, block_tot,
+                block_valid, chunk=_chunk_for(params.coarse_chunk, j),
+                rounds=params.coarse_rounds, passes=params.coarse_passes)
+        else:
+            assignment = _coarse_xla(demands, active, block_sum, block_max,
+                                     block_tot, block_valid, block_any,
+                                     params)
+        return fetch_result(assignment)
+
+    def fine_pass(job_idx: np.ndarray):
+        """Scattered fine batch solve; returns (assignment [b_real, s]
+        local node indices, updated flat availability)."""
+        problems = gather_fine(demands, job_valid, feasible, avail_now,
+                               totals, node_valid,
+                               torch.as_tensor(job_idx, device=dev), npb)
+        result = _fine_solve(_pad_block_axis(problems, block_pad_axis,
+                                             n_res), params)
+        assignment = fetch_result(result.assignment)[:b_real]
+        return assignment, result.new_avail[:b_real].reshape(n_pad, n_res)
+
+    def merge(job_idx: np.ndarray, fine_assign: np.ndarray) -> int:
+        """Fold one fine pass's block-local picks into the global
+        assignment; returns the number of jobs placed this pass."""
+        sel = (job_idx >= 0) & (fine_assign >= 0)
+        local = np.where(sel, fine_assign, 0)
+        global_idx = (np.arange(b_real, dtype=np.int64)[:, None] * npb
+                      + local)
+        out[job_idx[sel]] = global_idx[sel].astype(np.int32)
+        return int(sel.sum())
+
+    # ---- round 0: coarse -> scatter -> fine
+    t0 = time.perf_counter()
+    coarse = coarse_pass(job_valid_np)
+    coarse_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    job_idx, spilled = scatter_to_blocks(coarse, job_valid_np, b_real, slots)
+    fine_assign, avail_now = fine_pass(job_idx)
+    fine_s += time.perf_counter() - t0
+    merge(job_idx, fine_assign)
+    block_stats = [{"jobs": int((job_idx[bi] >= 0).sum()),
+                    "placed": int(((job_idx[bi] >= 0)
+                                   & (fine_assign[bi] >= 0)).sum())}
+                   for bi in range(b_real)]
+
+    # ---- bounded refinement: re-offer every leftover (coarse-unrouted,
+    # slot-spilled or fine-unplaced) against the UPDATED availabilities,
+    # at identical shapes
+    rounds_run = 0
+    for _ in range(max(0, params.refine_rounds)):
+        leftover = job_valid_np & (out < 0)
+        if not leftover.any():
+            break
+        rounds_run += 1
+        t0 = time.perf_counter()
+        coarse = coarse_pass(leftover)
+        job_idx, _ = scatter_to_blocks(coarse, leftover, b_real, slots)
+        fine_assign, avail_now = fine_pass(job_idx)
+        placed = merge(job_idx, fine_assign)
+        refine_placed += placed
+        refine_s += time.perf_counter() - t0
+        if placed <= 0:
+            break
+
+    stats = {
+        "blocks": b_real,
+        "block_pad": b_pad,
+        "nodes_per_block": npb,
+        "jobs_per_block": slots,
+        # the superblock layer is not ported: its keys keep their
+        # disengaged values
+        "superblocks": 0,
+        "superblock_pad": 0,
+        "superblock_nodes": 0,
+        "superblock_blocks": 0,
+        "jobs_per_superblock": 0,
+        "superblock_spilled": 0,
+        "super_coarse_s": 0.0,
+        "coarse_s": coarse_s,
+        "fine_s": fine_s,
+        "refine_s": refine_s,
+        "refine_rounds": rounds_run,
+        "refine_placed": refine_placed,
+        "spilled": int(spilled.sum()),
+        "placed": int((out >= 0).sum()),
+        "super_shape": None,
+        "coarse_shape": (j, b_pad),
+        "fine_shape": (b_pad, slots, npb),
+        "backend": fine_backend_label,
+        "coarse_backend": params.coarse_backend,
+        "block_stats": block_stats,
+        "total_s": time.perf_counter() - t_start,
+    }
+    return MatchResult(assignment=torch.as_tensor(out[:orig_j], device=dev),
+                       new_avail=avail_now[:n]), stats

@@ -25,12 +25,7 @@ import numpy as np
 import torch
 
 from cook_tpu_torch.ops.best_node import best_node
-from cook_tpu_torch.ops.common import (
-    BIG,
-    binpack_fitness,
-    lexsort_perm,
-    segment_first,
-)
+from cook_tpu_torch.ops.common import BIG, binpack_fitness
 
 
 class MatchProblem(NamedTuple):
@@ -81,6 +76,15 @@ def backend_flags(backend: str) -> dict:
             "bucketed": backend == "bucketed"}
 
 
+def vmap_safe_backend(backend: str) -> str:
+    """Backend of a block- or pool-batched chunked solve: the reference
+    coerces pallas -> xla there (its pallas_call batching under jax.vmap
+    is not guaranteed), and the port keeps its choice so both packages
+    solve the same problem the same way."""
+    backend_flags(backend)  # validate the name with the canonical error
+    return "xla" if backend == "pallas" else backend
+
+
 def greedy_match(problem: MatchProblem) -> MatchResult:
     """Sequential-order greedy matcher (exact Fenzo-order semantics; J
     steps of O(N) vector work each, with no host synchronisation)."""
@@ -108,25 +112,79 @@ def greedy_match(problem: MatchProblem) -> MatchResult:
     return MatchResult(assignment=assignment, new_avail=avail)
 
 
-def _segment_rank(keys: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """Rank of each element within its run of equal keys, where runs are
-    taken over `keys` sorted with tie-break `order`.  Returns int32 ranks
-    in the original index space."""
-    k = keys.shape[0]
-    perm = lexsort_perm(keys, order)
-    sk = keys[perm]
-    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device),
-                        sk[1:] != sk[:-1]])
-    rank_sorted = torch.arange(k, device=keys.device) - segment_first(starts)
-    out = torch.empty(k, dtype=torch.int32, device=keys.device)
-    out[perm] = rank_sorted.to(torch.int32)
-    return out
-
-
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Per row, the index of the first True (0 when none) — jnp.argmax over
-    a bool row."""
-    return torch.argmax(mask.to(torch.uint8), dim=1)
+    """Along the last axis, the index of the first True (0 when none) —
+    jnp.argmax over a bool row."""
+    return torch.argmax(mask.to(torch.uint8), dim=-1)
+
+
+def _sorted_segments(keys: torch.Tensor):
+    """Per row of keys [B, K]: the stable ascending sort's permutation
+    (ties keep index order, the reference's `lexsort_perm(keys, arange)`),
+    the sorted keys, and each sorted position's segment start (the first
+    position of its run of equal keys)."""
+    perm = torch.sort(keys, dim=1, stable=True).indices
+    sk = keys.gather(1, perm)
+    starts = torch.ones_like(sk, dtype=torch.bool)
+    starts[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    pos = torch.arange(keys.shape[1], device=keys.device).expand_as(keys)
+    seg_first = torch.cummax(torch.where(starts, pos, 0), dim=1).values
+    return perm, sk, seg_first, pos
+
+
+def conflict_round_batched(avail, assignment, cand_val, cand_idx, d, n, *,
+                           recheck_mask=None):
+    """`conflict_round` for a leading batch axis of independent problems
+    (the reference's `jax.vmap(conflict_round)`): avail [B, N, R],
+    assignment [B, S], cand_val / cand_idx [B, S, kc], d [B, S, R] and the
+    optional recheck_mask [B, S, N].  Every sort, rank and prefix sum runs
+    along the slot axis of one row, so each problem gets exactly what the
+    one-problem round gives it; the accepted demand scatters through the
+    flat index b * N + node."""
+    bsz, k = assignment.shape
+    n_res = avail.shape[-1]
+    dev = avail.device
+    rows = torch.arange(bsz, device=dev)[:, None]
+    ci = cand_idx.long()
+    cand_ok = cand_val > -BIG                                  # [B, K, kc]
+    unplaced = assignment < 0
+    feas_cand = ((avail[rows[..., None], ci] >= d[:, :, None, :]).all(-1)
+                 & cand_ok & unplaced[..., None])
+    if recheck_mask is not None:
+        feas_cand &= torch.gather(recheck_mask, 2, ci)
+    has = feas_cand.any(dim=-1)
+    f0 = _first_true(feas_cand)
+    pick0 = torch.where(has, cand_idx.gather(2, f0[..., None])[..., 0], n)
+    if cand_idx.shape[-1] == 1:
+        pick, take = pick0, has
+    else:
+        # contention spreading: c-th contender takes its c-th feasible
+        # candidate
+        perm, _, seg_first, pos = _sorted_segments(pick0)
+        c = torch.empty_like(perm).scatter_(1, perm, pos - seg_first)
+        cum = torch.cumsum(feas_cand, dim=-1)
+        sel = (cum == (c + 1)[..., None]) & feas_cand
+        pick = cand_idx.gather(2, _first_true(sel)[..., None])[..., 0]
+        take = has & sel.any(dim=-1)
+    pick_key = torch.where(take, pick, n)
+    # prefix-accept: per-node cumulative demand among this round's picks
+    # must fit availability (segmented over sorted picks)
+    perm2, sp2, seg_first2, _ = _sorted_segments(pick_key)
+    d_sorted = d.gather(1, perm2[..., None].expand(-1, -1, n_res))
+    d2 = torch.where((sp2 < n)[..., None], d_sorted, 0.0)
+    cums = torch.cumsum(d2, dim=1)
+    prev = (seg_first2 - 1).clamp_min(0)[..., None].expand(-1, -1, n_res)
+    base = torch.where((seg_first2 > 0)[..., None], cums.gather(1, prev), 0.0)
+    segcum = cums - base
+    have2 = avail[rows, sp2.clamp(0, n - 1).long()]
+    accept2 = (sp2 < n) & (segcum <= have2 + 1e-9).all(-1)
+    accept = torch.empty_like(accept2).scatter_(1, perm2, accept2)
+    assignment = torch.where(accept, pick, assignment).to(torch.int32)
+    flat = (rows * avail.shape[1] + torch.where(accept, pick, n - 1)).long()
+    delta = torch.zeros_like(avail).view(-1, n_res).index_add_(
+        0, flat.view(-1), torch.where(accept[..., None], d, 0.0)
+        .view(-1, n_res)).view(avail.shape)
+    return avail - delta, assignment
 
 
 def conflict_round(avail, assignment, cand_val, cand_idx, d, n, *,
@@ -142,53 +200,15 @@ def conflict_round(avail, assignment, cand_val, cand_idx, d, n, *,
          with the reference's 1e-9 tolerance);
       4. accepted demand is scatter-subtracted from availability.
 
+    avail [N, R], assignment [K], cand_val / cand_idx [K, kc], d [K, R];
     `recheck_mask` ([K, N] bool) re-applies a constraint mask on the
-    candidate gather.  Returns (new_avail, assignment)."""
-    k = cand_idx.shape[0]
-    dev = avail.device
-    order = torch.arange(k, device=dev)
-    ci = cand_idx.long()
-    cand_ok = cand_val > -BIG                                  # [K, kc]
-    unplaced = assignment < 0
-    feas_cand = ((avail[ci] >= d[:, None, :]).all(-1)
-                 & cand_ok & unplaced[:, None])
-    if recheck_mask is not None:
-        feas_cand &= torch.gather(recheck_mask, 1, ci)
-    has = feas_cand.any(dim=1)
-    f0 = _first_true(feas_cand)
-    pick0 = torch.where(has, cand_idx.gather(1, f0[:, None])[:, 0], n)
-    if cand_idx.shape[1] == 1:
-        pick, take = pick0, has
-    else:
-        # contention spreading: c-th contender takes its c-th feasible
-        # candidate
-        c = _segment_rank(pick0, order)
-        cum = torch.cumsum(feas_cand, dim=1)
-        sel = (cum == (c + 1)[:, None]) & feas_cand
-        pick = cand_idx.gather(1, _first_true(sel)[:, None])[:, 0]
-        take = has & sel.any(dim=1)
-    pick_key = torch.where(take, pick, n)
-    # prefix-accept: per-node cumulative demand among this round's picks
-    # must fit availability (segmented over sorted picks)
-    perm2 = lexsort_perm(pick_key, order)
-    sp2 = pick_key[perm2]
-    d2 = torch.where((sp2 < n)[:, None], d[perm2], 0.0)
-    cums = torch.cumsum(d2, dim=0)
-    starts2 = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                         sp2[1:] != sp2[:-1]])
-    seg_first2 = segment_first(starts2)
-    base = torch.where((seg_first2 > 0)[:, None],
-                       cums[(seg_first2 - 1).clamp_min(0)], 0.0)
-    segcum = cums - base
-    have2 = avail[sp2.clamp(0, n - 1).long()]
-    accept2 = (sp2 < n) & (segcum <= have2 + 1e-9).all(-1)
-    accept = torch.empty(k, dtype=torch.bool, device=dev)
-    accept[perm2] = accept2
-    assignment = torch.where(accept, pick, assignment).to(torch.int32)
-    delta = torch.zeros_like(avail).index_add_(
-        0, torch.where(accept, pick, n - 1).long(),
-        torch.where(accept[:, None], d, 0.0))
-    return avail - delta, assignment
+    candidate gather.  Returns (new_avail, assignment).  The batch of one
+    of `conflict_round_batched`."""
+    new_avail, new_assignment = conflict_round_batched(
+        avail[None], assignment[None], cand_val[None], cand_idx[None],
+        d[None], n,
+        recheck_mask=None if recheck_mask is None else recheck_mask[None])
+    return new_avail[0], new_assignment[0]
 
 
 def _top_kc(score: torch.Tensor, kc: int):

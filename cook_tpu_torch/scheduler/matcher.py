@@ -1,13 +1,15 @@
 """The match cycle: ranked queue + offers -> device solve -> launches.
 
-Port of the flat path of `cook_tpu/scheduler/matcher.py`: considerable-job
-selection (`select_considerable`), the problem encoding
-(`encode_problem_arrays`, `padded_job_axis`, `build_match_problem`), the
-solve dispatch (`dispatch_pool_solve`), and `prepare_pool_problem` /
+Port of `cook_tpu/scheduler/matcher.py`: considerable-job selection
+(`select_considerable`), the problem encoding (`encode_problem_arrays`,
+`padded_job_axis`, `build_match_problem`), the solve dispatch
+(`dispatch_pool_solve`: the flat chunked or exact solve, or the
+hierarchical two-level solve behind `HierarchicalPending` for pools at or
+over `hierarchical_threshold`), and `prepare_pool_problem` /
 `finalize_pool_match` / `match_pool`.
 
-Left for later slices: the hierarchical, gang, encode-cache, device-
-residency, predictor, quality-audit and flight-recorder branches.  The
+Left for later slices: the gang, encode-cache, device-residency,
+predictor, quality-audit and flight-recorder branches.  The
 reference's device-fallback ladder (re-solving a failed device solve on
 the CPU) has no counterpart: here a solve error propagates, so a fault of
 the card or the kernel is never hidden.
@@ -49,6 +51,7 @@ from cook_tpu_torch.ops.match import (
     backend_flags,
     chunked_match,
     greedy_match,
+    vmap_safe_backend,
 )
 from cook_tpu_torch.scheduler.constraints import (
     MISSING_ATTR,
@@ -92,9 +95,44 @@ class MatchConfig:
     # at MATCH time (demands + TaskSpec) so placement and the launched
     # pod agree (calculate-effective-resources, api.clj:1152)
     checkpoint_memory_overhead_mb: float = 0.0
+    # hierarchical two-level matcher (ops/hierarchical.py): a pool whose
+    # padded jobs x nodes product reaches this threshold solves coarse
+    # jobs x blocks, then every block's fine problem batched over the
+    # block axis, plus bounded refinement.  0 disables.
+    hierarchical_threshold: int = 0
+    # block geometry overrides; 0 = auto from the tuned buckets
+    # (ops/hierarchical.NODE_BLOCK_BUCKETS / block_slack)
+    hierarchical_nodes_per_block: int = 0
+    hierarchical_jobs_per_block: int = 0
+    hierarchical_refine_rounds: int = 2
+    # superblock (DCN-domain) layer: not ported yet, > 0 raises at solve
+    # time (config key `hier_superblock_nodes`)
+    hierarchical_superblock_nodes: int = 0
+    # coarse block-scoring backend: "xla" (masked chunked matcher) or
+    # "pallas" (the best_block kernel)
+    hierarchical_coarse_backend: str = "xla"
+    # the reference shards the fine batch over its device mesh; one card
+    # has no mesh, so nothing in the port reads it: the field exists only
+    # so that a configuration loads here as it loads in the reference.  It
+    # goes (or gains a meaning) when the port's mesh is built (ROADMAP
+    # Queue A item 9)
+    hierarchical_use_mesh: bool = True
+    # fine-solve backend: "xla" (a chunked solve per block) or "pallas"
+    # (the best_node_batched kernel)
+    hierarchical_fine_backend: str = "xla"
 
     def __post_init__(self):
         backend_flags(self.backend)  # raises on unknown names
+        if self.hierarchical_coarse_backend not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown hierarchical coarse backend "
+                f"{self.hierarchical_coarse_backend!r} "
+                "(expected xla | pallas)")
+        if self.hierarchical_fine_backend not in ("xla", "pallas"):
+            raise ValueError(
+                f"unknown hierarchical fine backend "
+                f"{self.hierarchical_fine_backend!r} "
+                "(expected xla | pallas)")
         if self.backend == "bucketed" and 0 < self.chunk and \
                 self.chunk_passes < 2:
             raise ValueError(
@@ -226,12 +264,72 @@ def build_match_problem(
     )
 
 
-def dispatch_pool_solve(prepared: "PreparedPool",
-                        config: MatchConfig) -> PendingResult:
+def problem_shape(problem: MatchProblem) -> tuple[int, int]:
+    """(padded jobs, padded nodes) of the solve."""
+    return (int(problem.demands.shape[0]), int(problem.avail.shape[0]))
+
+
+def hierarchical_enabled(config: MatchConfig,
+                         problem: MatchProblem) -> bool:
+    """Automatic two-level path: padded jobs x nodes at/over the
+    configured threshold (0 = never)."""
+    if config.hierarchical_threshold <= 0:
+        return False
+    j, n = problem_shape(problem)
+    return j * n >= config.hierarchical_threshold
+
+
+def hier_params_from_config(config: MatchConfig):
+    """MatchConfig -> ops/hierarchical.HierParams (the chunked-matcher
+    knobs carry over so the fine solve uses the pool's tuned config)."""
+    from cook_tpu_torch.ops.hierarchical import HierParams
+
+    return HierParams(
+        nodes_per_block=config.hierarchical_nodes_per_block,
+        jobs_per_block=config.hierarchical_jobs_per_block,
+        refine_rounds=config.hierarchical_refine_rounds,
+        superblock_nodes=config.hierarchical_superblock_nodes,
+        chunk=config.chunk or 1024,
+        rounds=config.chunk_rounds,
+        passes=config.chunk_passes,
+        kc=config.chunk_kc,
+        backend=vmap_safe_backend(config.backend),
+        coarse_backend=config.hierarchical_coarse_backend,
+        fine_backend=config.hierarchical_fine_backend,
+    )
+
+
+class HierarchicalPending:
+    """PendingResult stand-in for a pool solved by the two-level matcher:
+    the coarse/scatter/fine/refine pipeline needs host round-trips, so the
+    whole solve runs at `fetch()`.  Its stats land on
+    `prepared.hier_stats`."""
+
+    __slots__ = ("prepared", "config")
+
+    def __init__(self, prepared: "PreparedPool", config: MatchConfig):
+        self.prepared = prepared
+        self.config = config
+
+    def fetch(self) -> np.ndarray:
+        from cook_tpu_torch.ops.hierarchical import hierarchical_match
+
+        result, stats = hierarchical_match(
+            self.prepared.problem,
+            params=hier_params_from_config(self.config))
+        self.prepared.hier_stats = stats
+        return result.assignment[: len(self.prepared.considerable)] \
+            .cpu().numpy()
+
+
+def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig):
     """Dispatch the pool's match kernels WITHOUT observing completion; the
     returned PendingResult's `fetch()` is the one completion observation.
-    Flat path only: `chunk` > 0 runs `chunked_match`, else the exact
-    `greedy_match`."""
+    Pools at/over `hierarchical_threshold` route to the two-level matcher
+    behind the same interface; otherwise `chunk` > 0 runs
+    `chunked_match`, else the exact `greedy_match`."""
+    if hierarchical_enabled(config, prepared.problem):
+        return HierarchicalPending(prepared, config)
     if config.chunk:
         result = chunked_match(prepared.problem, chunk=config.chunk,
                                rounds=config.chunk_rounds,
@@ -346,6 +444,9 @@ class PreparedPool:
     balanced_pre_rows: dict = field(default_factory=dict)
     feasible: Optional[np.ndarray] = None
     problem: Optional[MatchProblem] = None
+    # two-level solve accounting (ops/hierarchical.py stats), set by
+    # HierarchicalPending.fetch
+    hier_stats: Optional[dict] = None
 
     @property
     def solvable(self) -> bool:
@@ -654,6 +755,13 @@ def match_pool(
         record_placement_failure=record_placement_failure)
     outcome.phase_wall_s = {"encode": t1 - t0, "solve": t2 - t1,
                             "launch": time.perf_counter() - t2}
+    hier = prepared.hier_stats
+    if hier is not None:
+        # the two-level solve's split of `solve`, under the names of the
+        # reference's CycleRecord.hier_phases
+        outcome.phase_wall_s.update(coarse_solve=hier["coarse_s"],
+                                    fine_solve=hier["fine_s"],
+                                    refine=hier["refine_s"])
     return outcome
 
 

@@ -7,7 +7,8 @@ trace once under the profiler (CPU and CUDA activity), and prints one
 JSON object: the per-cycle walls; the host-clock totals of the phases the
 simulator records (`SimResult.phase_wall_s`: rank, then match's encode =
 `prepare_pool_problem`, solve = dispatch through the fetch that observes
-completion, launch = `finalize_pool_match`); the device time of every
+completion, launch = `finalize_pool_match`, and for a hierarchical solve
+its coarse_solve / fine_solve / refine split of solve); the device time of every
 kernel and copy the profiler saw (total, and the top ones); and the
 device busy share of the replay's wall.  The profiler's own overhead is
 inside those walls.  On a CPU-only run the device figures are null.
@@ -23,9 +24,6 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from cook_tpu_torch.sim import cli
-
-PHASES = ("rank", "encode", "solve", "launch")
-
 
 def main(argv=None) -> int:
     args = cli.build_parser().parse_args(
@@ -53,8 +51,10 @@ def main(argv=None) -> int:
         "summary": cli.run_summary(result, sim.trace_jobs, hosts),
         "cycle_wall_ms": [round(s * 1e3, 3) for s in result.cycle_wall_s],
         "replay_wall_ms": round(wall_s * 1e3, 3),
-        "phase_wall_ms": {k: round(result.phase_wall_s[k] * 1e3, 3)
-                          for k in PHASES},
+        # every phase but match, which is encode + solve + launch
+        "phase_wall_ms": {k: round(v * 1e3, 3)
+                          for k, v in result.phase_wall_s.items()
+                          if k != "match"},
         "device_ms": round(device_us / 1e3, 3) if on_card else None,
         "device_busy_share": (round(device_us / 1e6 / wall_s, 5)
                               if on_card else None),

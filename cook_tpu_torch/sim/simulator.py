@@ -183,7 +183,8 @@ class Simulator:
         cfg = self.config
         submitted = 0
         # rank and match, then match's own split into encode / solve /
-        # launch (MatchOutcome.phase_wall_s)
+        # launch (MatchOutcome.phase_wall_s), and a hierarchical solve's
+        # split of solve into coarse_solve / fine_solve / refine
         phase_wall: dict[str, float] = {"rank": 0.0, "match": 0.0,
                                         "encode": 0.0, "solve": 0.0,
                                         "launch": 0.0}
@@ -228,7 +229,7 @@ class Simulator:
                 phase_wall["rank"] += t1 - t0
                 phase_wall["match"] += t2 - t1
                 for name, wall in outcome.phase_wall_s.items():
-                    phase_wall[name] += wall
+                    phase_wall[name] = phase_wall.get(name, 0.0) + wall
             cycle_wall.append(time.perf_counter() - t_cycle)
             # 4. advance virtual time
             self.now_ms += cfg.cycle_ms

@@ -73,4 +73,22 @@ def default_match_config(**overrides) -> MatchConfig:
         backend=str(d.get("backend", "xla")),
         checkpoint_memory_overhead_mb=float(
             d.get("checkpoint_memory_overhead_mb", 0.0)),
+        # hierarchical two-level matcher (ops/hierarchical.py): engages
+        # when padded jobs x nodes reaches the threshold (0 = off)
+        hierarchical_threshold=int(d.get("hierarchical_threshold", 0)),
+        hierarchical_nodes_per_block=int(
+            d.get("hierarchical_nodes_per_block", 0)),
+        hierarchical_jobs_per_block=int(
+            d.get("hierarchical_jobs_per_block", 0)),
+        hierarchical_refine_rounds=int(
+            d.get("hierarchical_refine_rounds", 2)),
+        # primary key `hier_superblock_nodes`; the long form is an alias
+        hierarchical_superblock_nodes=int(
+            d.get("hier_superblock_nodes",
+                  d.get("hierarchical_superblock_nodes", 0))),
+        hierarchical_coarse_backend=str(
+            d.get("hierarchical_coarse_backend", "xla")),
+        hierarchical_use_mesh=bool(d.get("hierarchical_use_mesh", True)),
+        hierarchical_fine_backend=str(
+            d.get("hierarchical_fine_backend", "xla")),
     )

@@ -107,7 +107,8 @@ def test_best_node_ties_pick_the_first_index():
     _assert_identical(want_v, want_i, got_v, got_i)
 
 
-@pytest.mark.parametrize("kind", ["bench", "mixed", "fleet", "infeasible"])
+@pytest.mark.parametrize("kind", ["bench", "mixed", "fleet",
+                                  "placed", "infeasible"])
 def test_best_node_on_the_chip_smoke_cases(kind):
     """The input kinds chip_smoke.py holds the CUDA kernel to (R = 4, gpu
     and disk columns, masks, a fleet of identical hosts), at a small size:

@@ -1,6 +1,6 @@
-"""The slice as a whole: the port's simulator (rank -> chunked match ->
-launch) replays a synthetic trace to the same run trace as the reference
-simulator, on the CPU.
+"""The slice as a whole: the port's simulator (rank -> chunked or
+hierarchical match -> launch) replays a synthetic trace to the same run
+trace as the reference simulator, on the CPU.
 
 The reference scheduler is run with `use_columnar_index=False`: the port
 ranks with the reference's `rank_pool` (its non-columnar branch); the
@@ -28,6 +28,15 @@ CONFIGS = {
     # tests/test_pallas_match.py:156's scheduler config
     "pallas": dict(chunk=16, backend="pallas", chunk_rounds=2,
                    chunk_passes=12),
+    # the same, with every solve on the hierarchical path and both of its
+    # backends on the kernels (the reference's mesh off: its tests run 8
+    # virtual CPU devices, and one card has no mesh)
+    "hier": dict(chunk=16, backend="pallas", chunk_rounds=2,
+                 chunk_passes=12, hierarchical_threshold=1,
+                 hierarchical_nodes_per_block=8,
+                 hierarchical_coarse_backend="pallas",
+                 hierarchical_fine_backend="pallas",
+                 hierarchical_use_mesh=False),
 }
 
 
@@ -102,6 +111,32 @@ def test_default_match_config_reads_tuned_defaults(monkeypatch, tmp_path):
             assert getattr(got, name) == getattr(want, name), name
 
 
+HIER_KEYS = ("hierarchical_threshold", "hierarchical_nodes_per_block",
+             "hierarchical_jobs_per_block", "hierarchical_refine_rounds",
+             "hierarchical_superblock_nodes", "hierarchical_coarse_backend",
+             "hierarchical_use_mesh", "hierarchical_fine_backend")
+
+
+@pytest.mark.parametrize("overrides", [
+    {},
+    dict(hierarchical_threshold=1, hierarchical_nodes_per_block=64,
+         hierarchical_jobs_per_block=256, hierarchical_refine_rounds=0,
+         hierarchical_coarse_backend="pallas",
+         hierarchical_fine_backend="pallas", hierarchical_use_mesh=False),
+    # the superblock key and its long-form alias
+    dict(hier_superblock_nodes=4096),
+    dict(hierarchical_superblock_nodes=2048),
+], ids=["defaults", "all", "superblock-key", "superblock-alias"])
+def test_default_match_config_reads_hierarchical_keys(overrides):
+    from cook_tpu.utils.config import default_match_config as ref_default
+    from cook_tpu_torch.utils.config import default_match_config
+
+    got = default_match_config(**overrides)
+    want = ref_default(**overrides)
+    for name in HIER_KEYS:
+        assert getattr(got, name) == getattr(want, name), name
+
+
 def test_unsubmitted_jobs_report_unscheduled():
     """A run cut by max_cycles before the trace's last submit: the
     reference raises KeyError in _collect_rows (sim/simulator.py:597);
@@ -163,3 +198,25 @@ def test_small_slice_places_within_capacity():
     assert sum(r["start_ms"] is not None for r in result.rows) > 0
     assert check_capacity(s) > 0
     assert np.isfinite(result.utilization(hosts))
+
+
+def test_small_hier_slice_places_within_capacity():
+    """chip_smoke.py's hierarchical configuration at a CPU-sized trace:
+    every solve takes the two-level path, jobs land, its phase walls are
+    summed beside the others, and no host is oversubscribed."""
+    from chip_smoke import HIER_MATCH, check_capacity
+    from cook_tpu_torch.utils.config import default_match_config
+
+    jobs, hosts = sim.synth_trace(3000, 50, n_users=50,
+                                  submit_span_ms=60_000)
+    s = sim.Simulator(jobs, hosts, sim.SimConfig(
+        max_cycles=3, scheduler=SchedulerConfig(
+            match=default_match_config(**HIER_MATCH,
+                                       hierarchical_nodes_per_block=8))),
+        device="cpu")
+    result = s.run()
+    assert sum(r["start_ms"] is not None for r in result.rows) > 0
+    assert check_capacity(s) > 0
+    walls = result.phase_wall_s
+    split = walls["coarse_solve"] + walls["fine_solve"] + walls["refine"]
+    assert 0 < split <= walls["solve"]
