@@ -10,13 +10,16 @@ and prints no result line):
                   `nvidia-smi` reports them.
   2. build      — the three kernels compile from cook_tpu_torch/csrc/
                   (`best_node.cu`, `best_block.cu`, `best_node_batched.cu`,
-                  sharing `score_tile.cuh`) into cook_tpu_torch/_build/,
-                  one `nvcc` each, all started together.
+                  sharing `score_tile.cuh`; the first and last also
+                  `node_tile.cuh`) into cook_tpu_torch/_build/, one `nvcc`
+                  each, all started together.
   3. kernel     — each kernel on the card against its plain PyTorch
                   version (`*_reference`) on the same inputs: identical
                   indices and bit-identical scores, at the cases listed in
                   KERNEL_CASES, BLOCK_CASES and BATCHED_CASES; CUDA-event
-                  times of both (median of 20) beside the bound.
+                  times (median of 20) of the kernel with the L2 cache
+                  evicted before each run (cold) and without (warm), of the
+                  plain version (cold), beside the bound.
   4. slice      — the flat path, through the simulator's CLI: a synthetic
                   trace of 100,000 jobs x 10,000 hosts replayed for 3
                   cycles with the chunked matcher on the `best_node`
@@ -24,7 +27,9 @@ and prints no result line):
                   just after.  The arguments of every `best_node` call the
                   matcher makes are kept.
   5. launches   — every kept `best_node` launch rerun and held against the
-                  plain version; the kernel line's times are those of one.
+                  plain version; the one with the most live jobs run 5
+                  times, bit-identical each time; the kernel line's times
+                  are those of that one.
   6. hier slice — the hierarchical path on the same trace: the simulator
                   with `default_match_config(...)` routing every solve to
                   the two-level matcher with both backends `pallas` (coarse
@@ -32,7 +37,8 @@ and prints no result line):
                   counts reset just before and read just after; every
                   kernel call kept.
   7. hier launches — every kept `best_block` / `best_node_batched` launch
-                  rerun and held against its plain version, bit for bit.
+                  rerun and held against its plain version, bit for bit,
+                  and the one with the most live rows run 5 times.
   8. agreement  — small traces replayed on the card and on the CPU, flat
                   and hierarchical, whose run traces must agree.
   9. report     — a `{"kernels": [...]}` line, then the last line
@@ -71,8 +77,9 @@ KERNELS = {
                           "cook_tpu/ops/pallas_match.py:316"),
 }
 
-# best_node: (label, K jobs, N nodes, kind), all with the simulator's R = 4
-# resource columns (mem, cpus, gpus, disk; matcher.encode_problem_arrays):
+# best_node: (label, K jobs, N nodes, kind), with the simulator's R = 4
+# resource columns (mem, cpus, gpus, disk; matcher.encode_problem_arrays)
+# unless the kind says otherwise:
 #   bench      bench.make_problem's jobs and hosts 20-100% free, no mask
 #   mixed      the same plus gpu and disk columns in use, about half the
 #              mask set
@@ -83,6 +90,14 @@ KERNELS = {
 #              the chunked matcher marks them), which the kernel answers
 #              without scoring
 #   infeasible demands no node can hold
+#   last_tile  mixed, with only the last node in the mask: the one
+#              feasible node sits in the last node tile
+#   tile_tie   identical hosts, the mask set only at TILE_EDGES (those
+#              under N), job k from edge pair k mod (pairs) on: equal best
+#              scores in two or more node tiles, where the earliest index
+#              must win
+#   r2, r8     mixed with R = 2 (mem, cpus) and R = 8 (four more columns)
+# K 1025 and N 2049 / 4097 are one past any power-of-two job or node tile.
 KERNEL_CASES = [
     ("bench 16384x2048", 16384, 2048, "bench"),
     ("mixed 1024x16384 masked", 1024, 16384, "mixed"),
@@ -90,7 +105,14 @@ KERNEL_CASES = [
     ("prime 1021x2039 masked", 1021, 2039, "mixed"),
     ("placed 1024x16384 masked", 1024, 16384, "placed"),
     ("infeasible 1024x2048", 1024, 2048, "infeasible"),
+    ("last tile 1025x4097 masked", 1025, 4097, "last_tile"),
+    ("tile tie 1025x8192 masked", 1025, 8192, "tile_tie"),
+    ("r2 1025x2049 masked", 1025, 2049, "r2"),
+    ("r8 1025x16384 masked", 1025, 16384, "r8"),
 ]
+# the last and first node of node tiles of 1024, 2048 and 4096 nodes
+TILE_EDGES = (1023, 1024, 2047, 2048, 4095, 4096)
+TILE_KINDS = ("last_tile", "tile_tie", "r2", "r8")
 FLEET_HOSTS = 10_000
 # best_block: (label, K jobs, B blocks, kind), at the coarse pass's shape
 # on the slice (coarse chunk 4096 x 16 blocks of 1024 hosts):
@@ -118,6 +140,8 @@ BLOCK_CASES = [
 #   placed     mixed, with 7 of 8 slots marked placed or empty, the share
 #              of the slice's full-cycle fine launches
 #   infeasible demands no node can hold
+#   last_tile, tile_tie, r2, r8   as for best_node, per block; N 2500 and
+#              4097 span several node tiles, S 1025 is one past a slot tile
 # plus prime slot and node counts
 BATCHED_CASES = [
     ("mixed 16x2048x1024 masked", 16, 2048, 1024, "mixed"),
@@ -126,8 +150,15 @@ BATCHED_CASES = [
     ("prime 7x1021x509 masked", 7, 1021, 509, "mixed"),
     ("placed 16x2048x1024 masked", 16, 2048, 1024, "placed"),
     ("infeasible 16x2048x1024", 16, 2048, 1024, "infeasible"),
+    ("last tile 3x257x2500 masked", 3, 257, 2500, "last_tile"),
+    ("tile tie 2x1025x4097 masked", 2, 1025, 4097, "tile_tie"),
+    ("r2 4x1025x1024 masked", 4, 1025, 1024, "r2"),
+    ("r8 4x1025x1024 masked", 4, 1025, 1024, "r8"),
 ]
 
+# the slices' trace: 100,000 jobs x 10,000 hosts (sim.cli synth)
+SYNTH_ARGS = ["--jobs", "100000", "--hosts", "10000", "--users", "50",
+              "--submit-span-ms", "60000"]
 SLICE_ARGS = ["--considerable", "16384", "--chunk", "1024",
               "--backend", "pallas", "--max-cycles", "3",
               "--cycle-ms", "30000"]
@@ -195,6 +226,43 @@ def _put(arrays, device):
                  for a in arrays)
 
 
+def _tile_kind(rng, kind, demands, avail, totals, mask):
+    """The node-tile kinds (KERNEL_CASES), made from a `mixed` draw of
+    either kernel: [..., K, R] demands, [..., N, R] avail, [..., N, 2]
+    totals, [..., K, N] mask."""
+    import numpy as np
+
+    k, n = mask.shape[-2:]
+    roomy = np.float32([65536, 32, 8, 100_000])
+    if kind == "last_tile":
+        avail[..., -1, :] = roomy
+        mask[...] = False
+        mask[..., -1] = True
+    elif kind == "tile_tie":
+        totals[...] = roomy[:2]
+        avail[...] = roomy
+        mask[...] = False
+        for j, first in enumerate(tile_tie_first(k, n)):
+            mask[..., j, [e for e in TILE_EDGES if first <= e < n]] = True
+    elif kind == "r2":
+        demands, avail = demands[..., :2].copy(), avail[..., :2].copy()
+    elif kind == "r8":
+        more = rng.integers(0, 100, (*avail.shape[:-1], 4))
+        want = np.where(rng.uniform(size=(*demands.shape[:-1], 4)) < 0.3,
+                        rng.integers(1, 50, (*demands.shape[:-1], 4)), 0)
+        demands = np.concatenate([demands, want], -1).astype(np.float32)
+        avail = np.concatenate([avail, more], -1).astype(np.float32)
+    return demands, avail, totals, mask
+
+
+def tile_tie_first(k, n):
+    """[k] int: the node each job of a `tile_tie` case must take."""
+    import numpy as np
+
+    edges = [e for e in TILE_EDGES if e < n]
+    return np.array([edges[2 * (j % (len(edges) // 2))] for j in range(k)])
+
+
 def make_inputs(k, n, kind, device, seed=0):
     """(demands, avail, totals, node_valid, mask) for one KERNEL_CASES
     kind; node_valid is all set, as chunked_match passes it when a mask
@@ -211,7 +279,7 @@ def make_inputs(k, n, kind, device, seed=0):
     mask = None
     if kind == "infeasible":
         demands[:, 0] = 1e9
-    elif kind in ("mixed", "placed"):
+    elif kind in ("mixed", "placed", *TILE_KINDS):
         # one host in 8 carries 0-8 free gpus, every host 0-100 GB of free
         # disk; one job in 16 wants 1-2 gpus and half want 1-10 GB of disk
         gpu_host = rng.uniform(size=n) < 0.125
@@ -224,6 +292,8 @@ def make_inputs(k, n, kind, device, seed=0):
         mask = rng.uniform(size=(k, n)) < 0.5
         if kind == "placed":
             _place(rng, demands, 0.5)
+        demands, avail, totals, mask = _tile_kind(rng, kind, demands, avail,
+                                                  totals, mask)
     elif kind == "fleet":
         real = np.arange(n) < FLEET_HOSTS
         totals[~real] = 0.0
@@ -285,7 +355,7 @@ def make_batched_inputs(b, s, n, kind, device, seed=0):
     mask = None
     if kind == "infeasible":
         demands[..., 0] = 1e9
-    elif kind in ("mixed", "placed"):
+    elif kind in ("mixed", "placed", *TILE_KINDS):
         gpu_host = rng.uniform(size=(b, n)) < 0.125
         avail[..., 2] = np.where(gpu_host, rng.integers(0, 9, (b, n)), 0)
         avail[..., 3] = rng.integers(0, 100_000, (b, n))
@@ -296,6 +366,8 @@ def make_batched_inputs(b, s, n, kind, device, seed=0):
         mask = rng.uniform(size=(b, s, n)) < 0.5
         if kind == "placed":
             _place(rng, demands, 0.875)
+        demands, avail, totals, mask = _tile_kind(rng, kind, demands, avail,
+                                                  totals, mask)
     elif kind == "fleet":
         # the slice's 10,000 of 16384 hosts real, at this batch's size
         real = (np.arange(b * n) < b * n * FLEET_HOSTS // 16384) \
@@ -314,7 +386,24 @@ def make_batched_inputs(b, s, n, kind, device, seed=0):
     return _put((demands, avail, totals, valid, mask), device)
 
 
-def cuda_ms(fn, reps=20, spin_cycles=2_000_000):
+# bytes written before each cold timing: well over the card's 50 MB L2, so
+# the timed call finds none of its inputs there
+SCRUB_BYTES = 256 << 20
+_scrub = []
+
+
+def evict_l2():
+    """Write SCRUB_BYTES of device memory, pushing every earlier line out
+    of the L2 cache."""
+    import torch
+
+    if not _scrub:
+        _scrub.append(torch.empty(SCRUB_BYTES, dtype=torch.uint8,
+                                  device="cuda"))
+    _scrub[0].fill_(1)
+
+
+def cuda_ms(fn, reps=20, spin_cycles=2_000_000, cold=False):
     """Median of `reps` CUDA-event timings of fn()'s device work (after
     one warm-up).  Each timing is queued behind a spin of the card
     (`torch.cuda._sleep`, ~1 ms at first), so the host has issued all of
@@ -323,7 +412,10 @@ def cuda_ms(fn, reps=20, spin_cycles=2_000_000):
     wrapper's checks, its allocations, the ctypes call).  A timing counts
     only if the card was still short of the start event when the host
     had queued the end one; otherwise the spin is lengthened and the
-    timings taken again."""
+    timings taken again.  With `cold`, the L2 cache is evicted before each
+    timing (ahead of the spin, outside the events), so fn reads its inputs
+    from device memory, as the bytes bound assumes; without, fn finds the
+    inputs its previous run left in L2."""
     import torch
 
     fn()
@@ -332,6 +424,8 @@ def cuda_ms(fn, reps=20, spin_cycles=2_000_000):
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if cold:
+                evict_l2()
             torch.cuda._sleep(spin_cycles)
             start.record()
             fn()
@@ -441,20 +535,27 @@ def check_identical(name, label, args):
 
 
 def time_case(name, args):
+    """Cold and warm kernel times, the plain version's (cold) and the
+    bound; raises if the cold time reads under the bound, which only a
+    failed L2 eviction could give."""
     mod = _module(name)
     kernel = getattr(mod, name)
     plain = getattr(mod, f"{name}_reference")
-    ms = cuda_ms(lambda: kernel(*args))
-    plain_ms = cuda_ms(lambda: plain(*args))
+    ms = cuda_ms(lambda: kernel(*args), cold=True)
+    warm_ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain(*args), cold=True)
     bound_ms, bound_by = BOUNDS[name](*args)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    if ms < bound_ms:
+        raise AssertionError(f"{name}: cold time {ms:.4g} ms under its "
+                             f"bound {bound_ms:.4g} ms: L2 not evicted")
+    return dict(ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _print_row(name, label, row, extra=""):
-    print(f"{name} {label}: {extra}kernel {row['ms']:.4f} ms  plain "
-          f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4g} ms "
-          f"({row['bound_by']})", flush=True)
+    print(f"{name} {label}: {extra}kernel {row['ms']:.4f} ms cold "
+          f"{row['warm_ms']:.4f} ms warm  plain {row['plain_ms']:.4f} ms  "
+          f"bound {row['bound_ms']:.4g} ms ({row['bound_by']})", flush=True)
 
 
 def _kernel_cases(name, cases, make):
@@ -476,6 +577,13 @@ def _kernel_cases(name, cases, make):
             if not bool((first == 0).all()):
                 raise AssertionError(f"{name} fleet case: on identical "
                                      "hosts every job must take the first")
+        want = {"last_tile": lambda k, n: torch.full((k,), n - 1),
+                "tile_tie": lambda k, n: torch.as_tensor(
+                    tile_tie_first(k, n))}.get(kind)
+        if want is not None and not bool(
+                (idx.cpu() == want(*shape[-2:]).to(idx.dtype)).all()):
+            raise AssertionError(f"{name} {label}: a job missed the node "
+                                 "the case leaves it")
         _print_row(name, label, time_case(name, args),
                    f"identical (found {int((idx >= 0).sum())}/"
                    f"{idx.numel()})  ")
@@ -654,6 +762,24 @@ def hier_slice_phase(trace):
     return launches, calls
 
 
+DETERMINISM_RUNS = 5
+
+
+def check_deterministic(name, args):
+    """DETERMINISM_RUNS runs of the kernel on one launch's arguments must
+    give bit-identical outputs: thread blocks finish in any order, and
+    the combine must not depend on it."""
+    import torch
+
+    kernel = getattr(_module(name), name)
+    first = [t.view(torch.int32) for t in kernel(*args)]
+    for run in range(1, DETERMINISM_RUNS):
+        again = [t.view(torch.int32) for t in kernel(*args)]
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{name}: run {run} differs from run 0 "
+                                 "on the same inputs")
+
+
 def launch_phase(name, calls, active):
     """Every kept launch of `name` against the plain version; the times
     of the launch with the most jobs still unplaced (latest first).
@@ -670,10 +796,11 @@ def launch_phase(name, calls, active):
     counts = [active(a) for a in calls]
     pick = max(range(len(calls)), key=lambda i: (counts[i], i))
     torch.cuda.synchronize()
+    check_deterministic(name, calls[pick])
     row = time_case(name, calls[pick])
     print(f"{name} slice launches: {len(calls)}/{len(calls)} identical "
-          f"to the plain version; input shapes {sorted(shapes)}",
-          flush=True)
+          f"to the plain version; input shapes {sorted(shapes)}; launch "
+          f"{pick} bit-identical over {DETERMINISM_RUNS} runs", flush=True)
     _print_row(name, f"slice launch {pick} ({counts[pick]} jobs unplaced)",
                row)
     return row, max_err
@@ -748,9 +875,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="cook-smoke-") as workdir:
         trace = os.path.join(workdir, "trace.json")
         t0 = time.perf_counter()
-        cli.main(["synth", "--jobs", "100000", "--hosts", "10000",
-                  "--users", "50", "--submit-span-ms", "60000",
-                  "--out", trace])
+        cli.main(["synth", *SYNTH_ARGS, "--out", trace])
         print(f"synth {time.perf_counter() - t0:.1f} s", flush=True)
         flat_launches, calls = slice_phase(trace, workdir)
         launches = {"best_node": flat_launches}
@@ -774,6 +899,7 @@ def main() -> int:
         "launches": launches[name],
         "max_abs_err": errs[name],
         "ms": rows[name]["ms"],
+        "warm_ms": rows[name]["warm_ms"],
         "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"],

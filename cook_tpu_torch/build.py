@@ -97,14 +97,11 @@ def load(name: str) -> ctypes.CDLL:
     return load_all([name])[0]
 
 
-@functools.lru_cache(maxsize=None)
-def launcher(name: str, n_ptrs: int, n_ints: int):
+def bind(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int):
     """The C entry point `<name>_launch(ptr x n_ptrs, int x n_ints, stream)`
-    of kernel library `name` (built at first use), as a Python function
-    that raises when the launch returns a cudaError_t other than 0.  Every
-    pointer and the stream pass as c_void_p: a plain int would be cut to
-    32 bits."""
-    lib = load(name)
+    of `lib` as a Python function that raises when the launch returns a
+    cudaError_t other than 0.  Every pointer and the stream pass as
+    c_void_p: a plain int would be cut to 32 bits."""
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
@@ -120,3 +117,9 @@ def launcher(name: str, n_ptrs: int, n_ints: int):
                                + error_string(err).decode())
 
     return launch
+
+
+@functools.lru_cache(maxsize=None)
+def launcher(name: str, n_ptrs: int, n_ints: int):
+    """`bind` of kernel library `name`, built at first use."""
+    return bind(load(name), name, n_ptrs, n_ints)

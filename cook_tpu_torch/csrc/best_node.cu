@@ -12,111 +12,67 @@
 //   out            = (max fit, first index of the max), or (-BIG, -1)
 //                    where no node is feasible.
 //
-// Design.  The TPU kernel walks node tiles in a sequential grid with a
-// VMEM accumulator; here one warp owns one job and loops over all nodes
-// itself, so nothing carries between blocks.  Lanes stride over the node
-// axis (lane l takes nodes l, l+32, ...), which makes the mask-row reads
-// of a warp contiguous; each lane keeps a running (best, idx) with a
-// strict `>`, so within a lane the first index of a tie wins, and the
-// warp shuffle reduction keeps the larger value or, on a tie, the smaller
-// index.  The ragged edges (K not a multiple of the warps per block, N
-// not a multiple of 32) are masked here, so the wrapper pads nothing.
+// Design.  The batch of one of node_tile.cuh: a thread block owns a tile of
+// TJ jobs x TN nodes, stages the node tile in shared memory once for its
+// jobs (as the TPU kernel kept its node tile in VMEM across the job tile),
+// and streams each live job's mask row as 16-byte vectors.  The node axis
+// is split across thread blocks, so a job's best is the 64-bit atomicMax of
+// the blocks' packed keys (score_tile.cuh): largest score, then smallest
+// index, whatever order the blocks finish in; a second small kernel unpacks
+// the keys and recomputes the winners' fitness.
 //
-// Bound.  Per call the kernel must read the K x N mask (one byte per
-// pair: a quarter of the int32 mask the TPU kernel streams) plus the
-// small K x R and N x (R + 3) inputs; the mask is the only stream that
-// grows with K x N, so the call is memory-bound on those bytes.  At the
-// simulator's K = 1024 the launch overhead is of the same order.  The
-// fast shape for Hopper (TMA-fed shared-memory ring of mask tiles,
-// several warps per job) is later work; this version is simple and exact.
+// Bound.  A call must read the live jobs' K x N mask bytes plus the small
+// K x R and N x (R + 3) inputs: at the flat slice's launch (K 1024 x N
+// 16384, R 4) 16.8 MB, 5.1 us at 3.35 TB/s.  What bounds this design is
+// not those bytes but fixed costs: per thread block the node tile's
+// staging and the demands' and mask's round trips to memory, per job the
+// bookkeeping around its 16 nodes a lane.  At that launch it takes ~0.038
+// ms cold (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W), of which a launch
+// with every job dead is ~0.009 ms and one with an empty mask ~0.030 ms
+// (tile_sweep.py).  The previous design (one warp per job walking all N
+// nodes with 1-byte mask loads, node data re-read from global memory per
+// job: 1024 warps, ~1 block of 8 on each SM, 512 dependent steps each)
+// took 0.3197 ms at that launch (same script and card).
+//
+// Tiles.  TJ 32 jobs x TN 512 nodes, G 1 warp a job: K 1024 x N 16384 is
+// 32 x 32 = 1024 thread blocks of 8 warps, ~8 for each of the 132 SMs,
+// each with (R + 4) x 544 x 4 B = 17 KB of shared memory at R 4; each warp
+// scores 4 jobs, 512 nodes of each, with the next job's 16-byte chunks
+// (one a lane, 512 B a warp) in flight.  Fewer jobs a tile stage the node tile more often, more
+// leave SMs idle; on the flat slice's busiest launch these sizes measured
+// fastest of a sweep on the card (cook_tpu_torch/tile_sweep.py), and
+// BEST_NODE_TJ / _TN / _G override them for it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see cook_tpu_torch/build.py)
-// --fmad=false keeps the fitness arithmetic rounded exactly as the plain
-// PyTorch version rounds it, so the two agree bit for bit.  Feasibility,
-// fitness and the first-index reduction live in score_tile.cuh, shared
-// with best_block.cu and best_node_batched.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "score_tile.cuh"
+#include "node_tile.cuh"
 
-namespace {
-
-using score_tile::kBig;
-using score_tile::kMaxR;
-
-constexpr int kWarpsPerBlock = 8;
-
-template <bool kMasked>
-__global__ void best_node_kernel(const float* __restrict__ demands,  // [K,R]
-                                 const float* __restrict__ avail,    // [N,R]
-                                 const float* __restrict__ totals,   // [N,2]
-                                 const uint8_t* __restrict__ valid,  // [N]
-                                 const uint8_t* __restrict__ mask,   // [K,N]
-                                 float* __restrict__ out_val,        // [K]
-                                 int32_t* __restrict__ out_idx,      // [K]
-                                 int K, int N, int R) {
-  const int lane = threadIdx.x & 31;
-  const int job = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (job >= K) return;  // whole warp exits together: no shuffle hazard
-
-  float d[kMaxR];
-  score_tile::load_demand(demands + (int64_t)job * R, R, d);
-  if (!score_tile::live(d)) {  // the same job for all 32 lanes
-    if (lane == 0)
-      score_tile::store_best(-kBig, score_tile::kNoIdx, out_val + job,
-                             out_idx + job);
-    return;
-  }
-
-  float best = -kBig;
-  int idx = score_tile::kNoIdx;
-  const uint8_t* mask_row = kMasked ? mask + (int64_t)job * N : nullptr;
-  for (int n = lane; n < N; n += 32) {
-    if (kMasked && !mask_row[n]) continue;
-    if (!valid[n]) continue;
-    const float* a = avail + (int64_t)n * R;
-    if (!score_tile::fits(a, d, R)) continue;
-    // strict `>` inside keep_best: this lane's earlier node keeps a tie
-    score_tile::keep_best(
-        score_tile::fitness(totals[2 * (int64_t)n], totals[2 * (int64_t)n + 1],
-                            a[0], a[1], d),
-        n, best, idx);
-  }
-  score_tile::warp_argmax_first(best, idx);
-  if (lane == 0) score_tile::store_best(best, idx, out_val + job, out_idx + job);
-}
-
-}  // namespace
+#ifndef BEST_NODE_TJ
+#define BEST_NODE_TJ 32
+#endif
+#ifndef BEST_NODE_TN
+#define BEST_NODE_TN 512
+#endif
+#ifndef BEST_NODE_G
+#define BEST_NODE_G 1
+#endif
 
 extern "C" {
 
-// Launches on `stream`; `mask` may be null (the unmasked variant).
-// Returns the cudaError_t of the launch (0 = cudaSuccess).
+// Launches on `stream`; `mask` may be null (the unmasked variant); `keys`
+// is a [2K] int64 scratch (any contents).  Returns the cudaError_t of the
+// launches (0 = cudaSuccess).
 int best_node_launch(const void* demands, const void* avail,
                      const void* totals, const void* valid, const void* mask,
-                     void* out_val, void* out_idx, int K, int N, int R,
-                     void* stream) {
-  if (K <= 0 || N <= 0 || R < 2 || R > kMaxR) return (int)cudaErrorInvalidValue;
-  const dim3 grid((K + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(32 * kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* dp = static_cast<const float*>(demands);
-  const float* ap = static_cast<const float*>(avail);
-  const float* tp = static_cast<const float*>(totals);
-  const uint8_t* vp = static_cast<const uint8_t*>(valid);
-  float* ov = static_cast<float*>(out_val);
-  int32_t* oi = static_cast<int32_t*>(out_idx);
-  if (mask != nullptr) {
-    best_node_kernel<true><<<grid, block, 0, s>>>(
-        dp, ap, tp, vp, static_cast<const uint8_t*>(mask), ov, oi, K, N, R);
-  } else {
-    best_node_kernel<false><<<grid, block, 0, s>>>(
-        dp, ap, tp, vp, nullptr, ov, oi, K, N, R);
-  }
-  return (int)cudaGetLastError();
+                     void* out_val, void* out_idx, void* keys, int K, int N,
+                     int R, void* stream) {
+  return node_tile::launch<BEST_NODE_TJ, BEST_NODE_TN, BEST_NODE_G>(
+      demands, avail, totals, valid, mask, out_val, out_idx, keys, 1, K, N, R,
+      stream);
 }
 
 const char* best_node_error_string(int err) {

@@ -13,26 +13,34 @@
 //   out[b, s]         = (max fitness, first BLOCK-LOCAL index of the max),
 //                       or (-BIG, -1) where no node of block b is feasible.
 //
-// Design.  `best_node.cu` with batch offsets: one warp owns one (block,
-// slot) pair and walks that block's N nodes itself, lanes striding over
-// the node axis so a warp's mask-row reads are contiguous; the lanes
-// combine through the shared first-index shuffle reduction
-// (score_tile.cuh).  The TPU kernel's grid owns the block axis as its
-// outer dimension; here gridDim.y is the block and gridDim.x covers the
-// slots, so nothing carries between thread blocks.  Ragged S (slots not a
-// multiple of the warps per block) and N (not a multiple of 32) are
-// masked in the kernel, so the wrapper pads nothing.
+// Design.  node_tile.cuh with the grid's z axis on the batch: a thread
+// block owns TJ slots of one block b, stages b's nodes in shared memory
+// once for them, and streams each live slot's mask row as 16-byte vectors,
+// G warps to a slot.  A topology block's nodes (1024 at the 100k x 10k
+// slice) fit one node tile whole, so each thread block writes its slots'
+// answers itself, with no cross-block combine; a wider block would split
+// into node tiles and combine through the packed-key atomicMax, as
+// best_node does.  A thread block whose slots are all placed or empty (the
+// fine pass's 2*BIG mark) reads only their demands and writes (-BIG, -1).
 //
-// A slot that is not live (the fine pass's 2*BIG mark of a placed or empty
-// slot) is answered at once, so its warp reads no mask row.
+// Bound.  The live slots' mask rows, one byte per (slot, node), are the
+// stream that grows with the problem: at the hierarchical slice's launch
+// ([16, 2048, 1024], 4096 of 32768 slots live) 4.2 MB, 1.6 us at 3.35
+// TB/s.  The live slots sit in 2 of the 16 topology blocks there, so only
+// ~512 thread blocks work, each staging its block's 1024 nodes for 8
+// slots: fixed costs, not bytes, set the ~0.029 ms this design takes
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).  The previous design
+// (`best_node.cu` with batch offsets: one warp per slot walking its
+// block's N nodes with 1-byte mask loads, every warp re-reading the
+// block's node data from global memory, 4096 thread blocks of which
+// ~3,584 held only dead slots) took 0.0358 ms (same script and card).
 //
-// Bound.  The mask rows of the live slots, one byte per (slot, node), are
-// the only input that grows with the problem: at most 16 x 2048 x 1024 B
-// = 33.5 MB per launch at the 100k x 10k slice (~10 us at 3.35 TB/s), and
-// that times the live share of the slots, which on that slice is often an
-// eighth or less.  The fast shape (a TMA-fed
-// shared-memory ring of mask tiles, several warps per slot) is later
-// work; this version is simple and exact.
+// Tiles.  TJ 8 slots x TN 1024 nodes, G 2 warps a slot: the slice's 4096
+// live slots make 512 working thread blocks, ~4 on each of the 132 SMs; a
+// slot's 1 KB row is 64-65 uint4 chunks, one or two a lane of its 2
+// warps; the node tile is (R + 4) x 1088 x 4 B = 35 KB at R 4.  The sizes
+// are the fastest of a sweep on the card (cook_tpu_torch/tile_sweep.py);
+// BEST_NODE_BATCHED_TJ / _TN / _G override them for that sweep.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see cook_tpu_torch/build.py)
@@ -40,89 +48,32 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "score_tile.cuh"
+#include "node_tile.cuh"
 
-namespace {
-
-using score_tile::kBig;
-using score_tile::kMaxR;
-
-constexpr int kWarpsPerBlock = 8;
-
-template <bool kMasked>
-__global__ void best_node_batched_kernel(
-    const float* __restrict__ demands,  // [B,S,R]
-    const float* __restrict__ avail,    // [B,N,R]
-    const float* __restrict__ totals,   // [B,N,2]
-    const uint8_t* __restrict__ valid,  // [B,N]
-    const uint8_t* __restrict__ mask,   // [B,S,N]
-    float* __restrict__ out_val,        // [B,S]
-    int32_t* __restrict__ out_idx,      // [B,S]
-    int S, int N, int R) {
-  const int lane = threadIdx.x & 31;
-  const int slot = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (slot >= S) return;  // whole warp exits together: no shuffle hazard
-  const int64_t b = blockIdx.y;
-  const int64_t row = b * S + slot;
-
-  float d[kMaxR];
-  score_tile::load_demand(demands + row * R, R, d);
-  if (!score_tile::live(d)) {  // the same row for all 32 lanes
-    if (lane == 0)
-      score_tile::store_best(-kBig, score_tile::kNoIdx, out_val + row,
-                             out_idx + row);
-    return;
-  }
-  const float* av = avail + b * N * R;
-  const float* tot = totals + b * N * 2;
-  const uint8_t* ok = valid + b * N;
-  const uint8_t* mask_row = kMasked ? mask + row * N : nullptr;
-
-  float best = -kBig;
-  int idx = score_tile::kNoIdx;
-  for (int n = lane; n < N; n += 32) {
-    if (kMasked && !mask_row[n]) continue;
-    if (!ok[n]) continue;
-    const float* a = av + (int64_t)n * R;
-    if (!score_tile::fits(a, d, R)) continue;
-    score_tile::keep_best(
-        score_tile::fitness(tot[2 * (int64_t)n], tot[2 * (int64_t)n + 1],
-                            a[0], a[1], d),
-        n, best, idx);
-  }
-  score_tile::warp_argmax_first(best, idx);
-  if (lane == 0) score_tile::store_best(best, idx, out_val + row, out_idx + row);
-}
-
-}  // namespace
+#ifndef BEST_NODE_BATCHED_TJ
+#define BEST_NODE_BATCHED_TJ 8
+#endif
+#ifndef BEST_NODE_BATCHED_TN
+#define BEST_NODE_BATCHED_TN 1024
+#endif
+#ifndef BEST_NODE_BATCHED_G
+#define BEST_NODE_BATCHED_G 2
+#endif
 
 extern "C" {
 
-// Launches on `stream`; `mask` may be null (the unmasked variant).
-// Returns the cudaError_t of the launch (0 = cudaSuccess).
+// Launches on `stream`; `mask` may be null (the unmasked variant); `keys`
+// is a [2*B*S] int64 scratch (any contents), used only when N exceeds one
+// node tile.  Returns the cudaError_t of the launches (0 = cudaSuccess).
 int best_node_batched_launch(const void* demands, const void* avail,
                              const void* totals, const void* valid,
                              const void* mask, void* out_val, void* out_idx,
-                             int B, int S, int N, int R, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || N <= 0 || R < 2 || R > kMaxR)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-  const dim3 block(32 * kWarpsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* dp = static_cast<const float*>(demands);
-  const float* ap = static_cast<const float*>(avail);
-  const float* tp = static_cast<const float*>(totals);
-  const uint8_t* vp = static_cast<const uint8_t*>(valid);
-  float* ov = static_cast<float*>(out_val);
-  int32_t* oi = static_cast<int32_t*>(out_idx);
-  if (mask != nullptr) {
-    best_node_batched_kernel<true><<<grid, block, 0, s>>>(
-        dp, ap, tp, vp, static_cast<const uint8_t*>(mask), ov, oi, S, N, R);
-  } else {
-    best_node_batched_kernel<false><<<grid, block, 0, s>>>(
-        dp, ap, tp, vp, nullptr, ov, oi, S, N, R);
-  }
-  return (int)cudaGetLastError();
+                             void* keys, int B, int S, int N, int R,
+                             void* stream) {
+  return node_tile::launch<BEST_NODE_BATCHED_TJ, BEST_NODE_BATCHED_TN,
+                           BEST_NODE_BATCHED_G>(
+      demands, avail, totals, valid, mask, out_val, out_idx, keys, B, S, N, R,
+      stream);
 }
 
 const char* best_node_batched_error_string(int err) {

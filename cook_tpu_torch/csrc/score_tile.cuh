@@ -14,7 +14,8 @@
 //                     + (tot1 - av1 + d1) / max(tot1, 1e-30)) * 0.5
 //   best           = (max fitness, first index of the max), kept by a
 //                    strict `>` in index order and, across a warp, by
-//                    `warp_argmax_first`
+//                    `warp_argmax_first`; across thread blocks, by the
+//                    largest packed key (`pack_key`)
 //
 // The kernels build with --fmad=false (cook_tpu_torch/build.py), so the
 // fitness is rounded exactly as the plain PyTorch versions round it.
@@ -86,6 +87,34 @@ __device__ __forceinline__ void store_best(float best, int idx,
   const bool found = best > -kBig;
   *out_val = found ? best : -kBig;
   *out_idx = found ? idx : -1;
+}
+
+// Packed keys: the order-free combine of node tiles that thread blocks
+// finish in any order.  A key is (order_key(best) << 32) | (~0u - idx), so
+// the larger key is the larger score and, on a tie, the smaller index:
+// exactly the first-index argmax rule, and a 64-bit atomicMax over a job's
+// keys gives the same winner whatever order the blocks arrive in.  Only a
+// best above -BIG is ever submitted, so the empty key 0 (below every
+// submitted key) stands for "(-BIG, no index)".  tests/
+// test_torch_best_node.py holds a numpy model of these three helpers
+// line for line.
+constexpr unsigned long long kEmptyKey = 0ull;
+
+// float -> uint32 preserving order; -0.0 first becomes +0.0, because the
+// argmax treats the two as equal and their raw bits differ
+__device__ __forceinline__ uint32_t order_key(float f) {
+  uint32_t u = __float_as_uint(f);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ unsigned long long pack_key(float best, int idx) {
+  return ((unsigned long long)order_key(best) << 32)
+         | (unsigned long long)(0xffffffffu - (uint32_t)idx);
+}
+
+__device__ __forceinline__ int key_index(unsigned long long key) {
+  return (int)(0xffffffffu - (uint32_t)key);
 }
 
 }  // namespace score_tile

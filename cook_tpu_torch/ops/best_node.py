@@ -113,16 +113,19 @@ def _launch(demands, avail, totals, node_valid, feasible):
     global launches
     from cook_tpu_torch import build
 
-    launch = build.launcher("best_node", 7, 3)
+    launch = build.launcher("best_node", 8, 3)
     k, r = demands.shape
     n = avail.shape[0]
     with torch.cuda.device(demands.device):
         val = torch.empty(k, dtype=torch.float32, device=demands.device)
         idx = torch.empty(k, dtype=torch.int32, device=demands.device)
+        # scratch for the node tiles' packed keys (csrc/node_tile.cuh),
+        # zeroed by the launch itself when it splits the node axis
+        keys = torch.empty(2 * k, dtype=torch.int64, device=demands.device)
         launch(demands.data_ptr(), avail.data_ptr(), totals.data_ptr(),
                node_valid.data_ptr(),
                feasible.data_ptr() if feasible is not None else None,
-               val.data_ptr(), idx.data_ptr(), k, n, r,
+               val.data_ptr(), idx.data_ptr(), keys.data_ptr(), k, n, r,
                torch.cuda.current_stream(demands.device).cuda_stream)
     launches += 1
     return val, idx

@@ -52,16 +52,20 @@ def _launch(demands, avail, totals, node_valid, feasible):
     global launches
     from cook_tpu_torch import build
 
-    launch = build.launcher("best_node_batched", 7, 4)
+    launch = build.launcher("best_node_batched", 8, 4)
     b, s, r = demands.shape
     n = avail.shape[1]
     with torch.cuda.device(demands.device):
         val = torch.empty((b, s), dtype=torch.float32, device=demands.device)
         idx = torch.empty((b, s), dtype=torch.int32, device=demands.device)
+        # packed-key scratch, used only when a block's nodes span several
+        # node tiles (see ops/best_node._launch)
+        keys = torch.empty(2 * b * s, dtype=torch.int64,
+                           device=demands.device)
         launch(demands.data_ptr(), avail.data_ptr(), totals.data_ptr(),
                node_valid.data_ptr(),
                feasible.data_ptr() if feasible is not None else None,
-               val.data_ptr(), idx.data_ptr(), b, s, n, r,
+               val.data_ptr(), idx.data_ptr(), keys.data_ptr(), b, s, n, r,
                torch.cuda.current_stream(demands.device).cuda_stream)
     launches += 1
     return val, idx

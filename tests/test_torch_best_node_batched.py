@@ -85,21 +85,54 @@ def test_best_node_batched_ties_pick_the_first_index():
     np.testing.assert_array_equal(idx[2], -1)
 
 
-@pytest.mark.parametrize("kind", ["mixed", "fleet", "bench",
-                                  "placed", "infeasible"])
-def test_best_node_batched_on_the_chip_smoke_cases(kind):
+@pytest.mark.parametrize("kind,n", [
+    ("mixed", 96), ("fleet", 96), ("bench", 96), ("placed", 96),
+    ("infeasible", 96), ("last_tile", 1025), ("tile_tie", 2049),
+    ("r2", 96), ("r8", 96)])
+def test_best_node_batched_on_the_chip_smoke_cases(kind, n):
     """The input kinds chip_smoke.py holds the CUDA kernel to, at a small
     size: the plain version agrees with the reference kernel here, so the
     card's kernel-vs-plain check there is a check against it too."""
-    from chip_smoke import make_batched_inputs
+    from chip_smoke import make_batched_inputs, tile_tie_first
 
     args = [None if a is None else a.numpy()
-            for a in make_batched_inputs(4, 16, 96, kind, "cpu", seed=7)]
+            for a in make_batched_inputs(4, 17, n, kind, "cpu", seed=7)]
     _, idx = _both(*args)
     if kind == "fleet":
         # blocks whose hosts are all real pick their first host
         assert (idx[:2] == 0).all()
+    if kind == "last_tile":
+        assert (idx == n - 1).all()
+    if kind == "tile_tie":
+        assert (idx == tile_tie_first(17, n)).all()
+    assert args[0].shape[-1] == {"r2": 2, "r8": 8, "bench": 3}.get(kind, 4)
     assert (idx >= 0).any() == (kind != "infeasible")
+
+
+@pytest.mark.parametrize("s,n,r", [(9, 1023, 4), (17, 1025, 4),
+                                   (9, 1025, 2), (9, 1025, 8)])
+def test_best_node_batched_at_tile_edges(s, n, r):
+    """Nodes per block one under and one over a node tile of 1024 (the
+    CUDA kernel splits a wider block into node tiles), slots one past a
+    slot tile of 8 or 16, R = 2 and 8."""
+    d, av, tot, nv, feas = _draw(np.random.default_rng(s + n + r), 2, s, n,
+                                 r=r)
+    _, idx = _both(d, av, tot, nv, feas)
+    assert (idx >= 0).any() and (idx < n).all()
+
+
+@pytest.mark.parametrize("edge", [1024, 2048])
+def test_best_node_batched_tie_across_a_node_tile_boundary(edge):
+    """Identical hosts valid only at the last node of one node tile and
+    the first of the next: every slot takes the earlier one."""
+    b, s, n = 2, 5, edge + 3
+    d = np.tile(np.float32([512, 1, 0, 0]), (b, s, 1))
+    tot = np.tile(np.float32([64000, 32]), (b, n, 1))
+    av = np.concatenate([tot, np.zeros((b, n, 2), np.float32)], -1)
+    nv = np.zeros((b, n), bool)
+    nv[:, [edge - 1, edge]] = True
+    _, idx = _both(d, av, tot, nv)
+    np.testing.assert_array_equal(idx, edge - 1)
 
 
 def test_chip_smoke_bound_counts_only_live_slots():
