@@ -8,18 +8,21 @@ and prints no result line):
 
   1. device     — a CUDA card is present; its name and power limit as
                   `nvidia-smi` reports them.
-  2. build      — the three kernels compile from cook_tpu_torch/csrc/
+  2. build      — the four kernels compile from cook_tpu_torch/csrc/
                   (`best_node.cu`, `best_block.cu`, `best_node_batched.cu`,
-                  sharing `score_tile.cuh`; the first and last also
-                  `node_tile.cuh`) into cook_tpu_torch/_build/, one `nvcc`
-                  each, all started together.
+                  `coarse_pass.cu`, sharing `score_tile.cuh`; the first and
+                  third also `node_tile.cuh`, the second and fourth
+                  `block_score.cuh`) into cook_tpu_torch/_build/, one
+                  `nvcc` each, all started together.
   3. kernel     — each kernel on the card against its plain PyTorch
                   version (`*_reference`) on the same inputs: identical
-                  indices and bit-identical scores, at the cases listed in
-                  KERNEL_CASES, BLOCK_CASES and BATCHED_CASES; CUDA-event
+                  indices (assignments) and bit-identical scores (final
+                  availability), at the cases listed in KERNEL_CASES,
+                  BLOCK_CASES, BATCHED_CASES and COARSE_CASES; CUDA-event
                   times (median of 20) of the kernel with the L2 cache
                   evicted before each run (cold) and without (warm), of the
-                  plain version (cold), beside the bound.
+                  plain version (cold, replayed from a CUDA graph so that
+                  its host dispatch stays out), beside the bound.
   4. slice      — the flat path, through the simulator's CLI: a synthetic
                   trace of 100,000 jobs x 10,000 hosts replayed for 3
                   cycles with the chunked matcher on the `best_node`
@@ -32,13 +35,17 @@ and prints no result line):
                   are those of that one.
   6. hier slice — the hierarchical path on the same trace: the simulator
                   with `default_match_config(...)` routing every solve to
-                  the two-level matcher with both backends `pallas` (coarse
-                  on `best_block`, fine on `best_node_batched`), 3 cycles,
-                  counts reset just before and read just after; every
-                  kernel call kept.
-  7. hier launches — every kept `best_block` / `best_node_batched` launch
+                  the two-level matcher with both backends `pallas` (each
+                  coarse pass one `coarse_pass` launch, fine on
+                  `best_node_batched`), 3 cycles, counts reset just before
+                  and read just after (`best_block` must count none: its
+                  scoring runs inside `coarse_pass`); every kernel call
+                  kept, and the solves' coarse / fine / refine walls summed.
+  7. hier launches — every kept `coarse_pass` / `best_node_batched` launch
                   rerun and held against its plain version, bit for bit,
-                  and the one with the most live rows run 5 times.
+                  and the one with the most live rows run 5 times; the
+                  standalone `best_block` on the first scoring step of the
+                  busiest coarse pass (the call the plain version makes).
   8. agreement  — small traces replayed on the card and on the CPU, flat
                   and hierarchical, whose run traces must agree.
   9. report     — a `{"kernels": [...]}` line, then the last line
@@ -75,6 +82,10 @@ KERNELS = {
     "best_node_batched": ("cook_tpu_torch.ops.best_node_batched",
                           "cook_tpu_torch/csrc/best_node_batched.cu",
                           "cook_tpu/ops/pallas_match.py:316"),
+    # best_block with the scan of cook_tpu/ops/hierarchical.py:233 around it
+    "coarse_pass": ("cook_tpu_torch.ops.coarse_pass",
+                    "cook_tpu_torch/csrc/coarse_pass.cu",
+                    "cook_tpu/ops/pallas_match.py:218"),
 }
 
 # best_node: (label, K jobs, N nodes, kind), with the simulator's R = 4
@@ -155,6 +166,42 @@ BATCHED_CASES = [
     ("r2 4x1025x1024 masked", 4, 1025, 1024, "r2"),
     ("r8 4x1025x1024 masked", 4, 1025, 1024, "r8"),
 ]
+# coarse_pass: (label, J jobs, B blocks, chunk, passes, rounds, kind), all
+# exact-sum (MB in multiples of 512, cpus in halves, whole gpus and disk),
+# so every order of summing gives the same float32 sums:
+#   fleet      the slice's blocks at a cycle's start: 1024 identical empty
+#              hosts each, so every score ties
+#   mixed      16-64 hosts a block, partly used, gpu and disk columns, the
+#              max-node gate below the sums; contention fills blocks and
+#              later passes and rounds place the rest
+#   ties       mixed capacities repeated over groups of 4 identical blocks
+#   slice      the slice's shape: 10 real blocks of 1024 hosts partly
+#              used, 6 padded, every job active
+#   padded     mixed with the blocks past 10 (past 98 at B 128, the 100k
+#              node pad) padded as the coarse pass pads them
+#   inactive   mixed with half the jobs not active (a refine round's mask)
+#   infeasible demands no block can hold
+#   r2, r8     mixed with R = 2 and R = 8; at chunk 32768 x R 8 x B 128
+#              each CTA runs 8 tiles of the chunk (4096 job slots)
+COARSE_CASES = [
+    ("fleet 16384x16", 16384, 16, 4096, 8, 2, "fleet"),
+    ("mixed 16384x16", 16384, 16, 4096, 8, 2, "mixed"),
+    ("ties 16384x16", 16384, 16, 4096, 8, 2, "ties"),
+    ("infeasible 4096x16", 4096, 16, 4096, 8, 2, "infeasible"),
+    ("padded 16384x16", 16384, 16, 4096, 8, 2, "padded"),
+    ("one chunk 4096x16", 4096, 16, 4096, 8, 2, "mixed"),
+    ("slice 4x4096x16", 16384, 16, 4096, 8, 2, "slice"),
+    ("chunk 1 64x16", 64, 16, 1, 8, 2, "mixed"),
+    ("rounds 1 4096x16", 4096, 16, 1024, 8, 1, "mixed"),
+    ("rounds 3 4096x16", 4096, 16, 1024, 8, 3, "mixed"),
+    ("B 128 16384x128", 16384, 128, 4096, 8, 2, "padded"),
+    ("inactive 16384x16", 16384, 16, 4096, 8, 2, "inactive"),
+    ("r2 4096x16", 4096, 16, 1024, 8, 2, "r2"),
+    ("r8 4096x16", 4096, 16, 1024, 8, 2, "r8"),
+    ("r8 32768x128", 32768, 128, 32768, 4, 2, "r8"),
+]
+COARSE_KINDS = ("fleet", "mixed", "ties", "slice", "padded", "inactive",
+                "infeasible", "r2", "r8")
 
 # the slices' trace: 100,000 jobs x 10,000 hosts (sim.cli synth)
 SYNTH_ARGS = ["--jobs", "100000", "--hosts", "10000", "--users", "50",
@@ -386,6 +433,77 @@ def make_batched_inputs(b, s, n, kind, device, seed=0):
     return _put((demands, avail, totals, valid, mask), device)
 
 
+def make_coarse_inputs(j, b, kind, device, seed=0):
+    """(demands, active, block_avail, block_max, block_totals, block_valid)
+    for one COARSE_CASES kind, exact in float32.  A host holds 64000 MB,
+    32 cpus, 8 gpus and 1000 GB of disk; a block's sums, max single node
+    and totals are those of its hosts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    demands = _slice_demands(rng, j)
+    active = np.ones(j, dtype=bool)
+    host = np.float32([64000, 32, 8, 1000])
+    real = b if kind in ("fleet", "mixed", "ties", "inactive", "r2", "r8",
+                         "infeasible") else min(b, 10 if b <= 16 else 98)
+    if kind in ("fleet", "slice"):
+        hosts = np.full(b, 1024)
+    else:
+        hosts = rng.integers(16, 65, b)
+    if kind == "ties":
+        hosts = np.repeat(hosts[::4], 4)[:b]
+    full = hosts[:, None] * host
+    # used capacity in whole units: 512 MB, half cpus, gpus, GB of disk
+    units = np.float32([512, 0.5, 1, 1])
+    used = (rng.uniform(0, 0.9, (b, 4)) * full / units).astype(np.int64) \
+        * units
+    if kind == "fleet":
+        used[:] = 0
+    if kind == "ties":
+        used = np.repeat(used[::4], 4, axis=0)[:b]
+    bsum = (full - used).astype(np.float32)
+    # the freest single node: at most a host, at most the block's sum
+    node = (rng.uniform(0.2, 1.0, (b, 4)) * host / units).astype(np.int64) \
+        * units
+    if kind in ("fleet", "slice"):
+        node = np.tile(host, (b, 1))
+    if kind == "ties":
+        node = np.repeat(node[::4], 4, axis=0)[:b]
+    bmax = np.minimum(bsum, node).astype(np.float32)
+    btot = full[:, :2].astype(np.float32)
+    valid = np.ones(b, dtype=bool)
+    if kind in ("fleet", "slice"):
+        # the slice's jobs ask for no gpus and no disk, and its hosts have
+        # none
+        bsum[:, 2:] = bmax[:, 2:] = 0.0
+    else:
+        demands[:, 2] = np.where(rng.uniform(size=j) < 0.0625,
+                                 rng.integers(1, 3, j), 0)
+        demands[:, 3] = np.where(rng.uniform(size=j) < 0.5,
+                                 rng.integers(1, 100, j), 0)
+    if real < b:
+        bsum[real:] = 0.0
+        bmax[real:] = -1.0
+        btot[real:] = 1.0
+        valid[real:] = False
+    if kind == "infeasible":
+        demands[:, 0] = 1e9
+    elif kind == "inactive":
+        active = rng.uniform(size=j) < 0.5
+    elif kind == "r2":
+        demands, bsum, bmax = demands[:, :2], bsum[:, :2], bmax[:, :2]
+    elif kind == "r8":
+        more = rng.integers(0, 100, (b, 4)) * hosts[:, None]
+        want = np.where(rng.uniform(size=(j, 4)) < 0.3,
+                        rng.integers(1, 50, (j, 4)), 0)
+        demands = np.concatenate([demands, want], -1)
+        bsum = np.concatenate([bsum, more], -1)
+        bmax = np.concatenate([bmax, np.minimum(more, 100)], -1)
+    f32 = [np.ascontiguousarray(a, dtype=np.float32)
+           for a in (demands, bsum, bmax, btot)]
+    return _put((f32[0], active, f32[1], f32[2], f32[3], valid), device)
+
+
 # bytes written before each cold timing: well over the card's 50 MB L2, so
 # the timed call finds none of its inputs there
 SCRUB_BYTES = 256 << 20
@@ -440,6 +558,22 @@ def cuda_ms(fn, reps=20, spin_cycles=2_000_000, cold=False):
             raise RuntimeError("cuda_ms: the host never queued the timed "
                                "work ahead of the card")
         spin_cycles *= 4
+
+
+def wall_ms(fn, reps=5):
+    """Median of `reps` host-clock timings of fn() ending in a
+    synchronize (after one warm-up), host dispatch included."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
 
 
 def _bound(nbytes, ops):
@@ -504,8 +638,49 @@ def best_node_batched_bound(demands, avail, totals, valid, mask):
     return _bound(nbytes, pairs * (r + 8))
 
 
+def coarse_pass_bound(demands, active, block_avail, block_max,
+                      block_totals, block_valid, chunk, passes, rounds):
+    """Each input read once and each output written once, against ~(2R +
+    8) float32 operations per (live job, valid block) pair of every
+    candidate pass, counting only the jobs still unplaced at that pass
+    (the plain version reports them: the work depends on the data)."""
+    from cook_tpu_torch.ops.coarse_pass import coarse_pass_reference
+
+    j, r = demands.shape
+    b = block_avail.shape[0]
+    scored = []
+    coarse_pass_reference(demands, active, block_avail, block_max,
+                          block_totals, block_valid, chunk, passes, rounds,
+                          scored=scored)
+    nbytes = j * r * 4 + j + 2 * b * r * 4 + b * 2 * 4 + b + j * 4 \
+        + b * r * 4
+    return _bound(nbytes, sum(scored) * int(block_valid.sum()) * (2 * r + 8))
+
+
 BOUNDS = {"best_node": best_node_bound, "best_block": best_block_bound,
-          "best_node_batched": best_node_batched_bound}
+          "best_node_batched": best_node_batched_bound,
+          "coarse_pass": coarse_pass_bound}
+
+
+def graph_ms(fn, cold=False):
+    """cuda_ms of fn()'s work captured once in a CUDA graph and replayed:
+    the device time of every op fn queues, whatever its host dispatch
+    costs (the plain coarse pass queues ~7k small ops, more than the
+    card's launch queue holds ahead of cuda_ms's spin)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the warm-up capture asks for, on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        return cuda_ms(graph.replay, cold=cold)
+    finally:
+        del graph
 
 
 def _module(name):
@@ -513,37 +688,42 @@ def _module(name):
 
 
 def check_identical(name, label, args):
-    """Kernel and plain version on the same arguments: identical indices
-    and bit-identical scores.  Returns (val, idx, max_abs_err)."""
+    """Kernel and plain version on the same arguments: identical integer
+    outputs (indices, assignments) and bit-identical float ones (scores,
+    availability).  Returns (outputs, max_abs_err), the error over the
+    float outputs."""
     import torch
 
     mod = _module(name)
-    val, idx = getattr(mod, name)(*args)
-    rval, ridx = getattr(mod, f"{name}_reference")(*args)
+    outs = getattr(mod, name)(*args)
+    refs = getattr(mod, f"{name}_reference")(*args)
     torch.cuda.synchronize()
-    if not torch.equal(idx, ridx):
-        bad = int((idx != ridx).sum())
-        raise AssertionError(f"{name} {label}: {bad}/{idx.numel()} "
-                             "indices differ from the plain version")
-    if not torch.equal(val.view(torch.int32), rval.view(torch.int32)):
-        raise AssertionError(f"{name} {label}: scores not "
-                             "bit-identical to the plain version")
-    found = ridx >= 0
-    err = (float((val[found] - rval[found]).abs().max())
-           if bool(found.any()) else 0.0)
-    return val, idx, err
+    err = 0.0
+    for got, want in zip(outs, refs):
+        if not got.is_floating_point():
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"{name} {label}: {bad}/{got.numel()} "
+                                     "indices differ from the plain version")
+            continue
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name} {label}: float outputs not "
+                                 "bit-identical to the plain version")
+        if got.numel():
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    return outs, err
 
 
 def time_case(name, args):
-    """Cold and warm kernel times, the plain version's (cold) and the
-    bound; raises if the cold time reads under the bound, which only a
+    """Cold and warm kernel times, the plain version's (cold, its device
+    work alone) and the bound; raises if the cold time reads under the bound, which only a
     failed L2 eviction could give."""
     mod = _module(name)
     kernel = getattr(mod, name)
     plain = getattr(mod, f"{name}_reference")
     ms = cuda_ms(lambda: kernel(*args), cold=True)
     warm_ms = cuda_ms(lambda: kernel(*args))
-    plain_ms = cuda_ms(lambda: plain(*args), cold=True)
+    plain_ms = graph_ms(lambda: plain(*args), cold=True)
     bound_ms, bound_by = BOUNDS[name](*args)
     if ms < bound_ms:
         raise AssertionError(f"{name}: cold time {ms:.4g} ms under its "
@@ -566,7 +746,7 @@ def _kernel_cases(name, cases, make):
     max_err = 0.0
     for label, *shape, kind in cases:
         args = make(*shape, kind, dev)
-        _, idx, err = check_identical(name, label, args)
+        (_, idx), err = check_identical(name, label, args)
         max_err = max(max_err, err)
         if kind == "infeasible" and not bool((idx == -1).all()):
             raise AssertionError(f"{name} infeasible case placed a job")
@@ -591,6 +771,66 @@ def _kernel_cases(name, cases, make):
     return max_err
 
 
+def _coarse_cases():
+    """Every COARSE_CASES case against the plain version (identical
+    assignment, bit-identical final availability) and timed; the kernel's
+    capacity rule checked on the assignment.  Returns the max error."""
+    import torch
+
+    from cook_tpu_torch.ops.common import BIG
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    for label, j, b, chunk, passes, rounds, kind in COARSE_CASES:
+        args = (*make_coarse_inputs(j, b, kind, dev), chunk, passes, rounds)
+        (assignment, avail), err = check_identical("coarse_pass", label, args)
+        max_err = max(max_err, err)
+        demands, active, bsum, _, _, valid = args[:6]
+        routed = assignment >= 0
+        if kind == "infeasible" and bool(routed.any()):
+            raise AssertionError(f"coarse_pass {label}: a job was routed")
+        if bool((routed & ~active).any()) or bool(
+                (~valid[assignment[routed].long()]).any()):
+            raise AssertionError(f"coarse_pass {label}: an inactive job or "
+                                 "an invalid block was routed")
+        # what was taken is what the routed jobs ask for, and no block went
+        # below zero
+        taken = torch.zeros_like(bsum).index_add_(
+            0, assignment[routed].long(), demands[routed])
+        if not torch.equal(bsum - taken, avail) or bool((avail < 0).any()):
+            raise AssertionError(f"coarse_pass {label}: the availability "
+                                 "does not account for the routed jobs")
+        live = int((active & (demands[:, 0] < BIG)).sum())
+        _print_row("coarse_pass", label, time_case("coarse_pass", args),
+                   f"identical (routed {int(routed.sum())}/{live})  ")
+        del args
+    return max_err
+
+
+def check_smem_mirror():
+    """ops/coarse_pass.smem_bytes, which bounds B x R before a launch,
+    equals the kernel's own count (coarse_pass_smem_bytes) on a grid of
+    shapes across the card's limit."""
+    import ctypes
+
+    from cook_tpu_torch import build
+    from cook_tpu_torch.ops import coarse_pass as cp
+
+    count = build.load("coarse_pass").coarse_pass_smem_bytes
+    count.argtypes = [ctypes.c_int] * 3
+    count.restype = ctypes.c_int
+    for b in (1, 16, 128, 256, 300, 1024):
+        for r in (2, 4, 8):
+            for chunk in (1, 64, 4096, 32768):
+                if count(b, r, chunk) != cp.smem_bytes(b, r, chunk):
+                    raise AssertionError(
+                        f"coarse_pass smem_bytes({b}, {r}, {chunk}) = "
+                        f"{cp.smem_bytes(b, r, chunk)}, the kernel counts "
+                        f"{count(b, r, chunk)}")
+    print("coarse_pass shared-memory count mirrored by ops/coarse_pass.py",
+          flush=True)
+
+
 def kernel_phase():
     """Every kernel case; returns {kernel: max_abs_err}."""
     import torch
@@ -604,7 +844,9 @@ def kernel_phase():
             "best_block": _kernel_cases("best_block", BLOCK_CASES,
                                         make_block_inputs),
             "best_node_batched": _kernel_cases(
-                "best_node_batched", BATCHED_CASES, make_batched_inputs)}
+                "best_node_batched", BATCHED_CASES, make_batched_inputs),
+            "coarse_pass": _coarse_cases()}
+    check_smem_mirror()
     # the batched kernel is best_node run block by block
     # (tests/test_device_state.py:577)
     args = make_batched_inputs(16, 2048, 1024, "mixed",
@@ -704,11 +946,12 @@ def slice_phase(trace, workdir):
 
 def hier_slice_phase(trace):
     """The hierarchical path on the flat slice's trace: every solve goes
-    coarse (best_block) -> scatter -> fine (best_node_batched) -> refine.
-    Returns ({kernel: launches}, {kernel: kept calls})."""
+    coarse (one coarse_pass launch) -> scatter -> fine (best_node_batched)
+    -> refine.  Returns ({kernel: launches}, {kernel: kept calls})."""
     from cook_tpu_torch.ops import best_block as bb
     from cook_tpu_torch.ops import best_node as bn
     from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
     from cook_tpu_torch.ops import hierarchical
     from cook_tpu_torch.scheduler.core import SchedulerConfig
     from cook_tpu_torch.sim.simulator import SimConfig, Simulator, load_trace
@@ -720,7 +963,7 @@ def hier_slice_phase(trace):
     sim = Simulator(jobs, hosts, SimConfig(
         cycle_ms=30_000, max_cycles=3,
         scheduler=SchedulerConfig(match=match)), device="cuda")
-    calls = {"best_block": [], "best_node_batched": []}
+    calls = {"coarse_pass": [], "best_node_batched": []}
     solves = []
     solve = hierarchical.hierarchical_match
 
@@ -729,18 +972,19 @@ def hier_slice_phase(trace):
         solves.append(out[1])
         return out
 
-    with kept_calls(hierarchical, "best_block", calls["best_block"]), \
+    with kept_calls(hierarchical, "coarse_pass", calls["coarse_pass"]), \
             kept_calls(hierarchical, "best_node_batched",
                        calls["best_node_batched"]):
         hierarchical.hierarchical_match = keep_stats
         try:
-            bn.launches = bb.launches = bnb.launches = 0
+            bn.launches = bb.launches = bnb.launches = cp.launches = 0
             t0 = time.perf_counter()
             result = sim.run()
             wall = time.perf_counter() - t0
             launches = {"best_node": bn.launches,
                         "best_block": bb.launches,
-                        "best_node_batched": bnb.launches}
+                        "best_node_batched": bnb.launches,
+                        "coarse_pass": cp.launches}
         finally:
             hierarchical.hierarchical_match = solve
     _slice_summary("hier slice", sim, hosts, result, wall, launches)
@@ -751,9 +995,17 @@ def hier_slice_phase(trace):
         "fine_s", "refine_s")}
     print(f"hier slice: {len(solves)} hierarchical solves; the last "
           + json.dumps(last), flush=True)
+    walls = {k: sum(st[k] for st in solves)
+             for k in ("coarse_s", "fine_s", "refine_s", "total_s")}
+    print("hier slice: solve walls summed over the solves (s) "
+          + json.dumps(walls), flush=True)
     if len(solves) != result.cycles:
         raise AssertionError(f"{len(solves)} hierarchical solves in "
                              f"{result.cycles} cycles")
+    # the coarse scoring runs inside coarse_pass: no best_block launch
+    if launches["best_block"]:
+        raise AssertionError(f"{launches['best_block']} best_block launches "
+                             "on the hierarchical path")
     for name, kept in calls.items():
         if launches[name] <= 0 or len(kept) != launches[name]:
             raise AssertionError(f"kept {len(kept)} {name} calls but the "
@@ -790,9 +1042,10 @@ def launch_phase(name, calls, active):
     max_err = 0.0
     shapes = set()
     for i, args in enumerate(calls):
-        _, _, err = check_identical(name, f"slice launch {i}", args)
+        _, err = check_identical(name, f"slice launch {i}", args)
         max_err = max(max_err, err)
-        shapes.add(tuple(tuple(a.shape) for a in args if a is not None))
+        shapes.add(tuple(tuple(a.shape) for a in args
+                         if isinstance(a, torch.Tensor)))
     counts = [active(a) for a in calls]
     pick = max(range(len(calls)), key=lambda i: (counts[i], i))
     torch.cuda.synchronize()
@@ -803,7 +1056,33 @@ def launch_phase(name, calls, active):
           f"{pick} bit-identical over {DETERMINISM_RUNS} runs", flush=True)
     _print_row(name, f"slice launch {pick} ({counts[pick]} jobs unplaced)",
                row)
-    return row, max_err
+    return row, max_err, calls[pick]
+
+
+def _coarse_live(args):
+    """Jobs a coarse_pass call may route: active with a live row."""
+    return int((_live(args[0]) & args[1]).sum())
+
+
+def block_step_phase(args):
+    """The standalone best_block on the first scoring step of a coarse
+    pass (its first chunk's active rows, the others marked 2 BIG, against
+    the starting availability: the call the plain version makes), held
+    against its plain version, run 5 times bit-identical and timed."""
+    import torch
+
+    from cook_tpu_torch.ops.common import BIG
+
+    phase("best_block step")
+    demands, active, bsum, bmax, btot, valid, chunk = args[:7]
+    d_eff = torch.where(active[:chunk, None], demands[:chunk], 2 * BIG)
+    step = (d_eff.contiguous(), bsum, bmax, btot, valid)
+    _, err = check_identical("best_block", "coarse step", step)
+    check_deterministic("best_block", step)
+    row = time_case("best_block", step)
+    _print_row("best_block", f"first scoring step of the busiest coarse "
+               f"pass ({_unplaced(step)} jobs live)", row)
+    return row, err
 
 
 def _unplaced(args):
@@ -879,15 +1158,27 @@ def main() -> int:
         print(f"synth {time.perf_counter() - t0:.1f} s", flush=True)
         flat_launches, calls = slice_phase(trace, workdir)
         launches = {"best_node": flat_launches}
-        rows["best_node"], err = launch_phase("best_node", calls, _unplaced)
+        rows["best_node"], err, _ = launch_phase("best_node", calls,
+                                                 _unplaced)
         errs["best_node"] = max(errs["best_node"], err)
         del calls
         hier_launches, hier_calls = hier_slice_phase(trace)
-        for name in ("best_block", "best_node_batched"):
+        for name in ("best_block", "best_node_batched", "coarse_pass"):
             launches[name] = hier_launches[name]
-            rows[name], err = launch_phase(name, hier_calls.pop(name),
-                                           _unplaced)
-            errs[name] = max(errs[name], err)
+        rows["best_node_batched"], err, _ = launch_phase(
+            "best_node_batched", hier_calls.pop("best_node_batched"),
+            _unplaced)
+        errs["best_node_batched"] = max(errs["best_node_batched"], err)
+        rows["coarse_pass"], err, busiest = launch_phase(
+            "coarse_pass", hier_calls.pop("coarse_pass"), _coarse_live)
+        errs["coarse_pass"] = max(errs["coarse_pass"], err)
+        plain_wall = wall_ms(lambda: _module("coarse_pass")
+                             .coarse_pass_reference(*busiest))
+        print(f"coarse_pass plain version on that launch, host clock with "
+              f"its dispatch: {plain_wall:.4f} ms (median of 5)", flush=True)
+        rows["best_block"], err = block_step_phase(busiest)
+        errs["best_block"] = max(errs["best_block"], err)
+        del busiest
         agreement_phase(workdir)
     # the card's name and power limit again, beside the numbers above
     print(card)

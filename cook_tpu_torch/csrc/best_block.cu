@@ -17,12 +17,18 @@
 // Padded blocks arrive with block_max = -1 and block_totals = 1, so they
 // are never feasible and need no case of their own.
 //
+// On the hierarchical path this scoring runs inside coarse_pass.cu, one
+// launch per coarse pass; this kernel is the standalone function, and
+// both score through block_score.cuh.
+//
 // Design.  The block axis is short (16 blocks at the 100k x 10k slice, 32
 // at bench.py's bench_match_xl), so one thread owns one job and walks the
 // blocks in order with a strict `>`: the first index of a tie wins by
-// construction, and no reduction across threads is needed.  The block
-// rows are re-read by every thread of a warp at the same address, a
-// broadcast from L1.
+// construction, and no reduction across threads is needed.  Each thread
+// block first stages the block table (block_score.cuh: one gate row per
+// block folding both fits and validity, used and den pairs) in shared
+// memory, so the walk makes no dependent global loads; 128 threads a
+// block put 32 blocks in flight at K = 4096.
 //
 // Bound.  At K = 4096 jobs and B = 16 blocks a call reads under 0.1 MB and
 // does ~1M float operations: both are far under a microsecond on the
@@ -34,6 +40,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_score.cuh"
 #include "score_tile.cuh"
 
 namespace {
@@ -41,7 +48,12 @@ namespace {
 using score_tile::kBig;
 using score_tile::kMaxR;
 
-constexpr int kThreadsPerBlock = 256;
+constexpr int kThreadsPerBlock = 128;
+
+// dynamic shared memory: gate [B*R], used [2B], den [2B]
+__host__ __device__ inline int table_words(int B, int R) {
+  return B * R + 4 * B;
+}
 
 __global__ void best_block_kernel(const float* __restrict__ demands,      // [K,R]
                                   const float* __restrict__ block_avail,  // [B,R]
@@ -51,24 +63,25 @@ __global__ void best_block_kernel(const float* __restrict__ demands,      // [K,
                                   float* __restrict__ out_val,            // [K]
                                   int32_t* __restrict__ out_idx,          // [K]
                                   int K, int B, int R) {
+  extern __shared__ float table[];
+  float* gate = table;
+  float* used = gate + B * R;
+  float* den = used + 2 * B;
+  block_score::stage_gate(block_avail, block_max, block_valid, B, R, gate,
+                          threadIdx.x, blockDim.x);
+  block_score::stage_used(block_totals, block_avail, B, R, used,
+                          threadIdx.x, blockDim.x);
+  block_score::stage_den(block_totals, B, den, threadIdx.x, blockDim.x);
+  __syncthreads();
+
   const int job = blockIdx.x * kThreadsPerBlock + threadIdx.x;
   if (job >= K) return;
-
   float d[kMaxR];
   score_tile::load_demand(demands + (int64_t)job * R, R, d);
-
   float best = -kBig;
   int idx = score_tile::kNoIdx;
-  for (int b = 0; score_tile::live(d) && b < B; ++b) {
-    if (!block_valid[b]) continue;
-    const float* a = block_avail + (int64_t)b * R;
-    if (!score_tile::fits(a, d, R)) continue;
-    if (!score_tile::fits(block_max + (int64_t)b * R, d, R)) continue;
-    score_tile::keep_best(
-        score_tile::fitness(block_totals[2 * (int64_t)b],
-                            block_totals[2 * (int64_t)b + 1], a[0], a[1], d),
-        b, best, idx);
-  }
+  if (score_tile::live(d))
+    block_score::best_in_table(gate, used, den, B, R, d, best, idx);
   score_tile::store_best(best, idx, out_val + job, out_idx + job);
 }
 
@@ -83,8 +96,17 @@ int best_block_launch(const void* demands, const void* block_avail,
                       const void* block_valid, void* out_val, void* out_idx,
                       int K, int B, int R, void* stream) {
   if (K <= 0 || B <= 0 || R < 2 || R > kMaxR) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)table_words(B, R);
+  static size_t smem_set = 48 << 10;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        best_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
   const dim3 grid((K + kThreadsPerBlock - 1) / kThreadsPerBlock);
-  best_block_kernel<<<grid, kThreadsPerBlock, 0,
+  best_block_kernel<<<grid, kThreadsPerBlock, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(demands),
       static_cast<const float*>(block_avail),

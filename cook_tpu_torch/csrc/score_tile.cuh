@@ -2,8 +2,9 @@
 //
 // Counterpart of `_score_tile` in cook_tpu/ops/pallas_match.py (:31): ONE
 // definition of feasibility, cpuMemBinPacker fitness and the first-index
-// (max, argmax) rule, so best_node, best_block and best_node_batched can
-// never rank candidates by diverging rules.
+// (max, argmax) rule, so best_node, best_node_batched, best_block and
+// coarse_pass (the last two through block_score.cuh) can never rank
+// candidates by diverging rules.
 //
 //   live(d)        = d[0] < BIG: the matchers mark placed and empty rows
 //                    with a 2*BIG demand, which no capacity holds, so a
@@ -50,10 +51,18 @@ __device__ __forceinline__ bool fits(const float* __restrict__ a,
   return ok;
 }
 
+// the fitness from used = tot - av and den = max(tot, 1e-30), for the
+// kernels that stage those per node or block
+__device__ __forceinline__ float fitness_used(float used0, float used1,
+                                              float den0, float den1,
+                                              const float (&d)[kMaxR]) {
+  return ((used0 + d[0]) / den0 + (used1 + d[1]) / den1) * 0.5f;
+}
+
 __device__ __forceinline__ float fitness(float tot0, float tot1, float av0,
                                          float av1, const float (&d)[kMaxR]) {
-  return ((tot0 - av0 + d[0]) / fmaxf(tot0, 1e-30f)
-          + (tot1 - av1 + d[1]) / fmaxf(tot1, 1e-30f)) * 0.5f;
+  return fitness_used(tot0 - av0, tot1 - av1, fmaxf(tot0, 1e-30f),
+                      fmaxf(tot1, 1e-30f), d);
 }
 
 // running (best, idx) over candidates visited in increasing index order:

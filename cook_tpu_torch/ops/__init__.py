@@ -1,2 +1,2 @@
 """Device kernels of the port: `common`, `best_node`, `best_block`,
-`best_node_batched`, `match`, `hierarchical`, `dru`."""
+`best_node_batched`, `coarse_pass`, `match`, `hierarchical`, `dru`."""

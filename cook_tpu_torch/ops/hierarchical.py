@@ -6,9 +6,10 @@ solves in three passes:
 
   1. **coarse** — jobs x blocks on the block aggregates (summed free
      capacity, summed totals, the per-resource max single node as the
-     feasibility gate): the masked chunked matcher (`xla`) or, per chunk,
-     the hand-written Hopper `best_block` kernel plus single-candidate
-     conflict rounds (`pallas`, `_coarse_pallas`);
+     feasibility gate): the masked chunked matcher (`xla`) or the
+     hand-written Hopper `coarse_pass` kernel, every chunk's `best_block`
+     scoring and single-candidate conflict rounds in one launch (`pallas`,
+     `_coarse_pallas`);
   2. **fine** — jobs scatter to their blocks (host side, schedule order,
      slot-cap overflow spills) and every block's [slots, nodes_per_block]
      problem solves as one batch with blocks as the leading axis: a
@@ -36,16 +37,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cook_tpu_torch.ops.best_block import best_block
 from cook_tpu_torch.ops.best_node import fits
 from cook_tpu_torch.ops.best_node_batched import best_node_batched
+from cook_tpu_torch.ops.coarse_pass import check_fits, coarse_pass
 from cook_tpu_torch.ops.common import BIG, bucket_size, fetch_result
 from cook_tpu_torch.ops.match import (
     MatchProblem,
     MatchResult,
     backend_flags,
     chunked_match,
-    conflict_round,
     conflict_round_batched,
     vmap_safe_backend,
 )
@@ -82,7 +82,8 @@ class HierParams:
     # best node against the updated availability
     fine_passes: int = 16
     # coarse block-scoring backend: "xla" (masked chunked_match) or
-    # "pallas" (the best_block kernel)
+    # "pallas" (the coarse_pass kernel; on the card the padded block count
+    # x R is bounded by its shared memory, coarse_pass.check_fits)
     coarse_backend: str = "xla"
     coarse_chunk: int = 4096
     # single-candidate coarse rounds and passes (the reference's rationale:
@@ -154,29 +155,14 @@ def _coarse_xla(demands, active, block_sum, block_max, block_tot,
 
 def _coarse_pallas(demands, active, block_sum, block_max, block_tot,
                    block_valid, *, chunk: int, rounds: int, passes: int):
-    """Coarse pass on the `best_block` kernel: per chunk and pass, each
+    """Coarse pass on the `coarse_pass` kernel: per chunk and pass, each
     unplaced job's best block (aggregate fit + max-node gate + fitness +
-    argmax in one launch, no [J, B] mask), then the shared conflict rounds
-    accept against the aggregate availability."""
-    j = demands.shape[0]
-    b = block_sum.shape[0]
-    avail = block_sum
-    out = []
-    for c0 in range(0, j, chunk):
-        d = demands[c0:c0 + chunk]
-        ok = active[c0:c0 + chunk]
-        assignment = torch.full((d.shape[0],), -1, dtype=torch.int32,
-                                device=d.device)
-        for _ in range(passes):
-            d_eff = torch.where((ok & (assignment < 0))[:, None], d, 2 * BIG)
-            val, idx = best_block(d_eff, avail, block_max, block_tot,
-                                  block_valid)
-            cand_val, cand_idx = val[:, None], idx.clamp_min(0)[:, None]
-            for _ in range(rounds):
-                avail, assignment = conflict_round(avail, assignment,
-                                                   cand_val, cand_idx, d, b)
-        out.append(assignment)
-    return torch.cat(out)
+    argmax, no [J, B] mask), then single-candidate conflict rounds accept
+    against the aggregate availability — the whole pass one launch."""
+    assignment, _ = coarse_pass(demands, active, block_sum, block_max,
+                                block_tot, block_valid, chunk, passes,
+                                rounds)
+    return assignment
 
 
 def scatter_to_blocks(coarse: np.ndarray, job_valid: np.ndarray,
@@ -358,6 +344,9 @@ def hierarchical_match(
     # block axis pads to a power-of-two bucket: the fine batch shape is
     # keyed by (b_pad, slots, npb), never by the raw block count
     b_pad = bucket_size(b_real, minimum=MIN_BLOCKS)
+    coarse_chunk = _chunk_for(params.coarse_chunk, j)
+    if params.coarse_backend == "pallas" and dev.type == "cuda":
+        check_fits(b_pad, n_res, coarse_chunk)
     if params.jobs_per_block:
         # round an override up to a power of two: the chunked fine solve
         # needs its chunk to divide the slot axis
@@ -379,7 +368,7 @@ def hierarchical_match(
     refine_placed = 0
     avail_now = avail
 
-    def coarse_pass(active_mask: np.ndarray) -> np.ndarray:
+    def coarse_step(active_mask: np.ndarray) -> np.ndarray:
         """One coarse jobs x blocks assignment against the CURRENT block
         availabilities (refine rounds re-enter with only the leftover
         jobs active)."""
@@ -396,7 +385,7 @@ def hierarchical_match(
         if params.coarse_backend == "pallas":
             assignment = _coarse_pallas(
                 demands, active, block_sum, block_max, block_tot,
-                block_valid, chunk=_chunk_for(params.coarse_chunk, j),
+                block_valid, chunk=coarse_chunk,
                 rounds=params.coarse_rounds, passes=params.coarse_passes)
         else:
             assignment = _coarse_xla(demands, active, block_sum, block_max,
@@ -427,7 +416,7 @@ def hierarchical_match(
 
     # ---- round 0: coarse -> scatter -> fine
     t0 = time.perf_counter()
-    coarse = coarse_pass(job_valid_np)
+    coarse = coarse_step(job_valid_np)
     coarse_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     job_idx, spilled = scatter_to_blocks(coarse, job_valid_np, b_real, slots)
@@ -449,7 +438,7 @@ def hierarchical_match(
             break
         rounds_run += 1
         t0 = time.perf_counter()
-        coarse = coarse_pass(leftover)
+        coarse = coarse_step(leftover)
         job_idx, _ = scatter_to_blocks(coarse, leftover, b_real, slots)
         fine_assign, avail_now = fine_pass(job_idx)
         placed = merge(job_idx, fine_assign)

@@ -109,7 +109,7 @@ class MatchConfig:
     # time (config key `hier_superblock_nodes`)
     hierarchical_superblock_nodes: int = 0
     # coarse block-scoring backend: "xla" (masked chunked matcher) or
-    # "pallas" (the best_block kernel)
+    # "pallas" (the coarse_pass kernel)
     hierarchical_coarse_backend: str = "xla"
     # the reference shards the fine batch over its device mesh; one card
     # has no mesh, so nothing in the port reads it: the field exists only

@@ -1,18 +1,22 @@
-"""Sweep the tile sizes of the `best_node` and `best_node_batched` kernels
-on the card.
+"""Sweep the launch shapes of the kernels on the card: the tile sizes of
+`best_node` and `best_node_batched`, the cluster size and threads a CTA
+of `coarse_pass`.
 
     python -m cook_tpu_torch.tile_sweep [--out tile_sweep.jsonl]
+                                        [--kernels coarse_pass ...]
 
 Run from the repository root (it takes its inputs from `chip_smoke.py`'s
-case makers).  Each variant (TJ jobs x TN nodes a thread block, G warps a
-job) is `csrc/<kernel>.cu` compiled with its `-D` overrides into
+case makers).  Each variant — a tile of TJ jobs x TN nodes a thread block
+with G warps a job, or a coarse_pass cluster of CLUSTER CTAs x THREADS
+threads — is `csrc/<kernel>.cu` compiled with its `-D` overrides into
 `_build/sweep/`, all compilers started together; the defaults are also
 compiled with `-Xptxas -v`, whose register and spill report is printed.
 Every variant is first held against the plain version on every kernel
-case of `chip_smoke.py` (identical indices, bit-identical scores), then
-timed with `chip_smoke.cuda_ms`, cold (L2 evicted) and warm, on the
-cases named in TIMED.  One JSON line per (variant, timed case), printed
-and, with --out, written to a file.
+case of `chip_smoke.py` and on the slices' busiest launch (identical
+indices or assignments, bit-identical scores or availability), then
+timed with `chip_smoke.cuda_ms`, cold (L2 evicted) and warm, on the cases
+named in TIMED.  One JSON line per (variant, timed case), printed and,
+with --out, written to a file.
 """
 from __future__ import annotations
 
@@ -25,15 +29,18 @@ import sys
 
 from cook_tpu_torch import build
 
-# kernel -> (-D prefix, launcher arg counts, variants (TJ, TN, G)); the
+# kernel -> (-D prefix, launcher arg counts, -D names, variants); the
 # first variant is the source's default
 VARIANTS = {
-    "best_node": ("BEST_NODE", (8, 3), [
+    "best_node": ("BEST_NODE", (8, 3), ("TJ", "TN", "G"), [
         (32, 512, 1), (32, 1024, 2), (16, 1024, 2), (64, 1024, 2),
         (32, 1024, 1), (16, 512, 1), (64, 512, 1)]),
-    "best_node_batched": ("BEST_NODE_BATCHED", (8, 4), [
+    "best_node_batched": ("BEST_NODE_BATCHED", (8, 4), ("TJ", "TN", "G"), [
         (8, 1024, 2), (16, 1024, 2), (4, 1024, 2), (8, 1024, 1),
         (16, 1024, 1)]),
+    "coarse_pass": ("COARSE_PASS", (8, 6), ("CLUSTER", "THREADS"), [
+        (8, 512), (1, 1024), (1, 512), (2, 1024), (4, 1024), (4, 512),
+        (8, 1024), (8, 256), (16, 256), (16, 128)]),
 }
 # the timed cases: "slice launch", the launch of the slice's main path
 # with the most live rows (the one chip_smoke.py times), labels of
@@ -46,6 +53,8 @@ TIMED = {
     "best_node_batched": ("slice launch", "slice-like",
                           "placed 16x2048x1024 masked",
                           "mixed 16x2048x1024 masked"),
+    "coarse_pass": ("slice launch", "slice 4x4096x16", "mixed 16384x16",
+                    "B 128 16384x128"),
 }
 
 
@@ -85,29 +94,32 @@ def slice_launches(smoke):
         cli.main(["synth", *smoke.SYNTH_ARGS, "--out", trace])
         _, flat = smoke.slice_phase(trace, workdir)
         _, hier = smoke.hier_slice_phase(trace)
-    calls = {"best_node": flat,
-             "best_node_batched": hier["best_node_batched"]}
+    busy = {"best_node": smoke._unplaced,
+            "best_node_batched": smoke._unplaced,
+            "coarse_pass": smoke._coarse_live}
+    calls = {"best_node": flat, **hier}
     # the latest of the busiest, as chip_smoke.launch_phase picks it
-    return {name: max(reversed(kept), key=smoke._unplaced)
-            for name, kept in calls.items()}
+    return {name: max(reversed(calls[name]), key=active)
+            for name, active in busy.items()}
 
 
 def _tag(tile):
     return "x".join(map(str, tile))
 
 
-def build_variants():
-    """{(kernel, tile): ctypes.CDLL}; prints the defaults' ptxas report."""
+def build_variants(names):
+    """{(kernel, variant): ctypes.CDLL} for the kernels `names`; prints
+    the defaults' ptxas report."""
     import ctypes
 
     out_dir = os.path.join(build.BUILD_DIR, "sweep")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, (prefix, _, tiles) in VARIANTS.items():
+    for name in names:
+        prefix, _, keys, tiles = VARIANTS[name]
         for tile in tiles:
             path = os.path.join(out_dir, f"lib{name}_{_tag(tile)}.so")
-            defines = [f"-D{prefix}_{k}={v}"
-                       for k, v in zip(("TJ", "TN", "G"), tile)]
+            defines = [f"-D{prefix}_{k}={v}" for k, v in zip(keys, tile)]
             verbose = ["-Xptxas", "-v"] if tile == tiles[0] else []
             procs[name, tile] = (path, subprocess.Popen(
                 [build.nvcc(), *build.NVCC_FLAGS, *verbose, *defines,
@@ -131,7 +143,7 @@ def build_variants():
 def variant(name, lib):
     """The wrapper `ops.<name>.<name>` launching `lib` while the block
     runs."""
-    _, counts, _ = VARIANTS[name]
+    _, counts, _, _ = VARIANTS[name]
     launch = build.bind(lib, name, *counts)
     original = build.launcher
     build.launcher = lambda *_: launch
@@ -141,9 +153,61 @@ def variant(name, lib):
         build.launcher = original
 
 
+def _line(card, case, ms, warm_ms, **variant):
+    line = dict(**variant, case=case, card=card, ms=ms, warm_ms=warm_ms)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _holds(name, lib, case):
+    """Whether the variant `lib` launches on `case`: a coarse_pass cluster
+    shape sets its CTA's warp partials and job slots, and takes a case only
+    while they fit the card's shared memory; tile variants take every
+    case."""
+    if name != "coarse_pass":
+        return True
+    import ctypes
+
+    from cook_tpu_torch.ops.coarse_pass import SMEM_LIMIT
+
+    count = lib.coarse_pass_smem_bytes
+    count.argtypes = [ctypes.c_int] * 3
+    count.restype = ctypes.c_int
+    demands, block_avail, chunk = case[0], case[2], case[6]
+    return count(block_avail.shape[0], demands.shape[1], chunk) <= SMEM_LIMIT
+
+
+def sweep(smoke, name, libs, inputs, card):
+    """Every variant of `name`: checked on every input, timed on
+    TIMED[name]."""
+    _, _, keys, tiles = VARIANTS[name]
+    lines = []
+    for tile in tiles:
+        with variant(name, libs[name, tile]):
+            held = {label: case for label, case in inputs.items()
+                    if _holds(name, libs[name, tile], case)}
+            for label in inputs.keys() - held.keys():
+                print(f"{name} {tile}: {label} does not fit its shared "
+                      "memory, skipped", flush=True)
+            for label, case in held.items():
+                smoke.check_identical(name, label, case)
+            fn = getattr(smoke._module(name), name)
+            for label in TIMED[name]:
+                if label not in held:
+                    continue
+                case = inputs[label]
+                lines.append(_line(
+                    card, label, smoke.cuda_ms(lambda: fn(*case), cold=True),
+                    smoke.cuda_ms(lambda: fn(*case)), kernel=name,
+                    **{k.lower(): v for k, v in zip(keys, tile)}))
+    return lines
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the JSON lines here")
+    parser.add_argument("--kernels", nargs="+", default=list(TIMED),
+                        choices=list(TIMED), help="the kernels to sweep")
     args = parser.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import torch
@@ -152,34 +216,28 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     card = smoke.device_phase()
-    libs = build_variants()
+    libs = build_variants(args.kernels)
     busiest = slice_launches(smoke)
     makers = {"best_node": (smoke.KERNEL_CASES, smoke.make_inputs),
               "best_node_batched": (smoke.BATCHED_CASES,
                                     smoke.make_batched_inputs)}
     lines = []
-    for name, (cases, make) in makers.items():
-        inputs = {label: make(*shape, kind, dev)
-                  for label, *shape, kind in cases}
+    for name in args.kernels:
+        if name == "coarse_pass":
+            inputs = {label: (*smoke.make_coarse_inputs(j, b, kind, dev),
+                              chunk, passes, rounds)
+                      for label, j, b, chunk, passes, rounds, kind
+                      in smoke.COARSE_CASES}
+        else:
+            cases, make = makers[name]
+            inputs = {label: make(*shape, kind, dev)
+                      for label, *shape, kind in cases}
         inputs["slice launch"] = busiest[name]
         if name == "best_node_batched":
             inputs["slice-like"] = slice_like(smoke, dev)
-        else:
+        elif name == "best_node":
             inputs.update(overheads(smoke, dev))
-        for tile in VARIANTS[name][2]:
-            with variant(name, libs[name, tile]):
-                for label, case in inputs.items():
-                    smoke.check_identical(name, label, case)
-                fn = getattr(smoke._module(name), name)
-                for label in TIMED[name]:
-                    case = inputs[label]
-                    line = dict(
-                        kernel=name, tj=tile[0], tn=tile[1], g=tile[2],
-                        case=label, card=card,
-                        ms=smoke.cuda_ms(lambda: fn(*case), cold=True),
-                        warm_ms=smoke.cuda_ms(lambda: fn(*case)))
-                    print(json.dumps(line), flush=True)
-                    lines.append(line)
+        lines += sweep(smoke, name, libs, inputs, card)
         del inputs
     if args.out:
         with open(args.out, "w") as out:

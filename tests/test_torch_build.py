@@ -70,3 +70,40 @@ def test_nvcc_is_required_to_build(tree, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(csrc))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load("k")
+
+
+@pytest.mark.parametrize("header", ["score_tile.cuh", "node_tile.cuh",
+                                    "block_score.cuh"])
+def test_an_edited_shared_header_rebuilds_every_kernel(tree, header):
+    csrc, out = tree
+    names = ("best_node", "best_block", "best_node_batched", "coarse_pass")
+    for name in names:
+        _touch(csrc / f"{name}.cu", 100)
+        _touch(out / f"lib{name}.so", 200)
+    _touch(csrc / header, 100)
+    assert not any(build._stale(name) for name in names)
+    _touch(csrc / header, 300)
+    assert all(build._stale(name) for name in names)
+
+
+def test_every_kernel_source_is_registered():
+    """Each `csrc/*.cu` is one kernel: chip_smoke.py builds, checks and
+    reports it, and its wrapper module counts launches and has a plain
+    version."""
+    import glob
+    import importlib
+
+    import chip_smoke
+
+    sources = sorted(os.path.basename(p)[:-len(".cu")] for p in
+                     glob.glob(os.path.join(build.CSRC_DIR, "*.cu")))
+    assert sources == sorted(chip_smoke.KERNELS)
+    assert {"best_node", "best_block", "best_node_batched",
+            "coarse_pass"} <= set(sources)
+    for name, (module, source, replaces) in chip_smoke.KERNELS.items():
+        assert source == f"cook_tpu_torch/csrc/{name}.cu"
+        assert replaces.startswith("cook_tpu/ops/pallas_match.py:")
+        mod = importlib.import_module(module)
+        assert isinstance(mod.launches, int)
+        assert callable(getattr(mod, name))
+        assert callable(getattr(mod, f"{name}_reference"))
