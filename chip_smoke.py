@@ -48,7 +48,28 @@ and prints no result line):
                   busiest coarse pass (the call the plain version makes).
   8. agreement  — small traces replayed on the card and on the CPU, flat
                   and hierarchical, whose run traces must agree.
-  9. report     — a `{"kernels": [...]}` line, then the last line
+  9. rebalance cases — the victim search alone (`ops/rebalance.py`, torch
+                  code: no hand kernel runs in it) at 131072 task rows x
+                  16384 hosts, on the card against the same functions on
+                  the CPU: the exact search and the sort-once pair,
+                  identical host, score, preempt mask and freed, over the
+                  victims / spare tie / none / quota kinds; CUDA-event
+                  times of one decision of each kind, cold and warm, and
+                  the sort's share.
+ 10. rebalance slice — the full-size rebalance path through the port's
+                  Simulator: `preemption_heavy_trace` at 100,000 jobs x
+                  10,000 hosts, 6 cycles of rank -> exact greedy match ->
+                  rebalance on the card; capacity checked after every
+                  match and rebalance; the padded axes checked; each
+                  cycle's first and busiest search rerun on the CPU port,
+                  identical.
+ 11. rebalance agreement — two small rebalance replays on the card and on
+                  the CPU (run traces, fairness ledgers and host
+                  reservations after every cycle equal): one on the flat
+                  `pallas` matcher, whose `best_node` launches are counted
+                  and each held against the plain version, and one whose
+                  decisions take two victims and reserve the host.
+ 12. report     — a `{"kernels": [...]}` line, then the last line
                   `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
@@ -1135,6 +1156,524 @@ def agreement_phase(workdir, n_jobs=3000, n_hosts=300):
               "placements)", flush=True)
 
 
+# ------------------------------------------------------------- rebalance
+
+# the victim search at the rebalance slice's padded shape, had every job
+# of the 100k x 10k trace been running: bucket_size(100,000 tasks + 100
+# slack rows) x bucket_size(10,000 hosts), R 4 (mem, cpus, gpus, disk)
+REB_T, REB_H = 131072, 16384
+REB_TASKS, REB_HOSTS = 100_000, 10_000
+# kinds of make_rebalance_inputs:
+#   victims    no host's spare covers the demand: the decision takes a
+#              prefix of one host's tasks (often several)
+#   spare tie  every 7th host's spare covers it: those hosts all score BIG,
+#              and the first of them must win
+#   none       a demand no spare and no prefix covers: host -1
+#   quota      eligibility cut to 10% of the rows, as an over-quota user's
+#              own tasks cut it
+REBALANCE_CASES = ("victims", "spare tie", "none", "quota")
+# the rebalance slice: sim.loadgen.preemption_heavy_trace at 100,000 jobs
+# x 10,000 hosts (the hog's 20,000 half-host jobs fill the fleet at t=0;
+# 80,000 late jobs of 49 users arrive at 60 s), the default share 1/500 of
+# the fleet, RebalancerParams() defaults, the exact greedy (chunk 0) over
+# 16384 considerable jobs, a rebalance after every match, 6 cycles of 30 s
+REB_TRACE = dict(hosts=10_000, host_mem=65_536, host_cpus=32,
+                 hog_jobs=20_000, late_jobs=80_000, n_late_users=49,
+                 runtime_ms=600_000, late_arrival_ms=60_000, seed=0)
+REB_CYCLES = 6
+# the rebalance agreement's flat `pallas` matcher (tests/test_torch_sim.py
+# CONFIGS["pallas"]): chunks of 16 fill a uniform fleet in one cycle
+REB_PALLAS = dict(max_jobs_considered=16384, chunk=16, backend="pallas",
+                  chunk_rounds=2, chunk_passes=12)
+
+
+def make_rebalance_inputs(t, h, kind, device, seed=0):
+    """(RebalanceState, demand, pending_dru, safe_dru_threshold,
+    min_dru_diff) for one REBALANCE_CASES kind at T task rows x H hosts:
+    the slice's share of live rows (100,000 of 131072) on its share of real
+    hosts (10,000 of 16384), the rest padded as RebalanceCycle pads them
+    (host -1, ineligible; zero spare, host_ok False).  Exact-sum: MB in
+    multiples of 512, cpus in halves, whole gpus, so every order of
+    summing gives the same float32 prefix sums."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops.rebalance import RebalanceState, as_scalar
+
+    rng = np.random.default_rng(seed)
+    tasks = max(1, t * REB_TASKS // REB_T)
+    hosts = max(1, h * REB_HOSTS // REB_H)
+    host = np.full(t, -1, np.int32)
+    host[:tasks] = rng.integers(0, hosts, tasks)
+    res = np.zeros((t, 4), np.float32)
+    res[:tasks, 0] = rng.integers(1, 17, tasks) * 512
+    res[:tasks, 1] = rng.integers(1, 17, tasks) * 0.5
+    res[:tasks, 2] = rng.uniform(size=tasks) < 0.0625
+    dru = np.zeros(t, np.float32)
+    dru[:tasks] = rng.uniform(0.0, 5.0, tasks)
+    elig = np.zeros(t, bool)
+    elig[:tasks] = rng.uniform(size=tasks) > 0.1
+    spare = np.zeros((h, 4), np.float32)
+    spare[:hosts, 0] = rng.integers(0, 16, hosts) * 512
+    spare[:hosts, 1] = rng.integers(0, 8, hosts) * 0.5
+    host_ok = np.zeros(h, bool)
+    host_ok[:hosts] = rng.uniform(size=hosts) > 0.05
+    demand = np.float32([16384, 8, 0, 0])
+    if kind == "spare tie":
+        spare[:hosts:7] = [65536, 32, 8, 100_000]
+    elif kind == "none":
+        demand[0] = 1e9
+    elif kind == "quota":
+        elig &= rng.uniform(size=t) < 0.1
+    state = RebalanceState(*_put((host, dru, res, elig, spare, host_ok),
+                                 device))
+    return (state, torch.as_tensor(demand, device=device),
+            as_scalar(0.4, device), as_scalar(1.0, device),
+            as_scalar(0.5, device))
+
+
+def decide_sorted(state, demand, pending_dru, safe_dru_threshold,
+                  min_dru_diff):
+    """The fast cycle's decision on the same inputs: sort once
+    (sort_rebalance_state), decide in sorted space (decide_from_sorted),
+    and map the preempt mask back to row order."""
+    import torch
+
+    from cook_tpu_torch.ops.rebalance import (decide_from_sorted,
+                                              sort_rebalance_state)
+
+    ss = sort_rebalance_state(state.task_host, state.task_dru,
+                              state.task_res, state.task_eligible)
+    d = decide_from_sorted(ss, state.task_eligible[ss.perm],
+                           state.task_dru[ss.perm], state.spare,
+                           state.host_ok, demand, pending_dru,
+                           safe_dru_threshold, min_dru_diff)
+    mask = torch.zeros_like(d.preempt_mask)
+    mask[ss.perm] = d.preempt_mask
+    return d._replace(preempt_mask=mask)
+
+
+def _to_device(args, device):
+    """A decision's arguments (a RebalanceState, then tensors) moved to
+    `device`."""
+    state = type(args[0])(*(t.to(device) for t in args[0]))
+    return (state, *(a.to(device) for a in args[1:]))
+
+
+def same_decision(label, got, want):
+    """Two fetched PreemptionDecisions: host, score (bitwise), mask and
+    freed (bitwise) identical, or raise."""
+    import numpy as np
+
+    for field in ("host", "score", "preempt_mask", "freed"):
+        a, b = getattr(got, field), getattr(want, field)
+        if a.dtype.kind == "f":
+            a, b = a.view(np.int32), b.view(np.int32)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"rebalance {label}: {field} differs "
+                                 f"({getattr(got, field)!r:.200} vs "
+                                 f"{getattr(want, field)!r:.200})")
+
+
+def rebalance_bound(state, demand, *_scalars):
+    """(bound_ms, bound_by) of one decision: its inputs read once and the
+    preempt mask written once, against ~(8 + 3R) operations a row (the
+    mask, the sort keys, the prefix sums and their test) with the sort's
+    compares not counted."""
+    t, r = state.task_res.shape
+    h = state.spare.shape[0]
+    nbytes = t * (4 + 4 + 4 * r + 1) + h * (4 * r + 1) + t
+    return _bound(nbytes, t * (8 + 3 * r))
+
+
+def rebalance_case_phase():
+    """Every REBALANCE_CASES kind at REB_T x REB_H, on the card against
+    the same port functions on the CPU, for the exact search and the
+    sort-once pair; the sort-once pair equals the exact search there; times
+    of one decision of each kind, cold and warm, and of the sort."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops.common import BIG, fetch_result
+    from cook_tpu_torch.ops.rebalance import (decide_from_sorted,
+                                              find_preemption_decision,
+                                              sort_rebalance_state)
+
+    phase("rebalance cases")
+    cuda = torch.device("cuda")
+    big = np.float32(BIG)
+    rows = {}
+    for kind in REBALANCE_CASES:
+        args = make_rebalance_inputs(REB_T, REB_H, kind, cuda)
+        cpu_args = _to_device(args, "cpu")
+        found = {}
+        for name, fn in (("exact", find_preemption_decision),
+                         ("sorted", decide_sorted)):
+            got = fetch_result(fn(*args))
+            same_decision(f"{kind} {name} card vs CPU", got,
+                          fetch_result(fn(*cpu_args)))
+            found[name] = got
+        same_decision(f"{kind} sorted vs exact", found["sorted"],
+                      found["exact"])
+        d = found["exact"]
+        host, mask = int(d.host), d.preempt_mask
+        state = fetch_result(args[0])
+        demand = fetch_result(args[1])
+        ok_fit = state.host_ok & (state.spare >= demand).all(-1)
+        if kind == "spare tie":
+            # the first index among the BIG ties, as jnp.argmax picks it
+            if host != int(np.argmax(ok_fit)) or d.score != big or mask.any():
+                raise AssertionError(f"rebalance spare tie: host {host} "
+                                     f"score {d.score}, expected the first "
+                                     f"spare-fitting host {np.argmax(ok_fit)}")
+        elif kind == "none":
+            if host != -1 or mask.any():
+                raise AssertionError("rebalance none: a decision was found")
+        elif host < 0 or not mask.any() or ok_fit.any():
+            raise AssertionError(f"rebalance {kind}: expected victims, got "
+                                 f"host {host}, {int(mask.sum())} victims")
+        if mask.any() and not (state.task_eligible[mask].all()
+                               and (state.task_host[mask] == host).all()):
+            raise AssertionError(f"rebalance {kind}: a victim is "
+                                 "ineligible or on another host")
+        exact_ms = cuda_ms(lambda: find_preemption_decision(*args), cold=True)
+        exact_warm = cuda_ms(lambda: find_preemption_decision(*args))
+        st = args[0]
+        sort_ms = cuda_ms(lambda: sort_rebalance_state(
+            st.task_host, st.task_dru, st.task_res, st.task_eligible),
+            cold=True)
+        ss = sort_rebalance_state(st.task_host, st.task_dru, st.task_res,
+                                  st.task_eligible)
+        row_ok, dru_s = st.task_eligible[ss.perm], st.task_dru[ss.perm]
+
+        def fast():
+            return decide_from_sorted(ss, row_ok, dru_s, st.spare,
+                                      st.host_ok, *args[1:])
+
+        fast_ms = cuda_ms(fast, cold=True)
+        fast_warm = cuda_ms(fast)
+        bound_ms, bound_by = rebalance_bound(*args)
+        rows[kind] = dict(host=host, victims=int(mask.sum()),
+                          exact_ms=exact_ms, exact_warm_ms=exact_warm,
+                          sort_ms=sort_ms, decide_sorted_ms=fast_ms,
+                          decide_sorted_warm_ms=fast_warm,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"rebalance {kind} {REB_T}x{REB_H}: card = CPU (exact and "
+              f"sorted; sorted = exact), host {host}, "
+              f"{int(mask.sum())} victims; find_preemption_decision "
+              f"{exact_ms:.4f} ms cold {exact_warm:.4f} ms warm; "
+              f"decide_from_sorted {fast_ms:.4f} ms cold {fast_warm:.4f} "
+              f"ms warm; bound {bound_ms:.4g} ms ({bound_by})", flush=True)
+        print(f"rebalance {kind}: the sort (sort_rebalance_state) "
+              f"{sort_ms:.4f} ms cold, {sort_ms / exact_ms:.1%} of one "
+              "exact decision", flush=True)
+        del args, cpu_args, ss
+    print("rebalance cases " + json.dumps(rows), flush=True)
+    return rows
+
+
+def set_default_share(sim, hosts, fraction=500):
+    """The default user's share: 1/`fraction` of the fleet's memory and
+    cpus (a finite share makes DRU, and so preemption, meaningful; the
+    store's default is unbounded)."""
+    from cook_tpu_torch.models.entities import DEFAULT_USER, Resources, Share
+
+    sim.store.set_share(Share(
+        user=DEFAULT_USER, pool="default",
+        resources=Resources(mem=sum(h.mem for h in hosts) / fraction,
+                            cpus=sum(h.cpus for h in hosts) / fraction)))
+
+
+class RebalanceLog:
+    """Watches a simulator's scheduler: the host reservations after every
+    match and every rebalance cycle, each rebalance cycle's decisions,
+    reservations made and released, and capacity after every match and
+    every rebalance (check_capacity raises on an over-committed host),
+    and each rebalance cycle's host-clock wall."""
+
+    def __init__(self, sim):
+        self.reservations = []  # (phase, sorted reservation items)
+        self.cycles = []        # per rebalance cycle: decisions summary
+        self.released = 0
+        self.placed_on_reserved = 0
+        s = sim.scheduler
+        match, rebalance = s.match_cycle, s.rebalance_cycle
+
+        def match_cycle(pool):
+            before = dict(s.host_reservations)
+            out = match(pool)
+            placed = {j.uuid: o.hostname for j, o in out.matched}
+            for host, uuid in before.items():
+                if s.host_reservations.get(host) != uuid:
+                    self.released += 1
+                    self.placed_on_reserved += placed.get(uuid) == host
+            self.reservations.append(
+                ("match", sorted(s.host_reservations.items())))
+            check_capacity(sim)
+            return out
+
+        def rebalance_cycle(pool):
+            t0 = time.perf_counter()
+            decisions = rebalance(pool)
+            wall = time.perf_counter() - t0
+            self.cycles.append(dict(
+                wall_s=wall, decisions=len(decisions),
+                victims=sum(len(d.task_ids) for d in decisions),
+                reserved=sum(len(d.task_ids) > 1 for d in decisions)))
+            self.reservations.append(
+                ("rebalance", sorted(s.host_reservations.items())))
+            check_capacity(sim)
+            return decisions
+
+        s.match_cycle, s.rebalance_cycle = match_cycle, rebalance_cycle
+
+
+def ledger_view(result):
+    """The fairness ledger's decision fields, run by run comparable."""
+    return [{k: e[k] for k in ("t_ms", "preemptor_job", "hostname", "block",
+                               "min_preempted_dru", "victims", "wasted_s")}
+            for e in result.fairness["pools"]["default"]["ledger"]]
+
+
+def rebalance_slice_phase(trace=REB_TRACE, device="cuda"):
+    """The full-size rebalance path through the port's Simulator (the
+    REB_TRACE replay on the card); the first and the last victim search
+    of each cycle, and the one with the most victims, rerun on the CPU
+    port, identical.  The last search reads the device state after the
+    in-place updates of all the cycle's earlier decisions.  The tests run
+    it on the CPU at a small `trace`."""
+    from cook_tpu_torch.ops.common import bucket_size, fetch_result
+    from cook_tpu_torch.ops.rebalance import RebalanceState
+    from cook_tpu_torch.scheduler import rebalancer as rb
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+    from cook_tpu_torch.sim.loadgen import preemption_heavy_trace
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    phase("rebalance slice")
+    t0 = time.perf_counter()
+    jobs, hosts = preemption_heavy_trace(**trace)
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=REB_CYCLES, rebalance_every=1,
+        scheduler=SchedulerConfig(
+            match=MatchConfig(max_jobs_considered=16384))), device=device)
+    set_default_share(sim, hosts)
+    log = RebalanceLog(sim)
+    print(f"rebalance slice: {len(jobs)} jobs x {len(hosts)} hosts built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    search = rb.find_preemption_decision
+    picks = {}       # rebalance cycle -> {"first", "last", "most victims"}
+    shapes, devices = set(), set()
+    # per rebalance cycle: [searches, search wall (dispatch + device +
+    # fetch), this phase's own bookkeeping wall]
+    spent = {}
+
+    def keep(*args):
+        t0 = time.perf_counter()
+        # the cycle writes its tensors in place after each decision: keep
+        # copies of what this search read
+        args = (RebalanceState(*(a.clone() for a in args[0])),
+                *(a.clone() for a in args[1:]))
+        t1 = time.perf_counter()
+        out = search(*args)
+        got = fetch_result(out)
+        t2 = time.perf_counter()
+        state = args[0]
+        shapes.add((state.task_host.shape[0], state.spare.shape[0]))
+        devices.add(state.task_host.device.type)
+        cyc = spent.setdefault(len(log.cycles), [0, 0.0, 0.0])
+        slot = picks.setdefault(len(log.cycles), {})
+        kept = (cyc[0], args, got)  # this search's number in its cycle
+        slot.setdefault("first", kept)
+        slot["last"] = kept
+        # ties go to the later search, which reads more in-place updates
+        most = slot.get("most victims")
+        if most is None or (int(got.preempt_mask.sum())
+                            >= int(most[2].preempt_mask.sum())):
+            slot["most victims"] = kept
+        cyc[0] += 1
+        cyc[1] += t2 - t1
+        cyc[2] += (t1 - t0) + (time.perf_counter() - t2)
+        return out
+
+    rb.find_preemption_decision = keep
+    try:
+        t0 = time.perf_counter()
+        result = sim.run()
+        wall = time.perf_counter() - t0
+    finally:
+        rb.find_preemption_decision = search
+    if devices != {sim.scheduler.device.type}:
+        raise AssertionError(f"victim searches ran on {devices}")
+    # every hog task running (its fleet full) plus max_preemption slack
+    # rows: 20,100 rows bucketed to 32768 x 10,000 hosts to 16384 at full
+    # size
+    padded = (bucket_size(trace["hog_jobs"] + 100),
+              bucket_size(trace["hosts"]))
+    if shapes != {padded}:
+        raise AssertionError(f"padded (task rows, hosts) {shapes}, "
+                             f"expected {padded}")
+    rows = result.rows
+    placed = {"hog": 0, "late": 0}
+    for r in rows:
+        if r["start_ms"] is not None:
+            placed["hog" if r["user"] == "hog" else "late"] += 1
+    fair = result.fairness["pools"]["default"]
+    walls = result.cycle_wall_s
+    summary = dict(
+        cycles=result.cycles, replay_wall_s=round(wall, 3),
+        decisions=[c["decisions"] for c in log.cycles],
+        victims=[c["victims"] for c in log.cycles],
+        rebalance_wall_ms=[round(c["wall_s"] * 1e3, 1) for c in log.cycles],
+        # per cycle: the searches, their wall from dispatch to the fetched
+        # result, and what keeping their inputs here cost (inside the
+        # rebalance wall); the rest of the wall is the host's bookkeeping
+        search_wall_ms=[round(spent.get(i, (0, 0.0))[1] * 1e3, 1)
+                        for i in range(len(log.cycles))],
+        capture_wall_ms=[round(spent.get(i, (0, 0.0, 0.0))[2] * 1e3, 1)
+                         for i in range(len(log.cycles))],
+        reservations_made=sum(c["reserved"] for c in log.cycles),
+        reservations_released=log.released,
+        tasks_preempted=fair["rollups"]["tasks_preempted"],
+        wasted_s=fair["rollups"]["wasted_s"],
+        placements=placed,
+        phase_wall_s={k: round(v, 4) for k, v in
+                      result.phase_wall_s.items()},
+        cycle_wall_ms=[round(s * 1e3, 1) for s in walls],
+        cycle_wall_p50_ms=round(sorted(walls)[len(walls) // 2] * 1e3, 2),
+        searches=[spent.get(i, (0,))[0] for i in range(len(log.cycles))],
+        padded_shape=sorted(shapes)[0])
+    print("rebalance slice " + json.dumps(summary), flush=True)
+    if sum(c["victims"] for c in log.cycles) <= 0:
+        raise AssertionError("the rebalance slice preempted nothing")
+    if fair["rollups"]["tasks_preempted"] != sum(c["victims"]
+                                                 for c in log.cycles):
+        raise AssertionError("the ledger's tasks_preempted does not count "
+                             "the decisions' victims")
+    checked = 0
+    for cyc, slot in sorted(picks.items()):
+        done = set()  # search numbers of this cycle already rerun
+        for which in ("first", "last", "most victims"):
+            n, args, want = slot[which]
+            if n in done:
+                continue
+            done.add(n)
+            got = fetch_result(search(*_to_device(args, "cpu")))
+            same_decision(f"slice cycle {cyc + 1} {which} (card vs CPU)",
+                          got, want)
+            checked += 1
+            print(f"rebalance slice cycle {cyc + 1} {which} search ("
+                  f"{n + 1} of {spent[cyc][0]}): host {int(want.host)}, {int(want.preempt_mask.sum())} "
+                  "victims, identical on the CPU", flush=True)
+    summary["searches_checked"] = checked
+    print(f"rebalance slice: {checked} distinct searches of "
+          f"{sum(c[0] for c in spent.values())} identical on the "
+          f"CPU; capacity ok on {check_capacity(sim)} busy hosts",
+          flush=True)
+    return summary
+
+
+def whole_host_trace(trace_job, trace_host, hosts=64, host_mem=65_536.0,
+                     host_cpus=32.0):
+    """A hog fills every host with two half-host jobs at t=0; at 30 s four
+    users submit whole-host jobs for half the hosts.  Each decision must
+    take both of a host's tasks (two victims), so it reserves the host for
+    its job, and the next match must send that job there.  Returns (jobs,
+    hosts) of the given TraceJob / TraceHost classes (either package's)."""
+    jobs = [trace_job(uuid=f"hog-{i:05d}", user="hog", submit_time_ms=0,
+                      runtime_ms=600_000, mem=host_mem / 2,
+                      cpus=host_cpus / 2) for i in range(2 * hosts)]
+    jobs += [trace_job(uuid=f"whole-{i:05d}", user=f"whole{i % 4}",
+                       submit_time_ms=30_000, runtime_ms=150_000,
+                       mem=host_mem, cpus=host_cpus)
+             for i in range(hosts // 2)]
+    return jobs, [trace_host(node_id=f"h{i:03d}", hostname=f"h{i:03d}",
+                             mem=host_mem, cpus=host_cpus)
+                  for i in range(hosts)]
+
+
+def _rebalance_replay(jobs, hosts, match, device):
+    """(result, RebalanceLog) of a 6-cycle replay with a rebalance after
+    every match and the default share 1/500 of the fleet."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=REB_CYCLES, rebalance_every=1,
+        scheduler=SchedulerConfig(match=match)), device=device)
+    set_default_share(sim, hosts)
+    log = RebalanceLog(sim)
+    return sim.run(), log
+
+
+def rebalance_agreement_phase():
+    """Two small rebalance replays on the card and on the CPU: run traces,
+    fairness ledgers and reservations after every cycle equal.  The first
+    on the flat `pallas` matcher, each of its `best_node` launches held
+    against the plain version; the second with multi-victim decisions and
+    host reservations.  Returns the first replay's best_node launches."""
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match as match_mod
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+    from cook_tpu_torch.sim import simulator as sim_mod
+    from cook_tpu_torch.sim.loadgen import preemption_heavy_trace
+
+    phase("rebalance agreement")
+    traces = {
+        "flat pallas": (preemption_heavy_trace(
+            hosts=200, host_mem=65_536, host_cpus=32, hog_jobs=400,
+            late_jobs=600, n_late_users=9, seed=1),
+            MatchConfig(**REB_PALLAS)),
+        "whole host": (whole_host_trace(sim_mod.TraceJob,
+                                        sim_mod.TraceHost),
+                       MatchConfig(max_jobs_considered=16384)),
+    }
+    launches = 0
+    for label, ((jobs, hosts), match) in traces.items():
+        calls = []
+        with kept_calls(match_mod, "best_node", calls):
+            bn.launches = 0
+            card, card_log = _rebalance_replay(jobs, hosts, match, "cuda")
+            n = bn.launches
+        cpu, cpu_log = _rebalance_replay(jobs, hosts, match, "cpu")
+        if card.to_csv() != cpu.to_csv():
+            raise AssertionError(f"rebalance agreement {label}: card and "
+                                 "CPU run traces differ")
+        if ledger_view(card) != ledger_view(cpu):
+            raise AssertionError(f"rebalance agreement {label}: fairness "
+                                 "ledgers differ")
+        if card_log.reservations != cpu_log.reservations:
+            raise AssertionError(f"rebalance agreement {label}: host "
+                                 "reservations differ")
+        victims = [c["victims"] for c in card_log.cycles]
+        if sum(victims) <= 0:
+            raise AssertionError(f"rebalance agreement {label}: nothing "
+                                 "preempted")
+        reserved = sum(c["reserved"] for c in card_log.cycles)
+        if label == "whole host" and not (
+                reserved and card_log.placed_on_reserved == reserved):
+            raise AssertionError(
+                f"whole host: {reserved} reservations made, "
+                f"{card_log.placed_on_reserved} of them taken by their job")
+        if label == "flat pallas":
+            if n <= 0 or len(calls) != n:
+                raise AssertionError(f"kept {len(calls)} best_node calls "
+                                     f"but the kernel counted {n}")
+            for i, args in enumerate(calls):
+                check_identical("best_node", f"rebalance replay launch {i}",
+                                args)
+            launches = n
+        placed = sum(1 for r in card.rows if r["start_ms"] is not None)
+        print(f"rebalance agreement {label}: card = CPU (run trace, "
+              f"ledger, reservations after every cycle); victims per "
+              f"cycle {victims}, reservations made {reserved}, released "
+              f"{card_log.released} ({card_log.placed_on_reserved} taken "
+              f"by their job), {placed} placements, best_node launches "
+              f"{n}" + (" each identical to the plain version"
+                        if n else ""), flush=True)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cook_tpu_torch")):
         print("chip_smoke.py: cook_tpu_torch/ not found beside the script",
@@ -1180,6 +1719,11 @@ def main() -> int:
         errs["best_block"] = max(errs["best_block"], err)
         del busiest
         agreement_phase(workdir)
+    rebalance_case_phase()
+    rebalance_slice_phase()
+    reb_launches = rebalance_agreement_phase()
+    print(f"best_node launches inside the flat rebalance replay: "
+          f"{reb_launches}", flush=True)
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{

@@ -87,6 +87,10 @@ class JobStore:
         self.pools: dict[str, Pool] = {}
         self.shares: dict[tuple[str, str], Share] = {}  # (user, pool)
         self.quotas: dict[tuple[str, str], Quota] = {}
+        # runtime-mutable config (reference: Datomic-resident rebalancer
+        # params + incremental configs); the rebalance cycle reads its
+        # "rebalancer" overrides
+        self.dynamic_config: dict[str, Any] = {}
 
         # secondary indexes
         self._user_jobs: dict[str, set[str]] = {}

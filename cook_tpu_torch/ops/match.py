@@ -87,7 +87,9 @@ def vmap_safe_backend(backend: str) -> str:
 
 def greedy_match(problem: MatchProblem) -> MatchResult:
     """Sequential-order greedy matcher (exact Fenzo-order semantics; J
-    steps of O(N) vector work each, with no host synchronisation)."""
+    steps of O(N) vector work each, with no host synchronisation: the
+    chosen node stays a one-element index tensor, since indexing with a
+    0-d tensor reads it on the host)."""
     avail = problem.avail.clone()
     totals, node_valid = problem.totals, problem.node_valid
     denom = totals.clamp_min(1e-30)
@@ -105,10 +107,11 @@ def greedy_match(problem: MatchProblem) -> MatchResult:
         if problem.node_bonus is not None:
             fit = fit + problem.node_bonus
         score = torch.where(feasible, fit, torch.full_like(fit, -BIG))
-        best = torch.argmax(score)
-        placed = score[best] > -BIG
-        avail[best] -= torch.where(placed, demand, torch.zeros_like(demand))
-        assignment[i] = torch.where(placed, best, -1)
+        best = torch.argmax(score).reshape(1)
+        placed = score.index_select(0, best) > -BIG
+        take = torch.where(placed, demand, torch.zeros_like(demand))
+        avail.index_copy_(0, best, avail.index_select(0, best) - take)
+        assignment[i] = torch.where(placed, best, -1)[0]
     return MatchResult(assignment=assignment, new_avail=avail)
 
 

@@ -1,13 +1,18 @@
-"""Scheduler composition: rank and match cycles, status handling, kill
-fan-out.
+"""Scheduler composition: rank, match and rebalance cycles, status
+handling, kill fan-out, the fairness ledger.
 
 Port of `cook_tpu/scheduler/core.py`: `SchedulerConfig` (its `match` and
-`rebalancer` fields) and a `Scheduler` with `rank_cycle` (the reference's non-columnar
-branch), `match_cycle` (without speculation, rate limiting or telemetry),
-`handle_status_update` and `_on_event` (completions from the backend into
-the store's state machine, kill-on-complete fan-out), `_make_task_id`,
-`_make_launch_filter` and `_cache_spare`.  Rebalance, elastic capacity,
-incidents, fairness and telemetry are later slices.
+`rebalancer` fields) and a `Scheduler` with `rank_cycle` (the reference's
+non-columnar branch, sampling the fairness observatory), `match_cycle`
+(without speculation, rate limiting or telemetry; honouring and releasing
+the rebalancer's host reservations), `rebalance_cycle` (the victim search
+on the device, the preemption ledger, `_transact_preemption`, host
+reservations for multi-victim decisions), `handle_status_update` and
+`_on_event` (completions from the backend into the store's state machine,
+kill-on-complete fan-out, wasted-work accounting of kills the rebalancer
+did not make), `_make_task_id`, `_make_launch_filter` and `_cache_spare`.
+Gang admission, the flight recorder, elastic capacity, incidents and
+telemetry are later slices.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
@@ -28,25 +33,32 @@ from cook_tpu_torch.cluster.base import (
 )
 from cook_tpu_torch.device import resolve
 from cook_tpu_torch.models.entities import InstanceStatus, Job, Pool, Resources
+from cook_tpu_torch.models.reasons import REASONS_BY_CODE
 from cook_tpu_torch.models.store import Event, JobStore
+from cook_tpu_torch.obs.fairness import FairnessObservatory
 from cook_tpu_torch.scheduler.matcher import (
     MatchConfig,
     MatchOutcome,
     PoolMatchState,
     match_pool,
+    topology_block_width,
 )
 from cook_tpu_torch.scheduler.ranking import (
     RankedQueue,
     offensive_job_filter,
     rank_pool,
 )
-from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
+from cook_tpu_torch.scheduler.rebalancer import (
+    Decision,
+    RebalancerParams,
+    rebalance_pool,
+)
+from cook_tpu_torch.utils.metrics import global_registry
 
 
 @dataclass
 class SchedulerConfig:
     match: MatchConfig = field(default_factory=MatchConfig)
-    # read by the rebalance cycle, a later slice
     rebalancer: RebalancerParams = field(default_factory=RebalancerParams)
 
 
@@ -73,6 +85,9 @@ class Scheduler:
         # pool -> hostname -> (attributes, cluster location) of the last scan
         self.last_host_info: dict[str, dict[str, tuple[dict, str]]] = {}
         self.placement_failures: dict[str, str] = {}  # job uuid -> reason text
+        # rebalancer host reservations: hostname -> reserving job uuid
+        # (reserve-hosts!, rebalancer.clj:419)
+        self.host_reservations: dict[str, str] = {}
         # accumulating hostname -> attributes cache: fully-occupied hosts
         # emit no offers, but their attrs are still needed to count running
         # group members for balanced-host placement (constraints.clj:600).
@@ -80,6 +95,13 @@ class Scheduler:
         # names forever
         self.host_attr_cache: OrderedDict[str, dict] = OrderedDict()
         self.host_attr_cache_max = 100_000
+        self.metrics: dict[str, float] = {}
+        # fairness observatory (obs/fairness.py): per-user DRU
+        # trajectories fed from rank_cycle, the preemption ledger fed
+        # from rebalance_cycle, wasted-work rollups recovered from the
+        # store's terminal instances
+        self.fairness = FairnessObservatory(clock=store.clock)
+        self.fairness.recover(store)
         store.add_watcher(self._on_event)
         for cluster in self.clusters:
             if hasattr(cluster, "status_callback"):
@@ -107,8 +129,15 @@ class Scheduler:
 
     def _on_event(self, event: Event) -> None:
         """Store event feed consumer: kill-on-complete fan-out
-        (monitor-tx-report-queue, scheduler.clj:378).  Completion plugins
-        and wasted-work accounting are later slices."""
+        (monitor-tx-report-queue, scheduler.clj:378) and wasted-work
+        accounting.  Completion plugins are a later slice."""
+        if event.kind == "instance/status" and event.data["status"] in (
+            "success", "failed"
+        ):
+            job = self.store.jobs.get(event.data["job"])
+            inst = self.store.instances.get(event.data["task_id"])
+            if job is not None and inst is not None:
+                self._note_wasted_work(job, inst)
         if event.kind != "job/state" or event.data.get("state") != "completed":
             return
         job_uuid = event.data["uuid"]
@@ -119,6 +148,24 @@ class Scheduler:
                 self.store.update_instance_state(
                     inst.task_id, InstanceStatus.FAILED, "killed-by-user"
                 )
+
+    def _note_wasted_work(self, job, inst) -> None:
+        """Mea-culpa wasted-work accounting for NON-rebalancer kills
+        (e.g. the backing cluster preempted the container, reason
+        `container-preempted`).  Rebalancer preemptions are accounted at
+        decision time by rebalance_cycle -> fairness.record_decisions,
+        and their instance/status event lands here too — skip them or
+        the wasted seconds double-count."""
+        if inst.status != InstanceStatus.FAILED or inst.reason_code is None:
+            return
+        reason = REASONS_BY_CODE.get(inst.reason_code)
+        if (reason is None or not reason.mea_culpa
+                or reason.name == "preempted-by-rebalancer"):
+            return
+        end_ms = inst.end_time_ms or self.store.clock()
+        wasted_s = max(0.0, (end_ms - inst.start_time_ms) / 1000.0)
+        self.fairness.note_kill(job.pool, job.user, inst.task_id,
+                                wasted_s, reason=reason.name)
 
     # -------------------------------------------------------------- cycles
 
@@ -155,6 +202,10 @@ class Scheduler:
                 "The job's resource demands exceed every host in the pool."
             )
         self.pool_queues[pool.name] = queue
+        # fairness trajectory sample: the rank cycle is the one moment
+        # the per-user fair-share picture (queue DRU + running usage) is
+        # coherent in one place
+        self.fairness.observe_rank(pool.name, queue, self.store)
         return queue
 
     def match_cycle(self, pool: Pool) -> MatchOutcome:
@@ -177,9 +228,16 @@ class Scheduler:
             make_task_id=self._make_task_id,
             launch_filter=self._make_launch_filter(),
             record_placement_failure=self._record_placement_failure,
+            host_reservations=self.host_reservations,
             host_attrs=self.host_attr_cache,
         )
         matched_uuids = {j.uuid for j, _ in outcome.matched}
+        # launched jobs release their host reservations
+        if self.host_reservations:
+            self.host_reservations = {
+                host: tag for host, tag in self.host_reservations.items()
+                if tag not in matched_uuids
+            }
         queue.jobs = [j for j in queue.jobs if j.uuid not in matched_uuids]
         # cache spare resources for the rebalancer (view-incubating-offers,
         # scheduler.clj:1537): offers minus what this cycle just placed
@@ -202,6 +260,125 @@ class Scheduler:
             self.host_attr_cache.popitem(last=False)
         self.last_unmatched_offers[pool.name] = spare
         self.last_host_info[pool.name] = host_info
+
+    def _rebalancer_params(self) -> RebalancerParams:
+        """Config-file defaults overridden by runtime-mutable dynamic
+        config (reference: Datomic-resident `:rebalancer/config`,
+        rebalancer.clj:535-557 — tuning preemption must not need a
+        restart): the store's `dynamic_config["rebalancer"]`."""
+        overrides = self.store.dynamic_config.get("rebalancer")
+        base = self.config.rebalancer
+        if not isinstance(overrides, dict):
+            return base
+        return RebalancerParams(
+            safe_dru_threshold=float(overrides.get(
+                "safe_dru_threshold", base.safe_dru_threshold)),
+            min_dru_diff=float(overrides.get(
+                "min_dru_diff", base.min_dru_diff)),
+            max_preemption=int(overrides.get(
+                "max_preemption", base.max_preemption)),
+            fast_cycle=bool(overrides.get(
+                "fast_cycle", base.fast_cycle)),
+            gang_enabled=bool(overrides.get(
+                "gang_enabled", base.gang_enabled)),
+            gang_max_admissions=int(overrides.get(
+                "gang_max_admissions", base.gang_max_admissions)),
+            gang_drain_max_wait_ms=float(overrides.get(
+                "gang_drain_max_wait_ms", base.gang_drain_max_wait_ms)),
+            gang_drain_wasted_factor=float(overrides.get(
+                "gang_drain_wasted_factor", base.gang_drain_wasted_factor)),
+            resident=bool(overrides.get("resident", base.resident)),
+        )
+
+    def rebalance_cycle(self, pool: Pool) -> list[Decision]:
+        """One pool's preemption pass (rebalancer.clj:434-533): the
+        victim search on the device, the preemption ledger, the kills, and
+        a host reservation for each decision that took several victims."""
+        queue = self.pool_queues.get(pool.name) or self.rank_cycle(pool)
+        params = self._rebalancer_params()
+        if params.gang_enabled and any(
+                j.gang_size >= 2 and j.group_uuid for j in queue.jobs):
+            raise NotImplementedError(
+                "gang admission in the rebalance cycle is not ported yet "
+                "(the gang slice); set RebalancerParams.gang_enabled=False "
+                "to rebalance gang members as independent jobs")
+        spare = self.last_unmatched_offers.get(pool.name, {})
+        decisions = rebalance_pool(
+            self.store, pool, queue.jobs, spare, params,
+            host_info=self.last_host_info.get(pool.name),
+            device=self.device,
+        )
+        # fairness ledger: per-victim wasted-work seconds must be read
+        # BEFORE _transact_preemption flips the instances terminal (the
+        # runtime destroyed is clock() - start at the kill)
+        now_ms = self.store.clock()
+        block_of = self._host_block_map(pool, spare)
+        ledger_entries = []
+        for d in decisions:
+            if not d.task_ids:
+                continue
+            victims = []
+            for v in d.victims:
+                inst = self.store.instances.get(v["task_id"])
+                wasted_s = 0.0
+                # start_time_ms is always clock-stamped at create; 0 is
+                # a REAL start under the simulator's virtual clock
+                if inst is not None and not inst.status.terminal:
+                    wasted_s = max(
+                        0.0, (now_ms - inst.start_time_ms) / 1000.0)
+                victims.append(dict(v, wasted_s=round(wasted_s, 3)))
+            ledger_entries.append({
+                "t_ms": now_ms,
+                "preemptor_job": d.job.uuid,
+                "preemptor_user": d.job.user,
+                "hostname": d.hostname,
+                # topology block of the freed host: the observatory's
+                # block-aware fragmentation groups freed capacity by block
+                "block": block_of.get(d.hostname, -1),
+                "min_preempted_dru": d.min_preempted_dru,
+                "victims": victims,
+                "wasted_s": round(sum(v["wasted_s"] for v in victims), 3),
+                "freed": {"mem": sum(v["mem"] for v in victims),
+                          "cpus": sum(v["cpus"] for v in victims),
+                          "gpus": sum(v["gpus"] for v in victims)},
+            })
+        self.fairness.record_decisions(pool.name, ledger_entries)
+        for decision in decisions:
+            self._transact_preemption(decision)
+            if len(decision.task_ids) > 1:
+                # multi-task preemptions reserve the host for the job they
+                # made room for, so the next match sends it there
+                self.host_reservations[decision.hostname] = decision.job.uuid
+        n_preempted = sum(len(d.task_ids) for d in decisions)
+        self.metrics[f"rebalance.{pool.name}.preempted"] = n_preempted
+        global_registry.counter(
+            "rebalance.preempted",
+            "tasks preempted by the rebalancer per pool").inc(
+            n_preempted, {"pool": pool.name})
+        return decisions
+
+    def _host_block_map(self, pool: Pool, spare: dict) -> dict[str, int]:
+        """hostname -> topology block index (sorted hosts chunked by the
+        match config's block width), the fairness ledger's block stamp."""
+        hostnames = sorted(
+            set(spare)
+            | {i.hostname for i in self.store.running_instances(pool.name)
+               if i.hostname})
+        npb = topology_block_width(len(hostnames))
+        return {h: i // npb for i, h in enumerate(hostnames)}
+
+    def _transact_preemption(self, decision: Decision) -> None:
+        """transact-preemption! + safe-kill-task (rebalancer.clj:482-533)."""
+        for task_id in decision.task_ids:
+            inst = self.store.instances.get(task_id)
+            if inst is None or inst.status.terminal:
+                continue
+            self.store.update_instance_state(
+                task_id, InstanceStatus.FAILED, "preempted-by-rebalancer"
+            )
+            cluster = self.cluster_by_name(inst.compute_cluster)
+            if cluster is not None:
+                cluster.safe_kill_task(task_id)
 
     def _record_placement_failure(self, job: Job, reason: str) -> None:
         self.placement_failures[job.uuid] = reason

@@ -6,7 +6,9 @@ Port of `cook_tpu/scheduler/matcher.py`: considerable-job selection
 (`dispatch_pool_solve`: the flat chunked or exact solve, or the
 hierarchical two-level solve behind `HierarchicalPending` for pools at or
 over `hierarchical_threshold`), and `prepare_pool_problem` /
-`finalize_pool_match` / `match_pool`.
+`finalize_pool_match` / `match_pool`, with the rebalancer's host
+reservations honoured by the feasibility mask, and `topology_block_width`
+(the block a host belongs to, stamped on the fairness ledger).
 
 Left for later slices: the gang, encode-cache, device-residency,
 predictor, quality-audit and flight-recorder branches.  The
@@ -279,6 +281,17 @@ def hierarchical_enabled(config: MatchConfig,
     return j * n >= config.hierarchical_threshold
 
 
+def topology_block_width(n_nodes: int) -> int:
+    """Block width (hosts) of the topology: the hierarchical
+    decomposition's tuned bucket, so that "one block" means the same to
+    the fairness ledger and to the two-level matcher.  The reference's
+    `MatchConfig.topology_block_hosts` override, read there by the
+    topology bonus and gang blocks, comes with the gang slice."""
+    from cook_tpu_torch.ops.hierarchical import choose_nodes_per_block
+
+    return choose_nodes_per_block(max(n_nodes, 1))
+
+
 def hier_params_from_config(config: MatchConfig):
     """MatchConfig -> ops/hierarchical.HierParams (the chunked-matcher
     knobs carry over so the fine solve uses the pool's tuned config)."""
@@ -463,9 +476,12 @@ def prepare_pool_problem(
     *,
     device: torch.device,
     launch_filter: Optional[Callable[[Job], bool]] = None,
+    host_reservations: Optional[dict[str, str]] = None,
     host_attrs: Optional[dict[str, dict]] = None,
 ) -> PreparedPool:
-    """Gather offers + considerable jobs and encode the tensor problem."""
+    """Gather offers + considerable jobs and encode the tensor problem.
+    `host_reservations` (hostname -> reserving job uuid, set by the
+    rebalancer) closes each reserved host to every other job."""
     prepared = PreparedPool(pool=pool, outcome=MatchOutcome())
 
     # offers from every running cluster (scheduler.clj:1574-1585); an
@@ -514,6 +530,22 @@ def prepare_pool_problem(
         offer_locations=[c.location for c, _ in prepared.cluster_offers],
         balanced_pre_rows=prepared.balanced_pre_rows,
     )
+    if host_reservations:
+        # rebalancer reservations (constraints.clj:242 + reserve-hosts!,
+        # rebalancer.clj:419): a reserved host only accepts its reserving
+        # job.  The gang:<group> tags of gang admission come with the gang
+        # slice
+        reserved_for = np.array(
+            [host_reservations.get(o.hostname, "") for o in nodes.offers]
+        )
+        has_reservation = reserved_for != ""
+        for ji, job in enumerate(considerable):
+            allowed = ~has_reservation | (reserved_for == job.uuid)
+            feasible[ji] &= allowed
+            # the saved pre-closure rows must honor reservations too, or
+            # the balanced top-up could steal a reserved host
+            if ji in prepared.balanced_pre_rows:
+                prepared.balanced_pre_rows[ji] &= allowed
     prepared.feasible = feasible
     prepared.problem = build_match_problem(considerable, nodes, feasible,
                                            device=device,
@@ -736,6 +768,7 @@ def match_pool(
     make_task_id: Callable[[Job], str],
     launch_filter: Optional[Callable[[Job], bool]] = None,
     record_placement_failure: Optional[Callable[[Job, str], None]] = None,
+    host_reservations: Optional[dict[str, str]] = None,
     host_attrs: Optional[dict[str, dict]] = None,
 ) -> MatchOutcome:
     """One pool's match cycle end to end (prepare -> solve -> finalize).
@@ -743,7 +776,8 @@ def match_pool(
     t0 = time.perf_counter()
     prepared = prepare_pool_problem(
         store, pool, queue, clusters, config, state, device=device,
-        launch_filter=launch_filter, host_attrs=host_attrs)
+        launch_filter=launch_filter, host_reservations=host_reservations,
+        host_attrs=host_attrs)
     t1 = time.perf_counter()
     assignment = np.empty(0, dtype=np.int32)
     if prepared.solvable:

@@ -5,6 +5,7 @@ CSV run-trace out, plus `compare` for determinism/equivalence checking
 between two run traces — of either package, the formats are the same.
 
     python -m cook_tpu_torch.sim.cli run --trace trace.json --out run.csv [--device cpu]
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --rebalance-every 1 ...
     python -m cook_tpu_torch.sim.cli synth --jobs 1000 --hosts 100 --out trace.json
     python -m cook_tpu_torch.sim.cli compare run1.csv run2.csv
 
@@ -18,6 +19,7 @@ import csv
 import json
 
 from cook_tpu_torch.scheduler.core import SchedulerConfig
+from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
 from cook_tpu_torch.sim.simulator import (
     SimConfig,
     Simulator,
@@ -54,6 +56,7 @@ def sim_config(args) -> SimConfig:
     tuned config (tuned_match.json) like the reference; flags override."""
     return SimConfig(
         cycle_ms=args.cycle_ms,
+        rebalance_every=args.rebalance_every,
         max_cycles=args.max_cycles,
         scheduler=SchedulerConfig(
             match=default_match_config(
@@ -61,6 +64,11 @@ def sim_config(args) -> SimConfig:
                 **{k: v for k, v in
                    (("chunk", args.chunk), ("backend", args.backend))
                    if v is not None}),
+            rebalancer=RebalancerParams(
+                safe_dru_threshold=args.safe_dru_threshold,
+                min_dru_diff=args.min_dru_diff,
+                max_preemption=args.max_preemption,
+            ),
         ),
     )
 
@@ -152,6 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a card only cpu runs")
     r.add_argument("--cycle-ms", type=int, default=30_000)
+    r.add_argument("--rebalance-every", type=int, default=0,
+                   help="cycles between rebalance passes (0 = off)")
     r.add_argument("--max-cycles", type=int, default=10_000)
     r.add_argument("--chunk", type=int, default=None,
                    help="matcher chunk; default = tuned_match.json / 0")
@@ -159,6 +169,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["xla", "pallas", "bucketed"],
                    help="candidate-pass backend; default = tuned config")
     r.add_argument("--considerable", type=int, default=1000)
+    r.add_argument("--safe-dru-threshold", type=float, default=1.0)
+    r.add_argument("--min-dru-diff", type=float, default=0.5)
+    r.add_argument("--max-preemption", type=int, default=100)
     r.set_defaults(fn=cmd_run)
 
     s = sub.add_parser("synth", help="generate a synthetic trace")

@@ -8,7 +8,8 @@ JSON object: the per-cycle walls; the host-clock totals of the phases the
 simulator records (`SimResult.phase_wall_s`: rank, then match's encode =
 `prepare_pool_problem`, solve = dispatch through the fetch that observes
 completion, launch = `finalize_pool_match`, and for a hierarchical solve
-its coarse_solve / fine_solve / refine split of solve); the device time of every
+its coarse_solve / fine_solve / refine split of solve, and rebalance under
+`--rebalance-every`); the device time of every
 kernel and copy the profiler saw (total, and the top ones); and the
 device busy share of the replay's wall.  The profiler's own overhead is
 inside those walls.  On a CPU-only run the device figures are null.

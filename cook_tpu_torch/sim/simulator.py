@@ -2,14 +2,17 @@
 
 Port of `cook_tpu/sim/simulator.py`: drive the REAL scheduler against the
 in-memory mock backend with frozen, manually-advanced virtual time; each
-cycle is: flush completions -> submit due jobs -> rank -> match.  Inputs
+cycle is: flush completions -> submit due jobs -> rank -> match ->
+[rebalance, every `rebalance_every` cycles].  Inputs
 are a job trace + host list (the same JSON both packages read); output is
 a run trace (job, task, submit/start/end, host, status) whose CSV is
 byte-compatible with the reference's, so `sim.cli compare` works across
-the two packages.  Per-phase wall times are recorded beside the decisions.
+the two packages.  Per-phase wall times are recorded beside the decisions,
+and the fairness observatory's snapshot (preemption ledger, rollups,
+trajectories) at the end of the run.
 
-Rebalance, elastic, speculation, residency, fault schedules, health and
-metrics history are later slices, and so are gang traces (their
+Elastic, speculation, residency, fault schedules, health and metrics
+history are later slices, and so are gang traces (their
 all-or-nothing placement lives in the gang slice): a trace with gangs is
 refused rather than placed member by member.
 """
@@ -90,6 +93,7 @@ class TraceHost:
 @dataclass
 class SimConfig:
     cycle_ms: int = 30_000           # virtual time per cycle
+    rebalance_every: int = 0         # cycles between rebalances (0 = off)
     max_cycles: int = 10_000
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     pools: tuple = (("default", "default"),)  # (name, dru_mode)
@@ -102,6 +106,10 @@ class SimResult:
     virtual_ms: int
     phase_wall_s: dict[str, float]
     cycle_wall_s: list[float]        # per-cycle total scheduling wall time
+    # fairness observatory snapshot at end of run (per-pool Jain index,
+    # DRU trajectories, preemption ledger + wasted-work rollups), so a
+    # trace replay reports the same fairness numbers as the reference
+    fairness: dict = field(default_factory=dict)
 
     def queued_wait_ms(self) -> list[int]:
         """Per-started-task queued wait (start - submit)."""
@@ -183,11 +191,14 @@ class Simulator:
         cfg = self.config
         submitted = 0
         # rank and match, then match's own split into encode / solve /
-        # launch (MatchOutcome.phase_wall_s), and a hierarchical solve's
-        # split of solve into coarse_solve / fine_solve / refine
+        # launch (MatchOutcome.phase_wall_s), a hierarchical solve's
+        # split of solve into coarse_solve / fine_solve / refine, and
+        # rebalance when it runs
         phase_wall: dict[str, float] = {"rank": 0.0, "match": 0.0,
                                         "encode": 0.0, "solve": 0.0,
                                         "launch": 0.0}
+        if cfg.rebalance_every:
+            phase_wall["rebalance"] = 0.0
         cycle_wall: list[float] = []
         pools = [self.store.pools[name] for name, _ in cfg.pools]
         cycle = 0
@@ -218,7 +229,7 @@ class Simulator:
                     )
                     for tj in due
                 ])
-            # 3. rank -> match per pool
+            # 3. rank -> match (-> rebalance) per pool
             t_cycle = time.perf_counter()
             for pool in pools:
                 t0 = time.perf_counter()
@@ -230,6 +241,10 @@ class Simulator:
                 phase_wall["match"] += t2 - t1
                 for name, wall in outcome.phase_wall_s.items():
                     phase_wall[name] = phase_wall.get(name, 0.0) + wall
+                if cfg.rebalance_every and cycle % cfg.rebalance_every == 0:
+                    t3 = time.perf_counter()
+                    self.scheduler.rebalance_cycle(pool)
+                    phase_wall["rebalance"] += time.perf_counter() - t3
             cycle_wall.append(time.perf_counter() - t_cycle)
             # 4. advance virtual time
             self.now_ms += cfg.cycle_ms
@@ -249,6 +264,7 @@ class Simulator:
             virtual_ms=self.now_ms,
             phase_wall_s=phase_wall,
             cycle_wall_s=cycle_wall,
+            fairness=self.scheduler.fairness.snapshot(),
         )
 
     def _collect_rows(self) -> list[dict]:

@@ -42,6 +42,33 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the modules of the rebalance slice, each imported alone in a fresh
+# interpreter: none may pull in JAX or the reference (jax-free copies of
+# reference modules must import the port's own dependencies)
+REBALANCE_MODULES = ("cook_tpu_torch.ops.rebalance",
+                     "cook_tpu_torch.ops.cpu_reference",
+                     "cook_tpu_torch.obs.fairness",
+                     "cook_tpu_torch.utils.metrics",
+                     "cook_tpu_torch.sim.loadgen",
+                     "cook_tpu_torch.scheduler.rebalancer")
+
+
+@pytest.mark.parametrize("module", REBALANCE_MODULES)
+def test_rebalance_slice_module_loads_no_jax_or_reference(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0].startswith('jax')\n"
+        "             or m.split('.')[0] == 'cook_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def _source_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(PORT):

@@ -220,3 +220,240 @@ def test_small_hier_slice_places_within_capacity():
     walls = result.phase_wall_s
     split = walls["coarse_solve"] + walls["fine_solve"] + walls["refine"]
     assert 0 < split <= walls["solve"]
+
+
+# ------------------------------------------------------------- rebalance
+# rank -> match -> rebalance every cycle: the run trace, the fairness
+# ledger and the host reservations after every match and every rebalance
+# must equal the reference simulator's
+
+
+def _with_share(s, ent, mem, cpus, dynamic=None):
+    s.store.set_share(ent.Share(user=ent.DEFAULT_USER, pool="default",
+                                resources=ent.Resources(mem=mem, cpus=cpus)))
+    if dynamic is not None:
+        s.store.dynamic_config["rebalancer"] = dynamic
+    return s
+
+
+def _preemption_heavy(mod):
+    """tests/test_fairness.py:378's run: the reference's share and
+    dynamic rebalancer overrides."""
+    from cook_tpu.sim import loadgen as ref_loadgen
+    from cook_tpu_torch.sim import loadgen
+
+    gen = ref_loadgen if mod is ref_sim else loadgen
+    jobs, hosts = gen.preemption_heavy_trace(
+        hog_jobs=8, late_jobs=3, hosts=4, runtime_ms=240_000,
+        late_arrival_ms=30_000, n_late_users=3)
+    return jobs, hosts, 60, (500.0, 2.0), {
+        "safe_dru_threshold": 0.0, "min_dru_diff": 0.01,
+        "max_preemption": 10}, {}
+
+
+def _whole_host(mod):
+    """chip_smoke.whole_host_trace at 8 hosts: two-victim decisions that
+    reserve their host; the default RebalancerParams and a share of 1/500
+    of the fleet, as chip_smoke.py replays it."""
+    from chip_smoke import whole_host_trace
+
+    jobs, hosts = whole_host_trace(mod.TraceJob, mod.TraceHost, hosts=8)
+    return jobs, hosts, 8, (8 * 65_536 / 500, 8 * 32 / 500), None, {}
+
+
+def _preemption_heavy_200(mod):
+    """chip_smoke.py's rebalance slice at 200 hosts: the hog fills the
+    fleet, nine late users arrive at 60 s (cycle 3), and cycles 3 and 4
+    take the default max_preemption of 100 decisions each, so later
+    searches read the cycle's fixed-row state after tens of in-place
+    updates.  Share 1/500 of the fleet, default RebalancerParams.  Four
+    cycles, not the slice's six: the reference compiles a scatter for
+    each decision it applies (about 0.5 s each on a CPU)."""
+    from chip_smoke import REB_TRACE
+    from cook_tpu.sim import loadgen as ref_loadgen
+    from cook_tpu_torch.sim import loadgen
+
+    gen = ref_loadgen if mod is ref_sim else loadgen
+    jobs, hosts = gen.preemption_heavy_trace(**dict(
+        REB_TRACE, hosts=200, hog_jobs=400, late_jobs=1600,
+        n_late_users=9))
+    return jobs, hosts, 4, (200 * 65_536 / 500, 200 * 32 / 500), None, \
+        {"max_jobs_considered": 16384}
+
+
+REBALANCE_TRACES = {"preemption-heavy": _preemption_heavy,
+                    "preemption-heavy-200": _preemption_heavy_200,
+                    "whole-host": _whole_host}
+
+
+def _rebalance_run(mod, trace):
+    from chip_smoke import RebalanceLog
+    from cook_tpu.models import entities as ref_ent
+    from cook_tpu_torch.models import entities as port_ent
+
+    jobs, hosts, cycles, share, dynamic, match = \
+        REBALANCE_TRACES[trace](mod)
+    if mod is ref_sim:
+        s = ref_sim.Simulator(jobs, hosts, ref_sim.SimConfig(
+            rebalance_every=1, max_cycles=cycles,
+            scheduler=RefSchedulerConfig(use_columnar_index=False,
+                                         match=RefMatchConfig(**match))))
+        ent = ref_ent
+    else:
+        s = sim.Simulator(jobs, hosts, sim.SimConfig(
+            rebalance_every=1, max_cycles=cycles,
+            scheduler=SchedulerConfig(match=MatchConfig(**match))),
+            device="cpu")
+        ent = port_ent
+    _with_share(s, ent, *share, dynamic)
+    log = RebalanceLog(s)
+    return s.run(), log
+
+
+@pytest.mark.parametrize("trace", sorted(REBALANCE_TRACES))
+def test_port_simulator_reproduces_reference_rebalance(trace):
+    from chip_smoke import ledger_view
+
+    want, want_log = _rebalance_run(ref_sim, trace)
+    got, got_log = _rebalance_run(sim, trace)
+    assert got.to_csv() == want.to_csv()  # byte-identical run traces
+    assert got.cycles == want.cycles
+    assert ledger_view(got) == ledger_view(want)
+    assert got.fairness["pools"]["default"]["rollups"] == \
+        want.fairness["pools"]["default"]["rollups"]
+    assert got_log.reservations == want_log.reservations
+    def counts(log):  # each cycle's decisions, victims, reservations
+        return [{k: v for k, v in c.items() if k != "wall_s"}
+                for c in log.cycles]
+
+    assert counts(got_log) == counts(want_log)
+    victims = sum(c["victims"] for c in got_log.cycles)
+    assert victims == got.fairness["pools"]["default"]["rollups"][
+        "tasks_preempted"] > 0
+    assert "rebalance" in got.phase_wall_s
+    if trace == "whole-host":
+        made = sum(c["reserved"] for c in got_log.cycles)
+        assert made == 4                    # one per whole-host job
+        assert got_log.placed_on_reserved == made
+    if trace == "preemption-heavy-200":
+        # cycles that reach the default max_preemption of 100 decisions
+        assert [c["decisions"] for c in got_log.cycles] == [0, 0, 100, 100]
+
+
+def test_preemption_heavy_trace_ab_vs_standard():
+    """tests/test_fairness.py:353 through the port: the preemption-heavy
+    trace shows preemptions, wasted work and a depressed Jain index; the
+    standard completion-heavy run none of them."""
+    from cook_tpu_torch.models import entities as port_ent
+    from cook_tpu_torch.sim.loadgen import (completion_heavy_trace,
+                                            preemption_heavy_trace)
+
+    def _run(jobs, hosts):
+        s = sim.Simulator(jobs, hosts, sim.SimConfig(
+            cycle_ms=30_000, rebalance_every=1, max_cycles=60),
+            device="cpu")
+        _with_share(s, port_ent, 500.0, 2.0, {
+            "safe_dru_threshold": 0.0, "min_dru_diff": 0.01,
+            "max_preemption": 10})
+        result = s.run()
+        return result, list(
+            s.scheduler.fairness._baselines["default"]._samples)
+
+    heavy, heavy_jain = _run(*preemption_heavy_trace(
+        hog_jobs=8, late_jobs=3, hosts=4, runtime_ms=240_000,
+        late_arrival_ms=30_000, n_late_users=3))
+    std, std_jain = _run(*completion_heavy_trace(
+        jobs=8, hosts=4, runtime_ms=60_000, n_users=1))
+    heavy_body = heavy.fairness["pools"]["default"]
+    std_body = std.fairness["pools"]["default"]
+    assert heavy_body["rollups"]["tasks_preempted"] >= 1
+    assert heavy_body["rollups"]["wasted_s"]["fairness"] > 0.0
+    assert heavy_body["ledger"]
+    assert std_body["rollups"]["tasks_preempted"] == 0
+    assert std_body["rollups"]["wasted_s"]["fairness"] == 0.0
+    assert min(heavy_jain) < 0.97
+    assert min(std_jain) > 0.999
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("completion_heavy_trace", {}),
+    ("completion_heavy_trace", dict(jobs=9, hosts=3, n_users=4, seed=5)),
+    ("preemption_heavy_trace", {}),
+    ("preemption_heavy_trace", dict(hog_jobs=20, late_jobs=30, hosts=10,
+                                    host_mem=65_536, host_cpus=32,
+                                    n_late_users=7, seed=3)),
+])
+def test_loadgen_traces_equal_reference(name, kwargs):
+    from cook_tpu.sim import loadgen as ref_loadgen
+    from cook_tpu_torch.sim import loadgen
+
+    got_jobs, got_hosts = getattr(loadgen, name)(**kwargs)
+    want_jobs, want_hosts = getattr(ref_loadgen, name)(**kwargs)
+    assert [vars(j) for j in got_jobs] == [vars(j) for j in want_jobs]
+    assert [vars(h) for h in got_hosts] == [vars(h) for h in want_hosts]
+
+
+def test_cli_rebalance_flags_reach_the_config(tmp_path, capsys):
+    import json
+
+    args = cli.build_parser().parse_args(
+        ["run", "--trace", "t.json", "--rebalance-every", "2",
+         "--safe-dru-threshold", "0.25", "--min-dru-diff", "0.125",
+         "--max-preemption", "7"])
+    cfg = cli.sim_config(args)
+    assert cfg.rebalance_every == 2
+    params = cfg.scheduler.rebalancer
+    assert (params.safe_dru_threshold, params.min_dru_diff,
+            params.max_preemption) == (0.25, 0.125, 7)
+    # and a CPU replay with the rebalancer on reports its phase wall
+    trace = str(tmp_path / "t.json")
+    cli.main(["synth", "--jobs", "30", "--hosts", "3", "--users", "3",
+              "--submit-span-ms", "30000", "--out", trace])
+    capsys.readouterr()
+    assert cli.main(["run", "--trace", trace, "--out",
+                     str(tmp_path / "r.csv"), "--device", "cpu", "--chunk",
+                     "0", "--max-cycles", "3", "--rebalance-every", "1"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "rebalance" in summary["phase_wall_s"]
+
+
+def test_small_rebalance_slice_on_cpu():
+    """chip_smoke.py's rebalance slice at a CPU-sized trace (the
+    preemption-heavy-200 parity case holds its decisions to the JAX
+    simulator): the hog fills 200 hosts, the late users preempt it, each
+    cycle's first, last and most-victims searches rerun identically,
+    capacity holds throughout."""
+    from chip_smoke import REB_TRACE, rebalance_slice_phase
+
+    summary = rebalance_slice_phase(
+        dict(REB_TRACE, hosts=200, hog_jobs=400, late_jobs=1600,
+             n_late_users=9), device="cpu")
+    assert sum(summary["victims"]) == summary["tasks_preempted"] > 0
+    assert summary["padded_shape"] == (512, 256)
+    assert summary["placements"]["late"] > 0
+    # a cycle of many searches reruns at least its first and its last
+    assert max(summary["searches"]) >= 2
+    assert summary["searches_checked"] >= sum(
+        min(n, 2) for n in summary["searches"])
+
+
+def test_rebalance_cycle_refuses_a_gang_queue():
+    """Gang admission is not ported: a queue holding a gang member makes
+    the rebalance cycle raise while gang_enabled is set."""
+    from cook_tpu_torch.models import entities as e
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.scheduler.core import Scheduler
+    from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
+
+    store = JobStore()
+    store.set_pool(e.Pool(name="default"))
+    store.submit_jobs(
+        [e.Job(uuid=f"g{i}", user="u", pool="default", group_uuid="grp",
+               gang_size=2) for i in range(2)],
+        [e.Group(uuid="grp", job_uuids=("g0", "g1"))])
+    pool = store.pools["default"]
+    sched = Scheduler(store, [], device="cpu")
+    with pytest.raises(NotImplementedError, match="gang"):
+        sched.rebalance_cycle(pool)
+    sched.config.rebalancer = RebalancerParams(gang_enabled=False)
+    assert sched.rebalance_cycle(pool) == []
