@@ -48,7 +48,34 @@ and prints no result line):
                   busiest coarse pass (the call the plain version makes).
   8. agreement  — small traces replayed on the card and on the CPU, flat
                   and hierarchical, whose run traces must agree.
-  9. rebalance cases — the victim search alone (`ops/rebalance.py`, torch
+  9. gang slice — the same 100k x 10k trace with every tenth job a gang
+                  member (gangs of 2, 4, 8, 16 in submit order, ~1,335
+                  gangs), 3 cycles on the flat route (chunked `best_node`,
+                  the one-block rule bound to 1024 hosts) and on the
+                  hierarchical one (its coarse pass forced to `xla` by the
+                  gangs, fine on `best_node_batched`): after every cycle
+                  no gang partly launched, each on distinct hosts of one
+                  block, no host over capacity; placements, gangs
+                  considered / placed / blocked by reason and the phase
+                  walls printed; every kernel launch of both runs held
+                  against the plain version, and `ops/gang`'s torch code
+                  (every `gang_filter` / `release_assignments` call of the
+                  hierarchical run, and a fuzz of it and
+                  `block_free_hosts`) against its numpy twins.
+ 10. gang agreement — the gang mix on the small trace (flat and
+                  hierarchical) and `gang_topology_trace` (4 blocks of 8,
+                  60 cycles) on the card and on the CPU: run traces and
+                  `gang_stats` identical.
+ 11. gang admission — a 64-host fleet in blocks of 8 full of one user's
+                  tasks and a waiting gang of 8: the rebalance cycle's
+                  admission kills one block's tasks and reserves it
+                  `gang:<group>`, the match places the gang whole there;
+                  card = CPU.
+ 12. coarse_pass paged — `coarse_pass` past its shared memory (B 1024 at
+                  R 4 and R 8, B 512 at R 8, and both sides of the edge at
+                  R 8): identical to the plain version, bit-identical over
+                  5 runs, timed cold and warm against the bound.
+ 13. rebalance cases — the victim search alone (`ops/rebalance.py`, torch
                   code: no hand kernel runs in it) at 131072 task rows x
                   16384 hosts, on the card against the same functions on
                   the CPU: the exact search and the sort-once pair,
@@ -56,20 +83,20 @@ and prints no result line):
                   victims / spare tie / none / quota kinds; CUDA-event
                   times of one decision of each kind, cold and warm, and
                   the sort's share.
- 10. rebalance slice — the full-size rebalance path through the port's
+ 14. rebalance slice — the full-size rebalance path through the port's
                   Simulator: `preemption_heavy_trace` at 100,000 jobs x
                   10,000 hosts, 6 cycles of rank -> exact greedy match ->
                   rebalance on the card; capacity checked after every
                   match and rebalance; the padded axes checked; each
                   cycle's first and busiest search rerun on the CPU port,
                   identical.
- 11. rebalance agreement — two small rebalance replays on the card and on
+ 15. rebalance agreement — two small rebalance replays on the card and on
                   the CPU (run traces, fairness ledgers and host
                   reservations after every cycle equal): one on the flat
                   `pallas` matcher, whose `best_node` launches are counted
                   and each held against the plain version, and one whose
                   decisions take two victims and reserve the host.
- 12. report     — a `{"kernels": [...]}` line, then the last line
+ 16. report     — a `{"kernels": [...]}` line, then the last line
                   `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
@@ -223,6 +250,17 @@ COARSE_CASES = [
 ]
 COARSE_KINDS = ("fleet", "mixed", "ties", "slice", "padded", "inactive",
                 "infeasible", "r2", "r8")
+# coarse_pass past its shared memory: the block state of B 1024 (R 4 and
+# R 8) and B 512 (R 8) pages to device memory, as does one block past the
+# largest B that fits at R 8 (`edge`), which itself runs in shared memory;
+# the slice's J and chunk.  "edge" rows take B from ops/coarse_pass.paged
+PAGED_CASES = [
+    ("paged B1024 R4 16384x1024", 16384, 1024, 4096, 8, 2, "mixed"),
+    ("paged B1024 R8 16384x1024", 16384, 1024, 4096, 8, 2, "r8"),
+    ("paged B512 R8 16384x512", 16384, 512, 4096, 8, 2, "r8"),
+    ("edge R8 16384x{b}", 16384, "edge", 4096, 8, 2, "r8"),
+    ("edge+1 R8 16384x{b}", 16384, "edge+1", 4096, 8, 2, "r8"),
+]
 
 # the slices' trace: 100,000 jobs x 10,000 hosts (sim.cli synth)
 SYNTH_ARGS = ["--jobs", "100000", "--hosts", "10000", "--users", "50",
@@ -238,6 +276,39 @@ HIER_MATCH = dict(max_jobs_considered=16384, chunk=1024, backend="pallas",
                   hierarchical_threshold=1,
                   hierarchical_coarse_backend="pallas",
                   hierarchical_fine_backend="pallas")
+
+# the gang slice's traffic on the slices' trace: every GANG_EVERY-th job
+# (index = 0 mod 10, 10,000 of the 100,000) is a gang member, grouped in
+# submit order into gangs whose sizes cycle GANG_SIZES; every other job
+# stays scalar (synth_trace's users are Zipf-skewed, so they do not pick
+# the members)
+GANG_EVERY = 10
+GANG_SIZES = (2, 4, 8, 16)
+# the flat gang run: the flat slice's knobs, with the one-block rule bound
+# to blocks of 1024 hosts
+GANG_FLAT_MATCH = dict(max_jobs_considered=16384, chunk=1024,
+                       backend="pallas", topology_block_hosts=1024)
+
+
+def gang_mix(jobs, every=GANG_EVERY, sizes=GANG_SIZES):
+    """`jobs` (either package's TraceJob list) with every `every`-th job
+    tagged a gang member: the members, in submit order, form gangs whose
+    sizes cycle through `sizes`; a last group short of its size is a gang
+    of what is left (a single member stays scalar)."""
+    import dataclasses
+
+    members = sorted(jobs[::every], key=lambda j: (j.submit_time_ms,
+                                                   j.uuid))
+    tag = {}
+    start, g = 0, 0
+    while len(members) - start >= 2:
+        size = sizes[g % len(sizes)]
+        for j in members[start:start + size]:
+            tag[j.uuid] = f"gang-{g:05d}"
+        start += size
+        g += 1
+    return [dataclasses.replace(j, gang=tag[j.uuid]) if j.uuid in tag
+            else j for j in jobs]
 
 
 def phase(name):
@@ -792,17 +863,19 @@ def _kernel_cases(name, cases, make):
     return max_err
 
 
-def _coarse_cases():
-    """Every COARSE_CASES case against the plain version (identical
+def _coarse_cases(cases=COARSE_CASES):
+    """Every case of `cases` against the plain version (identical
     assignment, bit-identical final availability) and timed; the kernel's
-    capacity rule checked on the assignment.  Returns the max error."""
+    capacity rule checked on the assignment.  Returns ({label: timing
+    row}, the max error)."""
     import torch
 
     from cook_tpu_torch.ops.common import BIG
 
     dev = torch.device("cuda")
     max_err = 0.0
-    for label, j, b, chunk, passes, rounds, kind in COARSE_CASES:
+    rows = {}
+    for label, j, b, chunk, passes, rounds, kind in cases:
         args = (*make_coarse_inputs(j, b, kind, dev), chunk, passes, rounds)
         (assignment, avail), err = check_identical("coarse_pass", label, args)
         max_err = max(max_err, err)
@@ -822,34 +895,78 @@ def _coarse_cases():
             raise AssertionError(f"coarse_pass {label}: the availability "
                                  "does not account for the routed jobs")
         live = int((active & (demands[:, 0] < BIG)).sum())
-        _print_row("coarse_pass", label, time_case("coarse_pass", args),
+        rows[label] = time_case("coarse_pass", args)
+        _print_row("coarse_pass", label, rows[label],
                    f"identical (routed {int(routed.sum())}/{live})  ")
         del args
-    return max_err
+    return rows, max_err
+
+
+def paged_coarse_phase():
+    """coarse_pass past its shared memory (PAGED_CASES): each launch
+    identical to the plain version, run 5 times bit-identical, timed cold
+    and warm against its bound; the cases at the edge straddle it (the
+    largest B that fits in shared memory, and one more, which pages).
+    Returns ({label: row}, max error)."""
+    import torch
+
+    from cook_tpu_torch.ops import coarse_pass as cp
+
+    phase("coarse_pass paged")
+    edge = max(b for b in range(1, 2048) if not cp.paged(b, 8, 4096))
+    cases = []
+    for label, j, b, chunk, passes, rounds, kind in PAGED_CASES:
+        b = {"edge": edge, "edge+1": edge + 1}.get(b, b)
+        r = 8 if kind == "r8" else 4
+        cases.append((label.format(b=b), j, b, chunk, passes, rounds, kind))
+        print(f"{cases[-1][0]}: {'paged' if cp.paged(b, r, chunk) else 'in shared memory'}, "
+              f"{cp.smem_bytes(b, r, chunk)} bytes of shared memory a CTA, "
+              f"workspace {4 * cp.workspace_floats(b, r, chunk)} bytes",
+              flush=True)
+        if cp.paged(b, r, chunk) != (b != edge):
+            raise AssertionError(f"{cases[-1][0]}: paged is "
+                                 f"{cp.paged(b, r, chunk)}")
+    rows, err = _coarse_cases(cases)
+    dev = torch.device("cuda")
+    for label, j, b, chunk, passes, rounds, kind in cases:
+        check_deterministic("coarse_pass", (
+            *make_coarse_inputs(j, b, kind, dev), chunk, passes, rounds))
+    print(f"coarse_pass paged: {len(cases)} cases identical to the plain "
+          f"version, each bit-identical over {DETERMINISM_RUNS} runs",
+          flush=True)
+    return rows, err
 
 
 def check_smem_mirror():
-    """ops/coarse_pass.smem_bytes, which bounds B x R before a launch,
-    equals the kernel's own count (coarse_pass_smem_bytes) on a grid of
+    """ops/coarse_pass.smem_bytes and workspace_floats, which size a
+    launch (shared memory, and the device-memory workspace the block state
+    pages to past it), equal the kernel's own counts
+    (coarse_pass_smem_bytes, coarse_pass_workspace_floats) on a grid of
     shapes across the card's limit."""
     import ctypes
 
     from cook_tpu_torch import build
     from cook_tpu_torch.ops import coarse_pass as cp
 
-    count = build.load("coarse_pass").coarse_pass_smem_bytes
+    lib = build.load("coarse_pass")
+    count = lib.coarse_pass_smem_bytes
     count.argtypes = [ctypes.c_int] * 3
     count.restype = ctypes.c_int
-    for b in (1, 16, 128, 256, 300, 1024):
+    floats = lib.coarse_pass_workspace_floats
+    floats.argtypes = [ctypes.c_int] * 3
+    floats.restype = ctypes.c_longlong
+    for b in (1, 16, 128, 256, 279, 280, 300, 543, 544, 1024, 1028, 1029):
         for r in (2, 4, 8):
             for chunk in (1, 64, 4096, 32768):
-                if count(b, r, chunk) != cp.smem_bytes(b, r, chunk):
+                got = (count(b, r, chunk), floats(b, r, chunk))
+                want = (cp.smem_bytes(b, r, chunk),
+                        cp.workspace_floats(b, r, chunk))
+                if got != want:
                     raise AssertionError(
-                        f"coarse_pass smem_bytes({b}, {r}, {chunk}) = "
-                        f"{cp.smem_bytes(b, r, chunk)}, the kernel counts "
-                        f"{count(b, r, chunk)}")
-    print("coarse_pass shared-memory count mirrored by ops/coarse_pass.py",
-          flush=True)
+                        f"coarse_pass (smem_bytes, workspace_floats)({b}, "
+                        f"{r}, {chunk}) = {want}, the kernel counts {got}")
+    print("coarse_pass shared-memory and workspace counts mirrored by "
+          "ops/coarse_pass.py", flush=True)
 
 
 def kernel_phase():
@@ -866,7 +983,7 @@ def kernel_phase():
                                         make_block_inputs),
             "best_node_batched": _kernel_cases(
                 "best_node_batched", BATCHED_CASES, make_batched_inputs),
-            "coarse_pass": _coarse_cases()}
+            "coarse_pass": _coarse_cases()[1]}
     check_smem_mirror()
     # the batched kernel is best_node run block by block
     # (tests/test_device_state.py:577)
@@ -1154,6 +1271,423 @@ def agreement_phase(workdir, n_jobs=3000, n_hosts=300):
         placed = sum(1 for r in rows["cuda"] if r["start_ms"])
         print(f"{label}: card and CPU traces equivalent ({placed} "
               "placements)", flush=True)
+
+
+# ----------------------------------------------------------------- gangs
+
+GANG_CYCLES = 3
+GANG_REASONS = ("members-missing", "no-block-capacity", "transact-failed")
+
+
+def gang_counts():
+    """The `gang.*` counters of the default pool: considered, placed, and
+    blocked by reason (deltas around a run are that run's)."""
+    from cook_tpu_torch.utils.metrics import global_registry
+
+    pool = {"pool": "default"}
+    out = {"considered": global_registry.counter("gang.considered")
+           .value(pool),
+           "placed": global_registry.counter("gang.placed").value(pool)}
+    for reason in GANG_REASONS:
+        out["blocked " + reason] = global_registry.counter(
+            "gang.blocked").value({**pool, "reason": reason})
+    return out
+
+
+def check_gangs(sim, npb):
+    """Every gang in the store launched whole or not at all: all members'
+    first runs started in one cycle, on distinct hosts, inside one block of
+    `npb` hosts (the sorted hostnames, the matcher's node order).  Raises
+    on a violation; returns (gangs launched, gangs not launched)."""
+    index = {h: i for i, h in enumerate(sorted(
+        host.hostname for host in sim.cluster.hosts.values()))}
+    members: dict[str, list] = {}
+    for job in sim.store.jobs.values():
+        if job.gang_size >= 2 and job.group_uuid:
+            members.setdefault(job.group_uuid, []).append(job)
+    launched = waiting = 0
+    for group, jobs in members.items():
+        firsts = [min(insts, key=lambda i: i.start_time_ms)
+                  for insts in (sim.store.job_instances(j.uuid)
+                                for j in jobs) if insts]
+        if not firsts:
+            waiting += 1
+            continue
+        hosts = [i.hostname for i in firsts]
+        k = jobs[0].gang_size
+        if (len(jobs) != k or len(firsts) != k
+                or len({i.start_time_ms for i in firsts}) != 1
+                or len(set(hosts)) != k
+                or len({index[h] // npb for h in hosts}) != 1):
+            raise AssertionError(
+                f"gang {group} (size {k}, {len(jobs)} members) launched "
+                f"{len(firsts)} members at {sorted({i.start_time_ms for i in firsts})} "
+                f"on {sorted(hosts)}")
+        launched += 1
+    return launched, waiting
+
+
+def gang_sim(jobs, hosts, match, device, cycles, npb, **sim_kw):
+    """A Simulator on the gang trace whose every match cycle is followed
+    by check_gangs and check_capacity.  Returns (simulator, checks: per
+    cycle (gangs launched, not launched))."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=cycles, **sim_kw,
+        scheduler=SchedulerConfig(match=match)), device=device)
+    checks = []
+    s = sim.scheduler
+    match_cycle = s.match_cycle
+
+    def checked(pool):
+        out = match_cycle(pool)
+        checks.append(check_gangs(sim, npb))
+        check_capacity(sim)
+        return out
+
+    s.match_cycle = checked
+    return sim, checks
+
+
+def gang_slice_phase(trace, device="cuda"):
+    """The gang slice at full width: the slices' 100k x 10k trace with
+    every tenth job a gang member (gang_mix), 3 cycles on the card on the
+    flat route (chunked `best_node`, blocks of 1024 hosts bound) and on the
+    hierarchical one (HIER_MATCH: the gangs force its coarse pass to
+    `xla`, fine passes on `best_node_batched`).  After every cycle no
+    gang is partly launched, each launched gang sits on distinct hosts in
+    one block, no host is over capacity; counts reset just before each run
+    and read just after; every kernel call kept.  Returns {run: ({kernel:
+    launches}, {kernel: kept calls})}.  The tests run it on the CPU at a
+    small `trace` (where the wrappers launch nothing)."""
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+    from cook_tpu_torch.ops import hierarchical, match
+    from cook_tpu_torch.sim.simulator import load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("gang slice")
+    t0 = time.perf_counter()
+    jobs, hosts = load_trace(trace)
+    jobs = gang_mix(jobs)
+    gangs = len({j.gang for j in jobs if j.gang})
+    print(f"gang slice: {len(jobs)} jobs x {len(hosts)} hosts, "
+          f"{sum(1 for j in jobs if j.gang)} members in {gangs} gangs "
+          f"(sizes {GANG_SIZES}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    runs = {"flat": (default_match_config(**GANG_FLAT_MATCH),
+                     GANG_FLAT_MATCH["topology_block_hosts"],
+                     (match, "best_node")),
+            "hier": (default_match_config(**HIER_MATCH), 1024,
+                     (hierarchical, "best_node_batched"))}
+    out = {}
+    filters, releases = [], []
+    for label, (cfg, npb, (module, name)) in runs.items():
+        sim, checks = gang_sim(jobs, hosts, cfg, device, GANG_CYCLES, npb)
+        calls = []
+        solves = []
+        solve = hierarchical.hierarchical_match
+
+        def keep_stats(*args, **kwargs):
+            res = solve(*args, **kwargs)
+            solves.append(res[1])
+            return res
+
+        before = gang_counts()
+        with kept_calls(module, name, calls), \
+                kept_kw_calls(hierarchical, "gang_filter", filters), \
+                kept_kw_calls(hierarchical, "release_assignments", releases):
+            hierarchical.hierarchical_match = keep_stats
+            try:
+                bn.launches = bnb.launches = cp.launches = 0
+                t0 = time.perf_counter()
+                result = sim.run()
+                wall = time.perf_counter() - t0
+                launches = {"best_node": bn.launches,
+                            "best_node_batched": bnb.launches,
+                            "coarse_pass": cp.launches}
+            finally:
+                hierarchical.hierarchical_match = solve
+        counts = {k: v - before[k] for k, v in gang_counts().items()}
+        placed = sum(1 for r in result.rows if r["start_ms"] is not None)
+        summary = dict(
+            placements=placed, gangs_launched_per_cycle=[c[0] for c in checks],
+            gang_counts=counts, launches=launches, replay_wall_s=round(wall, 2),
+            phase_wall_s={k: round(v, 4)
+                          for k, v in result.phase_wall_s.items()},
+            cycle_wall_ms=[round(w * 1e3, 1) for w in result.cycle_wall_s])
+        if solves:
+            summary["hier_gangs"] = [st.get("gangs") for st in solves]
+            summary["coarse_backend"] = sorted({st["coarse_backend"]
+                                                for st in solves})
+        print(f"gang slice {label} " + json.dumps(summary), flush=True)
+        if sim.scheduler.device.type != device or placed <= 0:
+            raise AssertionError(f"gang slice {label}: solved on "
+                                 f"{sim.scheduler.device}, {placed} placed")
+        if len(checks) != GANG_CYCLES or checks[-1][0] <= 0:
+            raise AssertionError(f"gang slice {label}: gangs launched per "
+                                 f"cycle {checks}")
+        if counts["considered"] <= 0 or counts["placed"] != checks[-1][0]:
+            raise AssertionError(f"gang slice {label}: gang counters "
+                                 f"{counts} against {checks}")
+        # the wrappers count launches on the card only
+        if device == "cuda" and (launches[name] <= 0
+                                 or len(calls) != launches[name]):
+            raise AssertionError(f"gang slice {label}: kept {len(calls)} "
+                                 f"{name} calls, {launches[name]} launches")
+        # a cycle whose window holds gangs runs its coarse passes on xla
+        # (a cycle before any gang arrives keeps the coarse_pass kernel)
+        with_gangs = [st for st in solves if "gangs" in st]
+        if label == "hier" and (
+                len(solves) != result.cycles or not with_gangs
+                or {st["coarse_backend"] for st in with_gangs} != {"xla"}):
+            raise AssertionError("gang slice hier: the gangs must force "
+                                 "the coarse pass to xla")
+        out[label] = (launches, {name: calls}, summary)
+        del sim, result
+    if not filters or not releases:
+        raise AssertionError(f"gang slice: {len(filters)} gang_filter and "
+                             f"{len(releases)} release calls kept")
+    out["ops"] = (filters, releases)
+    return out
+
+
+@contextlib.contextmanager
+def kept_kw_calls(module, name, calls):
+    """kept_calls for a function called with keywords: (args, kwargs) of
+    every call of `module.name` while the block runs."""
+    original = getattr(module, name)
+
+    def keep(*args, **kwargs):
+        calls.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    setattr(module, name, keep)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def gang_ops_phase(filters, releases, device="cuda"):
+    """ops/gang's torch code on the card against its numpy twins: every
+    `gang_filter` and `release_assignments` call the hierarchical gang run
+    made (`filters`, `releases`: kept (args, kwargs)), and a fuzz of all
+    three functions, `block_free_hosts` included.  Identical results (the
+    released sums are exact)."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops import gang
+
+    phase("gang ops")
+
+    def check_filter(args, kwargs, label):
+        got_a, got_s = gang.gang_filter(*args, **kwargs)
+        want_a, want_s = gang.np_gang_filter(
+            *(a.cpu().numpy() for a in args), kwargs["nodes_per_block"])
+        if not (np.array_equal(got_a.cpu().numpy(), want_a)
+                and np.array_equal(got_s.cpu().numpy(), want_s)):
+            raise AssertionError(f"gang_filter {label} differs from "
+                                 "np_gang_filter")
+
+    def check_release(args, label):
+        avail, demands, asg, mask = (a.cpu().numpy() for a in args)
+        want = avail.copy()
+        np.add.at(want, asg[mask], demands[mask])
+        got = gang.release_assignments(*args).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"release_assignments {label} differs "
+                                 "from its numpy sum")
+
+    for i, (args, kwargs) in enumerate(filters):
+        check_filter(args, kwargs, f"slice call {i}")
+    for i, (args, _) in enumerate(releases):
+        check_release(args, f"slice call {i}")
+    rng = np.random.default_rng(7)
+    put = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    for t in range(50):
+        j, n, g = 4096, 2048, 256
+        gang_id = rng.integers(-1, g, j).astype(np.int32)
+        need = np.where(gang_id >= 0, rng.integers(2, 17, j), 0) \
+            .astype(np.int32)
+        asg = np.where(rng.uniform(size=j) < 0.8, rng.integers(0, n, j),
+                       -1).astype(np.int32)
+        npb = (0, 64, 256, 1024)[t % 4]
+        check_filter((put(asg), put(gang_id), put(need)),
+                     dict(num_gangs=g, num_nodes=n, nodes_per_block=npb),
+                     f"fuzz {t}")
+        avail = (rng.integers(0, 128, (n, 4)) * 512.0).astype(np.float32)
+        demands = (rng.integers(1, 16, (j, 4)) * 0.5).astype(np.float32)
+        check_release((put(avail), put(demands), put(asg),
+                       put((asg >= 0) & (rng.uniform(size=j) < 0.5))),
+                      f"fuzz {t}")
+        valid = rng.uniform(size=n) < 0.9
+        member = demands[t]
+        got = gang.block_free_hosts(put(avail), put(valid), put(member),
+                                    nodes_per_block=max(npb, 64))
+        want = gang.np_block_free_hosts(avail, valid, member, max(npb, 64))
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError(f"block_free_hosts fuzz {t} differs")
+    print(f"gang ops: {len(filters)} gang_filter and {len(releases)} "
+          "release_assignments calls of the hierarchical gang run, and 50 "
+          "fuzz draws of each function, identical to the numpy twins",
+          flush=True)
+
+
+def gang_launches_phase(label, calls):
+    """Every kept launch of a gang run held against the plain version."""
+    phase(f"gang {label} launches")
+    max_err = 0.0
+    for name, kept in calls.items():
+        for i, args in enumerate(kept):
+            _, err = check_identical(name, f"gang {label} launch {i}", args)
+            max_err = max(max_err, err)
+        print(f"gang slice {label}: {len(kept)}/{len(kept)} {name} launches "
+              "identical to the plain version", flush=True)
+    return max_err
+
+
+def gang_agreement_phase(workdir, n_jobs=3000, n_hosts=300,
+                         devices=("cuda", "cpu")):
+    """The gang mix on the small agreement trace, flat and hierarchical,
+    and `gang_topology_trace(n_blocks=4, block_hosts=8, ...)` for 60
+    cycles, each on the card and on the CPU: run traces and gang_stats
+    identical, every cycle checked as in the gang slice."""
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+    from cook_tpu_torch.sim.loadgen import gang_topology_trace
+    from cook_tpu_torch.sim.simulator import load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("gang agreement")
+    trace = os.path.join(workdir, "small.json")
+    if not os.path.exists(trace):
+        from cook_tpu_torch.sim import cli
+
+        cli.main(["synth", "--jobs", str(n_jobs), "--hosts", str(n_hosts),
+                  "--users", "50", "--submit-span-ms", "60000",
+                  "--out", trace])
+    small_jobs, small_hosts = load_trace(trace)
+    small_jobs = gang_mix(small_jobs)
+    topo = gang_topology_trace(n_blocks=4, block_hosts=8,
+                               gang_sizes=(8, 8, 4, 4, 2, 2))
+    cases = {
+        "flat": (small_jobs, small_hosts, default_match_config(
+            **{**GANG_FLAT_MATCH, "topology_block_hosts": 64}), 6, 64),
+        "hier": (small_jobs, small_hosts, default_match_config(
+            **{**HIER_MATCH, "hierarchical_nodes_per_block": 64}), 6, 64),
+        "topology": (*topo, MatchConfig(topology_block_hosts=8,
+                                        topology_weight=0.5), 60, 8),
+    }
+    for label, (jobs, hosts, match, cycles, npb) in cases.items():
+        card, cpu = (gang_sim(jobs, hosts, match, device, cycles, npb)
+                     for device in devices)
+        got = [(sim.run(), checks) for sim, checks in (card, cpu)]
+        if got[0][0].to_csv() != got[1][0].to_csv():
+            raise AssertionError(f"gang agreement {label}: card and CPU "
+                                 "run traces differ")
+        stats = got[0][0].gang_stats(jobs, hosts, nodes_per_block=npb)
+        if stats != got[1][0].gang_stats(jobs, hosts, nodes_per_block=npb):
+            raise AssertionError(f"gang agreement {label}: gang_stats "
+                                 "differ")
+        launched = got[0][1][-1][0]
+        if launched <= 0:
+            raise AssertionError(f"gang agreement {label}: no gang launched")
+        print(f"gang agreement {label}: card = CPU (run trace, gang_stats: "
+              f"{stats['gangs']} gangs, {stats['assembled']} assembled, "
+              f"wait p50 {stats['wait_ms_p50']} ms, mean block spread "
+              f"{stats['mean_block_spread']}); {launched} gangs launched",
+              flush=True)
+
+
+def gang_admission_replay(device, n_hosts=64, block_hosts=8, gang_size=8):
+    """tests/test_gang.py:346's fleet rig scaled up: occupants of the
+    gang's own user fill every one of `n_hosts` hosts (so the DRU
+    rebalancer stays quiet), a gang of `gang_size` whole hosts waits; one
+    rebalance cycle (admission), then one match.  Returns what admission
+    did: its decisions, the instances' states and reasons, and the host
+    reservations after the rebalance and after the match, with the
+    gang's hosts."""
+    from cook_tpu_torch.cluster.mock import MockCluster, MockHost
+    from cook_tpu_torch.models import entities as e
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+
+    now = [1_000_000]
+
+    def clock():
+        return now[0]
+
+    store = JobStore(clock=clock)
+    store.set_pool(e.Pool(name="default"))
+    names = [f"h{i:03d}" for i in range(n_hosts)]
+    cluster = MockCluster("m", [
+        MockHost(node_id=h, hostname=h, mem=1000.0, cpus=8.0,
+                 attributes=(("slot", h),)) for h in names], clock=clock)
+    sched = Scheduler(store, [cluster], SchedulerConfig(match=MatchConfig(
+        topology_block_hosts=block_hosts)), device=device)
+    pool = store.pools["default"]
+    store.submit_jobs([e.Job(
+        uuid=f"occ-{h}", user="ganguser", pool="default", priority=100,
+        command="true", expected_runtime_ms=60_000,
+        resources=e.Resources(mem=900.0, cpus=1.0),
+        constraints=(e.JobConstraint("slot", e.ConstraintOperator.EQUALS,
+                                     h),)) for h in names])
+    sched.rank_cycle(pool)
+    if len(sched.match_cycle(pool).matched) != n_hosts:
+        raise AssertionError("admission rig: the occupants did not start")
+    now[0] += 30_000
+    store.submit_jobs(
+        [e.Job(uuid=f"gang-m{i}", user="ganguser", pool="default",
+               command="true", resources=e.Resources(mem=900.0, cpus=1.0),
+               group_uuid="g-adm", gang_size=gang_size)
+         for i in range(gang_size)],
+        [e.Group(uuid="g-adm", host_placement=e.HostPlacement(
+            type=e.GroupPlacementType.UNIQUE))])
+    sched.rank_cycle(pool)
+    sched.rebalance_cycle(pool)
+    view = {"admissions": sched.last_gang_admissions,
+            "reservations_after_rebalance": sorted(
+                sched.host_reservations.items())}
+    sched.rank_cycle(pool)
+    sched.match_cycle(pool)
+    view["reservations_after_match"] = sorted(sched.host_reservations.items())
+    view["instances"] = sorted((i.task_id, i.hostname, i.status.value,
+                                i.reason_code)
+                               for i in store.instances.values())
+    view["gang_hosts"] = sorted(
+        i.hostname for j in store.groups["g-adm"].job_uuids
+        for i in store.job_instances(j))
+    return view
+
+
+def gang_admission_phase(devices=("cuda", "cpu")):
+    """The admission replay on the card and on the CPU: admissions, kills
+    and gang: reservations identical; one block's hosts freed, reserved
+    and taken by the whole gang, the reservations then released."""
+    phase("gang admission")
+    card, cpu = (gang_admission_replay(d) for d in devices)
+    if card != cpu:
+        raise AssertionError("gang admission: card and CPU differ")
+    [adm] = card["admissions"]
+    hosts = card["gang_hosts"]
+    killed = [i for i in card["instances"]
+              if i[3] is not None and i[2] == "failed"]
+    if (adm["mode"] != "preempt" or len(hosts) != 8 or len(set(hosts)) != 8
+            or len({int(h[1:]) // 8 for h in hosts}) != 1
+            or card["reservations_after_match"]
+            or {t for _, t in card["reservations_after_rebalance"]}
+            != {"gang:g-adm"}):
+        raise AssertionError(f"gang admission: {json.dumps(card)}")
+    print(f"gang admission: card = CPU; {adm['mode']} block {adm['block']}, "
+          f"{len(adm['victims'])} victims killed ({len(killed)} failed "
+          f"instances), {len(card['reservations_after_rebalance'])} hosts "
+          f"reserved gang:g-adm, gang placed whole on {hosts}, reservations "
+          "released", flush=True)
 
 
 # ------------------------------------------------------------- rebalance
@@ -1719,6 +2253,20 @@ def main() -> int:
         errs["best_block"] = max(errs["best_block"], err)
         del busiest
         agreement_phase(workdir)
+        gang_runs = gang_slice_phase(trace)
+        gang_ops_phase(*gang_runs.pop("ops"))
+        for label, (gang_launches, gang_calls, _) in gang_runs.items():
+            err = gang_launches_phase(label, gang_calls)
+            for name in gang_calls:
+                errs[name] = max(errs[name], err)
+            print(f"gang {label} launches: " + json.dumps(gang_launches),
+                  flush=True)
+        del gang_runs, gang_calls
+        gang_agreement_phase(workdir)
+    gang_admission_phase()
+    paged_rows, err = paged_coarse_phase()
+    errs["coarse_pass"] = max(errs["coarse_pass"], err)
+    print("coarse_pass paged " + json.dumps(paged_rows), flush=True)
     rebalance_case_phase()
     rebalance_slice_phase()
     reb_launches = rebalance_agreement_phase()

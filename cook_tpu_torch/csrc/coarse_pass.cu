@@ -31,7 +31,8 @@
 // the launch, not bytes or operations.  Hence:
 //   * one persistent thread-block cluster of kCluster CTAs x kThreads
 //     threads runs the whole pass; each CTA holds a replica of the [B, R]
-//     availability and the block table, and its share of the chunk's
+//     availability and the block table (in shared memory, or paged to
+//     device memory past it: below), and its share of the chunk's
 //     per-job state, in shared memory; a job's demand row is read from
 //     device memory (L1/L2 after the chunk's first pass: staging the
 //     chunk in shared memory was 3% slower on the slice's launch);
@@ -62,13 +63,25 @@
 // defaults were chosen on the card by `python -m cook_tpu_torch.tile_sweep
 // --kernels coarse_pass`, which builds other shapes with -D overrides.
 //
-// Limits: 2 <= R <= 8; J a multiple of `chunk`; the shared memory of a
-// CTA (coarse_pass_smem_bytes: 9 B x R words of availability, table and
-// exchange, W x B x R of warp partials, 6 B of block pairs, one word a
-// slot) within the card's 227 KB, which at the defaults (W = 16 warps)
-// and chunk 4096 holds up to 279 blocks at R 8, 543 at R 4 and 1028 at
-// R 2 (ops/coarse_pass.py smem_bytes mirrors the count, and check_fits
-// raises beyond it before a launch).
+// Where the block state lives.  A CTA's block state is 9 B x R words of
+// availability, table, carry, base and exchange, W x B x R of warp
+// partials and 6 B of block pairs; with one word a job slot, a few flags
+// (coarse_pass_smem_bytes) it fits the card's 227 KB of shared memory up
+// to 279 blocks at R 8, 543 at R 4 and 1028 at R 2 (W = 16 warps, chunk
+// 4096).  Past that the same kernel body, instantiated with kPaged, keeps
+// each CTA's block state in its own stretch of a device-memory workspace
+// (coarse_pass_workspace_floats, allocated by the wrapper): the accesses
+// are the same, now L2 traffic, the CTAs read each other's exchange and
+// accepted-demand words with L1-bypassing loads, and the cluster barrier
+// is an explicit barrier.cluster arrive.release / wait.acquire, which
+// orders global memory across the cluster.  Only the slots and flags stay
+// in shared memory.  Paged or not, the time grows with B x R (every
+// thread scans all B blocks for each of its jobs, each round walks B x R
+// per warp, on one cluster): 13.29 ms at B 1024 x R 4 against 0.0768 ms
+// at the slice's B 16 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+//
+// Limits: 2 <= R <= 8; J a multiple of `chunk`; a chunk's job slots (one
+// word each, 512 at chunk 4096) within the shared memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC   (see cook_tpu_torch/build.py)
@@ -104,15 +117,22 @@ static_assert(kThreads >= 32 && kThreads <= 1024 && kThreads % 32 == 0,
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNone = -1;
 
-// Shared-memory layout, in 4-byte words.  Per (block, resource), e = b*R+r:
-// avail, gate, bmax, carry, base, xbuf[2] (cluster exchange), dmax[2]
-// (accepted demand, float bits); per block pair: used, den, tot; partials
-// part[W][B*R]; flags[W]; acc[4] (this CTA accepted a job this round,
-// [0..1]; some CTA did, [2..3]); per slot: state.  Demands are read from
-// device memory, where after a chunk's first pass they sit in L1/L2.
+// the shared memory a CTA may take on an H100 (the 227 KB opt-in); past it
+// the block state pages to device memory (ops/coarse_pass.py SMEM_LIMIT)
+constexpr int kSmemLimit = 227 * 1024;
+
+// Layout, in 4-byte words.  The block state, per (block, resource), e =
+// b*R+r: avail, gate, bmax, carry, base, xbuf[2] (cluster exchange),
+// dmax[2] (accepted demand, float bits); per block pair: used, den, tot;
+// partials part[W][B*R].  Then the small region: flags[W]; acc[4] (this
+// CTA accepted a job this round, [0..1]; some CTA did, [2..3]); per slot:
+// state.  In shared memory the small region follows the block state; paged,
+// it alone is in shared memory.  Demands are read from device memory,
+// where after a chunk's first pass they sit in L1/L2.
 struct Layout {
   int avail, gate, bmax, carry, base, xbuf, dmax, used, den, tot, part,
-      flags, acc, state, words;
+      block_words;                   // block state
+  int flags, acc, state, small_words;  // small region, from its start
 };
 
 // this CTA's slots of a chunk: one a thread per tile of C x T jobs
@@ -135,11 +155,43 @@ __host__ __device__ inline Layout layout(int B, int R, int chunk) {
   L.den = o; o += 2 * B;
   L.tot = o; o += 2 * B;
   L.part = o; o += kWarps * br;
+  L.block_words = o;
+  o = 0;
   L.flags = o; o += kWarps;
   L.acc = o; o += 4;
   L.state = o; o += slots;
-  L.words = o;
+  L.small_words = o;
   return L;
+}
+
+// whether (B, R, chunk) pages its block state to device memory
+inline bool paged_for(const Layout& L) {
+  return 4LL * (L.block_words + L.small_words) > kSmemLimit;
+}
+
+// The cluster barrier.  Paged, an explicit arrive.release / wait.acquire,
+// so every CTA's device-memory writes before it are visible to every CTA
+// of the cluster after it.
+template <bool kPaged>
+__device__ __forceinline__ void cluster_barrier(cg::cluster_group& cluster) {
+  if constexpr (kPaged) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    cluster.sync();
+  }
+}
+
+// word i of CTA c's copy of the block-state array at `mine` (this CTA's
+// copy): distributed shared memory, or the peer's stretch of the
+// workspace, `stride` words on, read past L1
+template <bool kPaged, typename T>
+__device__ __forceinline__ T peer(cg::cluster_group& cluster, T* mine, int c,
+                                  int cta, int stride, int i) {
+  if constexpr (kPaged)
+    return __ldcg(mine + (ptrdiff_t)(c - cta) * stride + i);
+  else
+    return cluster.map_shared_rank(mine, c)[i];
 }
 
 // Per slot, `state` is >= 0 once placed (the block), -1 while unplaced
@@ -179,6 +231,7 @@ __device__ __forceinline__ void load_demand(const float* demands,
   for (int r = 0; r < kMaxR; ++r) d[r] = r >= R ? 0.0f : demands[row * R + r];
 }
 
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
                    const uint8_t* __restrict__ active,      // [J]
@@ -188,6 +241,7 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
                    const uint8_t* __restrict__ block_valid, // [B]
                    int32_t* __restrict__ out_assign,        // [J]
                    float* __restrict__ out_avail,           // [B,R]
+                   float* workspace,  // [C, block_words] when kPaged
                    int J, int B, int R, int chunk, int passes, int rounds) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -197,20 +251,23 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
   const int tiles = (chunk + span - 1) / span;
   const int br = B * R;
   const Layout L = layout(B, R, chunk);
-  float* s_avail = smem + L.avail;
-  float* s_gate = smem + L.gate;
-  float* s_bmax = smem + L.bmax;
-  float* s_carry = smem + L.carry;
-  float* s_base = smem + L.base;
-  float* s_xbuf = smem + L.xbuf;
-  unsigned* s_dmax = reinterpret_cast<unsigned*>(smem + L.dmax);
-  float* s_used = smem + L.used;
-  float* s_den = smem + L.den;
-  float* s_tot = smem + L.tot;
-  float* s_part = smem + L.part;
-  int* s_flags = reinterpret_cast<int*>(smem + L.flags);
-  int* s_acc = reinterpret_cast<int*>(smem + L.acc);
-  int* s_state = reinterpret_cast<int*>(smem + L.state);
+  // this CTA's block state, and the small region
+  float* blk = kPaged ? workspace + (size_t)cta * L.block_words : smem;
+  float* small = kPaged ? smem : smem + L.block_words;
+  float* s_avail = blk + L.avail;
+  float* s_gate = blk + L.gate;
+  float* s_bmax = blk + L.bmax;
+  float* s_carry = blk + L.carry;
+  float* s_base = blk + L.base;
+  float* s_xbuf = blk + L.xbuf;
+  unsigned* s_dmax = reinterpret_cast<unsigned*>(blk + L.dmax);
+  float* s_used = blk + L.used;
+  float* s_den = blk + L.den;
+  float* s_tot = blk + L.tot;
+  float* s_part = blk + L.part;
+  int* s_flags = reinterpret_cast<int*>(small + L.flags);
+  int* s_acc = reinterpret_cast<int*>(small + L.acc);
+  int* s_state = reinterpret_cast<int*>(small + L.state);
 
   for (int e = tid; e < br; e += kThreads) {
     s_avail[e] = block_avail[e];
@@ -221,9 +278,9 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
   if (tid < 4) s_acc[tid] = 0;
   for (int e = tid; e < 2 * B; e += kThreads) s_tot[e] = block_totals[e];
   block_score::stage_den(block_totals, B, s_den, tid, kThreads);
-  // every CTA of the cluster is running before any reads another's
-  // shared memory
-  cluster.sync();
+  // every CTA of the cluster is running (and its state written) before
+  // any reads another's
+  cluster_barrier<kPaged>(cluster);
 
   // without rounds a pass routes nothing (and would leave no barrier
   // between one chunk's scoring and the next chunk's table)
@@ -305,12 +362,13 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
             }
             s_xbuf[xp * br + e] = run;
           }
-          cluster.sync();
+          cluster_barrier<kPaged>(cluster);
           // the CTAs' totals in CTA order: this CTA's base, and the carry
           for (int e = tid; e < br; e += kThreads) {
             float run = s_carry[e];
             for (int c = 0; c < kCluster; ++c) {
-              const float x = cluster.map_shared_rank(s_xbuf, c)[xp * br + e];
+              const float x = peer<kPaged>(cluster, s_xbuf, c, cta,
+                                           L.block_words, xp * br + e);
               if (c == cta) s_base[e] = run;
               run = run + x;
             }
@@ -339,7 +397,7 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
                         __float_as_uint(pre[r]));
         }
         // the round's update: avail -= accepted demand, one subtraction
-        cluster.sync();
+        cluster_barrier<kPaged>(cluster);
         // one warp reads the CTAs' flags; the barrier below publishes
         // their OR
         if (warp == 0) {
@@ -354,7 +412,8 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
         for (int e = tid; e < br; e += kThreads) {
           unsigned m = 0u;
           for (int c = 0; c < kCluster; ++c)
-            m = max(m, cluster.map_shared_rank(s_dmax, c)[dp * br + e]);
+            m = max(m, peer<kPaged>(cluster, s_dmax, c, cta, L.block_words,
+                                    dp * br + e));
           // every CTA read the other parity's slots before this round's
           // first cluster barrier
           s_dmax[(dp ^ 1) * br + e] = 0u;
@@ -375,8 +434,8 @@ coarse_pass_kernel(const float* __restrict__ demands,       // [J,R]
   }
   if (cta == 0)
     for (int e = tid; e < br; e += kThreads) out_avail[e] = s_avail[e];
-  // no CTA leaves while another may still read its shared memory
-  cluster.sync();
+  // no CTA leaves while another may still read its state
+  cluster_barrier<kPaged>(cluster);
 }
 
 int max_smem_bytes() {
@@ -390,50 +449,68 @@ int max_smem_bytes() {
   return bytes;
 }
 
-cudaError_t allow_smem(size_t bytes) {
+template <bool kPaged>
+cudaError_t prepare_kernel(size_t bytes) {
   static size_t allowed = 48 << 10;
-  if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      coarse_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err == cudaSuccess) allowed = bytes;
-  return err;
+  static bool wide = false;
+  if (bytes > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        coarse_pass_kernel<kPaged>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    allowed = bytes;
+  }
+  if constexpr (kCluster > 8) {
+    if (!wide) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          coarse_pass_kernel<kPaged>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      wide = true;
+    }
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The dynamic shared-memory bytes a CTA takes for (B, R, chunk).
+// The dynamic shared-memory bytes a CTA takes for (B, R, chunk): the whole
+// layout, or the small region alone when the block state pages.
 int coarse_pass_smem_bytes(int B, int R, int chunk) {
-  return (int)sizeof(float) * layout(B, R, chunk).words;
+  const Layout L = layout(B, R, chunk);
+  return (int)sizeof(float)
+         * (paged_for(L) ? L.small_words : L.block_words + L.small_words);
+}
+
+// The floats of the device-memory workspace the launch needs: 0 when the
+// block state fits in shared memory, else one stretch of block state a CTA.
+long long coarse_pass_workspace_floats(int B, int R, int chunk) {
+  const Layout L = layout(B, R, chunk);
+  return paged_for(L) ? (long long)kCluster * L.block_words : 0;
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch
 // (0 = cudaSuccess), cudaErrorInvalidValue for arguments the kernel does
-// not take or a shared memory need over the card's.
+// not take, a shared memory need over the card's, or a paged shape without
+// its workspace.
 int coarse_pass_launch(const void* demands, const void* active,
                        const void* block_avail, const void* block_max,
                        const void* block_totals, const void* block_valid,
-                       void* out_assign, void* out_avail, int J, int B, int R,
-                       int chunk, int passes, int rounds, void* stream) {
+                       void* out_assign, void* out_avail, void* workspace,
+                       int J, int B, int R, int chunk, int passes, int rounds,
+                       void* stream) {
   if (J <= 0 || B <= 0 || R < 2 || R > kMaxR || chunk <= 0 || J % chunk
       || passes < 0 || rounds < 0)
     return (int)cudaErrorInvalidValue;
+  const bool paged = paged_for(layout(B, R, chunk));
+  if (paged && workspace == nullptr) return (int)cudaErrorInvalidValue;
   const int bytes = coarse_pass_smem_bytes(B, R, chunk);
   if (bytes > max_smem_bytes()) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(bytes);
+  cudaError_t err = paged ? prepare_kernel<true>(bytes)
+                          : prepare_kernel<false>(bytes);
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kCluster > 8) {
-    static bool wide = false;
-    if (!wide) {
-      err = cudaFuncSetAttribute(coarse_pass_kernel,
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed,
-                                 1);
-      if (err != cudaSuccess) return (int)err;
-      wide = true;
-    }
-  }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kCluster);
   config.blockDim = dim3(kThreads);
@@ -447,14 +524,15 @@ int coarse_pass_launch(const void* demands, const void* active,
   config.attrs = attr;
   config.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &config, coarse_pass_kernel, static_cast<const float*>(demands),
+      &config, paged ? coarse_pass_kernel<true> : coarse_pass_kernel<false>,
+      static_cast<const float*>(demands),
       static_cast<const uint8_t*>(active),
       static_cast<const float*>(block_avail),
       static_cast<const float*>(block_max),
       static_cast<const float*>(block_totals),
       static_cast<const uint8_t*>(block_valid),
-      static_cast<int32_t*>(out_assign), static_cast<float*>(out_avail), J, B,
-      R, chunk, passes, rounds);
+      static_cast<int32_t*>(out_assign), static_cast<float*>(out_avail),
+      static_cast<float*>(workspace), J, B, R, chunk, passes, rounds);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

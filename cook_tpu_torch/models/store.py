@@ -2,11 +2,11 @@
 
 Port of `cook_tpu/models/store.py`, reduced to what the rank -> match ->
 launch slice drives: submits, launches, status updates, kills, retries,
-shares, quotas and the queries the scheduler reads.  The store lock is a
-plain `threading.RLock` (the reference profiles it through its contention
-observatory); the journal codec, idempotency records, gang-submit
-validation, elastic capacity ledger and shard handoff arrive with the
-slices that use them.
+shares, quotas, the gang-submit invariants (`_validate_gangs`) and the
+queries the scheduler reads.  The store lock is a plain `threading.RLock`
+(the reference profiles it through its contention observatory); the
+journal codec, idempotency records, elastic capacity ledger and shard
+handoff arrive with the slices that use them.
 
 Plays the role Datomic plays in the reference (`cook.datomic`,
 `cook/datomic.clj`): serialized transactions,
@@ -161,6 +161,7 @@ class JobStore:
             for job in jobs:
                 if job.uuid in self.jobs:
                     raise TransactionVetoed(f"job {job.uuid} already exists")
+            self._validate_gangs(jobs)
             for group in groups:
                 self.groups[group.uuid] = group
             created_jobs = []
@@ -200,6 +201,43 @@ class JobStore:
                 )
             self._fan_out(events)
             return [j.uuid for j in jobs]
+
+    def _validate_gangs(self, jobs: Sequence[Job]) -> None:
+        """Txn-level gang invariants (caller holds the store lock).
+
+        A gang (gang_size=k, scheduler/gang.py) only ever places
+        all-or-nothing, so a half-submitted gang would wait forever: the
+        k members must arrive in ONE submit batch, share one group, agree
+        on k and pool, and the group must not already hold members from
+        an earlier transaction.  Violations veto the whole batch."""
+        by_group: dict[str, list[Job]] = {}
+        for job in jobs:
+            if job.gang_size <= 0:
+                continue
+            if job.gang_size == 1:
+                raise TransactionVetoed(
+                    f"job {job.uuid}: gang_size 1 is not a gang (omit it)")
+            if not job.group_uuid:
+                raise TransactionVetoed(
+                    f"job {job.uuid}: gang_size requires a group")
+            by_group.setdefault(job.group_uuid, []).append(job)
+        for guuid, members in by_group.items():
+            k = members[0].gang_size
+            if any(j.gang_size != k for j in members):
+                raise TransactionVetoed(
+                    f"group {guuid}: members disagree on gang_size")
+            if any(j.pool != members[0].pool for j in members):
+                raise TransactionVetoed(
+                    f"group {guuid}: gang members span pools")
+            existing = self.groups.get(guuid)
+            if existing is not None and existing.job_uuids:
+                raise TransactionVetoed(
+                    f"group {guuid}: gang groups cannot be extended after "
+                    "submit")
+            if len(members) != k:
+                raise TransactionVetoed(
+                    f"group {guuid}: gang_size {k} but {len(members)} "
+                    "member(s) in the batch (gangs submit atomically)")
 
     def create_instance(
         self,

@@ -15,6 +15,11 @@ warp, then across warps and CTAs); where demands and capacities are
 exact in float32 (the simulator's MB in multiples of 512, cpus in
 halves) every order gives the same sums, and the kernel's results are
 identical to the plain version's.
+
+The kernel keeps each CTA's [B, R] block state in shared memory while it
+fits the card's 227 KB (`smem_bytes`); past that the same kernel pages it
+to a device-memory workspace the wrapper allocates (`workspace_floats`),
+so any block count runs on the card.
 """
 from __future__ import annotations
 
@@ -23,44 +28,66 @@ from typing import Optional
 import torch
 
 from cook_tpu_torch.ops.best_block import best_block_reference
-from cook_tpu_torch.ops.best_node import check_inputs
+from cook_tpu_torch.ops.best_node import MAX_R, check_inputs
 from cook_tpu_torch.ops.common import BIG
 from cook_tpu_torch.ops.match import conflict_round
 
 # kernel launches since the last reset (see ops/best_node.launches)
 launches = 0
 # csrc/coarse_pass.cu's launch shape (COARSE_PASS_CLUSTER CTAs of
-# COARSE_PASS_THREADS threads), mirrored for smem_bytes; chip_smoke.py
-# holds smem_bytes to the kernel's own count
+# COARSE_PASS_THREADS threads), mirrored for smem_bytes and
+# workspace_floats; chip_smoke.py holds both to the kernel's own counts
 _CLUSTER = 8
 _THREADS = 512
 # the shared memory one CTA may take on an H100 (the 227 KB opt-in)
 SMEM_LIMIT = 227 * 1024
 
 
-def smem_bytes(b: int, r: int, chunk: int) -> int:
-    """The shared memory a CTA of the kernel takes for B blocks, R
-    resources and `chunk` (coarse_pass.cu `layout`): 9 [B, R] arrays
-    (availability, block table, carry and base, the cluster exchange and
-    accepted demand, two each), the warps' [W, B, R] partials, 3 [B, 2]
-    pairs, one flag a warp, 4 accept flags, one state word a slot."""
+def _words(b: int, r: int, chunk: int) -> tuple[int, int]:
+    """(block state, small region) words of a CTA (coarse_pass.cu
+    `layout`): 9 [B, R] arrays (availability, block table, carry and base,
+    the cluster exchange and accepted demand, two each), the warps' [W, B,
+    R] partials and 3 [B, 2] pairs; then one flag a warp, 4 accept flags
+    and one state word a slot."""
     warps = _THREADS // 32
     slots = -(-chunk // (_CLUSTER * _THREADS)) * _THREADS
-    return 4 * ((9 + warps) * b * r + 6 * b + warps + 4 + slots)
+    return (9 + warps) * b * r + 6 * b, warps + 4 + slots
+
+
+def paged(b: int, r: int, chunk: int) -> bool:
+    """Whether the kernel keeps the block state for (B, R, chunk) in a
+    device-memory workspace: it does not fit in shared memory with the
+    rest (past 279 blocks at R 8, 543 at R 4, 1028 at R 2, chunk 4096)."""
+    return 4 * sum(_words(b, r, chunk)) > SMEM_LIMIT
+
+
+def smem_bytes(b: int, r: int, chunk: int) -> int:
+    """The shared memory a CTA of the kernel takes for B blocks, R
+    resources and `chunk`: the whole layout, or, paged, the small region
+    alone."""
+    block, small = _words(b, r, chunk)
+    return 4 * (small if paged(b, r, chunk) else block + small)
+
+
+def workspace_floats(b: int, r: int, chunk: int) -> int:
+    """The float32 workspace the kernel pages its block state to: one
+    stretch of block state a CTA, 0 when it fits in shared memory."""
+    return _CLUSTER * _words(b, r, chunk)[0] if paged(b, r, chunk) else 0
 
 
 def check_fits(b: int, r: int, chunk: int) -> None:
-    """Raises ValueError when the kernel's shared memory for (B, R,
-    chunk) is over the card's: the [B, R] block state lives there, which
-    at chunk 4096 holds up to 279 blocks at R 8, 543 at R 4, 1028 at R
-    2."""
+    """Raises ValueError for shapes the kernel cannot take at all: R
+    outside 2..8, or a chunk whose job slots alone are over the card's
+    shared memory.  Any block count runs (`paged`)."""
+    if not 2 <= r <= MAX_R:
+        raise ValueError(f"coarse_pass takes 2..{MAX_R} resource columns, "
+                         f"got {r}")
     need = smem_bytes(b, r, chunk)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"coarse_pass holds {b} blocks x {r} resources in shared "
-            f"memory: {need} bytes a CTA, over the card's {SMEM_LIMIT}; "
-            f"take larger blocks (nodes_per_block) or the 'xla' coarse "
-            f"backend")
+            f"coarse_pass keeps a CTA's {chunk}-job chunk slots in shared "
+            f"memory: {need} bytes, over the card's {SMEM_LIMIT}; take a "
+            f"smaller coarse_chunk")
 
 
 def coarse_pass_reference(demands, active, block_avail, block_max,
@@ -123,16 +150,22 @@ def _launch(demands, active, block_avail, block_max, block_totals,
     global launches
     from cook_tpu_torch import build
 
-    launch = build.launcher("coarse_pass", 8, 6)
+    launch = build.launcher("coarse_pass", 9, 6)
     j, r = demands.shape
     b = block_avail.shape[0]
     with torch.cuda.device(demands.device):
         assignment = torch.empty(j, dtype=torch.int32, device=demands.device)
         avail = torch.empty_like(block_avail)
+        # past shared memory the block state pages to this workspace
+        floats = workspace_floats(b, r, chunk)
+        workspace = (torch.empty(floats, dtype=torch.float32,
+                                 device=demands.device) if floats else None)
         launch(demands.data_ptr(), active.data_ptr(), block_avail.data_ptr(),
                block_max.data_ptr(), block_totals.data_ptr(),
                block_valid.data_ptr(), assignment.data_ptr(),
-               avail.data_ptr(), j, b, r, chunk, passes, rounds,
+               avail.data_ptr(),
+               None if workspace is None else workspace.data_ptr(),
+               j, b, r, chunk, passes, rounds,
                torch.cuda.current_stream(demands.device).cuda_stream)
     launches += 1
     return assignment, avail
@@ -150,8 +183,8 @@ def coarse_pass(demands: torch.Tensor, active: torch.Tensor,
     (the per-resource max single node, fixed for the pass) [B, R],
     block_totals [B, 2] float32, block_valid [B] bool; all contiguous and
     on one device.  `chunk` divides J; the availability carries across
-    passes and chunks.  On the card B x R is bounded by the kernel's
-    shared memory (`check_fits`)."""
+    passes and chunks.  On the card any B runs: past the shared memory
+    the kernel pages its block state to device memory (`paged`)."""
     _check(demands, active, block_avail, block_max, block_totals,
            block_valid, chunk, passes, rounds)
     if demands.device.type == "cuda":

@@ -21,11 +21,21 @@ solves in three passes:
 
 The block axis pads to a power-of-two bucket with all-invalid lanes
 (`parallel/mesh.invalid_match_problem`), as in the reference; on one card
-there is no mesh to shard it over.  Not ported yet (ROADMAP Queue A): the
-superblock layer (`superblock_nodes > 0`: `gather_super`,
-`_coarse_batched_solve`, `coarse_two_level`) and gangs on this path
-(`gang_id` / `gang_need`, with `ops/gang.py`); both raise
-NotImplementedError.  The data-plane notes, metrics and compile
+there is no mesh to shard it over.
+
+Gangs (`gang_id` / `gang_need`, reference :519-537, :649-697, :718-757,
+:890-915): each gang routes coarse as ONE row, its leader carrying the
+gang's summed demand, gated on the member-wise max demand and on the
+block holding at least k valid hosts (`block_count`); members inherit the
+leader's block.  The coarse backend is then the masked `xla` one, as in
+the reference (the `coarse_pass` kernel has no per-row host-count gate).
+After every fine pass and refine round `ops/gang.gang_filter` strips any
+gang that did not land whole in one block on distinct hosts, and
+`release_assignments` returns its demand to the live availability.
+
+Not ported yet: the superblock layer (`superblock_nodes > 0`:
+`gather_super`, `_coarse_batched_solve`, `coarse_two_level`), which
+raises NotImplementedError.  The data-plane notes, metrics and compile
 observatory of the reference are the flight-recorder/telemetry slice.
 """
 from __future__ import annotations
@@ -41,6 +51,7 @@ from cook_tpu_torch.ops.best_node import fits
 from cook_tpu_torch.ops.best_node_batched import best_node_batched
 from cook_tpu_torch.ops.coarse_pass import check_fits, coarse_pass
 from cook_tpu_torch.ops.common import BIG, bucket_size, fetch_result
+from cook_tpu_torch.ops.gang import gang_filter, release_assignments
 from cook_tpu_torch.ops.match import (
     MatchProblem,
     MatchResult,
@@ -82,8 +93,8 @@ class HierParams:
     # best node against the updated availability
     fine_passes: int = 16
     # coarse block-scoring backend: "xla" (masked chunked_match) or
-    # "pallas" (the coarse_pass kernel; on the card the padded block count
-    # x R is bounded by its shared memory, coarse_pass.check_fits)
+    # "pallas" (the coarse_pass kernel, any block count: past its shared
+    # memory it pages the block state to device memory)
     coarse_backend: str = "xla"
     coarse_chunk: int = 4096
     # single-candidate coarse rounds and passes (the reference's rationale:
@@ -121,24 +132,35 @@ def choose_nodes_per_block(n_nodes: int, override: int = 0) -> int:
 def block_aggregates(avail, totals, node_valid, npb: int):
     """Per-block coarse tensors from node-axis slices: summed free capacity
     [B, R], per-resource max single node [B, R] (-1 where no node is
-    valid), summed totals [B, 2] and any-valid [B].  The sums are exact
-    while the values are (the simulator's MB and half-cpu amounts are),
-    whatever order the device adds in."""
+    valid), summed totals [B, 2], any-valid [B] and the valid-host count
+    [B] int32 (the gang gate).  The sums are exact while the values are
+    (the simulator's MB and half-cpu amounts are), whatever order the
+    device adds in."""
     n, r = avail.shape
     b = n // npb
     nv = node_valid.reshape(b, npb, 1)
     block_sum = torch.where(nv, avail.reshape(b, npb, r), 0.0).sum(1)
     block_max = torch.where(nv, avail.reshape(b, npb, r), -1.0).amax(1)
     block_tot = torch.where(nv, totals.reshape(b, npb, 2), 0.0).sum(1)
-    return block_sum, block_max, block_tot, nv[..., 0].any(1)
+    return (block_sum, block_max, block_tot, nv[..., 0].any(1),
+            nv[..., 0].sum(1, dtype=torch.int32))
 
 
 def _coarse_xla(demands, active, block_sum, block_max, block_tot,
-                block_valid, block_any, params: HierParams):
+                block_valid, block_any, params: HierParams,
+                gate_demands=None, need_row=None, block_count=None):
     """Coarse jobs x blocks assignment on the aggregated problem via the
     chunked matcher, gated by the max-node fit and, optionally, by
-    `block_any` (the constraint mask has a feasible node in the block)."""
-    feas = fits(block_max, demands)
+    `block_any` (the constraint mask has a feasible node in the block).
+
+    Gang rows route with their gang's aggregate demand but gate on what
+    the block must hold member-wise: `gate_demands` is the per-row max
+    member demand (block_max must fit it) and `need_row` the member count,
+    gated against `block_count` (valid hosts per block)."""
+    feas = fits(block_max, demands if gate_demands is None
+                else gate_demands)
+    if need_row is not None and block_count is not None:
+        feas = feas & (block_count[None, :] >= need_row[:, None])
     if block_any is not None:
         feas = feas & block_any
     problem = MatchProblem(
@@ -305,10 +327,6 @@ def hierarchical_match(
         raise NotImplementedError(
             "the superblock layer (superblock_nodes > 0) is not ported "
             "yet (ROADMAP Queue A item 6)")
-    if gang_id is not None or gang_need is not None:
-        raise NotImplementedError(
-            "gangs on the hierarchical path are not ported yet (ROADMAP "
-            "Queue A item 2, with ops/gang.py)")
     t_start = time.perf_counter()
     dev = problem.demands.device
     orig_j = int(problem.demands.shape[0])
@@ -345,8 +363,6 @@ def hierarchical_match(
     # keyed by (b_pad, slots, npb), never by the raw block count
     b_pad = bucket_size(b_real, minimum=MIN_BLOCKS)
     coarse_chunk = _chunk_for(params.coarse_chunk, j)
-    if params.coarse_backend == "pallas" and dev.type == "cuda":
-        check_fits(b_pad, n_res, coarse_chunk)
     if params.jobs_per_block:
         # round an override up to a power of two: the chunked fine solve
         # needs its chunk to divide the slot axis
@@ -358,22 +374,74 @@ def hierarchical_match(
     job_valid_np = fetch_result(job_valid)
     out = np.full(j, -1, dtype=np.int32)
     block_pad_axis = b_pad - b_real
+    coarse_backend = params.coarse_backend
     fine_backend_label = ("pallas-fine" if params.fine_backend == "pallas"
                           else vmap_safe_backend(params.backend))
-    block_any = None
-    if params.coarse_backend == "xla" and feasible is not None:
-        block_any = torch.nn.functional.pad(
-            feasible.reshape(j, b_real, npb).any(-1), (0, block_pad_axis))
     coarse_s = fine_s = refine_s = 0.0
     refine_placed = 0
     avail_now = avail
+
+    # ---- gangs: the leader row of each gang carries the gang's aggregate
+    # coarse demand; members ride the leader's block.  The filter's gang
+    # axis is bucketed, as the reference's is.
+    has_gangs = False
+    if gang_id is not None and gang_need is not None:
+        # the matcher passes one row per considerable job, fewer than the
+        # padded problem's rows: the padding rows are not gang rows (the
+        # reference fills [:orig_j] and raises on such a call, which its
+        # device-fallback ladder then solves on the CPU)
+        rows = len(gang_id)
+        gang_id_np = np.full(j, -1, dtype=np.int32)
+        gang_id_np[:rows] = np.asarray(gang_id, dtype=np.int32)
+        gang_need_np = np.zeros(j, dtype=np.int32)
+        gang_need_np[:rows] = np.asarray(gang_need, dtype=np.int32)
+        has_gangs = bool((gang_id_np >= 0).any())
+    demands_coarse = demands
+    gate_demands = need_row = None
+    n_gangs = gang_slots = 0
+    gangs_stripped_rows = 0
+    if has_gangs:
+        gang_rows_np = gang_id_np >= 0
+        leader_row_np = np.arange(j, dtype=np.int32)
+        is_leader_np = np.zeros(j, dtype=bool)
+        for g in np.unique(gang_id_np[gang_rows_np]):
+            rows = np.flatnonzero(gang_id_np == g)
+            leader_row_np[rows] = rows[0]
+            is_leader_np[rows[0]] = True
+        members_np = gang_rows_np & ~is_leader_np
+        n_gangs = int(is_leader_np.sum())
+        gang_slots = bucket_size(n_gangs)
+        lr = torch.as_tensor(leader_row_np, device=dev).long()
+        gmask = torch.as_tensor(gang_rows_np, device=dev)[:, None]
+        gang_id_dev = torch.as_tensor(gang_id_np, device=dev)
+        gang_need_dev = torch.as_tensor(gang_need_np, device=dev)
+        contrib = torch.where(gmask, demands, 0.0)
+        agg = torch.zeros_like(demands).index_add_(0, lr, contrib)
+        # members route as one aggregate row; gates stay member-sized
+        demands_coarse = torch.where(gmask, agg, demands)
+        gmax = torch.zeros_like(demands).scatter_reduce_(
+            0, lr[:, None].expand_as(contrib), contrib, "amax",
+            include_self=True)
+        gate_demands = torch.where(gmask, gmax, demands)
+        need_row = torch.as_tensor(
+            np.where(gang_rows_np, gang_need_np, 1).astype(np.int32),
+            device=dev)
+        # the gang gate needs the masked coarse path (the coarse_pass
+        # kernel has no per-row host-count gate)
+        coarse_backend = "xla"
+    if coarse_backend == "pallas" and dev.type == "cuda":
+        check_fits(b_pad, n_res, coarse_chunk)
+    block_any = None
+    if coarse_backend == "xla" and feasible is not None:
+        block_any = torch.nn.functional.pad(
+            feasible.reshape(j, b_real, npb).any(-1), (0, block_pad_axis))
 
     def coarse_step(active_mask: np.ndarray) -> np.ndarray:
         """One coarse jobs x blocks assignment against the CURRENT block
         availabilities (refine rounds re-enter with only the leftover
         jobs active)."""
-        block_sum, block_max, block_tot, block_valid = block_aggregates(
-            avail_now, totals, node_valid, npb)
+        block_sum, block_max, block_tot, block_valid, block_count = \
+            block_aggregates(avail_now, totals, node_valid, npb)
         if block_pad_axis:
             pad = (0, 0, 0, block_pad_axis)
             block_sum = torch.nn.functional.pad(block_sum, pad)
@@ -381,17 +449,31 @@ def hierarchical_match(
             block_tot = torch.nn.functional.pad(block_tot, pad, value=1.0)
             block_valid = torch.nn.functional.pad(block_valid,
                                                   (0, block_pad_axis))
+            block_count = torch.nn.functional.pad(block_count,
+                                                  (0, block_pad_axis))
+        if has_gangs:
+            # gang members ride their leader's row through the coarse
+            # solve: only the leader (aggregate demand) routes
+            active_mask = active_mask & ~members_np
         active = torch.as_tensor(active_mask, device=dev)
-        if params.coarse_backend == "pallas":
+        if coarse_backend == "pallas":
             assignment = _coarse_pallas(
                 demands, active, block_sum, block_max, block_tot,
                 block_valid, chunk=coarse_chunk,
                 rounds=params.coarse_rounds, passes=params.coarse_passes)
         else:
-            assignment = _coarse_xla(demands, active, block_sum, block_max,
-                                     block_tot, block_valid, block_any,
-                                     params)
-        return fetch_result(assignment)
+            assignment = _coarse_xla(
+                demands_coarse, active, block_sum, block_max, block_tot,
+                block_valid, block_any, params,
+                gate_demands=gate_demands, need_row=need_row,
+                block_count=block_count if has_gangs else None)
+        res = fetch_result(assignment)
+        if has_gangs:
+            # members inherit the leader's block (or its miss): the
+            # scatter then seats the whole gang in one block's slots
+            res = res.copy()
+            res[members_np] = res[leader_row_np[members_np]]
+        return res
 
     def fine_pass(job_idx: np.ndarray):
         """Scattered fine batch solve; returns (assignment [b_real, s]
@@ -414,6 +496,29 @@ def hierarchical_match(
         out[job_idx[sel]] = global_idx[sel].astype(np.int32)
         return int(sel.sum())
 
+    def enforce_gangs() -> int:
+        """The group-sum constraint: `gang_filter` over the merged global
+        assignment strips any gang that did not land whole inside one
+        block on distinct hosts, and `release_assignments` returns the
+        stripped demand to the live availability so refine rounds retry
+        the gang whole.  One host read (the stripped mask), and the new
+        assignment only when something was stripped.  Returns the rows
+        stripped (0 without gangs)."""
+        nonlocal avail_now, gangs_stripped_rows
+        if not has_gangs:
+            return 0
+        asg_dev = torch.tensor(out, device=dev)
+        new_asg, stripped = gang_filter(
+            asg_dev, gang_id_dev, gang_need_dev, num_gangs=gang_slots,
+            num_nodes=n_pad, nodes_per_block=npb)
+        count = int(fetch_result(stripped).sum())
+        if count:
+            avail_now = release_assignments(avail_now, demands, asg_dev,
+                                            stripped)
+            out[:] = fetch_result(new_asg)
+            gangs_stripped_rows += count
+        return count
+
     # ---- round 0: coarse -> scatter -> fine
     t0 = time.perf_counter()
     coarse = coarse_step(job_valid_np)
@@ -423,14 +528,15 @@ def hierarchical_match(
     fine_assign, avail_now = fine_pass(job_idx)
     fine_s += time.perf_counter() - t0
     merge(job_idx, fine_assign)
+    enforce_gangs()
     block_stats = [{"jobs": int((job_idx[bi] >= 0).sum()),
                     "placed": int(((job_idx[bi] >= 0)
                                    & (fine_assign[bi] >= 0)).sum())}
                    for bi in range(b_real)]
 
     # ---- bounded refinement: re-offer every leftover (coarse-unrouted,
-    # slot-spilled or fine-unplaced) against the UPDATED availabilities,
-    # at identical shapes
+    # slot-spilled, fine-unplaced or gang-stripped) against the UPDATED
+    # availabilities, at identical shapes
     rounds_run = 0
     for _ in range(max(0, params.refine_rounds)):
         leftover = job_valid_np & (out < 0)
@@ -442,9 +548,12 @@ def hierarchical_match(
         job_idx, _ = scatter_to_blocks(coarse, leftover, b_real, slots)
         fine_assign, avail_now = fine_pass(job_idx)
         placed = merge(job_idx, fine_assign)
-        refine_placed += placed
+        stripped = enforce_gangs()
+        refine_placed += max(0, placed - stripped)
         refine_s += time.perf_counter() - t0
-        if placed <= 0:
+        if placed - stripped <= 0:
+            # net-zero progress: a strip returned exactly what the round
+            # consumed, so the next round would replay the same solve
             break
 
     stats = {
@@ -472,9 +581,15 @@ def hierarchical_match(
         "coarse_shape": (j, b_pad),
         "fine_shape": (b_pad, slots, npb),
         "backend": fine_backend_label,
-        "coarse_backend": params.coarse_backend,
+        "coarse_backend": coarse_backend,
         "block_stats": block_stats,
         "total_s": time.perf_counter() - t_start,
     }
+    if has_gangs:
+        stats["gangs"] = {
+            "considered": n_gangs,
+            "placed": int((is_leader_np & (out >= 0)).sum()),
+            "stripped_rows": gangs_stripped_rows,
+        }
     return MatchResult(assignment=torch.as_tensor(out[:orig_j], device=dev),
                        new_avail=avail_now[:n]), stats

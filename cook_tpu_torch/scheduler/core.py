@@ -5,14 +5,18 @@ Port of `cook_tpu/scheduler/core.py`: `SchedulerConfig` (its `match` and
 `rebalancer` fields) and a `Scheduler` with `rank_cycle` (the reference's
 non-columnar branch, sampling the fairness observatory), `match_cycle`
 (without speculation, rate limiting or telemetry; honouring and releasing
-the rebalancer's host reservations), `rebalance_cycle` (the victim search
-on the device, the preemption ledger, `_transact_preemption`, host
-reservations for multi-victim decisions), `handle_status_update` and
+the rebalancer's host reservations and gang admission's `gang:<group>`
+ones), `rebalance_cycle` (the victim search on the device, the preemption
+ledger, `_transact_preemption`, host reservations for multi-victim
+decisions, then `_gang_admission_cycle`: topology-aware drain-vs-kill
+admission of waiting gangs, scheduler/gang.py), `handle_status_update` and
 `_on_event` (completions from the backend into the store's state machine,
 kill-on-complete fan-out, wasted-work accounting of kills the rebalancer
 did not make), `_make_task_id`, `_make_launch_filter` and `_cache_spare`.
-Gang admission, the flight recorder, elastic capacity, incidents and
-telemetry are later slices.
+The runtime predictor, the flight recorder, elastic capacity, incidents
+and telemetry are later slices: `Scheduler.predictor` is None, as in the
+reference with speculation off and no backfill weight, so gang admission
+takes its "drain ETA unknown" branch.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
@@ -36,6 +40,12 @@ from cook_tpu_torch.models.entities import InstanceStatus, Job, Pool, Resources
 from cook_tpu_torch.models.reasons import REASONS_BY_CODE
 from cook_tpu_torch.models.store import Event, JobStore
 from cook_tpu_torch.obs.fairness import FairnessObservatory
+from cook_tpu_torch.scheduler.gang import (
+    GANG_RESERVATION_PREFIX,
+    GangAdmission,
+    gang_reservation_tag,
+    plan_gang_admissions,
+)
 from cook_tpu_torch.scheduler.matcher import (
     MatchConfig,
     MatchOutcome,
@@ -86,8 +96,14 @@ class Scheduler:
         self.last_host_info: dict[str, dict[str, tuple[dict, str]]] = {}
         self.placement_failures: dict[str, str] = {}  # job uuid -> reason text
         # rebalancer host reservations: hostname -> reserving job uuid
-        # (reserve-hosts!, rebalancer.clj:419)
+        # (reserve-hosts!, rebalancer.clj:419), or gang:<group> for a
+        # gang admission's hosts (any member of the group may claim them)
         self.host_reservations: dict[str, str] = {}
+        # the runtime predictor gang admission asks for drain ETAs; not
+        # ported yet, so every busy host's ETA is unknown
+        self.predictor = None
+        # the last rebalance cycle's gang admissions (GangAdmission.to_json)
+        self.last_gang_admissions: list[dict] = []
         # accumulating hostname -> attributes cache: fully-occupied hosts
         # emit no offers, but their attrs are still needed to count running
         # group members for balanced-host placement (constraints.clj:600).
@@ -232,11 +248,15 @@ class Scheduler:
             host_attrs=self.host_attr_cache,
         )
         matched_uuids = {j.uuid for j, _ in outcome.matched}
-        # launched jobs release their host reservations
+        # launched jobs release their host reservations; a placed gang
+        # releases its group-wide gang:<group> reservations
+        matched_tags = matched_uuids | {
+            gang_reservation_tag(j.group_uuid)
+            for j, _ in outcome.matched if j.group_uuid}
         if self.host_reservations:
             self.host_reservations = {
                 host: tag for host, tag in self.host_reservations.items()
-                if tag not in matched_uuids
+                if tag not in matched_tags
             }
         queue.jobs = [j for j in queue.jobs if j.uuid not in matched_uuids]
         # cache spare resources for the rebalancer (view-incubating-offers,
@@ -292,16 +312,11 @@ class Scheduler:
 
     def rebalance_cycle(self, pool: Pool) -> list[Decision]:
         """One pool's preemption pass (rebalancer.clj:434-533): the
-        victim search on the device, the preemption ledger, the kills, and
-        a host reservation for each decision that took several victims."""
+        victim search on the device, the preemption ledger, the kills, a
+        host reservation for each decision that took several victims, then
+        gang admission."""
         queue = self.pool_queues.get(pool.name) or self.rank_cycle(pool)
         params = self._rebalancer_params()
-        if params.gang_enabled and any(
-                j.gang_size >= 2 and j.group_uuid for j in queue.jobs):
-            raise NotImplementedError(
-                "gang admission in the rebalance cycle is not ported yet "
-                "(the gang slice); set RebalancerParams.gang_enabled=False "
-                "to rebalance gang members as independent jobs")
         spare = self.last_unmatched_offers.get(pool.name, {})
         decisions = rebalance_pool(
             self.store, pool, queue.jobs, spare, params,
@@ -355,6 +370,7 @@ class Scheduler:
             "rebalance.preempted",
             "tasks preempted by the rebalancer per pool").inc(
             n_preempted, {"pool": pool.name})
+        self._gang_admission_cycle(pool, queue, spare)
         return decisions
 
     def _host_block_map(self, pool: Pool, spare: dict) -> dict[str, int]:
@@ -364,8 +380,96 @@ class Scheduler:
             set(spare)
             | {i.hostname for i in self.store.running_instances(pool.name)
                if i.hostname})
-        npb = topology_block_width(len(hostnames))
+        npb = topology_block_width(self.config.match, len(hostnames))
         return {h: i // npb for i, h in enumerate(hostnames)}
+
+    def _gang_admission_cycle(self, pool: Pool, queue: RankedQueue,
+                              spare: dict) -> list[GangAdmission]:
+        """Topology-aware gang admission (scheduler/gang.py, reference
+        core.py:1059-1151): whole-gang drain-vs-kill decisions riding the
+        rebalance cycle.  Preempt-less admissions only reserve hosts (the
+        block drains into the reservation); preempt admissions transact
+        contiguous in-block victim sets like any rebalancer kill."""
+        params = self._rebalancer_params()
+        if not (params.gang_enabled and self.config.match.gang_enabled):
+            return []
+        waiting_groups = {
+            gang_reservation_tag(j.group_uuid) for j in queue.jobs
+            if j.gang_size >= 2 and j.group_uuid}
+        # stale gang reservations (gang canceled / placed via another
+        # pool) must not squat on hosts
+        self.host_reservations = {
+            host: tag for host, tag in self.host_reservations.items()
+            if not tag.startswith(GANG_RESERVATION_PREFIX)
+            or tag in waiting_groups}
+        if not waiting_groups:
+            return []
+        admissions = plan_gang_admissions(
+            self.store, pool, queue.jobs, spare,
+            nodes_per_block=topology_block_width(
+                self.config.match, max(len(spare), 1)),
+            predictor=self.predictor,
+            params=params,
+            now_ms=self.store.clock(),
+            reserved=set(self.host_reservations),
+        )
+        now_ms = self.store.clock()
+        gang_entries = []
+        for adm in admissions:
+            tag = gang_reservation_tag(adm.group_uuid)
+            for host in adm.hosts:
+                self.host_reservations[host] = tag
+            victims = []
+            for task_id in adm.victims:
+                inst = self.store.instances.get(task_id)
+                if inst is None or inst.status.terminal:
+                    continue
+                job = self.store.jobs.get(inst.job_uuid)
+                victims.append({
+                    "task_id": task_id,
+                    "user": job.user if job is not None else "",
+                    "dru": 0.0,
+                    "mem": job.resources.mem if job is not None else 0.0,
+                    "cpus": job.resources.cpus if job is not None else 0.0,
+                    "gpus": job.resources.gpus if job is not None else 0.0,
+                    "wasted_s": round(max(
+                        0.0, (now_ms - inst.start_time_ms) / 1000.0), 3),
+                })
+                self.store.update_instance_state(
+                    task_id, InstanceStatus.FAILED,
+                    "preempted-by-rebalancer")
+                cluster = self.cluster_by_name(inst.compute_cluster)
+                if cluster is not None:
+                    cluster.safe_kill_task(task_id)
+            if victims:
+                # gang kills join the fairness ledger like any rebalancer
+                # decision, block-stamped
+                gang_entries.append({
+                    "t_ms": now_ms,
+                    "preemptor_job": adm.leader_uuid,
+                    "preemptor_user": "",
+                    "hostname": ",".join(adm.hosts),
+                    "block": adm.block,
+                    "min_preempted_dru": 0.0,
+                    "victims": victims,
+                    "wasted_s": round(
+                        sum(v["wasted_s"] for v in victims), 3),
+                    "freed": {
+                        "mem": sum(v["mem"] for v in victims),
+                        "cpus": sum(v["cpus"] for v in victims),
+                        "gpus": sum(v["gpus"] for v in victims)},
+                })
+            global_registry.counter(
+                "gang.admissions",
+                "gang admission decisions by the rebalance cycle per "
+                "pool and mode (drain = preempt-less)").inc(
+                1, {"pool": pool.name, "mode": adm.mode})
+        if gang_entries:
+            self.fairness.record_decisions(pool.name, gang_entries)
+        self.metrics[f"rebalance.{pool.name}.gang_admissions"] = len(
+            admissions)
+        self.last_gang_admissions = [a.to_json() for a in admissions]
+        return admissions
 
     def _transact_preemption(self, decision: Decision) -> None:
         """transact-preemption! + safe-kill-task (rebalancer.clj:482-533)."""

@@ -7,14 +7,24 @@ Port of `cook_tpu/scheduler/matcher.py`: considerable-job selection
 hierarchical two-level solve behind `HierarchicalPending` for pools at or
 over `hierarchical_threshold`), and `prepare_pool_problem` /
 `finalize_pool_match` / `match_pool`, with the rebalancer's host
-reservations honoured by the feasibility mask, and `topology_block_width`
-(the block a host belongs to, stamped on the fairness ledger).
+reservations (and gang admission's `gang:<group>` tags) honoured by the
+feasibility mask, `topology_block_width` (the block a host belongs to)
+and `topology_bonus` (the topology distance term).
 
-Left for later slices: the gang, encode-cache, device-residency,
-predictor, quality-audit and flight-recorder branches.  The
-reference's device-fallback ladder (re-solving a failed device solve on
-the CPU) has no counterpart: here a solve error propagates, so a fault of
-the card or the kernel is never hidden.
+Gangs: `gang_context` gives the considerable window's gang rows; the
+hierarchical solve routes and filters them by block; the chokepoint of
+`finalize_pool_match` repairs and filters every path's assignment on the
+host (`ops/gang.np_gang_repair`, `np_gang_filter`), tops the freed hosts
+up with scalar jobs, and transacts each gang atomically (a member that
+fails to transact rolls its siblings back), as the reference's
+(`cook_tpu/scheduler/matcher.py:1260-1560`).
+
+Left for later slices: the encode-cache, device-residency, predictor,
+quality-audit and flight-recorder branches (so `gang-incomplete` details
+reach `record_placement_failure` and the `gang.*` metrics, not a cycle
+record).  The reference's device-fallback ladder (re-solving a failed
+device solve on the CPU) has no counterpart: here a solve error
+propagates, so a fault of the card or the kernel is never hidden.
 
 Reference: `handle-fenzo-pool` / `handle-resource-offers!` / `launch-
 matched-tasks!` (Cook's scheduler.clj:617-1651) with the Fenzo solve
@@ -48,6 +58,11 @@ from cook_tpu_torch.models.entities import (
 )
 from cook_tpu_torch.models.store import JobStore, TransactionVetoed
 from cook_tpu_torch.ops.common import PendingResult, bucket_size, pad_to
+from cook_tpu_torch.ops.gang import (
+    np_block_free_hosts,
+    np_gang_filter,
+    np_gang_repair,
+)
 from cook_tpu_torch.ops.match import (
     MatchProblem,
     backend_flags,
@@ -64,6 +79,7 @@ from cook_tpu_torch.scheduler.constraints import (
     validate_group_assignments,
 )
 from cook_tpu_torch.scheduler.ranking import QuotaWalk, RankedQueue
+from cook_tpu_torch.utils.metrics import global_registry
 
 log = logging.getLogger(__name__)
 
@@ -75,6 +91,10 @@ CONSTRAINTS_FILTERED = "all nodes filtered by constraints"
 INSUFFICIENT_RESOURCES = "insufficient resources on feasible nodes"
 LAUNCH_CAP = "cluster launch rate/cap reached this cycle"
 PORTS_EXHAUSTED = "insufficient free ports on the matched node"
+GANG_INCOMPLETE = (
+    "the job's gang could not place whole (all members on distinct"
+    " hosts inside one topology block); the matcher's all-or-nothing"
+    " rule holds the whole gang back")
 
 
 @dataclass
@@ -122,6 +142,21 @@ class MatchConfig:
     # fine-solve backend: "xla" (a chunked solve per block) or "pallas"
     # (the best_node_batched kernel)
     hierarchical_fine_backend: str = "xla"
+    # gang scheduling (ops/gang.py + scheduler/gang.py): jobs submitted
+    # with gang_size=k place all-or-nothing — k distinct hosts inside ONE
+    # topology block on the hierarchical path, whole-pool all-or-nothing
+    # on the flat paths unless topology_block_hosts declares the blocks
+    # (np_gang_filter in finalize_pool_match is the chokepoint either
+    # way).  Disabling treats gang members as independent jobs.
+    gang_enabled: bool = True
+    # topology distance term: additive per-node score bonus
+    # (MatchProblem.node_bonus) of topology_weight x the node's block
+    # memory utilization, so placements pack into warm blocks and whole
+    # blocks stay free for gangs.  0 disables
+    topology_weight: float = 0.0
+    # block width (hosts) of the topology: 0 = the hierarchical
+    # decomposition's tuned bucket (ops/hierarchical.NODE_BLOCK_BUCKETS)
+    topology_block_hosts: int = 0
 
     def __post_init__(self):
         backend_flags(self.backend)  # raises on unknown names
@@ -159,7 +194,9 @@ class MatchOutcome:
     head_matched: bool = True
     # host-clock seconds of match_pool's phases: encode
     # (prepare_pool_problem), solve (dispatch through the fetch that
-    # observes completion) and launch (finalize_pool_match)
+    # observes completion) and launch (finalize_pool_match), and, in a
+    # cycle with gangs, the gang chokepoint's share of launch (`gang`:
+    # repair, filter, details and the scalar top-up)
     phase_wall_s: dict[str, float] = field(default_factory=dict)
 
 
@@ -281,15 +318,58 @@ def hierarchical_enabled(config: MatchConfig,
     return j * n >= config.hierarchical_threshold
 
 
-def topology_block_width(n_nodes: int) -> int:
-    """Block width (hosts) of the topology: the hierarchical
-    decomposition's tuned bucket, so that "one block" means the same to
-    the fairness ledger and to the two-level matcher.  The reference's
-    `MatchConfig.topology_block_hosts` override, read there by the
-    topology bonus and gang blocks, comes with the gang slice."""
+def gang_context(
+    considerable: Sequence[Job], config: MatchConfig,
+) -> tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+    """(gang_id [J] int32, gang_need [J] int32) for this cycle's
+    considerable window, or (None, None) when no gang rows are present.
+    gang_id is a dense per-cycle index over the distinct gang groups, in
+    the order they first appear in the window; members outside the window
+    do not appear, so an under-represented gang strips at the chokepoint
+    (members-missing) instead of partially placing."""
+    if not config.gang_enabled:
+        return None, None
+    ids: dict[str, int] = {}
+    gang_id = np.full(len(considerable), -1, dtype=np.int32)
+    gang_need = np.zeros(len(considerable), dtype=np.int32)
+    for ji, job in enumerate(considerable):
+        if job.gang_size >= 2 and job.group_uuid:
+            gang_id[ji] = ids.setdefault(job.group_uuid, len(ids))
+            gang_need[ji] = job.gang_size
+    if not ids:
+        return None, None
+    return gang_id, gang_need
+
+
+def topology_block_width(config: MatchConfig, n_nodes: int) -> int:
+    """Block width (hosts) of the topology: the explicit override, else
+    the hierarchical decomposition's tuned bucket, so that "one block"
+    means the same to the distance term, the gang block rule, the fairness
+    ledger and gang admission."""
+    if config.topology_block_hosts:
+        return config.topology_block_hosts
     from cook_tpu_torch.ops.hierarchical import choose_nodes_per_block
 
     return choose_nodes_per_block(max(n_nodes, 1))
+
+
+def topology_bonus(nodes: EncodedNodes,
+                   config: MatchConfig) -> Optional[np.ndarray]:
+    """Per-node additive score bonus [N] float32 (None when disabled):
+    topology_weight x the node's block memory utilization, so warmer
+    blocks attract placements and whole blocks stay free for gangs."""
+    if config.topology_weight <= 0 or nodes.n == 0:
+        return None
+    npb = topology_block_width(config, nodes.n)
+    avail_mem = np.array([o.mem for o in nodes.offers], dtype=np.float32)
+    total_mem = np.array([max(o.total_mem or o.mem, 1e-9)
+                          for o in nodes.offers], dtype=np.float32)
+    util = np.clip(1.0 - avail_mem / total_mem, 0.0, 1.0)
+    bonus = np.empty(nodes.n, dtype=np.float32)
+    for start in range(0, nodes.n, npb):
+        seg = slice(start, min(start + npb, nodes.n))
+        bonus[seg] = util[seg].mean()
+    return (config.topology_weight * bonus).astype(np.float32)
 
 
 def hier_params_from_config(config: MatchConfig):
@@ -329,7 +409,9 @@ class HierarchicalPending:
 
         result, stats = hierarchical_match(
             self.prepared.problem,
-            params=hier_params_from_config(self.config))
+            params=hier_params_from_config(self.config),
+            gang_id=self.prepared.gang_id,
+            gang_need=self.prepared.gang_need)
         self.prepared.hier_stats = stats
         return result.assignment[: len(self.prepared.considerable)] \
             .cpu().numpy()
@@ -460,6 +542,11 @@ class PreparedPool:
     # two-level solve accounting (ops/hierarchical.py stats), set by
     # HierarchicalPending.fetch
     hier_stats: Optional[dict] = None
+    # gang rows of the considerable window (gang_context), None when the
+    # cycle has no gangs: the hierarchical solve routes by them, and the
+    # finalize chokepoint enforces all-or-nothing on every path with them
+    gang_id: Optional[np.ndarray] = None
+    gang_need: Optional[np.ndarray] = None
 
     @property
     def solvable(self) -> bool:
@@ -500,6 +587,8 @@ def prepare_pool_problem(
         store, pool, queue, state.num_considerable,
         launch_filter=launch_filter)
     considerable = prepared.considerable
+    prepared.gang_id, prepared.gang_need = gang_context(considerable,
+                                                        config)
     if not considerable or not prepared.cluster_offers:
         return prepared
 
@@ -533,14 +622,17 @@ def prepare_pool_problem(
     if host_reservations:
         # rebalancer reservations (constraints.clj:242 + reserve-hosts!,
         # rebalancer.clj:419): a reserved host only accepts its reserving
-        # job.  The gang:<group> tags of gang admission come with the gang
-        # slice
+        # job
         reserved_for = np.array(
             [host_reservations.get(o.hostname, "") for o in nodes.offers]
         )
         has_reservation = reserved_for != ""
         for ji, job in enumerate(considerable):
             allowed = ~has_reservation | (reserved_for == job.uuid)
+            if job.group_uuid:
+                # gang admission reserves hosts under a group-wide tag any
+                # member may claim (scheduler/gang.py)
+                allowed |= reserved_for == ("gang:" + job.group_uuid)
             feasible[ji] &= allowed
             # the saved pre-closure rows must honor reservations too, or
             # the balanced top-up could steal a reserved host
@@ -550,6 +642,12 @@ def prepare_pool_problem(
     prepared.problem = build_match_problem(considerable, nodes, feasible,
                                            device=device,
                                            chunk=config.chunk, config=config)
+    bonus = topology_bonus(nodes, config)
+    if bonus is not None:
+        # the topology distance term, padded to the node axis
+        pad_n = int(prepared.problem.avail.shape[0])
+        prepared.problem = prepared.problem._replace(
+            node_bonus=torch.as_tensor(pad_to(bonus, pad_n), device=device))
     return prepared
 
 
@@ -597,6 +695,14 @@ def finalize_pool_match(
             live_balance_counts, prepared.balanced_pre_rows,
             remaining, demands, totals=totals)
 
+    gang_details: dict[int, str] = {}
+    gang_note = None
+    if prepared.gang_id is not None:
+        t_gang = time.perf_counter()
+        assignment, gang_details, gang_note = _gang_chokepoint(
+            prepared, assignment, config)
+        outcome.phase_wall_s["gang"] = time.perf_counter() - t_gang
+
     # transact + launch (scheduler.clj:790-1048)
     launches_per_cluster: dict[str, list[TaskSpec]] = {}
     cluster_by_name = {}
@@ -612,9 +718,54 @@ def finalize_pool_match(
         if record_placement_failure is not None:
             record_placement_failure(job, text)
 
+    # gang-atomic transact: a gang's specs and launch bookkeeping defer
+    # into gang_txn until its LAST member transacts; a member failing any
+    # transact step (launch cap, ports, veto) rolls the siblings already
+    # transacted back (mea-culpa launch-failed, budget and ports refunded),
+    # so the all-or-nothing property survives the launch pipeline too
+    gang_txn: dict[int, dict] = {}
+    failed_gangs: set[int] = set()
+
+    def gang_of(ji: int) -> int:
+        return (int(prepared.gang_id[ji])
+                if prepared.gang_id is not None else -1)
+
+    def abort_gang(g: int, cause: str) -> None:
+        failed_gangs.add(g)
+        txn = gang_txn.pop(g, None)
+        if txn is None:
+            return
+        for task_id in txn["task_ids"]:
+            try:
+                store.update_instance_state(
+                    task_id, InstanceStatus.FAILED, "launch-failed")
+            except Exception:  # noqa: BLE001 — one stuck rollback must
+                # not strand the rest of the gang's members
+                log.exception("gang rollback transition for %s did not "
+                              "apply", task_id)
+        for cname, cnt in txn["budget"].items():
+            if cname in cluster_budget:
+                cluster_budget[cname] += cnt
+        for node_i, tports in txn["ports"]:
+            ports_used.get(node_i, set()).difference_update(tports)
+        detail = f"gang member failed to transact ({cause})"
+        for member in txn["jobs"]:
+            fail(member, f"{GANG_INCOMPLETE} ({detail})")
+
     for ji, job in enumerate(considerable):
         node_idx = int(assignment[ji])
+        g = gang_of(ji)
+        if g >= 0 and g in failed_gangs:
+            # a sibling already failed this cycle's transact: hold this
+            # member back too (all-or-nothing)
+            fail(job, GANG_INCOMPLETE)
+            continue
         if node_idx < 0:
+            if g >= 0:
+                detail = gang_details.get(g, "")
+                fail(job, GANG_INCOMPLETE + (f" ({detail})" if detail
+                                             else ""))
+                continue
             fail(job, _failure_reason(nodes, feasible[ji]))
             continue
         cluster, offer = cluster_offers[node_idx]
@@ -635,12 +786,16 @@ def finalize_pool_match(
             # lower-ranked jobs after higher-ranked ones were rejected
             cluster_budget[cluster.name] = 0
             fail(job, LAUNCH_CAP)
+            if g >= 0:
+                abort_gang(g, "launch-cap")
             continue
         task_ports = assign_ports(offer,
                                   ports_used.setdefault(node_idx, set()),
                                   job.resources.ports)
         if task_ports is None:
             fail(job, PORTS_EXHAUSTED)
+            if g >= 0:
+                abort_gang(g, "ports-exhausted")
             continue
         ports_used[node_idx].update(task_ports)
         cluster_budget[cluster.name] = budget - 1
@@ -655,6 +810,8 @@ def finalize_pool_match(
             )
         except TransactionVetoed:
             # job completed/launched concurrently; drop the match
+            if g >= 0:
+                abort_gang(g, "launch-vetoed")
             continue
         checkpoint_env: tuple = ()
         if job.checkpoint is not None and job.checkpoint.mode:
@@ -691,9 +848,43 @@ def finalize_pool_match(
                                        if job.checkpoint else ()),
         )
         cluster_by_name[cluster.name] = cluster
+        if g >= 0:
+            # defer the member: its spec joins the launch batch only once
+            # every sibling has transacted too
+            txn = gang_txn.setdefault(
+                g, {"specs": [], "jobs": [], "offers": [], "task_ids": [],
+                    "budget": {}, "ports": []})
+            txn["specs"].append((cluster.name, spec))
+            txn["jobs"].append(job)
+            txn["offers"].append(offer)
+            txn["task_ids"].append(task_id)
+            txn["budget"][cluster.name] = (
+                txn["budget"].get(cluster.name, 0) + 1)
+            txn["ports"].append((node_idx, set(task_ports)))
+            continue
         launches_per_cluster.setdefault(cluster.name, []).append(spec)
         outcome.matched.append((job, offer))
         outcome.launched_task_ids.append(task_id)
+
+    # flush gangs whose every member transacted: their specs join the
+    # launch batches only now, so a late member's transact failure cannot
+    # have left siblings half-launched.  (Launch-RPC failures after this
+    # point re-queue mea-culpa through fail_launched_specs like any job.)
+    for g in sorted(gang_txn):
+        txn = gang_txn[g]
+        for (cname, spec), job, offer, task_id in zip(
+                txn["specs"], txn["jobs"], txn["offers"], txn["task_ids"]):
+            launches_per_cluster.setdefault(cname, []).append(spec)
+            outcome.matched.append((job, offer))
+            outcome.launched_task_ids.append(task_id)
+
+    if gang_note is not None:
+        considered_n, placed_gangs, block_reasons = gang_note
+        if failed_gangs:
+            placed_gangs -= len(failed_gangs)
+            block_reasons["transact-failed"] = len(failed_gangs)
+        _note_gang_metrics(pool.name, considered_n, placed_gangs,
+                           block_reasons)
 
     for cname, specs in launches_per_cluster.items():
         cluster = cluster_by_name[cname]
@@ -739,6 +930,112 @@ def finalize_pool_match(
     outcome.head_matched = any(j.uuid == head.uuid for j, _ in outcome.matched)
     _apply_backoff(config, state, outcome.head_matched)
     return outcome
+
+
+def _gang_chokepoint(prepared: PreparedPool, assignment: np.ndarray,
+                     config: MatchConfig):
+    """The gang all-or-nothing chokepoint every solve path funnels
+    through (reference `finalize_pool_match`, matcher.py:1260-1336):
+    repair each broken gang once (whole, on distinct feasible hosts of one
+    block), strip what is still partial, then hand the hosts a stripped
+    gang freed to waiting ungrouped rows (greedy first-fit in schedule
+    order).  Flat solves carry no block structure: they enforce
+    whole-pool all-or-nothing and distinct hosts unless
+    `topology_block_hosts` declares the blocks.  Returns (assignment,
+    {gang: detail} of the gangs held back, (considered, placed,
+    {blocking reason: gangs}))."""
+    considerable = prepared.considerable
+    nodes = prepared.nodes
+    feasible = prepared.feasible
+    gid, gneed = prepared.gang_id, prepared.gang_need
+    npb_eff = int((prepared.hier_stats or {}).get("nodes_per_block", 0))
+    if npb_eff == 0 and config.topology_block_hosts:
+        # flat solve but the operator declared the topology: the explicit
+        # block width binds the one-block rule here too
+        npb_eff = int(config.topology_block_hosts)
+    demands_np, avail_np, _ = encode_problem_arrays(
+        considerable, nodes.offers, config)
+    # repair before judging: the flat kernels best-fit gang members onto
+    # one host (UNIQUE validation just stripped the duplicates)
+    assignment = np_gang_repair(assignment, gid, gneed, demands_np,
+                                avail_np, feasible, npb_eff)
+    assignment, _ = np_gang_filter(assignment, gid, gneed, npb_eff)
+    # capacity left after the strip: what the repair saw, so the details
+    # report the real blocker, and the scalar top-up reuses freed hosts
+    remaining_np = avail_np.copy()
+    placed_rows = np.flatnonzero(assignment >= 0)
+    np.subtract.at(remaining_np, assignment[placed_rows],
+                   demands_np[placed_rows])
+    details: dict[int, str] = {}
+    block_reasons: dict[str, int] = {}
+    placed_gangs = 0
+    gang_ids = np.unique(gid[gid >= 0])
+    for g in gang_ids:
+        rows = np.flatnonzero(gid == g)
+        if bool((assignment[rows] >= 0).all()):
+            placed_gangs += 1
+            continue
+        k = int(gneed[rows].max())
+        if len(rows) < k:
+            details[int(g)] = (f"only {len(rows)}/{k} members in this "
+                               "cycle's considerable window")
+            reason = "members-missing"
+        else:
+            member_demand = demands_np[rows].max(axis=0)
+            free = np_block_free_hosts(
+                remaining_np, feasible[rows].all(axis=0), member_demand,
+                npb_eff if npb_eff > 0 else nodes.n)
+            best = int(free.max(initial=0))
+            details[int(g)] = f"best block had {min(best, k)}/{k} hosts free"
+            reason = "no-block-capacity"
+        block_reasons[reason] = block_reasons.get(reason, 0) + 1
+    # scalar top-up: grouped jobs sit out, their placement rules already
+    # ran upstream
+    for ji in np.flatnonzero(assignment < 0):
+        ji = int(ji)
+        if gid[ji] >= 0 or considerable[ji].group_uuid:
+            continue
+        fits = feasible[ji] & (remaining_np >= demands_np[ji]).all(axis=1)
+        cands = np.flatnonzero(fits)
+        if cands.size:
+            node = int(cands[0])
+            assignment[ji] = node
+            remaining_np[node] -= demands_np[ji]
+    return assignment, details, (int(gang_ids.size), placed_gangs,
+                                 block_reasons)
+
+
+_gang_metrics = None
+
+
+def _note_gang_metrics(pool_name: str, considered: int, placed: int,
+                       reasons: dict) -> None:
+    """Per-cycle gang placement counters (the `gang.*` metric family):
+    considered/placed per pool, blocked per pool and reason
+    (members-missing, no-block-capacity, transact-failed)."""
+    global _gang_metrics
+    if _gang_metrics is None:
+        _gang_metrics = {
+            "considered": global_registry.counter(
+                "gang.considered",
+                "gangs seen by a pool's match cycle, per pool"),
+            "placed": global_registry.counter(
+                "gang.placed",
+                "gangs whose every member placed and transacted whole "
+                "(one topology block, distinct hosts), per pool"),
+            "blocked": global_registry.counter(
+                "gang.blocked",
+                "gangs held back whole (gang-incomplete), per pool and "
+                "blocking reason"),
+        }
+    if considered:
+        _gang_metrics["considered"].inc(considered, {"pool": pool_name})
+    if placed:
+        _gang_metrics["placed"].inc(placed, {"pool": pool_name})
+    for reason, n in (reasons or {}).items():
+        if n:
+            _gang_metrics["blocked"].inc(n, {"pool": pool_name,
+                                             "reason": reason})
 
 
 def fail_launched_specs(store: JobStore, specs: Sequence[TaskSpec],
@@ -787,8 +1084,9 @@ def match_pool(
         store, prepared, assignment, config, state, clusters,
         make_task_id=make_task_id,
         record_placement_failure=record_placement_failure)
-    outcome.phase_wall_s = {"encode": t1 - t0, "solve": t2 - t1,
-                            "launch": time.perf_counter() - t2}
+    # (finalize may have noted its gang chokepoint's wall, inside launch)
+    outcome.phase_wall_s.update(encode=t1 - t0, solve=t2 - t1,
+                                launch=time.perf_counter() - t2)
     hier = prepared.hier_stats
     if hier is not None:
         # the two-level solve's split of `solve`, under the names of the

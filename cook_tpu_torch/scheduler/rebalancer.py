@@ -63,11 +63,10 @@ class RebalancerParams:
     # True raises NotImplementedError.  Config key: [scheduler]
     # resident_rebalancer
     resident: bool = False
-    # ---- gang admission: not ported yet (the gang slice) ----
-    # topology-aware whole-gang admission from the rebalance cycle:
-    # drain-vs-kill per block, reservations tagged gang:<group>.  While
-    # True, a rebalance cycle over a queue holding a gang raises
-    # NotImplementedError
+    # ---- gang admission (scheduler/gang.py) ----
+    # topology-aware whole-gang admission from the rebalance cycle
+    # (Scheduler._gang_admission_cycle): drain-vs-kill per block,
+    # reservations tagged gang:<group>
     gang_enabled: bool = True
     # gangs admitted (drain or preempt) per rebalance cycle
     gang_max_admissions: int = 4

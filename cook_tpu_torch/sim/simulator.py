@@ -11,14 +11,16 @@ the two packages.  Per-phase wall times are recorded beside the decisions,
 and the fairness observatory's snapshot (preemption ledger, rollups,
 trajectories) at the end of the run.
 
-Elastic, speculation, residency, fault schedules, health and metrics
-history are later slices, and so are gang traces (their
-all-or-nothing placement lives in the gang slice): a trace with gangs is
-refused rather than placed member by member.
+Gang traces (`TraceJob.gang`) submit each gang as one atomic batch under
+a UNIQUE group, the members' submit times aligned to the gang's latest
+(the store vetoes a gang split over batches), and `SimResult.gang_stats`
+summarizes assembly wait and block spread.  Elastic, speculation,
+residency, fault schedules, health and metrics history are later slices.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
 import io
 import json
 import time
@@ -29,7 +31,15 @@ import numpy as np
 import torch
 
 from cook_tpu_torch.cluster.mock import MockCluster, MockHost
-from cook_tpu_torch.models.entities import DruMode, Job, Pool, Resources
+from cook_tpu_torch.models.entities import (
+    DruMode,
+    Group,
+    GroupPlacementType,
+    HostPlacement,
+    Job,
+    Pool,
+    Resources,
+)
 from cook_tpu_torch.models.store import JobStore
 from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
 
@@ -47,8 +57,8 @@ class TraceJob:
     gpus: float = 0.0
     priority: int = 50
     pool: str = "default"
-    # gang tag of the reference's trace format (one member of the named
-    # gang); the port refuses traces that use it
+    # gang tag (one member of the named gang): members of a gang of two or
+    # more submit together as gang_size=k jobs of one UNIQUE group
     gang: str = ""
 
     @classmethod
@@ -116,6 +126,79 @@ class SimResult:
         return [r["start_ms"] - r["submit_ms"] for r in self.rows
                 if r["start_ms"] is not None]
 
+    def gang_stats(self, jobs: Sequence["TraceJob"],
+                   hosts: Sequence["TraceHost"] = (),
+                   *, nodes_per_block: int = 0) -> dict:
+        """Gang A/B summary off the run trace:
+
+        - a gang is *assembled* when all k members were RUNNING at the
+          same virtual instant (a member still running when the run ends
+          counts as running to its end);
+        - ``wait_ms`` is assembly time minus submit; unassembled gangs
+          score the full simulated span;
+        - ``block_spread`` is how many topology blocks the gang's members
+          landed on (1 = contiguous).  Blocks are `nodes_per_block`
+          chunks of the sorted hostname list, the matcher's
+          decomposition."""
+        by_gang: dict[str, list] = {}
+        for tj in jobs:
+            if getattr(tj, "gang", ""):
+                by_gang.setdefault(tj.gang, []).append(tj)
+        by_gang = {g: ms for g, ms in by_gang.items() if len(ms) >= 2}
+        if not by_gang:
+            return {"gangs": 0, "assembled": 0, "assembled_share": 0.0,
+                    "wait_ms_p50": 0.0, "mean_block_spread": 0.0,
+                    "per_gang": []}
+        names = sorted(h.hostname for h in hosts)
+        npb = nodes_per_block if nodes_per_block > 0 else max(len(names), 1)
+        block_of = {h: i // npb for i, h in enumerate(names)}
+        runs: dict[str, list[dict]] = {}
+        for r in self.rows:
+            if r["start_ms"] is not None:
+                runs.setdefault(r["job_uuid"], []).append(r)
+        per_gang = []
+        for g, members in sorted(by_gang.items()):
+            submit = min(m.submit_time_ms for m in members)
+            last = [max(runs[m.uuid], key=lambda r: r["start_ms"])
+                    for m in members if m.uuid in runs]
+            spread = len({block_of.get(r["host"], -1) for r in last}) \
+                if last else 0
+            assembled_at = None
+            if len(last) == len(members):
+                start = max(r["start_ms"] for r in last)
+                # a run still going at the end has end_ms 0 (the
+                # instance's unset end time): it runs to the span's end
+                # (the reference tests `is not None`, so it never counts a
+                # gang still running at the end as assembled)
+                end = min(r["end_ms"] or self.virtual_ms for r in last)
+                if start < end:
+                    assembled_at = start
+            per_gang.append({
+                "gang": g,
+                "size": len(members),
+                "placed_members": len(last),
+                "block_spread": spread,
+                "assembled": assembled_at is not None,
+                "wait_ms": (assembled_at - submit)
+                if assembled_at is not None else None,
+            })
+        waits = sorted(
+            d["wait_ms"] if d["wait_ms"] is not None else self.virtual_ms
+            for d in per_gang
+        )
+        spreads = [d["block_spread"] for d in per_gang
+                   if d["placed_members"]]
+        assembled = sum(1 for d in per_gang if d["assembled"])
+        return {
+            "gangs": len(per_gang),
+            "assembled": assembled,
+            "assembled_share": assembled / len(per_gang),
+            "wait_ms_p50": float(waits[len(waits) // 2]),
+            "mean_block_spread": (sum(spreads) / len(spreads)
+                                  if spreads else 0.0),
+            "per_gang": per_gang,
+        }
+
     def utilization(self, hosts: Sequence[TraceHost]) -> float:
         """Fraction of total cpu-ms capacity actually used by completed
         work over the simulated span."""
@@ -146,11 +229,22 @@ class Simulator:
     def __init__(self, jobs: Sequence[TraceJob], hosts: Sequence[TraceHost],
                  config: Optional[SimConfig] = None, *,
                  device: Optional[Union[str, torch.device]] = None):
-        gangs = sorted({j.gang for j in jobs if j.gang})
-        if gangs:
-            raise ValueError(
-                f"trace has gang members ({len(gangs)} gangs); gang "
-                "placement is not ported yet — replay it with cook_tpu.sim")
+        # gang members must land in ONE store submit batch (the store's
+        # gang validation): align every member to the gang's latest submit
+        # time so the due-jobs sweep picks them up together
+        self._gang_size: dict[str, int] = {}
+        gang_due: dict[str, int] = {}
+        for j in jobs:
+            if j.gang:
+                self._gang_size[j.gang] = self._gang_size.get(j.gang, 0) + 1
+                gang_due[j.gang] = max(gang_due.get(j.gang, 0),
+                                       j.submit_time_ms)
+        if self._gang_size:
+            jobs = [
+                dataclasses.replace(j, submit_time_ms=gang_due[j.gang])
+                if j.gang and self._gang_size[j.gang] >= 2 else j
+                for j in jobs
+            ]
         self.trace_jobs = sorted(jobs, key=lambda j: (j.submit_time_ms, j.uuid))
         self.trace_hosts = list(hosts)
         self.config = config or SimConfig()
@@ -206,7 +300,9 @@ class Simulator:
             cycle += 1
             # 1. flush completions at current virtual time
             self.cluster.advance_to(self.now_ms)
-            # 2. submit due jobs, one batch per cycle
+            # 2. submit due jobs, one batch per cycle, so gang members
+            # (aligned to a shared submit time in __init__) arrive in one
+            # atomic store transaction with their UNIQUE group
             due: list[TraceJob] = []
             while (
                 submitted < len(self.trace_jobs)
@@ -215,8 +311,19 @@ class Simulator:
                 due.append(self.trace_jobs[submitted])
                 submitted += 1
             if due:
-                self.store.submit_jobs([
-                    Job(
+                groups: dict[str, Group] = {}
+                batch = []
+                for tj in due:
+                    k = self._gang_size.get(tj.gang, 0) if tj.gang else 0
+                    if k >= 2 and tj.gang not in self.store.groups \
+                            and tj.gang not in groups:
+                        groups[tj.gang] = Group(
+                            uuid=tj.gang,
+                            name=f"gang-{tj.gang}",
+                            host_placement=HostPlacement(
+                                type=GroupPlacementType.UNIQUE),
+                        )
+                    batch.append(Job(
                         uuid=tj.uuid,
                         user=tj.user,
                         pool=tj.pool,
@@ -226,9 +333,10 @@ class Simulator:
                         expected_runtime_ms=tj.runtime_ms,
                         command="sim",
                         max_retries=5,
-                    )
-                    for tj in due
-                ])
+                        group_uuid=tj.gang if k >= 2 else None,
+                        gang_size=k if k >= 2 else 0,
+                    ))
+                self.store.submit_jobs(batch, list(groups.values()))
             # 3. rank -> match (-> rebalance) per pool
             t_cycle = time.perf_counter()
             for pool in pools:

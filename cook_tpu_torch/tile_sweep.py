@@ -38,7 +38,7 @@ VARIANTS = {
     "best_node_batched": ("BEST_NODE_BATCHED", (8, 4), ("TJ", "TN", "G"), [
         (8, 1024, 2), (16, 1024, 2), (4, 1024, 2), (8, 1024, 1),
         (16, 1024, 1)]),
-    "coarse_pass": ("COARSE_PASS", (8, 6), ("CLUSTER", "THREADS"), [
+    "coarse_pass": ("COARSE_PASS", (9, 6), ("CLUSTER", "THREADS"), [
         (8, 512), (1, 1024), (1, 512), (2, 1024), (4, 1024), (4, 512),
         (8, 1024), (8, 256), (16, 256), (16, 128)]),
 }
@@ -160,21 +160,20 @@ def _line(card, case, ms, warm_ms, **variant):
 
 
 def _holds(name, lib, case):
-    """Whether the variant `lib` launches on `case`: a coarse_pass cluster
-    shape sets its CTA's warp partials and job slots, and takes a case only
-    while they fit the card's shared memory; tile variants take every
-    case."""
+    """Whether the variant `lib` is swept on `case`: a coarse_pass cluster
+    shape sets its CTA's warp partials and job slots, and is swept on a
+    case only while they fit the card's shared memory (the wrapper sizes a
+    paged launch's workspace for the default shape); tile variants take
+    every case."""
     if name != "coarse_pass":
         return True
     import ctypes
 
-    from cook_tpu_torch.ops.coarse_pass import SMEM_LIMIT
-
-    count = lib.coarse_pass_smem_bytes
-    count.argtypes = [ctypes.c_int] * 3
-    count.restype = ctypes.c_int
+    floats = lib.coarse_pass_workspace_floats
+    floats.argtypes = [ctypes.c_int] * 3
+    floats.restype = ctypes.c_longlong
     demands, block_avail, chunk = case[0], case[2], case[6]
-    return count(block_avail.shape[0], demands.shape[1], chunk) <= SMEM_LIMIT
+    return floats(block_avail.shape[0], demands.shape[1], chunk) == 0
 
 
 def sweep(smoke, name, libs, inputs, card):

@@ -381,28 +381,48 @@ def test_smem_bytes_counts_the_kernels_layout():
         assert cp.smem_bytes(b, r, chunk) == 4 * words
 
 
+# the largest block count whose state fits in shared memory at chunk 4096
+SMEM_EDGE = {2: 1028, 4: 543, 8: 279}
+
+
 @pytest.mark.parametrize("r", [2, 4, 8])
 def test_check_fits_at_the_shared_memory_limit(r):
-    """The largest block count whose state fits the card's 227 KB passes,
-    one more raises before any launch, with the remedy in the message;
-    B 128 (100k nodes at 1024 a block) fits at every R."""
-    b = max(x for x in range(1, 4096)
-            if cp.smem_bytes(x, r, 4096) <= cp.SMEM_LIMIT)
+    """The largest block count whose state fits the card's 227 KB keeps it
+    in shared memory; one more pages it to a device-memory workspace (one
+    stretch of block state a CTA) and keeps only the slots and flags in
+    shared memory; both pass check_fits, as does B 1024.  B 128 (100k
+    nodes at 1024 a block) fits at every R."""
+    b = max(x for x in range(1, 4096) if not cp.paged(x, r, 4096))
+    assert b == SMEM_EDGE[r]
     assert cp.SMEM_LIMIT - cp.smem_bytes(b, r, 4096) < 4 * (26 * r + 6)
-    cp.check_fits(b, r, 4096)
-    cp.check_fits(128, r, 4096)
-    with pytest.raises(ValueError, match="shared memory.*nodes_per_block"):
-        cp.check_fits(b + 1, r, 4096)
+    assert cp.workspace_floats(b, r, 4096) == 0
+    assert cp.paged(b + 1, r, 4096)
+    assert cp.smem_bytes(b + 1, r, 4096) == 4 * (16 + 4 + 512)
+    assert cp.workspace_floats(b + 1, r, 4096) \
+        == 8 * (25 * (b + 1) * r + 6 * (b + 1))
+    for blocks in (b, b + 1, 128, 1024):
+        cp.check_fits(blocks, r, 4096)
+    assert not cp.paged(128, r, 4096)
+
+
+def test_check_fits_raises_only_for_shapes_the_kernel_cannot_take():
+    for r in (1, 9):
+        with pytest.raises(ValueError, match="resource columns"):
+            cp.check_fits(16, r, 4096)
+    # a chunk whose job slots alone are over the shared memory
+    with pytest.raises(ValueError, match="coarse_chunk"):
+        cp.check_fits(16, 4, 1 << 20)
 
 
 def test_plain_version_has_no_block_limit():
-    """The limit is the kernel's: on the CPU a B x R past it still runs."""
+    """On the CPU, and in the kernel (paged), a B x R past the shared
+    memory runs."""
     args = list(contended(64, 8, "r8", 3))
     args[2:5] = (np.tile(args[2], (128, 1)), np.tile(args[3], (128, 1)),
                  np.tile(args[4], (128, 1)))
     args[5] = np.tile(args[5], 128)
-    with pytest.raises(ValueError):
-        cp.check_fits(1024, 8, 64)
+    assert cp.paged(1024, 8, 64)
+    cp.check_fits(1024, 8, 64)
     assignment, avail = plain(tuple(args), 64, 2, 2)
     assert (assignment >= 0).any()
     np.testing.assert_array_equal(avail.astype(np.float64),
@@ -474,3 +494,62 @@ def test_chip_smoke_bound_counts_the_jobs_each_pass_scores():
             "operations": ops / PEAK_F32_OPS_S * 1e3}
     assert by == max(want, key=want.get)
     assert bound == pytest.approx(want[by])
+
+
+def test_plain_version_at_1024_blocks_matches_reference():
+    """B 1024 x R 8 (paged on the card), the reference's `_coarse_pallas`
+    in interpret mode at a J the CPU takes quickly: identical assignment,
+    and the availability accounts for the routed jobs."""
+    args = list(contended(256, 8, "r8", 6))
+    # 1024 blocks: the 8 drawn ones repeated, every fourth invalid
+    args[2:5] = (np.tile(args[2], (128, 1)), np.tile(args[3], (128, 1)),
+                 np.tile(args[4], (128, 1)))
+    args[5] = np.tile(args[5], 128) & (np.arange(1024) % 4 != 3)
+    args = tuple(args)
+    assert cp.paged(1024, 8, 128)
+    want = np.asarray(ref_hier._coarse_pallas(
+        *map(jnp.asarray, args), chunk=128, rounds=2, passes=2,
+        interpret=True))
+    assignment, avail = plain(args, 128, 2, 2)
+    np.testing.assert_array_equal(assignment, want)
+    assert (assignment >= 0).sum() > 0
+    np.testing.assert_array_equal(avail.astype(np.float64),
+                                  taken_from(args, want))
+
+
+def test_hierarchical_pallas_coarse_past_512_padded_blocks():
+    """A pool of 600 blocks (1024 padded) on the `pallas` coarse backend:
+    the solve runs (the padded block count is past the old shared-memory
+    cap at R 4), routes through coarse_pass, and equals the reference's
+    two-level solve."""
+    from tests.test_torch_hierarchical import exact_problem, solve_both
+
+    demands, avail, totals, _ = exact_problem(64, 600, seed=8)
+    stats = solve_both(demands, avail, totals, nodes_per_block=1, chunk=64,
+                       kc=16, coarse_passes=2, fine_passes=2,
+                       coarse_backend="pallas", fine_backend="xla",
+                       refine_rounds=0)
+    assert stats["block_pad"] == 1024 > 512
+    assert cp.paged(stats["block_pad"], 4, 64)
+    cp.check_fits(stats["block_pad"], 4, 64)
+    assert stats["placed"] > 0
+
+
+@pytest.mark.parametrize("kind", ["mixed", "r8"])
+def test_plain_version_on_the_chip_smoke_paged_cases(kind):
+    """chip_smoke.py's PAGED_CASES inputs at 1024 blocks and a small J,
+    against the reference; its edge rows straddle the shared memory."""
+    from chip_smoke import PAGED_CASES, make_coarse_inputs
+
+    assert {case[-1] for case in PAGED_CASES} == {"mixed", "r8"}
+    edge = max(b for b in range(1, 2048) if not cp.paged(b, 8, 4096))
+    assert cp.paged(edge + 1, 8, 4096) and edge == SMEM_EDGE[8]
+    args = tuple(a.numpy() for a in make_coarse_inputs(256, 1024, kind,
+                                                       "cpu", seed=2))
+    want = np.asarray(ref_hier._coarse_pallas(
+        *map(jnp.asarray, args), chunk=128, rounds=2, passes=2,
+        interpret=True))
+    assignment, avail = plain(args, 128, 2, 2)
+    np.testing.assert_array_equal(assignment, want)
+    np.testing.assert_array_equal(avail.astype(np.float64),
+                                  taken_from(args, want))

@@ -76,6 +76,7 @@ def test_block_aggregates_and_fine_gather_match_reference():
     got = port.block_aggregates(torch.as_tensor(avail),
                                 torch.as_tensor(totals),
                                 torch.as_tensor(node_valid), 32)
+    assert len(got) == len(want) == 5  # with the gang gate's host count
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     coarse = np.random.default_rng(5).integers(-1, 3, 64).astype(np.int32)
@@ -105,9 +106,6 @@ def test_unported_layers_raise():
     with pytest.raises(NotImplementedError, match="superblock"):
         port.hierarchical_match(problem, params=port.HierParams(
             superblock_nodes=128))
-    with pytest.raises(NotImplementedError, match="gang"):
-        port.hierarchical_match(problem, gang_id=np.zeros(16, np.int32),
-                                gang_need=np.full(16, 2, np.int32))
     for bad in (dict(coarse_backend="nope"), dict(fine_backend="nope"),
                 dict(backend="nope")):
         with pytest.raises(ValueError):

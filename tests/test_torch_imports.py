@@ -42,9 +42,9 @@ def test_importing_every_port_module_loads_no_jax_or_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# the modules of the rebalance slice, each imported alone in a fresh
-# interpreter: none may pull in JAX or the reference (jax-free copies of
-# reference modules must import the port's own dependencies)
+# the modules of the rebalance and gang slices, each imported alone in a
+# fresh interpreter: none may pull in JAX or the reference (jax-free copies
+# of reference modules must import the port's own dependencies)
 REBALANCE_MODULES = ("cook_tpu_torch.ops.rebalance",
                      "cook_tpu_torch.ops.cpu_reference",
                      "cook_tpu_torch.obs.fairness",
@@ -53,7 +53,18 @@ REBALANCE_MODULES = ("cook_tpu_torch.ops.rebalance",
                      "cook_tpu_torch.scheduler.rebalancer")
 
 
-@pytest.mark.parametrize("module", REBALANCE_MODULES)
+# the gang slice's modules, new and extended
+GANG_MODULES = ("cook_tpu_torch.ops.gang",
+                "cook_tpu_torch.scheduler.gang",
+                "cook_tpu_torch.scheduler.matcher",
+                "cook_tpu_torch.scheduler.core",
+                "cook_tpu_torch.ops.hierarchical",
+                "cook_tpu_torch.ops.coarse_pass",
+                "cook_tpu_torch.models.store",
+                "cook_tpu_torch.sim.simulator")
+
+
+@pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"

@@ -272,10 +272,14 @@ def test_dynamic_config_overrides_params_as_the_reference():
 
 @pytest.mark.parametrize("n_nodes", [0, 1, 40, 200, 5000, 10_000])
 def test_topology_block_width_matches_reference(n_nodes):
-    """The reference at its default configuration (no block override)."""
-    assert port_matcher.topology_block_width(n_nodes) == \
-        ref_matcher.topology_block_width(ref_matcher.MatchConfig(),
-                                         max(n_nodes, 1))
+    """The reference at its default configuration (no block override) and
+    with the `topology_block_hosts` override."""
+    for hosts in (0, 96):
+        assert port_matcher.topology_block_width(
+            port_matcher.MatchConfig(topology_block_hosts=hosts),
+            n_nodes) == ref_matcher.topology_block_width(
+            ref_matcher.MatchConfig(topology_block_hosts=hosts),
+            max(n_nodes, 1))
 
 
 def _prepared(P, matcher, mock, ranking, reservations, **extra):

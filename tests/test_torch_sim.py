@@ -149,13 +149,6 @@ def test_unsubmitted_jobs_report_unscheduled():
     assert len({r["job_uuid"] for r in result.rows}) == 40
 
 
-def test_gang_traces_are_refused():
-    jobs, hosts = sim.synth_trace(4, 2)
-    jobs[0].gang = jobs[1].gang = "g1"
-    with pytest.raises(ValueError, match="gang"):
-        sim.Simulator(jobs, hosts, device="cpu")
-
-
 def test_profile_reports_phase_walls_on_cpu(tmp_path, capsys):
     import json
 
@@ -437,23 +430,189 @@ def test_small_rebalance_slice_on_cpu():
         min(n, 2) for n in summary["searches"])
 
 
-def test_rebalance_cycle_refuses_a_gang_queue():
-    """Gang admission is not ported: a queue holding a gang member makes
-    the rebalance cycle raise while gang_enabled is set."""
-    from cook_tpu_torch.models import entities as e
-    from cook_tpu_torch.models.store import JobStore
-    from cook_tpu_torch.scheduler.core import Scheduler
-    from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
+# ------------------------------------------------------------------ gangs
+# gang_topology_trace (8 hosts in blocks of 4, 60 cycles) with the gang
+# machinery on (one-block rule, distance term) and off: the run trace and
+# gang_stats must equal the reference simulator's; then the A/B of
+# tests/test_gang_sim.py:48-113 on the port's runs
 
-    store = JobStore()
-    store.set_pool(e.Pool(name="default"))
-    store.submit_jobs(
-        [e.Job(uuid=f"g{i}", user="u", pool="default", group_uuid="grp",
-               gang_size=2) for i in range(2)],
-        [e.Group(uuid="grp", job_uuids=("g0", "g1"))])
-    pool = store.pools["default"]
-    sched = Scheduler(store, [], device="cpu")
-    with pytest.raises(NotImplementedError, match="gang"):
-        sched.rebalance_cycle(pool)
-    sched.config.rebalancer = RebalancerParams(gang_enabled=False)
-    assert sched.rebalance_cycle(pool) == []
+GANG_BLOCK_HOSTS = 4
+
+
+def _gang_run(mod, match_mod, core_mod, *, gang_enabled, **sim_kw):
+    from cook_tpu.sim import loadgen as ref_loadgen
+    from cook_tpu_torch.sim import loadgen
+
+    port = mod is sim
+    jobs, hosts = (loadgen if port else ref_loadgen).gang_topology_trace(
+        block_hosts=GANG_BLOCK_HOSTS)
+    match = match_mod.MatchConfig(
+        gang_enabled=gang_enabled, topology_block_hosts=GANG_BLOCK_HOSTS,
+        topology_weight=0.5 if gang_enabled else 0.0)
+    extra = {} if port else dict(use_columnar_index=False)
+    cfg = mod.SimConfig(cycle_ms=30_000, max_cycles=60,
+                        scheduler=core_mod.SchedulerConfig(match=match,
+                                                           **extra))
+    s = mod.Simulator(jobs, hosts, cfg, **sim_kw)
+    result = s.run()
+    return jobs, hosts, result, result.gang_stats(
+        jobs, hosts, nodes_per_block=GANG_BLOCK_HOSTS)
+
+
+@pytest.fixture(scope="module")
+def gang_ab():
+    from cook_tpu.scheduler import core as ref_core
+    from cook_tpu.scheduler import matcher as ref_matcher
+    from cook_tpu_torch.scheduler import core as port_core
+    from cook_tpu_torch.scheduler import matcher as port_matcher
+
+    runs = {}
+    for mode in ("naive", "gang"):
+        on = mode == "gang"
+        runs[mode] = _gang_run(sim, port_matcher, port_core,
+                               gang_enabled=on, device="cpu")
+        runs["ref " + mode] = _gang_run(ref_sim, ref_matcher, ref_core,
+                                        gang_enabled=on)
+    return runs
+
+
+@pytest.mark.parametrize("mode", ["naive", "gang"])
+def test_port_simulator_reproduces_reference_gang_trace(gang_ab, mode):
+    _, _, got, got_stats = gang_ab[mode]
+    _, _, want, want_stats = gang_ab["ref " + mode]
+    assert got.to_csv() == want.to_csv()
+    assert got.cycles == want.cycles and got.virtual_ms == want.virtual_ms
+    assert got_stats == want_stats
+
+
+def test_every_gang_completes_both_modes(gang_ab):
+    for mode in ("naive", "gang"):
+        for g in gang_ab[mode][3]["per_gang"]:
+            assert g["placed_members"] == g["size"], (mode, g)
+
+
+def test_gang_mode_assembles_more_gangs_and_waits_less(gang_ab):
+    gang, naive = gang_ab["gang"][3], gang_ab["naive"][3]
+    assert gang["assembled"] == gang["gangs"] > naive["assembled"]
+    assert gang["wait_ms_p50"] < naive["wait_ms_p50"]
+    # the one-block rule: every assembled gang is contiguous
+    assert gang["mean_block_spread"] == 1.0 < naive["mean_block_spread"]
+
+
+def _first_starts(jobs, result):
+    """gang -> the start times of its members' first runs."""
+    first = {}
+    for r in result.rows:
+        if r["start_ms"] is not None:
+            first[r["job_uuid"]] = min(first.get(r["job_uuid"], r["start_ms"]),
+                                       r["start_ms"])
+    starts = {}
+    for tj in jobs:
+        if tj.gang:
+            starts.setdefault(tj.gang, []).append(first.get(tj.uuid))
+    return starts
+
+
+def test_gang_mode_never_partially_places(gang_ab):
+    """Cycle-granular all-or-nothing, read off the run trace (the port has
+    no cycle records yet): every member of a gang first starts in the same
+    cycle; with the gang machinery off, some gang trickles."""
+    for mode, whole in (("gang", True), ("naive", False)):
+        jobs, _, result, _ = gang_ab[mode]
+        starts = _first_starts(jobs, result)
+        assert all(None not in v for v in starts.values())
+        assert all(len(set(v)) == 1 for v in starts.values()) == whole, mode
+
+
+def test_scalar_churn_not_starved_by_gang_mode(gang_ab):
+    """The scalar top-up: stripped gangs hand hosts back, so gang mode
+    does not stretch the run for the non-gang workload."""
+    assert gang_ab["gang"][2].virtual_ms <= gang_ab["naive"][2].virtual_ms
+
+
+def test_gang_traces_submit_each_gang_atomically():
+    """The simulator aligns a gang's members to its latest submit time and
+    submits them in one batch under a UNIQUE group; a one-member tag stays
+    scalar."""
+    jobs, hosts = sim.synth_trace(6, 2, submit_span_ms=60_000)
+    jobs[0].gang = jobs[1].gang = jobs[2].gang = "g1"
+    jobs[3].gang = "solo"
+    s = sim.Simulator(jobs, hosts, sim.SimConfig(max_cycles=4),
+                      device="cpu")
+    due = {j.uuid: j.submit_time_ms for j in s.trace_jobs}
+    assert len({due[j.uuid] for j in jobs[:3]}) == 1
+    assert due[jobs[0].uuid] == max(j.submit_time_ms for j in jobs[:3])
+    s.run()
+    group = s.store.groups["g1"]
+    assert sorted(group.job_uuids) == sorted(j.uuid for j in jobs[:3])
+    assert group.host_placement.type.value == "unique"
+    assert {s.store.jobs[j.uuid].gang_size for j in jobs[:3]} == {3}
+    assert s.store.jobs[jobs[3].uuid].gang_size == 0
+    assert "solo" not in s.store.groups
+
+
+def test_small_gang_mix_matches_reference():
+    """chip_smoke.py's gang mix (every tenth job a member of a gang of 2,
+    4, 8 or 16) on its flat gang route (chunk 1024 on the best_node
+    backend, blocks of 32 hosts bound) at 2,000 jobs x 200 hosts, 3
+    cycles: the run trace and each gang's placed members and block spread
+    equal the reference simulator's; no gang partly placed, each on
+    distinct hosts of one block.  (Most members still run when these runs
+    end: the reference's gang_stats counts such a gang as never assembled,
+    the port's as assembled from its start.)"""
+    from chip_smoke import GANG_FLAT_MATCH, gang_mix
+    from cook_tpu.scheduler.core import SchedulerConfig as RefSched
+    from cook_tpu.utils.config import default_match_config as ref_default
+    from cook_tpu_torch.utils.config import default_match_config
+
+    knobs = dict(GANG_FLAT_MATCH, topology_block_hosts=32)
+    runs = {}
+    for label, mod, match, extra in (
+            ("port", sim, default_match_config(**knobs), {}),
+            ("ref", ref_sim, ref_default(**knobs),
+             dict(use_columnar_index=False))):
+        jobs, hosts = mod.synth_trace(2000, 200, n_users=50,
+                                      submit_span_ms=60_000)
+        jobs = gang_mix(jobs)
+        sched = (SchedulerConfig if label == "port" else RefSched)(
+            match=match, **extra)
+        s = mod.Simulator(jobs, hosts, mod.SimConfig(
+            cycle_ms=30_000, max_cycles=3, scheduler=sched),
+            **({"device": "cpu"} if label == "port" else {}))
+        result = s.run()
+        runs[label] = (jobs, hosts, result, result.gang_stats(
+            jobs, hosts, nodes_per_block=32))
+    jobs, hosts, got, got_stats = runs["port"]
+    _, _, want, want_stats = runs["ref"]
+    assert got.to_csv() == want.to_csv()
+    per_gang = got_stats["per_gang"]
+    assert [(g["gang"], g["placed_members"], g["block_spread"])
+            for g in per_gang] == [
+        (g["gang"], g["placed_members"], g["block_spread"])
+        for g in want_stats["per_gang"]]
+    assert want_stats["assembled"] == 0
+    assert got_stats["assembled"] == sum(g["placed_members"] == g["size"]
+                                         for g in per_gang)
+    assert sum(g["placed_members"] == g["size"] for g in per_gang) > 0
+    assert all(g["placed_members"] in (0, g["size"]) for g in per_gang)
+    assert all(g["block_spread"] <= 1 for g in per_gang)
+    host_of = {r["job_uuid"]: r["host"] for r in got.rows
+               if r["start_ms"] is not None}
+    members = {}
+    for tj in jobs:
+        if tj.gang and tj.uuid in host_of:
+            members.setdefault(tj.gang, []).append(host_of[tj.uuid])
+    assert all(len(set(h)) == len(h) for h in members.values())
+
+
+def test_default_match_config_reads_gang_keys():
+    from cook_tpu.utils.config import default_match_config as ref_default
+    from cook_tpu_torch.utils.config import default_match_config
+
+    for overrides in ({}, dict(gang_enabled=False, topology_weight=0.25,
+                               topology_block_hosts=96)):
+        got = default_match_config(**overrides)
+        want = ref_default(**overrides)
+        for name in ("gang_enabled", "topology_weight",
+                     "topology_block_hosts"):
+            assert getattr(got, name) == getattr(want, name), name
