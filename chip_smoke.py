@@ -99,6 +99,33 @@ and prints no result line):
  16. report     — a `{"kernels": [...]}` line, then the last line
                   `{"ok": true, "device": {...}}`.
 
+Every replay runs the port's default `SchedulerConfig`, the reference's
+default configuration: the columnar rank (`models/columnar.py`,
+`scheduler/ranking_columnar.py`), the host-encode cache
+(`scheduler/encode_cache.py`), the flight recorder and the device
+telemetry.  The flat, hierarchical and gang slices print, per cycle, the
+rank and encode walls, the cache's node hits and row hits and misses,
+the rebuild fraction, the per-family H2D / D2H bytes and the columnar
+index's upkeep (its store watcher, timed), then their totals with the
+submit step's wall.  Two phases follow the agreement phase (8):
+
+  8a. default-config agreement — the small trace at the default
+                  `SchedulerConfig` with a shadow solve every solvable
+                  cycle and a health verdict every cycle, on the card and
+                  on the CPU, on the flat `pallas` route (the CPU parity
+                  tests' knobs), the hierarchical route and the flat route
+                  at the slices' knobs: run traces and every cycle
+                  record's decision fields equal, shadow solves on both
+                  devices, no verdict ever `device-degraded`, the final
+                  verdict `ok` (at the slices' flat knobs: equal to the
+                  CPU's, printed).
+  8b. cache neutrality — on the card, the flat replay with the encode
+                  cache on, off and on again: identical run traces.
+After the launches phase (5), `encode cache on / off` replays the flat
+slice twice more, with the cache off and on: run traces identical to the
+slice's, the encode walls per cycle, and a host profile (cProfile) of the
+last cycle's `prepare_pool_problem` in each.
+
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
 from __future__ import annotations
@@ -1038,6 +1065,105 @@ def kept_calls(module, name, calls):
         setattr(module, name, original)
 
 
+class CycleProbe:
+    """What a slice's default configuration does each match cycle, beside
+    its cycle records: the encode cache's node hits and misses and row
+    hits and misses (its counters, read before and after each match
+    cycle), and the columnar index's upkeep (its store watcher, timed in
+    total: the index grows in the store's event fan-out — submits,
+    launches, completions — not in the rank cycle)."""
+
+    def __init__(self, sim):
+        from cook_tpu_torch.utils.metrics import global_registry
+
+        self.rows = global_registry.counter("match.encode_cache.rows")
+        self.nodes = global_registry.counter("match.encode_cache.nodes")
+        self.upkeep_s = 0.0
+        self.cycles = []
+        scheduler = sim.scheduler
+        index = scheduler.columnar
+        if index is not None:
+            watchers = sim.store._watchers
+            on_event = index._on_event
+            slot = watchers.index(on_event)
+
+            def timed(event):
+                t0 = time.perf_counter()
+                on_event(event)
+                self.upkeep_s += time.perf_counter() - t0
+
+            watchers[slot] = timed
+        match_cycle = scheduler.match_cycle
+        self._upkeep_seen = 0.0
+
+        def probed(pool):
+            before = self._counts()
+            out = match_cycle(pool)
+            after = self._counts()
+            node_hits, node_misses, row_hits, row_misses = (
+                a - b for a, b in zip(after, before))
+            self.cycles.append(dict(
+                node_hits=node_hits, node_misses=node_misses,
+                row_hits=row_hits, row_misses=row_misses,
+                index_upkeep_s=self.upkeep_s - self._upkeep_seen))
+            self._upkeep_seen = self.upkeep_s
+            return out
+
+        scheduler.match_cycle = probed
+
+    def _counts(self):
+        return (int(self.nodes.value({"result": "hit"})),
+                int(self.nodes.value({"result": "miss"})),
+                int(self.rows.value({"result": "hit"})),
+                int(self.rows.value({"result": "miss"})))
+
+
+def report_cycles(label, result, probe):
+    """Per cycle: the rank and encode walls (the cycle record's `rank` and
+    `tensor_build` phases), the cache's hits and misses, the rebuild
+    fraction, the per-family H2D / D2H bytes and the index upkeep since
+    the previous cycle; then the totals, the submit step's wall (the
+    store's event fan-out) among them."""
+    records = result.cycle_records
+    if len(records) != len(probe.cycles):
+        raise AssertionError(f"{label}: {len(records)} cycle records, "
+                             f"{len(probe.cycles)} probed match cycles")
+    for rec, cyc in zip(records, probe.cycles):
+        fams = rec["data_plane"]
+        print(f"{label} cycle {rec['cycle']} " + json.dumps(dict(
+            rank_s=round(rec["phases"].get("rank", 0.0), 4),
+            encode_s=round(rec["phases"].get("tensor_build", 0.0), 4),
+            solve_s=round(rec["phases"].get("solve", 0.0), 4),
+            launch_s=round(rec["phases"].get("launch", 0.0), 4),
+            **cyc, rebuild_fraction=rec["rebuild_fraction"],
+            h2d_bytes={f: v["h2d_bytes"] for f, v in fams.items()
+                       if v["h2d_bytes"]},
+            d2h_bytes={f: v["d2h_bytes"] for f, v in fams.items()
+                       if v["d2h_bytes"]},
+            considered=rec["considered"], matched=len(rec["matched"]),
+            backend=rec["backend"], solve_shape=rec["solve_shape"])),
+            flush=True)
+    totals = dict(
+        rank_s=sum(r["phases"].get("rank", 0.0) for r in records),
+        # the simulator's own clock around rank_cycle, beside the records'
+        phase_wall_rank_s=result.phase_wall_s.get("rank", 0.0),
+        encode_s=sum(r["phases"].get("tensor_build", 0.0)
+                     for r in records),
+        submit_s=result.phase_wall_s.get("submit", 0.0),
+        index_upkeep_s=probe.upkeep_s,
+        node_hits=sum(c["node_hits"] for c in probe.cycles),
+        row_hits=sum(c["row_hits"] for c in probe.cycles),
+        row_misses=sum(c["row_misses"] for c in probe.cycles),
+        health=result.health.get("status"),
+        health_reasons=result.health.get("reasons"),
+        data_plane={k: v for k, v in result.data_plane.items()
+                    if k != "families"})
+    print(f"{label} totals " + json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in totals.items()}), flush=True)
+    return totals
+
+
 def _slice_summary(label, sim, hosts, result, wall, launches):
     from cook_tpu_torch.sim import cli
 
@@ -1065,21 +1191,155 @@ def slice_phase(trace, workdir):
     args = cli.build_parser().parse_args(
         ["run", "--trace", trace, "--out", os.path.join(workdir, "run.csv"),
          "--device", "cuda", *SLICE_ARGS])
+    probe = []
+    start = []
+
+    def attach(sim):
+        # the default configuration's probe, and the replay's clock
+        probe.append(CycleProbe(sim))
+        start.append(time.perf_counter())
+
     calls = []
     with kept_calls(match, "best_node", calls):
         bn.launches = 0
-        t0 = time.perf_counter()
-        sim, hosts, result = cli.replay(args)
-        wall = time.perf_counter() - t0
+        sim, hosts, result = cli.replay(args, on_sim=attach)
+        wall = time.perf_counter() - start[0]
         launches = bn.launches
     # best_node counts only launches on CUDA tensors, so launches > 0 also
     # shows the solve's tensors were on the card
     _slice_summary("slice", sim, hosts, result, wall,
                    {"best_node": launches})
+    report_cycles("slice", result, probe[0])
     if launches <= 0 or len(calls) != launches:
         raise AssertionError(f"kept {len(calls)} best_node calls but the "
                              f"kernel counted {launches} launches")
     return launches, calls
+
+
+PROFILE_TOP = 10
+
+
+def _profile_rows(prof):
+    """A cProfile's top PROFILE_TOP entries by cumulative time."""
+    import io
+    import pstats
+
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(
+        PROFILE_TOP)
+    return [line.strip().replace(ROOT + os.sep, "")
+            for line in out.getvalue().splitlines()
+            if "(" in line and ":" in line]
+
+
+def _profile_last(target, name, cycles, prof):
+    """Swap `target.name` for a wrapper that runs its `cycles`-th call
+    (the replay's last cycle) under `prof`; returns the original."""
+    original = getattr(target, name)
+    seen = []
+
+    def profiled(*a, **kw):
+        seen.append(None)
+        if len(seen) < cycles:
+            return original(*a, **kw)
+        prof.enable()
+        try:
+            return original(*a, **kw)
+        finally:
+            prof.disable()
+
+    setattr(target, name, profiled)
+    return original
+
+
+# the walls phase's replays of the flat slice: (label, SchedulerConfig
+# changes, profiled).  A profiled pair first (cache off, then on: the
+# last cycle's host profiles), then unprofiled runs for the walls: the
+# cache off and on and the defaults with the flight recorder and the
+# telemetry off (the data-plane accounting runs in the record's scope, so
+# it goes too), three times each, interleaved, so host noise shows beside
+# the differences
+CACHE_OFF = dict(use_encode_cache=False)
+RECORDER_OFF = dict(flight_recorder_capacity=0, device_telemetry=False)
+WALL_RUNS = (("cache off", CACHE_OFF, True), ("cache on", {}, True),
+             *((("cache off", CACHE_OFF, False), ("cache on", {}, False),
+                ("recorder off", RECORDER_OFF, False)) * 3))
+WALL_PHASES = ("rank", "encode", "solve", "launch")
+
+
+def walls_phase(trace, workdir, device="cuda"):
+    """Where the flat slice's walls go: the slice's replay again per
+    WALL_RUNS, each run trace identical to the slice's (neither the cache
+    nor the recorder changes a decision).  Per run: the simulator's phase
+    walls, the cycle p50 and the encode wall per cycle.  The profiled
+    runs print host profiles (cProfile) of the last cycle's
+    `prepare_pool_problem` (cache off and on) and of the last
+    `rank_cycle`, `finalize_pool_match` (the launch phase) and the flight
+    recorder's `commit` (in the cycle wall, outside the phases; cache
+    on);
+    their walls carry the profiler's overhead, and the summary leaves
+    them out.  Outside the slice's own run, so the profiler touches no
+    wall reported for the main path."""
+    import cProfile
+    import dataclasses
+
+    from cook_tpu_torch.scheduler import matcher
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.sim.simulator import Simulator, load_trace
+
+    phase("walls: encode cache on / off, recorder off")
+    args = cli.build_parser().parse_args(
+        ["run", "--trace", trace, "--device", device, *SLICE_ARGS])
+    jobs, hosts = load_trace(trace)
+    # newline="": the CSV's own \r\n line ends, as to_csv() gives them
+    with open(os.path.join(workdir, "run.csv"), newline="") as f:
+        want = f.read()
+    walls = {}
+    for label, changes, profile in WALL_RUNS:
+        cfg = cli.sim_config(args)
+        cfg.scheduler = dataclasses.replace(cfg.scheduler, **changes)
+        sim = Simulator(jobs, hosts, cfg, device=args.device)
+        targets = []
+        if profile:
+            targets.append((matcher, "prepare_pool_problem"))
+            if label == "cache on":
+                targets += [(sim.scheduler, "rank_cycle"),
+                            (matcher, "finalize_pool_match"),
+                            (sim.scheduler.recorder, "commit")]
+        profs = []
+        for target, name in targets:
+            prof = cProfile.Profile()
+            profs.append((target, name, prof, _profile_last(
+                target, name, cfg.max_cycles, prof)))
+        try:
+            result = sim.run()
+        finally:
+            for target, name, _, original in profs:
+                setattr(target, name, original)
+        if result.to_csv() != want:
+            raise AssertionError(f"{label}: the run trace differs from "
+                                 "the slice's")
+        row = {k: round(result.phase_wall_s.get(k, 0.0), 4)
+               for k in WALL_PHASES}
+        row["cycle_p50_ms"] = round(1e3 * sorted(
+            result.cycle_wall_s)[len(result.cycle_wall_s) // 2], 2)
+        row["cycle_ms"] = [round(1e3 * w, 1) for w in result.cycle_wall_s]
+        row["encode_per_cycle"] = [
+            round(r["phases"].get("tensor_build", 0.0), 4)
+            for r in result.cycle_records]
+        if not profile:
+            walls.setdefault(label, []).append(row)
+        print(f"walls {label}{' (profiled)' if profile else ''}: run "
+              "trace = the slice's; " + json.dumps(row), flush=True)
+        for _, name, prof, _ in profs:
+            print(f"  {label}: the last cycle's {name} under cProfile "
+                  f"(cumulative s, top {PROFILE_TOP}):", flush=True)
+            for line in _profile_rows(prof):
+                print(f"  {label} {name} | {line}", flush=True)
+    print("walls summary (unprofiled runs) " + json.dumps({
+        label: {k: [r[k] for r in rows]
+                for k in (*WALL_PHASES, "cycle_p50_ms")}
+        for label, rows in walls.items()}), flush=True)
 
 
 def hier_slice_phase(trace):
@@ -1101,6 +1361,7 @@ def hier_slice_phase(trace):
     sim = Simulator(jobs, hosts, SimConfig(
         cycle_ms=30_000, max_cycles=3,
         scheduler=SchedulerConfig(match=match)), device="cuda")
+    probe = CycleProbe(sim)
     calls = {"coarse_pass": [], "best_node_batched": []}
     solves = []
     solve = hierarchical.hierarchical_match
@@ -1126,6 +1387,7 @@ def hier_slice_phase(trace):
         finally:
             hierarchical.hierarchical_match = solve
     _slice_summary("hier slice", sim, hosts, result, wall, launches)
+    report_cycles("hier slice", result, probe)
     last = {k: solves[-1][k] for k in (
         "blocks", "block_pad", "nodes_per_block", "jobs_per_block",
         "fine_shape", "coarse_shape", "spilled", "refine_rounds",
@@ -1273,6 +1535,137 @@ def agreement_phase(workdir, n_jobs=3000, n_hosts=300):
               "placements)", flush=True)
 
 
+# ------------------------------------------------ the default configuration
+
+# the default-config agreement replays: the small trace, 6 cycles, the
+# default SchedulerConfig with a shadow solve every solvable cycle and a
+# health verdict every cycle
+DEFAULT_CYCLES = 6
+DEFAULT_AGREEMENT = {
+    # label: (matcher overrides, the final verdict's reasons).  The flat
+    # `pallas` route at the CPU parity tests' knobs
+    # (tests/test_torch_sim.py CONFIGS["pallas"]): its shadow solves hold
+    # the reference's packing, so the verdict is ok
+    "flat": (dict(max_jobs_considered=16384, chunk=16, backend="pallas",
+                  chunk_rounds=2, chunk_passes=12), []),
+    "hier": ({**HIER_MATCH, "hierarchical_nodes_per_block": 64}, []),
+    # the slices' flat knobs (chunk 1024, the tuned rounds and passes):
+    # the reference drifts below its parity floor on this trace too
+    # (tests/test_torch_sim.py::test_slices_flat_knobs_drift_in_the_
+    # reference_too), so the verdict is quality-drift
+    "flat-tuned": (dict(max_jobs_considered=16384, chunk=1024,
+                        backend="pallas"), ["quality-drift"]),
+}
+# wall-clock fields of a cycle record: compared for presence only
+RECORD_WALLS = ("wall_time", "device_s", "host_s", "total_s")
+
+
+def record_decisions(record):
+    """A cycle record without its walls: every decision field (counts,
+    skips, matches, backend, padded shape, gang and hierarchical
+    accounting, data-plane bytes), and the phase names."""
+    out = {k: v for k, v in record.items()
+           if k not in RECORD_WALLS and k not in ("phases", "hier_phases")}
+    out["phases"] = sorted(record["phases"])
+    out["hier_phases"] = sorted(record["hier_phases"])
+    return out
+
+
+def default_replay(jobs, hosts, match, device, **scheduler_kw):
+    """A replay of `jobs` at the default SchedulerConfig (plus
+    `scheduler_kw`), a shadow solve every solvable cycle and a health
+    verdict every cycle.  Returns (simulator, result)."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(jobs, hosts, SimConfig(
+        max_cycles=DEFAULT_CYCLES, health_every=1,
+        scheduler=SchedulerConfig(match=match, quality_sample_every=1,
+                                  **scheduler_kw)), device=device)
+    return sim, sim.run()
+
+
+def default_agreement_phase(workdir, devices=("cuda", "cpu")):
+    """The small trace at the port's default SchedulerConfig on the card
+    and on the CPU, on the flat `pallas` and the hierarchical routes (and
+    the flat route at the slices' knobs): run traces equal, every cycle
+    record's decision fields equal, at least one shadow solve on each
+    device, no verdict ever `device-degraded`, and the final verdict's
+    reasons the reference's (DEFAULT_AGREEMENT)."""
+    from cook_tpu_torch.obs.health import DEVICE_DEGRADED
+    from cook_tpu_torch.sim.simulator import load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("default-config agreement")
+    jobs, hosts = load_trace(os.path.join(workdir, "small.json"))
+    for label, (overrides, reasons) in DEFAULT_AGREEMENT.items():
+        runs = {}
+        for device in devices:
+            t0 = time.perf_counter()
+            sim, result = default_replay(
+                jobs, hosts, default_match_config(**overrides), device)
+            quality = sim.scheduler.telemetry.quality.stats().get(
+                "default", {})
+            runs[device] = (result, quality, time.perf_counter() - t0)
+        (card, card_q, card_s), (cpu, cpu_q, cpu_s) = (
+            runs[d] for d in devices)
+        if card.to_csv() != cpu.to_csv():
+            raise AssertionError(f"default agreement {label}: card and "
+                                 "CPU run traces differ")
+        if [record_decisions(r) for r in card.cycle_records] != [
+                record_decisions(r) for r in cpu.cycle_records]:
+            raise AssertionError(f"default agreement {label}: card and "
+                                 "CPU cycle records differ")
+        for name, result, quality in (("card", card, card_q),
+                                      ("CPU", cpu, cpu_q)):
+            if quality.get("samples", 0) < 1:
+                raise AssertionError(f"default agreement {label}: no "
+                                     f"shadow solve on the {name}")
+            verdicts = [c["reasons"] for c in result.health_checks]
+            if any(DEVICE_DEGRADED in r for r in verdicts
+                   + [result.health["reasons"]]):
+                raise AssertionError(f"default agreement {label}: "
+                                     f"{DEVICE_DEGRADED} on the {name}")
+        if not card.health["reasons"] == cpu.health["reasons"] == reasons:
+            raise AssertionError(
+                f"default agreement {label}: verdicts card "
+                f"{card.health['reasons']} CPU {cpu.health['reasons']}")
+        print(f"default agreement {label}: card = CPU (run trace, "
+              f"{len(card.cycle_records)} cycle records); shadow solves "
+              f"card {card_q['samples']} / CPU {cpu_q['samples']}, last "
+              f"efficiency {card_q['last']}; final verdict "
+              f"{card.health['status']} {card.health['reasons']}, in-run "
+              f"reasons {[c['reasons'] for c in card.health_checks]}; "
+              f"placements {sum(1 for r in card.rows if r['start_ms'])}; "
+              f"replay walls card {card_s:.1f} s, CPU {cpu_s:.1f} s",
+              flush=True)
+
+
+def cache_neutrality_phase(workdir, device="cuda"):
+    """On the card, the flat default-agreement replay with the encode
+    cache on, off and on again: three identical run traces (the cache
+    changes no decision, and a run with it is repeatable)."""
+    from cook_tpu_torch.sim.simulator import load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("cache neutrality")
+    jobs, hosts = load_trace(os.path.join(workdir, "small.json"))
+    match = default_match_config(**DEFAULT_AGREEMENT["flat"][0])
+    csvs = []
+    for use in (True, False, True):
+        sim, result = default_replay(jobs, hosts, match, device,
+                                     use_encode_cache=use)
+        if use != (sim.scheduler.encode_cache is not None):
+            raise AssertionError("cache neutrality: the cache setting did "
+                                 "not reach the scheduler")
+        csvs.append(result.to_csv())
+    if len(set(csvs)) != 1:
+        raise AssertionError("cache neutrality: run traces differ with "
+                             "the encode cache on / off / on again")
+    print(f"cache neutrality: cache on, off, on again: identical run "
+          f"traces ({csvs[0].count(chr(10)) - 1} rows)", flush=True)
+
+
 # ----------------------------------------------------------------- gangs
 
 GANG_CYCLES = 3
@@ -1387,6 +1780,7 @@ def gang_slice_phase(trace, device="cuda"):
     filters, releases = [], []
     for label, (cfg, npb, (module, name)) in runs.items():
         sim, checks = gang_sim(jobs, hosts, cfg, device, GANG_CYCLES, npb)
+        probe = CycleProbe(sim)
         calls = []
         solves = []
         solve = hierarchical.hierarchical_match
@@ -1424,6 +1818,7 @@ def gang_slice_phase(trace, device="cuda"):
             summary["coarse_backend"] = sorted({st["coarse_backend"]
                                                 for st in solves})
         print(f"gang slice {label} " + json.dumps(summary), flush=True)
+        report_cycles(f"gang slice {label}", result, probe)
         if sim.scheduler.device.type != device or placed <= 0:
             raise AssertionError(f"gang slice {label}: solved on "
                                  f"{sim.scheduler.device}, {placed} placed")
@@ -2235,6 +2630,7 @@ def main() -> int:
                                                  _unplaced)
         errs["best_node"] = max(errs["best_node"], err)
         del calls
+        walls_phase(trace, workdir)
         hier_launches, hier_calls = hier_slice_phase(trace)
         for name in ("best_block", "best_node_batched", "coarse_pass"):
             launches[name] = hier_launches[name]
@@ -2253,6 +2649,8 @@ def main() -> int:
         errs["best_block"] = max(errs["best_block"], err)
         del busiest
         agreement_phase(workdir)
+        default_agreement_phase(workdir)
+        cache_neutrality_phase(workdir)
         gang_runs = gang_slice_phase(trace)
         gang_ops_phase(*gang_runs.pop("ops"))
         for label, (gang_launches, gang_calls, _) in gang_runs.items():

@@ -2,9 +2,11 @@
 
 Port of `cook_tpu/models/store.py`, reduced to what the rank -> match ->
 launch slice drives: submits, launches, status updates, kills, retries,
-shares, quotas, the gang-submit invariants (`_validate_gangs`) and the
-queries the scheduler reads.  The store lock is a plain `threading.RLock`
-(the reference profiles it through its contention observatory); the
+shares, quotas, pool moves (`move_job_pool`, whose `job/pool-moved` event
+the columnar index and the encode cache consume), the gang-submit
+invariants (`_validate_gangs`) and the queries the scheduler reads.  The
+store lock is a plain `threading.RLock` (the reference profiles it
+through its contention observatory); the
 journal codec, idempotency records, elastic capacity ledger and shard
 handoff arrive with the slices that use them.
 
@@ -420,6 +422,28 @@ class JobStore:
                 )
             self._fan_out(events)
             return job
+
+    def move_job_pool(self, job_uuid: str, new_pool: str) -> bool:
+        """Move a WAITING job to another pool (reference:
+        plugins/pool_mover.clj — only pending jobs may move)."""
+        with self._lock:
+            job = self.jobs.get(job_uuid)
+            if job is None or job.state != JobState.WAITING:
+                return False
+            if new_pool not in self.pools:
+                return False
+            old_pool = job.pool
+            self._pool_pending.get(old_pool, set()).discard(job_uuid)
+            job = job.with_(pool=new_pool)
+            self.jobs[job_uuid] = job
+            self._index_job(job, None)
+            self._fan_out([
+                self._emit("job/pool-moved",
+                           {"uuid": job_uuid, "from": old_pool,
+                            "to": new_pool},
+                           job=job)
+            ])
+            return True
 
     # ------------------------------------------------------- share/quota/pool
 

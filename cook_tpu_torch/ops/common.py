@@ -11,6 +11,8 @@ import math
 import numpy as np
 import torch
 
+from cook_tpu_torch.obs import data_plane
+
 # A value larger than any real DRU/score; used instead of +inf so arithmetic
 # on padded lanes stays finite.
 BIG = 1e30
@@ -23,13 +25,27 @@ def fetch_result(tree):
     This is THE definition of "the solve finished": PyTorch returns before
     the card does, and the device-to-host copy is what waits for it.  Every
     timed solve ends in this call so a timing means the same thing
-    everywhere."""
+    everywhere.  Being THE completion observation also makes it THE D2H
+    accounting site: the result's logical bytes land in the data-plane
+    ledger (obs/data_plane.py) under the ambient tensor family."""
+    out = _to_host(tree)
+    data_plane.note_d2h(_nbytes(out))
+    return out
+
+
+def _to_host(tree):
     if isinstance(tree, torch.Tensor):
         return tree.cpu().numpy()
-    items = [fetch_result(t) for t in tree]
+    items = [_to_host(t) for t in tree]
     # a NamedTuple takes its fields positionally, a list/tuple an iterable
     return type(tree)(*items) if hasattr(tree, "_fields") \
         else type(tree)(items)
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
+    return sum(_nbytes(t) for t in tree)
 
 
 class PendingResult:

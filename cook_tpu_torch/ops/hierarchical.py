@@ -35,8 +35,9 @@ gang that did not land whole in one block on distinct hosts, and
 
 Not ported yet: the superblock layer (`superblock_nodes > 0`:
 `gather_super`, `_coarse_batched_solve`, `coarse_two_level`), which
-raises NotImplementedError.  The data-plane notes, metrics and compile
-observatory of the reference are the flight-recorder/telemetry slice.
+raises NotImplementedError.  The reference's data-plane families
+(`hier-coarse`, `hier-fine`) label the passes' fetches, and its compile
+observatory hears each pass's padded shape.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ import torch
 from cook_tpu_torch.ops.best_node import fits
 from cook_tpu_torch.ops.best_node_batched import best_node_batched
 from cook_tpu_torch.ops.coarse_pass import check_fits, coarse_pass
+from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.ops.common import BIG, bucket_size, fetch_result
 from cook_tpu_torch.ops.gang import gang_filter, release_assignments
 from cook_tpu_torch.ops.match import (
@@ -312,6 +314,7 @@ def hierarchical_match(
     params: Optional[HierParams] = None,
     gang_id: Optional[np.ndarray] = None,
     gang_need: Optional[np.ndarray] = None,
+    observatory=None,
 ) -> tuple[MatchResult, dict]:
     """Solve one giant pool's match problem coarse-then-fine.
 
@@ -320,8 +323,10 @@ def hierarchical_match(
     reference's keys — phase walls (coarse_s / fine_s / refine_s, each
     ending in the fetch that observes the device's result), block
     geometry, per-block jobs/placed counts and spill/refine accounting.
-    The reference's `mesh`, `observatory` and `pool` arguments have no
-    counterpart here."""
+    `observatory` (obs.CompileObservatory) receives one `match_coarse`
+    and one `match_fine` solve per pass, keyed by their padded shapes, as
+    in the reference; its `mesh` and `pool` arguments have no counterpart
+    here."""
     params = params or HierParams()
     if params.superblock_nodes > 0:
         raise NotImplementedError(
@@ -371,7 +376,8 @@ def hierarchical_match(
         slots = bucket_size(int(np.ceil(params.block_slack * j / b_real)))
     slots = min(slots, bucket_size(j))
 
-    job_valid_np = fetch_result(job_valid)
+    with data_plane.family(data_plane.FAM_HIER_COARSE):
+        job_valid_np = fetch_result(job_valid)
     out = np.full(j, -1, dtype=np.int32)
     block_pad_axis = b_pad - b_real
     coarse_backend = params.coarse_backend
@@ -396,6 +402,9 @@ def hierarchical_match(
         gang_need_np = np.zeros(j, dtype=np.int32)
         gang_need_np[:rows] = np.asarray(gang_need, dtype=np.int32)
         has_gangs = bool((gang_id_np >= 0).any())
+    def put(arr, fam):
+        return data_plane.h2d(arr, family=fam, device=dev)
+
     demands_coarse = demands
     gate_demands = need_row = None
     n_gangs = gang_slots = 0
@@ -411,10 +420,10 @@ def hierarchical_match(
         members_np = gang_rows_np & ~is_leader_np
         n_gangs = int(is_leader_np.sum())
         gang_slots = bucket_size(n_gangs)
-        lr = torch.as_tensor(leader_row_np, device=dev).long()
-        gmask = torch.as_tensor(gang_rows_np, device=dev)[:, None]
-        gang_id_dev = torch.as_tensor(gang_id_np, device=dev)
-        gang_need_dev = torch.as_tensor(gang_need_np, device=dev)
+        lr = put(leader_row_np, data_plane.FAM_HIER_COARSE).long()
+        gmask = put(gang_rows_np, data_plane.FAM_HIER_COARSE)[:, None]
+        gang_id_dev = put(gang_id_np, data_plane.FAM_HIER_FINE)
+        gang_need_dev = put(gang_need_np, data_plane.FAM_HIER_FINE)
         contrib = torch.where(gmask, demands, 0.0)
         agg = torch.zeros_like(demands).index_add_(0, lr, contrib)
         # members route as one aggregate row; gates stay member-sized
@@ -423,9 +432,9 @@ def hierarchical_match(
             0, lr[:, None].expand_as(contrib), contrib, "amax",
             include_self=True)
         gate_demands = torch.where(gmask, gmax, demands)
-        need_row = torch.as_tensor(
+        need_row = put(
             np.where(gang_rows_np, gang_need_np, 1).astype(np.int32),
-            device=dev)
+            data_plane.FAM_HIER_COARSE)
         # the gang gate needs the masked coarse path (the coarse_pass
         # kernel has no per-row host-count gate)
         coarse_backend = "xla"
@@ -439,7 +448,12 @@ def hierarchical_match(
     def coarse_step(active_mask: np.ndarray) -> np.ndarray:
         """One coarse jobs x blocks assignment against the CURRENT block
         availabilities (refine rounds re-enter with only the leftover
-        jobs active)."""
+        jobs active).  Transfers ride the `hier-coarse` family; the
+        padded jobs x blocks grid feeds the padding-waste account."""
+        data_plane.note_padding(
+            "match_coarse", (j, b_pad),
+            valid_cells=int(active_mask.sum()) * b_real,
+            padded_cells=j * b_pad)
         block_sum, block_max, block_tot, block_valid, block_count = \
             block_aggregates(avail_now, totals, node_valid, npb)
         if block_pad_axis:
@@ -455,7 +469,7 @@ def hierarchical_match(
             # gang members ride their leader's row through the coarse
             # solve: only the leader (aggregate demand) routes
             active_mask = active_mask & ~members_np
-        active = torch.as_tensor(active_mask, device=dev)
+        active = put(active_mask, data_plane.FAM_HIER_COARSE)
         if coarse_backend == "pallas":
             assignment = _coarse_pallas(
                 demands, active, block_sum, block_max, block_tot,
@@ -467,7 +481,11 @@ def hierarchical_match(
                 block_valid, block_any, params,
                 gate_demands=gate_demands, need_row=need_row,
                 block_count=block_count if has_gangs else None)
-        res = fetch_result(assignment)
+        if observatory is not None:
+            observatory.observe_solve("match_coarse", (j, b_pad),
+                                      coarse_backend)
+        with data_plane.family(data_plane.FAM_HIER_COARSE):
+            res = fetch_result(assignment)
         if has_gangs:
             # members inherit the leader's block (or its miss): the
             # scatter then seats the whole gang in one block's slots
@@ -477,13 +495,23 @@ def hierarchical_match(
 
     def fine_pass(job_idx: np.ndarray):
         """Scattered fine batch solve; returns (assignment [b_real, s]
-        local node indices, updated flat availability)."""
+        local node indices, updated flat availability).  Transfers ride
+        the `hier-fine` family; the block-fill fraction of the padded
+        [b_pad, slots] grid is the padding-waste signal."""
+        data_plane.note_padding(
+            "match_fine", (b_pad, slots, npb),
+            valid_cells=int((job_idx >= 0).sum()) * npb,
+            padded_cells=b_pad * slots * npb)
         problems = gather_fine(demands, job_valid, feasible, avail_now,
                                totals, node_valid,
-                               torch.as_tensor(job_idx, device=dev), npb)
+                               put(job_idx, data_plane.FAM_HIER_FINE), npb)
         result = _fine_solve(_pad_block_axis(problems, block_pad_axis,
                                              n_res), params)
-        assignment = fetch_result(result.assignment)[:b_real]
+        if observatory is not None:
+            observatory.observe_solve(
+                "match_fine", (b_pad, slots, npb), fine_backend_label)
+        with data_plane.family(data_plane.FAM_HIER_FINE):
+            assignment = fetch_result(result.assignment)[:b_real]
         return assignment, result.new_avail[:b_real].reshape(n_pad, n_res)
 
     def merge(job_idx: np.ndarray, fine_assign: np.ndarray) -> int:
@@ -507,16 +535,20 @@ def hierarchical_match(
         nonlocal avail_now, gangs_stripped_rows
         if not has_gangs:
             return 0
+        # a copy (`torch.tensor`), never a view of `out`, which is
+        # overwritten below
         asg_dev = torch.tensor(out, device=dev)
+        data_plane.note_h2d(out.nbytes, family=data_plane.FAM_HIER_FINE)
         new_asg, stripped = gang_filter(
             asg_dev, gang_id_dev, gang_need_dev, num_gangs=gang_slots,
             num_nodes=n_pad, nodes_per_block=npb)
-        count = int(fetch_result(stripped).sum())
-        if count:
-            avail_now = release_assignments(avail_now, demands, asg_dev,
-                                            stripped)
-            out[:] = fetch_result(new_asg)
-            gangs_stripped_rows += count
+        with data_plane.family(data_plane.FAM_HIER_FINE):
+            count = int(fetch_result(stripped).sum())
+            if count:
+                avail_now = release_assignments(avail_now, demands, asg_dev,
+                                                stripped)
+                out[:] = fetch_result(new_asg)
+                gangs_stripped_rows += count
         return count
 
     # ---- round 0: coarse -> scatter -> fine

@@ -1,29 +1,38 @@
 """Scheduler composition: rank, match and rebalance cycles, status
 handling, kill fan-out, the fairness ledger.
 
-Port of `cook_tpu/scheduler/core.py`: `SchedulerConfig` (its `match` and
-`rebalancer` fields) and a `Scheduler` with `rank_cycle` (the reference's
-non-columnar branch, sampling the fairness observatory), `match_cycle`
-(without speculation, rate limiting or telemetry; honouring and releasing
-the rebalancer's host reservations and gang admission's `gang:<group>`
-ones), `rebalance_cycle` (the victim search on the device, the preemption
-ledger, `_transact_preemption`, host reservations for multi-victim
-decisions, then `_gang_admission_cycle`: topology-aware drain-vs-kill
-admission of waiting gangs, scheduler/gang.py), `handle_status_update` and
-`_on_event` (completions from the backend into the store's state machine,
+Port of `cook_tpu/scheduler/core.py`: `SchedulerConfig` (its `match`,
+`rebalancer`, columnar-index, encode-cache, flight-recorder and device-
+telemetry fields, with the reference's defaults) and a `Scheduler` with
+`rank_cycle` (the columnar branch, `ranking_columnar.rank_pool_columnar`
+over `models/columnar.ColumnarJobIndex`, or `ranking.rank_pool` with
+`use_columnar_index=False`; sampling the fairness observatory and
+reporting the DRU solve's padded shape to the telemetry), `match_cycle`
+(without speculation or rate limiting; a flight-recorder cycle record per
+match, the encode cache and the telemetry passed to the matcher;
+honouring and releasing the rebalancer's host reservations and gang
+admission's `gang:<group>` ones), `rebalance_cycle` (the victim search on
+the device, the preemption ledger and the cycle record's preemptions,
+`_transact_preemption`, host reservations for multi-victim decisions,
+then `_gang_admission_cycle`: topology-aware drain-vs-kill admission of
+waiting gangs, scheduler/gang.py), `handle_status_update` and `_on_event`
+(completions from the backend into the store's state machine,
 kill-on-complete fan-out, wasted-work accounting of kills the rebalancer
 did not make), `_make_task_id`, `_make_launch_filter` and `_cache_spare`.
-The runtime predictor, the flight recorder, elastic capacity, incidents
-and telemetry are later slices: `Scheduler.predictor` is None, as in the
-reference with speculation off and no backfill weight, so gang admission
-takes its "drain ETA unknown" branch.
+The runtime predictor, elastic capacity, incidents, the profile capturer,
+the overload admission controller and the job-lifecycle tracker are later
+slices: `Scheduler.predictor` is None, as in the reference with
+speculation off and no backfill weight, so gang admission takes its
+"drain ETA unknown" branch.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
+import functools
 import itertools
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
@@ -36,10 +45,21 @@ from cook_tpu_torch.cluster.base import (
     scan_pool_offers,
 )
 from cook_tpu_torch.device import resolve
+from cook_tpu_torch.models.columnar import ColumnarJobIndex
 from cook_tpu_torch.models.entities import InstanceStatus, Job, Pool, Resources
 from cook_tpu_torch.models.reasons import REASONS_BY_CODE
 from cook_tpu_torch.models.store import Event, JobStore
+from cook_tpu_torch.obs import data_plane
+from cook_tpu_torch.obs.device_monitor import device_memory_stats
 from cook_tpu_torch.obs.fairness import FairnessObservatory
+from cook_tpu_torch.obs.telemetry import DeviceTelemetry
+from cook_tpu_torch.scheduler.encode_cache import EncodeCache
+from cook_tpu_torch.scheduler.flight_recorder import (
+    EXCEEDS_POOL_CAPACITY,
+    NULL_CYCLE,
+    FlightRecorder,
+    PreemptionRecord,
+)
 from cook_tpu_torch.scheduler.gang import (
     GANG_RESERVATION_PREFIX,
     GangAdmission,
@@ -58,6 +78,7 @@ from cook_tpu_torch.scheduler.ranking import (
     offensive_job_filter,
     rank_pool,
 )
+from cook_tpu_torch.scheduler.ranking_columnar import rank_pool_columnar
 from cook_tpu_torch.scheduler.rebalancer import (
     Decision,
     RebalancerParams,
@@ -70,6 +91,23 @@ from cook_tpu_torch.utils.metrics import global_registry
 class SchedulerConfig:
     match: MatchConfig = field(default_factory=MatchConfig)
     rebalancer: RebalancerParams = field(default_factory=RebalancerParams)
+    # columnar host-side state: O(delta) rank-cycle encoding
+    use_columnar_index: bool = True
+    # host-encode cache (scheduler/encode_cache.py): incremental
+    # encode_nodes + feasibility rows keyed by offer-set fingerprint,
+    # store-event invalidated — an unchanged pool re-encodes O(delta)
+    use_encode_cache: bool = True
+    # flight recorder: bounded ring of per-cycle decision records
+    # (flight_recorder.py); 0 disables
+    flight_recorder_capacity: int = 512
+    # device telemetry (cook_tpu_torch/obs/): compile observatory, sampled
+    # CPU shadow-solve quality monitor, solve-latency baselines,
+    # device-memory gauges — the health verdict's substrate.  False
+    # disables.
+    device_telemetry: bool = True
+    # shadow-solve every Nth solvable match cycle per pool (0 keeps the
+    # telemetry but never shadow-solves)
+    quality_sample_every: int = 25
 
 
 class Scheduler:
@@ -118,6 +156,27 @@ class Scheduler:
         # store's terminal instances
         self.fairness = FairnessObservatory(clock=store.clock)
         self.fairness.recover(store)
+        self.columnar = (ColumnarJobIndex(store)
+                         if self.config.use_columnar_index else None)
+        self.encode_cache = (EncodeCache(store)
+                             if self.config.use_encode_cache else None)
+        # per-cycle flight recorder: structured decision records
+        self.recorder = (
+            FlightRecorder(capacity=self.config.flight_recorder_capacity)
+            if self.config.flight_recorder_capacity > 0 else None)
+        # device telemetry: every rank/match/rebalance solve reports its
+        # (op, padded shape, backend) here; the health verdict folds it.
+        # Memory stats are this scheduler's device's (none on the CPU)
+        self.telemetry = None
+        if self.config.device_telemetry:
+            self.telemetry = DeviceTelemetry(
+                quality_sample_every=self.config.quality_sample_every,
+                memory_stats_fn=functools.partial(device_memory_stats,
+                                                  self.device),
+            )
+        # pool -> the last rank cycle's wall, credited to the next match
+        # cycle's record
+        self._last_rank_s: dict[str, float] = {}
         store.add_watcher(self._on_event)
         for cluster in self.clusters:
             if hasattr(cluster, "status_callback"):
@@ -204,15 +263,22 @@ class Scheduler:
         return max_mem > 0 and not autoscales, max_mem, max_cpus, max_gpus
 
     def rank_cycle(self, pool: Pool) -> RankedQueue:
-        """Rank the pool's pending jobs (the reference's non-columnar
-        branch), quarantining jobs no host in the pool could ever hold
+        """Rank the pool's pending jobs, through the columnar index when
+        it is on, quarantining jobs no host in the pool could ever hold
         (the offensive-job filter, scheduler.clj:2198-2257)."""
+        t_rank = time.perf_counter()
         limits_active, max_mem, max_cpus, max_gpus = \
             self._pool_capacity_probe(pool)
-        filt = (offensive_job_filter(max_mem, max_cpus, max_gpus)
-                if limits_active else None)
-        queue = rank_pool(self.store, pool, device=self.device,
-                          offensive_job_filter=filt)
+        if self.columnar is not None:
+            queue = rank_pool_columnar(
+                self.store, self.columnar, pool, device=self.device,
+                capacity_limits=((max_mem, max_cpus, max_gpus)
+                                 if limits_active else None))
+        else:
+            filt = (offensive_job_filter(max_mem, max_cpus, max_gpus)
+                    if limits_active else None)
+            queue = rank_pool(self.store, pool, device=self.device,
+                              offensive_job_filter=filt)
         for uuid in queue.quarantined:
             self.placement_failures[uuid] = (
                 "The job's resource demands exceed every host in the pool."
@@ -222,31 +288,89 @@ class Scheduler:
         # the per-user fair-share picture (queue DRU + running usage) is
         # coherent in one place
         self.fairness.observe_rank(pool.name, queue, self.store)
+        # stash the duration so the NEXT match cycle's record can claim
+        # its rank phase (the simulator ranks as a separate step)
+        self._last_rank_s[pool.name] = time.perf_counter() - t_rank
+        if self.telemetry is not None and queue.solve_shape is not None:
+            # compile accounting for the DRU solve's padded task bucket;
+            # no seconds: the rank wall is not device solve time
+            self.telemetry.record_solve("rank", queue.solve_shape, "xla")
         return queue
 
+    def _begin_cycle(self, pool_name: str):
+        if self.recorder is None:
+            return NULL_CYCLE
+        flight = self.recorder.begin(pool_name, self.store.clock())
+        # the pool's capacity at cycle start, so match outcomes correlate
+        # with capacity record to record
+        flight.record.pool_capacity = self._pool_capacity_snapshot(pool_name)
+        return flight
+
+    def _pool_capacity_snapshot(self, pool_name: str) -> dict:
+        """Host count + total/spare capacity the pool holds right now (one
+        offer scan per recorded cycle: the post-match spare cache cannot
+        give the capacity AT CYCLE START; gpu totals are not carried by
+        offers, so only spare is reported there)."""
+        hosts = 0
+        mem = cpus = 0.0
+        spare = {"mem": 0.0, "cpus": 0.0, "gpus": 0.0}
+        for _cluster, offer in scan_pool_offers(self.clusters, pool_name):
+            hosts += 1
+            mem += offer.total_mem or offer.mem
+            cpus += offer.total_cpus or offer.cpus
+            spare["mem"] += max(offer.mem, 0.0)
+            spare["cpus"] += max(offer.cpus, 0.0)
+            spare["gpus"] += max(offer.gpus, 0.0)
+        return {"hosts": hosts, "mem": mem, "cpus": cpus,
+                "spare_mem": spare["mem"], "spare_cpus": spare["cpus"],
+                "spare_gpus": spare["gpus"]}
+
+    def _commit_cycle(self, flight) -> None:
+        if self.recorder is not None and flight.record is not None:
+            self.recorder.commit(flight)
+
+    def _credit_rank_and_quarantine(self, flight, pool_name: str,
+                                    queue) -> None:
+        """Cycle-record prologue: claim the most recent rank cycle's
+        duration, and record the jobs the rank cycle's offensive-job
+        filter quarantined (the matcher never sees them)."""
+        rank_s = self._last_rank_s.pop(pool_name, None)
+        if rank_s is not None:
+            flight.add_phase("rank", rank_s)
+        for uuid in queue.quarantined:
+            flight.note_skip(uuid, EXCEEDS_POOL_CAPACITY)
+
     def match_cycle(self, pool: Pool) -> MatchOutcome:
+        flight = self._begin_cycle(pool.name)
         queue = self.pool_queues.get(pool.name)
         if queue is None:
             queue = self.rank_cycle(pool)
+        self._credit_rank_and_quarantine(flight, pool.name, queue)
         state = self.pool_match_state.setdefault(
             pool.name,
             PoolMatchState(
                 num_considerable=self.config.match.max_jobs_considered),
         )
-        outcome = match_pool(
-            self.store,
-            pool,
-            queue,
-            self.clusters,
-            self.config.match,
-            state,
-            device=self.device,
-            make_task_id=self._make_task_id,
-            launch_filter=self._make_launch_filter(),
-            record_placement_failure=self._record_placement_failure,
-            host_reservations=self.host_reservations,
-            host_attrs=self.host_attr_cache,
-        )
+        # the cycle's data-plane scope (match_pool re-enters it around
+        # each of its sections)
+        with data_plane.activate(flight.dp):
+            outcome = match_pool(
+                self.store,
+                pool,
+                queue,
+                self.clusters,
+                self.config.match,
+                state,
+                device=self.device,
+                make_task_id=self._make_task_id,
+                launch_filter=self._make_launch_filter(),
+                record_placement_failure=self._record_placement_failure,
+                host_reservations=self.host_reservations,
+                host_attrs=self.host_attr_cache,
+                flight=flight,
+                telemetry=self.telemetry,
+                encode_cache=self.encode_cache,
+            )
         matched_uuids = {j.uuid for j, _ in outcome.matched}
         # launched jobs release their host reservations; a placed gang
         # releases its group-wide gang:<group> reservations
@@ -262,6 +386,9 @@ class Scheduler:
         # cache spare resources for the rebalancer (view-incubating-offers,
         # scheduler.clj:1537): offers minus what this cycle just placed
         self._cache_spare(pool)
+        if flight.record is not None:
+            flight.record.head_matched = outcome.head_matched
+        self._commit_cycle(flight)
         return outcome
 
     def _cache_spare(self, pool: Pool) -> None:
@@ -316,12 +443,16 @@ class Scheduler:
         host reservation for each decision that took several victims, then
         gang admission."""
         queue = self.pool_queues.get(pool.name) or self.rank_cycle(pool)
+        # the timer starts AFTER the queue lookup: a rank triggered here is
+        # credited to the next match cycle's rank phase
+        t0 = time.perf_counter()
         params = self._rebalancer_params()
         spare = self.last_unmatched_offers.get(pool.name, {})
         decisions = rebalance_pool(
             self.store, pool, queue.jobs, spare, params,
             host_info=self.last_host_info.get(pool.name),
             device=self.device,
+            telemetry=self.telemetry,
         )
         # fairness ledger: per-victim wasted-work seconds must be read
         # BEFORE _transact_preemption flips the instances terminal (the
@@ -357,7 +488,23 @@ class Scheduler:
                           "cpus": sum(v["cpus"] for v in victims),
                           "gpus": sum(v["gpus"] for v in victims)},
             })
-        self.fairness.record_decisions(pool.name, ledger_entries)
+        fairness_rollup = self.fairness.record_decisions(
+            pool.name, ledger_entries)
+        if self.recorder is not None:
+            by_job = {e["preemptor_job"]: e for e in ledger_entries}
+            self.recorder.annotate_preemptions(
+                pool.name,
+                [PreemptionRecord(
+                    job_uuid=d.job.uuid, hostname=d.hostname,
+                    task_ids=list(d.task_ids),
+                    min_preempted_dru=d.min_preempted_dru,
+                    preemptor_user=d.job.user,
+                    victims=by_job.get(d.job.uuid, {}).get("victims", []),
+                    wasted_s=by_job.get(d.job.uuid, {}).get("wasted_s", 0.0))
+                 for d in decisions if d.task_ids],
+                time.perf_counter() - t0,
+                fairness=fairness_rollup if ledger_entries else None,
+            )
         for decision in decisions:
             self._transact_preemption(decision)
             if len(decision.task_ids) > 1:

@@ -19,12 +19,21 @@ up with scalar jobs, and transacts each gang atomically (a member that
 fails to transact rolls its siblings back), as the reference's
 (`cook_tpu/scheduler/matcher.py:1260-1560`).
 
-Left for later slices: the encode-cache, device-residency, predictor,
-quality-audit and flight-recorder branches (so `gang-incomplete` details
-reach `record_placement_failure` and the `gang.*` metrics, not a cycle
-record).  The reference's device-fallback ladder (re-solving a failed
-device solve on the CPU) has no counterpart: here a solve error
-propagates, so a fault of the card or the kernel is never hidden.
+The reference's default configuration rides along: `prepare_pool_problem`
+takes the host-encode cache (`encode_cache.EncodeCache`: node encoding
+keyed by the offer-set fingerprint, feasibility rows per job), every
+transfer is noted in the cycle's data-plane scope, and `match_pool`
+writes the flight recorder's cycle record (`flight=`: phases, counts,
+skips with reason codes, matches, the solve's identity, the hierarchical
+and gang accounting) and reports the solve to the device telemetry
+(`telemetry=`: compile accounting, latency baseline, sampled CPU shadow
+solves) through `record_solve_outcome`.
+
+Left for later slices: the device-residency, predictor, roofline-probe
+and exact-kernel quality-audit branches.  The reference's device-fallback
+ladder (re-solving a failed device solve on the CPU) has no counterpart:
+here a solve error propagates, so a fault of the card or the kernel is
+never hidden.
 
 Reference: `handle-fenzo-pool` / `handle-resource-offers!` / `launch-
 matched-tasks!` (Cook's scheduler.clj:617-1651) with the Fenzo solve
@@ -57,6 +66,8 @@ from cook_tpu_torch.models.entities import (
     Pool,
 )
 from cook_tpu_torch.models.store import JobStore, TransactionVetoed
+from cook_tpu_torch.obs import data_plane
+from cook_tpu_torch.obs.compile_observatory import shape_signature
 from cook_tpu_torch.ops.common import PendingResult, bucket_size, pad_to
 from cook_tpu_torch.ops.gang import (
     np_block_free_hosts,
@@ -78,23 +89,12 @@ from cook_tpu_torch.scheduler.constraints import (
     feasibility_mask,
     validate_group_assignments,
 )
+from cook_tpu_torch.scheduler import flight_recorder as flight_codes
+from cook_tpu_torch.scheduler.flight_recorder import NULL_CYCLE
 from cook_tpu_torch.scheduler.ranking import QuotaWalk, RankedQueue
 from cook_tpu_torch.utils.metrics import global_registry
 
 log = logging.getLogger(__name__)
-
-# operator-facing placement-failure texts, as the reference's flight
-# recorder words them (flight_recorder.REASON_TEXT; the recorder itself is
-# a later slice)
-NO_OFFERS = "no offers"
-CONSTRAINTS_FILTERED = "all nodes filtered by constraints"
-INSUFFICIENT_RESOURCES = "insufficient resources on feasible nodes"
-LAUNCH_CAP = "cluster launch rate/cap reached this cycle"
-PORTS_EXHAUSTED = "insufficient free ports on the matched node"
-GANG_INCOMPLETE = (
-    "the job's gang could not place whole (all members on distinct"
-    " hosts inside one topology block); the matcher's all-or-nothing"
-    " rule holds the whole gang back")
 
 
 @dataclass
@@ -271,6 +271,11 @@ def padded_job_axis(j: int, chunk: int = 0) -> int:
     return pad_j
 
 
+def padded_shape(n_jobs: int, n_nodes: int, chunk: int) -> tuple[int, int]:
+    """(padded jobs, padded nodes) of a match problem's tensors."""
+    return padded_job_axis(n_jobs, chunk), bucket_size(max(n_nodes, 1))
+
+
 def build_match_problem(
     jobs: Sequence[Job],
     nodes: EncodedNodes,
@@ -279,19 +284,29 @@ def build_match_problem(
     device: torch.device,
     chunk: int = 0,
     config: Optional[MatchConfig] = None,
+    padded_feasible: Optional[np.ndarray] = None,
 ) -> MatchProblem:
     """The padded problem tensors on `device`: jobs to `padded_job_axis`,
-    nodes to their power-of-two bucket, padding invalid."""
+    nodes to their power-of-two bucket, padding invalid.
+    `padded_feasible`, when given, is the mask already padded to
+    `padded_shape` (the encode cache builds it so)."""
     j, n = len(jobs), nodes.n
-    pad_j = padded_job_axis(j, chunk)
-    pad_n = bucket_size(max(n, 1))
+    pad_j, pad_n = padded_shape(j, n, chunk)
     demands, avail, totals = encode_problem_arrays(jobs, nodes.offers,
                                                    config)
-    feas = np.zeros((pad_j, pad_n), dtype=bool)
-    feas[:j, :n] = feasible
+    if padded_feasible is not None:
+        feas = padded_feasible
+    else:
+        feas = np.zeros((pad_j, pad_n), dtype=bool)
+        feas[:j, :n] = feasible
+    # data-plane accounting: the padded host arrays are what cross to the
+    # device, split by tensor family; the padded-vs-valid cell ratio is
+    # the bucket waste
+    data_plane.note_padding("match", (pad_j, pad_n), valid_cells=j * n,
+                            padded_cells=pad_j * pad_n)
 
-    def put(arr):
-        return torch.as_tensor(arr, device=device)
+    def put(arr, fam=data_plane.FAM_NODE_ENCODE):
+        return data_plane.h2d(arr, family=fam, device=device)
 
     return MatchProblem(
         demands=put(pad_to(demands, pad_j)),
@@ -299,13 +314,20 @@ def build_match_problem(
         avail=put(pad_to(avail, pad_n)),
         totals=put(pad_to(totals, pad_n)),
         node_valid=put(pad_to(np.ones(n, dtype=bool), pad_n, fill=False)),
-        feasible=put(feas),
+        feasible=put(feas, data_plane.FAM_FEASIBILITY),
     )
 
 
 def problem_shape(problem: MatchProblem) -> tuple[int, int]:
     """(padded jobs, padded nodes) of the solve."""
     return (int(problem.demands.shape[0]), int(problem.avail.shape[0]))
+
+
+def solve_backend(config: MatchConfig) -> str:
+    """The backend label telemetry and records report for a solve under
+    this config: the candidate-pass backend for the chunked matcher,
+    "exact" for the chunk=0 sequential greedy."""
+    return config.backend if config.chunk else "exact"
 
 
 def hierarchical_enabled(config: MatchConfig,
@@ -398,33 +420,41 @@ class HierarchicalPending:
     whole solve runs at `fetch()`.  Its stats land on
     `prepared.hier_stats`."""
 
-    __slots__ = ("prepared", "config")
+    __slots__ = ("prepared", "config", "telemetry")
 
-    def __init__(self, prepared: "PreparedPool", config: MatchConfig):
+    def __init__(self, prepared: "PreparedPool", config: MatchConfig,
+                 telemetry=None):
         self.prepared = prepared
         self.config = config
+        self.telemetry = telemetry
 
     def fetch(self) -> np.ndarray:
         from cook_tpu_torch.ops.hierarchical import hierarchical_match
 
+        observatory = (self.telemetry.observatory
+                       if self.telemetry is not None else None)
         result, stats = hierarchical_match(
             self.prepared.problem,
             params=hier_params_from_config(self.config),
             gang_id=self.prepared.gang_id,
-            gang_need=self.prepared.gang_need)
+            gang_need=self.prepared.gang_need,
+            observatory=observatory)
         self.prepared.hier_stats = stats
+        # the two-level solve assembled this assignment on the host (its
+        # passes' fetches are accounted inside it): no device fetch here
         return result.assignment[: len(self.prepared.considerable)] \
             .cpu().numpy()
 
 
-def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig):
+def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig,
+                        telemetry=None):
     """Dispatch the pool's match kernels WITHOUT observing completion; the
     returned PendingResult's `fetch()` is the one completion observation.
     Pools at/over `hierarchical_threshold` route to the two-level matcher
     behind the same interface; otherwise `chunk` > 0 runs
     `chunked_match`, else the exact `greedy_match`."""
     if hierarchical_enabled(config, prepared.problem):
-        return HierarchicalPending(prepared, config)
+        return HierarchicalPending(prepared, config, telemetry)
     if config.chunk:
         result = chunked_match(prepared.problem, chunk=config.chunk,
                                rounds=config.chunk_rounds,
@@ -434,6 +464,47 @@ def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig):
     else:
         result = greedy_match(prepared.problem)
     return PendingResult(result.assignment[: len(prepared.considerable)])
+
+
+def record_solve_outcome(prepared: "PreparedPool", assignment: np.ndarray,
+                         config: MatchConfig, pool_name: str,
+                         solve_s: float, flight, telemetry) -> None:
+    """The post-solve protocol (reference `record_solve_outcome`, its
+    telemetry, quality and flight parts): compile and latency telemetry,
+    quality sampling, and the cycle record's solve identity and
+    hierarchical accounting.  `solve_s` ends in the device-to-host copy of
+    the assignment."""
+    shape = problem_shape(prepared.problem)
+    backend = solve_backend(config)
+    hier = prepared.hier_stats
+    if hier is not None:
+        # two-level solve: the record's backend names the decomposition
+        backend = f"hier-{hier['backend']}"
+    compiled = False
+    if telemetry is not None:
+        compiled = telemetry.record_match_solve(pool_name, shape, backend,
+                                                solve_s)
+        telemetry.quality.observe_cycle(prepared, assignment, pool_name)
+    flight.note_solve(shape_signature(shape), backend, compiled)
+    if hier is not None:
+        flight.note_hierarchical(hier)
+
+
+def record_considered(flight, queue, considerable, offers_count: int) -> None:
+    """Cycle-record bookkeeping for a selected considerable window: the
+    counts, the rank context (attached by reference: rank_cycle replaces,
+    never mutates) and the not-considered index, skipped entirely when no
+    recorder is attached (it is O(queue) work on the match path)."""
+    flight.set_counts(offers=offers_count, queue_len=len(queue.jobs),
+                      considered=len(considerable))
+    flight.set_rank_context(queue.jobs, queue.dru)
+    if flight is not NULL_CYCLE and len(considerable) < len(queue.jobs):
+        # jobs in the ranked queue but outside this cycle's considerable
+        # window (cap, quota, launch filter, dead-in-queue)
+        selected = {j.uuid for j in considerable}
+        for job in queue.jobs:
+            if job.uuid not in selected:
+                flight.note_not_considered(job.uuid)
 
 
 def gather_group_context(
@@ -565,10 +636,20 @@ def prepare_pool_problem(
     launch_filter: Optional[Callable[[Job], bool]] = None,
     host_reservations: Optional[dict[str, str]] = None,
     host_attrs: Optional[dict[str, dict]] = None,
+    flight=NULL_CYCLE,
+    encode_cache=None,
 ) -> PreparedPool:
     """Gather offers + considerable jobs and encode the tensor problem.
     `host_reservations` (hostname -> reserving job uuid, set by the
-    rebalancer) closes each reserved host to every other job."""
+    rebalancer) closes each reserved host to every other job.
+
+    With `encode_cache` (scheduler/encode_cache.py) the node encoding and
+    per-job feasibility rows are incremental: an unchanged pool re-encodes
+    O(delta) rows instead of O(J x N).  The cache serves a fresh mask, so
+    the reservation closure below narrows this cycle's rows only.  (The
+    reference bypasses the cache while its estimated-completion constraint
+    is active; the port has not got that constraint yet, so the cache is
+    always in use when given.)"""
     prepared = PreparedPool(pool=pool, outcome=MatchOutcome())
 
     # offers from every running cluster (scheduler.clj:1574-1585); an
@@ -587,12 +668,18 @@ def prepare_pool_problem(
         store, pool, queue, state.num_considerable,
         launch_filter=launch_filter)
     considerable = prepared.considerable
+    record_considered(flight, queue, considerable,
+                      len(prepared.cluster_offers))
     prepared.gang_id, prepared.gang_need = gang_context(considerable,
                                                         config)
     if not considerable or not prepared.cluster_offers:
         return prepared
 
-    nodes = encode_nodes([o for _, o in prepared.cluster_offers])
+    if encode_cache is not None:
+        nodes, nodes_fp = encode_cache.encoded_nodes(
+            pool.name, prepared.cluster_offers)
+    else:
+        nodes = encode_nodes([o for _, o in prepared.cluster_offers])
     prepared.nodes = nodes
     # every host in this cycle's offers contributes attrs, written back
     # into the caller's accumulated cache HERE (pre-match) — a host whose
@@ -608,17 +695,36 @@ def prepare_pool_problem(
      prepared.group_attr_value,
      prepared.group_balance_counts) = gather_group_context(
         store, considerable, host_attrs=merged_attrs)
-    feasible = feasibility_mask(
-        considerable,
-        nodes,
-        previous_hosts=previous_failed_hosts(store, considerable),
-        group_used_hosts=prepared.group_used_hosts,
-        group_attr_value=prepared.group_attr_value,
-        group_balance_counts=prepared.group_balance_counts,
-        groups=prepared.groups,
-        offer_locations=[c.location for c, _ in prepared.cluster_offers],
-        balanced_pre_rows=prepared.balanced_pre_rows,
-    )
+    offer_locations = [c.location for c, _ in prepared.cluster_offers]
+
+    def compute_rows(subset, pre_rows):
+        return feasibility_mask(
+            subset,
+            nodes,
+            previous_hosts=previous_failed_hosts(store, subset),
+            group_used_hosts=prepared.group_used_hosts,
+            group_attr_value=prepared.group_attr_value,
+            group_balance_counts=prepared.group_balance_counts,
+            groups=prepared.groups,
+            offer_locations=offer_locations,
+            balanced_pre_rows=pre_rows,
+        )
+
+    padded = None
+    if encode_cache is not None:
+        padded = encode_cache.feasibility(
+            pool.name, considerable, nodes.n, nodes_fp, compute_rows,
+            balanced_pre_rows=prepared.balanced_pre_rows,
+            pad_shape=padded_shape(len(considerable), nodes.n, config.chunk))
+        feasible = padded[:len(considerable), :nodes.n]
+    else:
+        feasible = compute_rows(considerable, prepared.balanced_pre_rows)
+        # cache off: every encode row was freshly computed, so the
+        # residency ledger reports a full rebuild (the cache path's notes
+        # come from EncodeCache itself)
+        data_plane.note_residency(len(considerable) * nodes.n, 0)
+        data_plane.note_residency(data_plane.NODE_ROW_BYTES * nodes.n, 0,
+                                  kind="nodes")
     if host_reservations:
         # rebalancer reservations (constraints.clj:242 + reserve-hosts!,
         # rebalancer.clj:419): a reserved host only accepts its reserving
@@ -641,13 +747,16 @@ def prepare_pool_problem(
     prepared.feasible = feasible
     prepared.problem = build_match_problem(considerable, nodes, feasible,
                                            device=device,
-                                           chunk=config.chunk, config=config)
+                                           chunk=config.chunk, config=config,
+                                           padded_feasible=padded)
     bonus = topology_bonus(nodes, config)
     if bonus is not None:
         # the topology distance term, padded to the node axis
         pad_n = int(prepared.problem.avail.shape[0])
         prepared.problem = prepared.problem._replace(
-            node_bonus=torch.as_tensor(pad_to(bonus, pad_n), device=device))
+            node_bonus=data_plane.h2d(pad_to(bonus, pad_n),
+                                      family=data_plane.FAM_NODE_ENCODE,
+                                      device=device))
     return prepared
 
 
@@ -661,15 +770,26 @@ def finalize_pool_match(
     *,
     make_task_id: Callable[[Job], str],
     record_placement_failure: Optional[Callable[[Job, str], None]] = None,
+    flight=NULL_CYCLE,
 ) -> MatchOutcome:
     """Apply a solved assignment: group validation, launch transactions,
-    backend launches, autoscaling, head-of-queue backoff."""
+    backend launches, autoscaling, head-of-queue backoff; every job's
+    outcome lands in the cycle record (`flight`) with its reason code."""
     outcome = prepared.outcome
     considerable = prepared.considerable
     pool = prepared.pool
     if not prepared.solvable:
         outcome.unmatched = considerable
         outcome.head_matched = not considerable
+        code = (flight_codes.NO_OFFERS if not prepared.cluster_offers
+                else flight_codes.CONSTRAINTS_FILTERED)
+        for job in considerable:
+            flight.note_skip(job.uuid, code)
+        if prepared.gang_id is not None:
+            n_gangs = int(np.unique(
+                prepared.gang_id[prepared.gang_id >= 0]).size)
+            flight.note_gang(considered=n_gangs, placed=0, blocked=n_gangs,
+                             reasons={code: n_gangs})
         _apply_backoff(config, state, outcome.head_matched)
         return outcome
     nodes = prepared.nodes
@@ -713,9 +833,17 @@ def finalize_pool_match(
     # against the offer; concrete picks must not collide intra-cycle)
     ports_used: dict[int, set] = {}
 
-    def fail(job: Job, text: str) -> None:
+    def fail(job: Job, code: str, detail: str = "",
+             text_detail: bool = True) -> None:
+        """An unplaced job: unmatched, its skip in the cycle record, and
+        the operator-facing text (with the detail unless the reference
+        words it bare)."""
         outcome.unmatched.append(job)
+        flight.note_skip(job.uuid, code, detail)
         if record_placement_failure is not None:
+            text = flight_codes.REASON_TEXT[code]
+            if detail and text_detail:
+                text += f" ({detail})"
             record_placement_failure(job, text)
 
     # gang-atomic transact: a gang's specs and launch bookkeeping defer
@@ -750,7 +878,7 @@ def finalize_pool_match(
             ports_used.get(node_i, set()).difference_update(tports)
         detail = f"gang member failed to transact ({cause})"
         for member in txn["jobs"]:
-            fail(member, f"{GANG_INCOMPLETE} ({detail})")
+            fail(member, flight_codes.GANG_INCOMPLETE, detail)
 
     for ji, job in enumerate(considerable):
         node_idx = int(assignment[ji])
@@ -758,13 +886,13 @@ def finalize_pool_match(
         if g >= 0 and g in failed_gangs:
             # a sibling already failed this cycle's transact: hold this
             # member back too (all-or-nothing)
-            fail(job, GANG_INCOMPLETE)
+            fail(job, flight_codes.GANG_INCOMPLETE, gang_details.get(g, ""),
+                 text_detail=False)
             continue
         if node_idx < 0:
             if g >= 0:
-                detail = gang_details.get(g, "")
-                fail(job, GANG_INCOMPLETE + (f" ({detail})" if detail
-                                             else ""))
+                fail(job, flight_codes.GANG_INCOMPLETE,
+                     gang_details.get(g, ""))
                 continue
             fail(job, _failure_reason(nodes, feasible[ji]))
             continue
@@ -785,17 +913,17 @@ def finalize_pool_match(
             # cache the zero so a bucket refilling mid-cycle cannot admit
             # lower-ranked jobs after higher-ranked ones were rejected
             cluster_budget[cluster.name] = 0
-            fail(job, LAUNCH_CAP)
+            fail(job, flight_codes.LAUNCH_CAP)
             if g >= 0:
-                abort_gang(g, "launch-cap")
+                abort_gang(g, flight_codes.LAUNCH_CAP)
             continue
         task_ports = assign_ports(offer,
                                   ports_used.setdefault(node_idx, set()),
                                   job.resources.ports)
         if task_ports is None:
-            fail(job, PORTS_EXHAUSTED)
+            fail(job, flight_codes.PORTS_EXHAUSTED)
             if g >= 0:
-                abort_gang(g, "ports-exhausted")
+                abort_gang(g, flight_codes.PORTS_EXHAUSTED)
             continue
         ports_used[node_idx].update(task_ports)
         cluster_budget[cluster.name] = budget - 1
@@ -810,8 +938,9 @@ def finalize_pool_match(
             )
         except TransactionVetoed:
             # job completed/launched concurrently; drop the match
+            flight.note_skip(job.uuid, flight_codes.LAUNCH_VETOED)
             if g >= 0:
-                abort_gang(g, "launch-vetoed")
+                abort_gang(g, flight_codes.LAUNCH_VETOED)
             continue
         checkpoint_env: tuple = ()
         if job.checkpoint is not None and job.checkpoint.mode:
@@ -865,6 +994,7 @@ def finalize_pool_match(
         launches_per_cluster.setdefault(cluster.name, []).append(spec)
         outcome.matched.append((job, offer))
         outcome.launched_task_ids.append(task_id)
+        flight.note_match(job.uuid, offer.hostname, task_id)
 
     # flush gangs whose every member transacted: their specs join the
     # launch batches only now, so a late member's transact failure cannot
@@ -877,12 +1007,16 @@ def finalize_pool_match(
             launches_per_cluster.setdefault(cname, []).append(spec)
             outcome.matched.append((job, offer))
             outcome.launched_task_ids.append(task_id)
+            flight.note_match(job.uuid, offer.hostname, task_id)
 
     if gang_note is not None:
         considered_n, placed_gangs, block_reasons = gang_note
         if failed_gangs:
             placed_gangs -= len(failed_gangs)
             block_reasons["transact-failed"] = len(failed_gangs)
+        flight.note_gang(considered=considered_n, placed=placed_gangs,
+                         blocked=considered_n - placed_gangs,
+                         reasons=block_reasons)
         _note_gang_metrics(pool.name, considered_n, placed_gangs,
                            block_reasons)
 
@@ -901,7 +1035,10 @@ def finalize_pool_match(
             log.exception("launch_tasks failed (cluster %s, pool %s, "
                           "%d specs); failing its specs and continuing",
                           cname, pool.name, len(specs))
-            fail_launched_specs(store, specs, exc)
+            fail_launched_specs(
+                store, specs, exc,
+                note_reason=lambda uuid, detail: flight.note_skip(
+                    uuid, flight_codes.LAUNCH_FAILED, detail))
 
     # autoscaling: surface unmatched demand to autoscaling clusters
     # (trigger-autoscaling!, scheduler.clj:1178,1509)
@@ -1039,10 +1176,15 @@ def _note_gang_metrics(pool_name: str, considered: int, placed: int,
 
 
 def fail_launched_specs(store: JobStore, specs: Sequence[TaskSpec],
-                        exc: BaseException) -> None:
+                        exc: BaseException,
+                        note_reason: Optional[Callable[[str, str], None]]
+                        = None) -> None:
     """Launch-failure flow-back: each spec's already-transacted instance
     transitions to failed with the mea-culpa `launch-failed` reason (the
-    job re-queues without consuming its retry budget)."""
+    job re-queues without consuming its retry budget).
+    `note_reason(job_uuid, detail)` threads the outcome into the cycle
+    record."""
+    detail = f"{type(exc).__name__}: {exc}"
     for spec in specs:
         try:
             store.update_instance_state(spec.task_id, InstanceStatus.FAILED,
@@ -1051,6 +1193,8 @@ def fail_launched_specs(store: JobStore, specs: Sequence[TaskSpec],
             # strand the rest of the batch in limbo
             log.exception("launch-failed transition for %s did not apply "
                           "(%s)", spec.task_id, exc)
+        if note_reason is not None:
+            note_reason(spec.job_uuid, detail)
 
 
 def match_pool(
@@ -1067,25 +1211,45 @@ def match_pool(
     record_placement_failure: Optional[Callable[[Job, str], None]] = None,
     host_reservations: Optional[dict[str, str]] = None,
     host_attrs: Optional[dict[str, dict]] = None,
+    flight=NULL_CYCLE,
+    telemetry=None,
+    encode_cache=None,
 ) -> MatchOutcome:
     """One pool's match cycle end to end (prepare -> solve -> finalize).
-    A solve error propagates: there is no CPU re-solve behind the card."""
+    A solve error propagates: there is no CPU re-solve behind the card.
+
+    Each section runs in the cycle's data-plane scope and is a phase of
+    the cycle record: `tensor_build`, `solve` (a device phase: its block
+    ends in the device-to-host copy of the assignment, which waits for the
+    card) and `launch`.  `outcome.phase_wall_s` carries the same walls
+    under the simulator's names (encode / solve / launch)."""
     t0 = time.perf_counter()
-    prepared = prepare_pool_problem(
-        store, pool, queue, clusters, config, state, device=device,
-        launch_filter=launch_filter, host_reservations=host_reservations,
-        host_attrs=host_attrs)
+    with data_plane.activate(flight.dp), flight.phase("tensor_build"):
+        prepared = prepare_pool_problem(
+            store, pool, queue, clusters, config, state, device=device,
+            launch_filter=launch_filter, host_reservations=host_reservations,
+            host_attrs=host_attrs, flight=flight, encode_cache=encode_cache)
     t1 = time.perf_counter()
+    solve_s = 0.0
     assignment = np.empty(0, dtype=np.int32)
     if prepared.solvable:
-        assignment = dispatch_pool_solve(prepared, config).fetch()
+        with data_plane.activate(flight.dp), \
+                data_plane.family(data_plane.FAM_SOLVE), \
+                flight.phase("solve", device=True):
+            assignment = dispatch_pool_solve(prepared, config,
+                                             telemetry).fetch()
+        solve_s = time.perf_counter() - t1
+        record_solve_outcome(prepared, assignment, config, pool.name,
+                             solve_s, flight, telemetry)
     t2 = time.perf_counter()
-    outcome = finalize_pool_match(
-        store, prepared, assignment, config, state, clusters,
-        make_task_id=make_task_id,
-        record_placement_failure=record_placement_failure)
+    with data_plane.activate(flight.dp), flight.phase("launch"):
+        outcome = finalize_pool_match(
+            store, prepared, assignment, config, state, clusters,
+            make_task_id=make_task_id,
+            record_placement_failure=record_placement_failure,
+            flight=flight)
     # (finalize may have noted its gang chokepoint's wall, inside launch)
-    outcome.phase_wall_s.update(encode=t1 - t0, solve=t2 - t1,
+    outcome.phase_wall_s.update(encode=t1 - t0, solve=solve_s,
                                 launch=time.perf_counter() - t2)
     hier = prepared.hier_stats
     if hier is not None:
@@ -1114,9 +1278,10 @@ def _apply_backoff(config: MatchConfig, state: PoolMatchState,
 
 
 def _failure_reason(nodes: EncodedNodes, feas_row: np.ndarray) -> str:
-    """Operator-facing reason for an unmatched job."""
+    """Reason code for an unmatched job; the operator-facing text is
+    flight_recorder.REASON_TEXT[code]."""
     if nodes.n == 0:
-        return NO_OFFERS
+        return flight_codes.NO_OFFERS
     if not feas_row.any():
-        return CONSTRAINTS_FILTERED
-    return INSUFFICIENT_RESOURCES
+        return flight_codes.CONSTRAINTS_FILTERED
+    return flight_codes.INSUFFICIENT_RESOURCES

@@ -19,7 +19,8 @@ max_preemption decisions per cycle ship O(changed) bytes, not O(tasks).
 
 Not ported yet: the device-resident row mirror (`params.resident`, the
 device-residency slice) raises NotImplementedError; the elastic
-`reclaimer` and the `telemetry` hook stay as parameters, None here.
+`reclaimer` stays a parameter, None here; the scheduler passes its
+device `telemetry`.
 """
 from __future__ import annotations
 
@@ -505,9 +506,9 @@ def rebalance_pool(
 
     `reclaimer` is the elastic capacity plane's pre-preemption hook: when
     given, it may return a refreshed spare map (loaned capacity
-    reclaimed), and the victim search runs against that.  `telemetry`
-    records one solve per decision.  Both arrive with later slices; the
-    port's scheduler passes None."""
+    reclaimed), and the victim search runs against that (a later slice;
+    the port's scheduler passes None).  `telemetry` records one solve per
+    decision."""
     if reclaimer is not None:
         refreshed = reclaimer(pool.name, pending_in_dru_order, host_spare)
         if refreshed is not None:

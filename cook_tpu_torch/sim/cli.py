@@ -30,9 +30,11 @@ from cook_tpu_torch.utils.config import default_match_config
 
 
 def run_summary(result, jobs, hosts) -> dict:
-    """The summary `run` prints: the reference's keys that this slice can
-    fill (`cook_tpu/sim/cli.py` also reports health, incidents, elastic,
-    speculation and data-plane numbers from layers not ported yet)."""
+    """The summary `run` prints: the reference's keys that the port can
+    fill, the device-telemetry health verdict and the data-plane summary
+    (its rebuild fraction among them) included (`cook_tpu/sim/cli.py`
+    also reports incidents, elastic and speculation numbers from layers
+    not ported yet)."""
     completed = sum(1 for r in result.rows if r["status"] == "success")
     p50 = (sorted(result.cycle_wall_s)[len(result.cycle_wall_s) // 2] * 1000
            if result.cycle_wall_s else 0.0)
@@ -46,8 +48,15 @@ def run_summary(result, jobs, hosts) -> dict:
         "cycle_wall_p50_ms": round(p50, 2),
         "phase_wall_s": {k: round(v, 3)
                          for k, v in result.phase_wall_s.items()},
+        # device-telemetry verdict: a run that storms the padded shapes
+        # or drifts from the CPU reference says so in its summary line
+        "health": result.health.get("status", "unknown"),
+        "health_reasons": result.health.get("reasons", []),
         "queued_wait_p50_ms": (sorted(waits)[len(waits) // 2]
                                if waits else None),
+        # device data-plane summary: bytes the run moved host<->device and
+        # the mean rebuild fraction of the encode rows
+        "data_plane": result.data_plane,
     }
 
 
@@ -73,11 +82,14 @@ def sim_config(args) -> SimConfig:
     )
 
 
-def replay(args):
+def replay(args, on_sim=None):
     """`run`'s work without the printing: load the trace, replay it, write
-    the run-trace CSV.  Returns (simulator, hosts, result)."""
+    the run-trace CSV.  `on_sim`, if given, is called with the built
+    Simulator just before it runs.  Returns (simulator, hosts, result)."""
     jobs, hosts = load_trace(args.trace)
     sim = Simulator(jobs, hosts, sim_config(args), device=args.device)
+    if on_sim is not None:
+        on_sim(sim)
     result = sim.run()
     with open(args.out, "w") as f:
         f.write(result.to_csv())

@@ -5,10 +5,11 @@
 Takes the options of `python -m cook_tpu_torch.sim.cli run`, replays the
 trace once under the profiler (CPU and CUDA activity), and prints one
 JSON object: the per-cycle walls; the host-clock totals of the phases the
-simulator records (`SimResult.phase_wall_s`: rank, then match's encode =
-`prepare_pool_problem`, solve = dispatch through the fetch that observes
-completion, launch = `finalize_pool_match`, and for a hierarchical solve
-its coarse_solve / fine_solve / refine split of solve, and rebalance under
+simulator records (`SimResult.phase_wall_s`: submit, the store's event
+fan-out; rank; then match's encode = `prepare_pool_problem`, solve =
+dispatch through the fetch that observes completion, launch =
+`finalize_pool_match`, and for a hierarchical solve its coarse_solve /
+fine_solve / refine split of solve, and rebalance under
 `--rebalance-every`); the device time of every
 kernel and copy the profiler saw (total, and the top ones); and the
 device busy share of the replay's wall.  The profiler's own overhead is

@@ -14,8 +14,19 @@ trajectories) at the end of the run.
 Gang traces (`TraceJob.gang`) submit each gang as one atomic batch under
 a UNIQUE group, the members' submit times aligned to the gang's latest
 (the store vetoes a gang split over batches), and `SimResult.gang_stats`
-summarizes assembly wait and block spread.  Elastic, speculation,
-residency, fault schedules, health and metrics history are later slices.
+summarizes assembly wait and block spread.
+
+At the scheduler's default configuration a run also dumps the flight
+recorder's cycle records (`SimResult.cycle_records`, one per match cycle,
+the reference's schema), the device-telemetry health verdict at the end
+(`SimResult.health`; evaluated every `SimConfig.health_every` cycles
+during the run too, each in-run verdict kept in `health_checks`) and the
+data-plane summary (`SimResult.data_plane`: the run's H2D/D2H bytes, per
+family as well, and the mean rebuild fraction and padding waste off the
+records).  `phase_wall_s["submit"]` is the submit step's wall: the store's
+event fan-out, where the columnar index and the encode cache keep up.
+Elastic, speculation, residency, fault schedules, incidents and metrics
+history are later slices.
 """
 from __future__ import annotations
 
@@ -41,7 +52,9 @@ from cook_tpu_torch.models.entities import (
     Resources,
 )
 from cook_tpu_torch.models.store import JobStore
+from cook_tpu_torch.obs import data_plane as _dp
 from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
+from cook_tpu_torch.scheduler.flight_recorder import FlightRecorder
 
 
 @dataclass
@@ -107,6 +120,8 @@ class SimConfig:
     max_cycles: int = 10_000
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     pools: tuple = (("default", "default"),)  # (name, dru_mode)
+    # cycles between in-run health evaluations (0 = end-of-run only)
+    health_every: int = 4
 
 
 @dataclass
@@ -120,6 +135,22 @@ class SimResult:
     # DRU trajectories, preemption ledger + wasted-work rollups), so a
     # trace replay reports the same fairness numbers as the reference
     fairness: dict = field(default_factory=dict)
+    # flight-recorder dump: one structured record per match cycle (per-
+    # phase durations, per-job reason codes, preemptions), the
+    # reference's schema
+    cycle_records: list[dict] = field(default_factory=list)
+    # device-telemetry health verdict at end of run (the reference's
+    # schema): did the run drive the solver into recompile storms /
+    # quality drift / latency regression?
+    health: dict = field(default_factory=dict)
+    # the in-run verdicts (every `health_every` cycles): {"cycle",
+    # "status", "reasons"} each — the reference feeds them to its incident
+    # recorder, which the port has not got
+    health_checks: list[dict] = field(default_factory=list)
+    # device data-plane summary: H2D/D2H byte deltas this run moved
+    # (process-ledger delta) in total and per family, plus the mean
+    # rebuild_fraction / padding_waste off the cycle records
+    data_plane: dict = field(default_factory=dict)
 
     def queued_wait_ms(self) -> list[int]:
         """Per-started-task queued wait (start - submit)."""
@@ -280,17 +311,28 @@ class Simulator:
         self.scheduler = Scheduler(
             self.store, [self.cluster], self.config.scheduler, device=device
         )
+        if self.scheduler.recorder is not None:
+            # the service default ring (512) would silently truncate the
+            # offline dump: size it to hold every cycle of every pool this
+            # run can produce
+            wanted = min(self.config.max_cycles
+                         * max(1, len(self.config.pools)), 1_000_000)
+            if wanted > self.scheduler.recorder.capacity:
+                self.scheduler.recorder = FlightRecorder(capacity=wanted)
 
     def run(self) -> SimResult:
         cfg = self.config
+        families0 = _dp.LEDGER.family_totals()
+        health_checks: list[dict] = []
         submitted = 0
-        # rank and match, then match's own split into encode / solve /
-        # launch (MatchOutcome.phase_wall_s), a hierarchical solve's
-        # split of solve into coarse_solve / fine_solve / refine, and
-        # rebalance when it runs
-        phase_wall: dict[str, float] = {"rank": 0.0, "match": 0.0,
-                                        "encode": 0.0, "solve": 0.0,
-                                        "launch": 0.0}
+        # submit (the store's event fan-out), rank and match, then
+        # match's own split into encode / solve / launch
+        # (MatchOutcome.phase_wall_s), a hierarchical solve's split of
+        # solve into coarse_solve / fine_solve / refine, and rebalance
+        # when it runs
+        phase_wall: dict[str, float] = {"submit": 0.0, "rank": 0.0,
+                                        "match": 0.0, "encode": 0.0,
+                                        "solve": 0.0, "launch": 0.0}
         if cfg.rebalance_every:
             phase_wall["rebalance"] = 0.0
         cycle_wall: list[float] = []
@@ -336,7 +378,9 @@ class Simulator:
                         group_uuid=tj.gang if k >= 2 else None,
                         gang_size=k if k >= 2 else 0,
                     ))
+                t_submit = time.perf_counter()
                 self.store.submit_jobs(batch, list(groups.values()))
+                phase_wall["submit"] += time.perf_counter() - t_submit
             # 3. rank -> match (-> rebalance) per pool
             t_cycle = time.perf_counter()
             for pool in pools:
@@ -354,6 +398,13 @@ class Simulator:
                     self.scheduler.rebalance_cycle(pool)
                     phase_wall["rebalance"] += time.perf_counter() - t3
             cycle_wall.append(time.perf_counter() - t_cycle)
+            # 3c. in-run health watch
+            if (cfg.health_every and cycle % cfg.health_every == 0
+                    and self.scheduler.telemetry is not None):
+                verdict = self.scheduler.telemetry.health()
+                health_checks.append({"cycle": cycle,
+                                      "status": verdict["status"],
+                                      "reasons": verdict["reasons"]})
             # 4. advance virtual time
             self.now_ms += cfg.cycle_ms
             # stop when all work is done
@@ -366,6 +417,9 @@ class Simulator:
                     break
         # final flush so trailing completions land in the trace
         self.cluster.advance_to(self.now_ms)
+        recorder = self.scheduler.recorder
+        records = (recorder.records_json(limit=recorder.capacity)
+                   if recorder is not None else [])
         return SimResult(
             rows=self._collect_rows(),
             cycles=cycle,
@@ -373,6 +427,11 @@ class Simulator:
             phase_wall_s=phase_wall,
             cycle_wall_s=cycle_wall,
             fairness=self.scheduler.fairness.snapshot(),
+            cycle_records=records,
+            health=(self.scheduler.telemetry.health()
+                    if self.scheduler.telemetry is not None else {}),
+            health_checks=health_checks,
+            data_plane=_data_plane_summary(families0, records),
         )
 
     def _collect_rows(self) -> list[dict]:
@@ -402,6 +461,34 @@ class Simulator:
             "host": inst.hostname if inst else "",
             "status": inst.status.value if inst else "unscheduled",
         }
+
+
+def _data_plane_summary(families0: dict, records: list[dict]) -> dict:
+    """The run's data-plane numbers: the process ledger's byte deltas
+    since `families0` (in total and per family; concurrent simulators in
+    one process would overlap) and the mean rebuild fraction / padding
+    waste off the cycle records (the reference's `data_plane` keys but
+    its `device_state`, which waits for device residency, plus
+    `families`)."""
+    families = {}
+    for fam, now in _dp.LEDGER.family_totals().items():
+        before = families0.get(fam, {})
+        delta = {k: v - before.get(k, 0) for k, v in now.items()}
+        if any(delta.values()):
+            families[fam] = delta
+    rebuilds = [r["rebuild_fraction"] for r in records
+                if r.get("rebuild_fraction") is not None]
+    wastes = [r["padding_waste"] for r in records
+              if r.get("padding_waste") is not None]
+    return {
+        "h2d_bytes": sum(f["h2d_bytes"] for f in families.values()),
+        "d2h_bytes": sum(f["d2h_bytes"] for f in families.values()),
+        "mean_rebuild_fraction": (sum(rebuilds) / len(rebuilds)
+                                  if rebuilds else None),
+        "mean_padding_waste": (sum(wastes) / len(wastes)
+                               if wastes else None),
+        "families": families,
+    }
 
 
 def load_trace(path: str) -> tuple[list[TraceJob], list[TraceHost]]:

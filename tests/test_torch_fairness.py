@@ -215,9 +215,7 @@ def _drill(P):
         "m", [P.mock.MockHost(node_id=f"h{i}", hostname=f"h{i}", mem=4000,
                               cpus=8) for i in range(2)], clock=clock)
     sched_kw = dict(P.kw)
-    if P is REF:
-        sched_kw["config"] = ref_core.SchedulerConfig(
-            use_columnar_index=False)
+    sched_kw["config"] = P.core.SchedulerConfig(use_columnar_index=False)
     scheduler = P.core.Scheduler(store, [cluster], **sched_kw)
     pool = store.pools["default"]
     store.set_share(e.Share(user=e.DEFAULT_USER, pool="default",

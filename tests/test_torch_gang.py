@@ -38,6 +38,7 @@ from cook_tpu_torch.models import entities as port_ent
 from cook_tpu_torch.models import store as port_store
 from cook_tpu_torch.ops import gang as port_gang
 from cook_tpu_torch.scheduler import core as port_core
+from cook_tpu_torch.scheduler import flight_recorder as port_flight
 from cook_tpu_torch.scheduler import gang as port_sgang
 from cook_tpu_torch.scheduler import matcher as port_matcher
 from cook_tpu_torch.scheduler import rebalancer as port_rb
@@ -476,7 +477,7 @@ def test_a_gang_that_fits_one_host_only_places_nothing():
         assert len(outcome.matched) == 0, P
         assert len(outcome.unmatched) == 2
     reasons = set(scheduler.placement_failures.values())
-    assert reasons == {port_matcher.GANG_INCOMPLETE
+    assert reasons == {port_flight.REASON_TEXT[port_flight.GANG_INCOMPLETE]
                        + " (best block had 1/2 hosts free)"}
 
 

@@ -64,7 +64,24 @@ GANG_MODULES = ("cook_tpu_torch.ops.gang",
                 "cook_tpu_torch.sim.simulator")
 
 
-@pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES)
+# the default-configuration slice's modules: copies of jax-free reference
+# modules (columnar index, encode cache, flight recorder, the observatory
+# modules) must import the port's own dependencies
+DEFAULT_CONFIG_MODULES = ("cook_tpu_torch.models.columnar",
+                          "cook_tpu_torch.scheduler.ranking_columnar",
+                          "cook_tpu_torch.scheduler.encode_cache",
+                          "cook_tpu_torch.scheduler.flight_recorder",
+                          "cook_tpu_torch.obs.data_plane",
+                          "cook_tpu_torch.obs.compile_observatory",
+                          "cook_tpu_torch.obs.device_monitor",
+                          "cook_tpu_torch.obs.health",
+                          "cook_tpu_torch.obs.quality_monitor",
+                          "cook_tpu_torch.obs.telemetry",
+                          "cook_tpu_torch.sim.cli")
+
+
+@pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
+                         + DEFAULT_CONFIG_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"
@@ -118,7 +135,14 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
     jobs, hosts = synth_trace(5, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Simulator(jobs, hosts)
-    assert Simulator(jobs, hosts, device="cpu").scheduler.device.type == "cpu"
+    cpu = Simulator(jobs, hosts, device="cpu").scheduler
+    assert cpu.device.type == "cpu"
+    # the default configuration on the CPU: columnar index, encode cache,
+    # recorder and telemetry on, and no device memory stats to read
+    assert cpu.columnar is not None and cpu.encode_cache is not None
+    assert cpu.recorder is not None and cpu.telemetry is not None
+    assert cpu.telemetry.health()["checks"]["device_memory"] == {
+        "observable": False}
     with pytest.raises(ValueError, match="unsupported device"):
         device.resolve("meta")
 

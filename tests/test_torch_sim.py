@@ -2,10 +2,13 @@
 hierarchical match -> launch) replays a synthetic trace to the same run
 trace as the reference simulator, on the CPU.
 
-The reference scheduler is run with `use_columnar_index=False`: the port
-ranks with the reference's `rank_pool` (its non-columnar branch); the
-columnar fast path is a later slice and breaks equal-DRU ties in another
-(equally valid) order."""
+Each parity test runs both packages with the same `use_columnar_index`:
+False (each package's `rank_pool`; the cases keep their earlier ids) and
+True (each package's columnar rank, the default; ids end in `-defaults`,
+and there the whole default `SchedulerConfig` runs on both sides: the
+encode cache, the flight recorder and the device telemetry too).  The two
+rank paths break equal-DRU ties in different (equally valid) orders, so
+the two settings give different traces."""
 import numpy as np
 import pytest
 import torch
@@ -47,16 +50,27 @@ def _rows(csv_text):
     return list(csv.DictReader(io.StringIO(csv_text)))
 
 
-@pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_port_simulator_reproduces_reference_trace(config):
+def _columnar_params(names):
+    """(name, use_columnar_index) cases: the earlier ids for False, and a
+    `-defaults` id for the default True."""
+    return [pytest.param(name, False, id=name) for name in names] + [
+        pytest.param(name, True, id=f"{name}-defaults") for name in names]
+
+
+@pytest.mark.parametrize("config,columnar", _columnar_params(sorted(CONFIGS)))
+def test_port_simulator_reproduces_reference_trace(config, columnar):
+    """With `columnar` both packages run their default SchedulerConfig
+    (columnar rank, encode cache, flight recorder, device telemetry): the
+    reference's default decisions, byte for byte."""
     jobs, hosts = ref_sim.synth_trace(200, 20, seed=3)
     want = ref_sim.Simulator(jobs, hosts, ref_sim.SimConfig(
         scheduler=RefSchedulerConfig(
             match=RefMatchConfig(**CONFIGS[config]),
-            use_columnar_index=False))).run()
+            use_columnar_index=columnar))).run()
     pjobs, phosts = sim.synth_trace(200, 20, seed=3)
     got = sim.Simulator(pjobs, phosts, sim.SimConfig(
-        scheduler=SchedulerConfig(match=MatchConfig(**CONFIGS[config]))),
+        scheduler=SchedulerConfig(match=MatchConfig(**CONFIGS[config]),
+                                  use_columnar_index=columnar)),
         device="cpu").run()
     ok, diffs = cli.traces_equivalent(_rows(want.to_csv()),
                                       _rows(got.to_csv()))
@@ -66,6 +80,45 @@ def test_port_simulator_reproduces_reference_trace(config):
     assert sum(r["status"] == "success" for r in got.rows) == 200
     assert got.utilization(phosts) == pytest.approx(
         want.utilization(hosts), rel=0, abs=0)
+    if columnar:
+        assert got.health["status"] == want.health["status"] == "ok"
+        assert len(got.cycle_records) == len(want.cycle_records)
+
+
+# the chip smoke's slices' flat knobs (chunk 1024, the tuned rounds,
+# passes and kc), on the smoke's small trace (3,000 jobs x 300 hosts)
+TUNED_FLAT = dict(max_jobs_considered=16384, chunk=1024, backend="pallas")
+
+
+def test_slices_flat_knobs_drift_in_the_reference_too():
+    """Both packages at their default SchedulerConfig with the slices' flat
+    knobs, a shadow solve and a health check every cycle: the run traces
+    are byte-identical, and the final verdicts (status, reasons, the
+    quality monitor's last efficiency and sample count) are equal.  At
+    these knobs the verdict is `quality-drift` in the reference as in the
+    port; the efficiency is computed by the same numpy formula from the
+    same assignment and is compared exactly."""
+    from cook_tpu.utils.config import default_match_config as ref_dmc
+    from cook_tpu_torch.utils.config import default_match_config
+
+    jobs, hosts = ref_sim.synth_trace(3000, 300, n_users=50, seed=0,
+                                      submit_span_ms=60000)
+    want = ref_sim.Simulator(jobs, hosts, ref_sim.SimConfig(
+        max_cycles=6, health_every=1, scheduler=RefSchedulerConfig(
+            match=ref_dmc(**TUNED_FLAT), quality_sample_every=1))).run()
+    pjobs, phosts = sim.synth_trace(3000, 300, n_users=50, seed=0,
+                                    submit_span_ms=60000)
+    got = sim.Simulator(pjobs, phosts, sim.SimConfig(
+        max_cycles=6, health_every=1, scheduler=SchedulerConfig(
+            match=default_match_config(**TUNED_FLAT),
+            quality_sample_every=1)), device="cpu").run()
+    assert got.to_csv() == want.to_csv()
+    for key in ("status", "reasons"):
+        assert got.health[key] == want.health[key]
+    assert want.health["reasons"] == ["quality-drift"]
+    assert (got.health["checks"]["quality"]
+            == want.health["checks"]["quality"])
+    assert [c["reasons"] for c in got.health_checks][-1] == ["quality-drift"]
 
 
 def test_trace_and_csv_formats_cross_packages(tmp_path):
@@ -87,12 +140,36 @@ def test_trace_and_csv_formats_cross_packages(tmp_path):
     ref_csv = str(tmp_path / "ref.csv")
     assert cli.main(["run", "--trace", port_trace, "--out", port_csv,
                      "--device", "cpu", "--chunk", "0"]) == 0
+    # the port's CLI runs the default SchedulerConfig: so does the
+    # reference here
     ref_result = ref_sim.Simulator(rj, rh, ref_sim.SimConfig(
-        scheduler=RefSchedulerConfig(use_columnar_index=False))).run()
+        scheduler=RefSchedulerConfig())).run()
     with open(ref_csv, "w") as f:
         f.write(ref_result.to_csv())
     assert cli.main(["compare", port_csv, ref_csv]) == 0
     assert ref_cli.main(["compare", ref_csv, port_csv]) == 0
+
+
+def test_replay_hands_the_simulator_to_on_sim_before_it_runs(tmp_path):
+    """`cli.replay(args, on_sim=...)` calls the hook once, with the
+    Simulator it then runs (no cycle run yet), and writes the same CSV as
+    a replay without the hook."""
+    trace = str(tmp_path / "t.json")
+    assert cli.main(["synth", "--jobs", "40", "--hosts", "4", "--users",
+                     "3", "--seed", "2", "--out", trace]) == 0
+    runs = {}
+    for hooked in (False, True):
+        out = str(tmp_path / f"{hooked}.csv")
+        args = cli.build_parser().parse_args(
+            ["run", "--trace", trace, "--out", out, "--device", "cpu"])
+        seen = []
+        simulator, _, result = cli.replay(
+            args, on_sim=(lambda s: seen.append((s, s.now_ms)))
+            if hooked else None)
+        assert seen == ([(simulator, 0)] if hooked else [])
+        runs[hooked] = open(out, newline="").read()
+        assert runs[hooked] == result.to_csv()
+    assert runs[True] == runs[False]
 
 
 def test_default_match_config_reads_tuned_defaults(monkeypatch, tmp_path):
@@ -163,8 +240,8 @@ def test_profile_reports_phase_walls_on_cpu(tmp_path, capsys):
                          "--max-cycles", "3"]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["device"] == "cpu" and report["device_ms"] is None
-    assert set(report["phase_wall_ms"]) == {"rank", "encode", "solve",
-                                            "launch"}
+    assert set(report["phase_wall_ms"]) == {"submit", "rank", "encode",
+                                            "solve", "launch"}
     assert len(report["cycle_wall_ms"]) == report["summary"]["cycles"] == 3
     # match's encode / solve / launch split lies inside its wall (each
     # rounded to the millisecond in the summary)
@@ -279,7 +356,7 @@ REBALANCE_TRACES = {"preemption-heavy": _preemption_heavy,
                     "whole-host": _whole_host}
 
 
-def _rebalance_run(mod, trace):
+def _rebalance_run(mod, trace, columnar):
     from chip_smoke import RebalanceLog
     from cook_tpu.models import entities as ref_ent
     from cook_tpu_torch.models import entities as port_ent
@@ -289,13 +366,14 @@ def _rebalance_run(mod, trace):
     if mod is ref_sim:
         s = ref_sim.Simulator(jobs, hosts, ref_sim.SimConfig(
             rebalance_every=1, max_cycles=cycles,
-            scheduler=RefSchedulerConfig(use_columnar_index=False,
+            scheduler=RefSchedulerConfig(use_columnar_index=columnar,
                                          match=RefMatchConfig(**match))))
         ent = ref_ent
     else:
         s = sim.Simulator(jobs, hosts, sim.SimConfig(
             rebalance_every=1, max_cycles=cycles,
-            scheduler=SchedulerConfig(match=MatchConfig(**match))),
+            scheduler=SchedulerConfig(use_columnar_index=columnar,
+                                      match=MatchConfig(**match))),
             device="cpu")
         ent = port_ent
     _with_share(s, ent, *share, dynamic)
@@ -303,12 +381,13 @@ def _rebalance_run(mod, trace):
     return s.run(), log
 
 
-@pytest.mark.parametrize("trace", sorted(REBALANCE_TRACES))
-def test_port_simulator_reproduces_reference_rebalance(trace):
+@pytest.mark.parametrize("trace,columnar",
+                         _columnar_params(sorted(REBALANCE_TRACES)))
+def test_port_simulator_reproduces_reference_rebalance(trace, columnar):
     from chip_smoke import ledger_view
 
-    want, want_log = _rebalance_run(ref_sim, trace)
-    got, got_log = _rebalance_run(sim, trace)
+    want, want_log = _rebalance_run(ref_sim, trace, columnar)
+    got, got_log = _rebalance_run(sim, trace, columnar)
     assert got.to_csv() == want.to_csv()  # byte-identical run traces
     assert got.cycles == want.cycles
     assert ledger_view(got) == ledger_view(want)
@@ -324,6 +403,12 @@ def test_port_simulator_reproduces_reference_rebalance(trace):
     assert victims == got.fairness["pools"]["default"]["rollups"][
         "tasks_preempted"] > 0
     assert "rebalance" in got.phase_wall_s
+    if columnar:
+        # the cycle records carry the preemptions, as the reference's
+        assert [[p["task_ids"] for p in r["preemptions"]]
+                for r in got.cycle_records] == [
+            [p["task_ids"] for p in r["preemptions"]]
+            for r in want.cycle_records]
     if trace == "whole-host":
         made = sum(c["reserved"] for c in got_log.cycles)
         assert made == 4                    # one per whole-host job
@@ -439,7 +524,8 @@ def test_small_rebalance_slice_on_cpu():
 GANG_BLOCK_HOSTS = 4
 
 
-def _gang_run(mod, match_mod, core_mod, *, gang_enabled, **sim_kw):
+def _gang_run(mod, match_mod, core_mod, *, gang_enabled, columnar=False,
+              **sim_kw):
     from cook_tpu.sim import loadgen as ref_loadgen
     from cook_tpu_torch.sim import loadgen
 
@@ -449,10 +535,9 @@ def _gang_run(mod, match_mod, core_mod, *, gang_enabled, **sim_kw):
     match = match_mod.MatchConfig(
         gang_enabled=gang_enabled, topology_block_hosts=GANG_BLOCK_HOSTS,
         topology_weight=0.5 if gang_enabled else 0.0)
-    extra = {} if port else dict(use_columnar_index=False)
     cfg = mod.SimConfig(cycle_ms=30_000, max_cycles=60,
-                        scheduler=core_mod.SchedulerConfig(match=match,
-                                                           **extra))
+                        scheduler=core_mod.SchedulerConfig(
+                            match=match, use_columnar_index=columnar))
     s = mod.Simulator(jobs, hosts, cfg, **sim_kw)
     result = s.run()
     return jobs, hosts, result, result.gang_stats(
@@ -467,16 +552,19 @@ def gang_ab():
     from cook_tpu_torch.scheduler import matcher as port_matcher
 
     runs = {}
-    for mode in ("naive", "gang"):
-        on = mode == "gang"
+    for mode in ("naive", "gang", "naive-defaults", "gang-defaults"):
+        on = mode.startswith("gang")
+        columnar = mode.endswith("-defaults")
         runs[mode] = _gang_run(sim, port_matcher, port_core,
-                               gang_enabled=on, device="cpu")
+                               gang_enabled=on, columnar=columnar,
+                               device="cpu")
         runs["ref " + mode] = _gang_run(ref_sim, ref_matcher, ref_core,
-                                        gang_enabled=on)
+                                        gang_enabled=on, columnar=columnar)
     return runs
 
 
-@pytest.mark.parametrize("mode", ["naive", "gang"])
+@pytest.mark.parametrize("mode", ["naive", "gang", "naive-defaults",
+                                  "gang-defaults"])
 def test_port_simulator_reproduces_reference_gang_trace(gang_ab, mode):
     _, _, got, got_stats = gang_ab[mode]
     _, _, want, want_stats = gang_ab["ref " + mode]
@@ -552,6 +640,14 @@ def test_gang_traces_submit_each_gang_atomically():
 
 
 def test_small_gang_mix_matches_reference():
+    _small_gang_mix(columnar=False)
+
+
+def test_small_gang_mix_matches_reference_at_defaults():
+    _small_gang_mix(columnar=True)
+
+
+def _small_gang_mix(columnar):
     """chip_smoke.py's gang mix (every tenth job a member of a gang of 2,
     4, 8 or 16) on its flat gang route (chunk 1024 on the best_node
     backend, blocks of 32 hosts bound) at 2,000 jobs x 200 hosts, 3
@@ -567,10 +663,10 @@ def test_small_gang_mix_matches_reference():
 
     knobs = dict(GANG_FLAT_MATCH, topology_block_hosts=32)
     runs = {}
-    for label, mod, match, extra in (
-            ("port", sim, default_match_config(**knobs), {}),
-            ("ref", ref_sim, ref_default(**knobs),
-             dict(use_columnar_index=False))):
+    extra = dict(use_columnar_index=columnar)
+    for label, mod, match in (
+            ("port", sim, default_match_config(**knobs)),
+            ("ref", ref_sim, ref_default(**knobs))):
         jobs, hosts = mod.synth_trace(2000, 200, n_users=50,
                                       submit_span_ms=60_000)
         jobs = gang_mix(jobs)
