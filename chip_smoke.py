@@ -71,6 +71,39 @@ and prints no result line):
                   admission kills one block's tasks and reserves it
                   `gang:<group>`, the match places the gang whole there;
                   card = CPU.
+ 11a. multipool — the multi-pool slice (BASELINE configurations 3 and
+                  5): 8 pools, 100,000 jobs x 10,000 hosts in all (pool
+                  `alpha` 30,000 x 3,000, seven of 10,000 x 1,000, the last
+                  in DruMode.GPU; a tenth of the jobs ask for 1-3 gpus, a
+                  fifth of the hosts carry 8), 3 cycles on each of three
+                  routes at the default SchedulerConfig: serial (the
+                  Simulator), batched (`SimConfig.batched_match`: flat
+                  pools stacked into one `chunked_match_pools` solve on
+                  `xla`) and pipelined (`Scheduler.match_cycle_pipelined`
+                  on the same store, clusters and clock steps: each pool on
+                  its own CUDA stream, `best_node` for the flat pools,
+                  async launches).  `alpha` takes the two-level path
+                  (`coarse_pass`, `best_node_batched`) once its padded
+                  problem reaches the 2^25 threshold, the other pools stay
+                  flat.  Capacity checked after every match; pipelined
+                  placements equal serial ones cycle by cycle; every
+                  batched stacked solve re-solved lane by lane with
+                  `chunked_match` on `xla`, identical; no `solve-failed`
+                  skip; per cycle the rank, encode, solve and launch walls,
+                  the flat solves (serial sum vs the batched shared wall),
+                  the pipelined pass's wall and overlap fraction, and H2D
+                  bytes per family printed.  Counts reset just before each
+                  route and read just after.
+ 11b. multipool launches — every kept `best_node`, `coarse_pass` and
+                  `best_node_batched` launch of the three routes against
+                  its plain version, bit for bit.
+ 11c. multipool exact — one cycle at chunk 0 on the seven flat pools (all
+                  jobs submitted at t 0): the batched `greedy_match_pools`
+                  against a serial `greedy_match` per pool, identical run
+                  traces, both solve walls printed.
+ 11d. multipool agreement — 4 pools x 300 jobs x 30 hosts (one in
+                  DruMode.GPU), batched and pipelined, on the card and on
+                  the CPU: identical run traces (and pipelined = serial).
  12. coarse_pass paged — `coarse_pass` past its shared memory (B 1024 at
                   R 4 and R 8, B 512 at R 8, and both sides of the edge at
                   R 8): identical to the plain version, bit-identical over
@@ -1257,13 +1290,13 @@ def _profile_last(target, name, cycles, prof):
 # last cycle's host profiles), then unprofiled runs for the walls: the
 # cache off and on and the defaults with the flight recorder and the
 # telemetry off (the data-plane accounting runs in the record's scope, so
-# it goes too), three times each, interleaved, so host noise shows beside
-# the differences
+# it goes too), twice each, interleaved, so host noise shows beside the
+# differences (twice: the multi-pool phases need the time)
 CACHE_OFF = dict(use_encode_cache=False)
 RECORDER_OFF = dict(flight_recorder_capacity=0, device_telemetry=False)
 WALL_RUNS = (("cache off", CACHE_OFF, True), ("cache on", {}, True),
              *((("cache off", CACHE_OFF, False), ("cache on", {}, False),
-                ("recorder off", RECORDER_OFF, False)) * 3))
+                ("recorder off", RECORDER_OFF, False)) * 2))
 WALL_PHASES = ("rank", "encode", "solve", "launch")
 
 
@@ -2085,6 +2118,435 @@ def gang_admission_phase(devices=("cuda", "cpu")):
           "released", flush=True)
 
 
+# ------------------------------------------------------------ multi-pool
+
+# the multi-pool slice, BASELINE configurations 3 ("multi-pool bin-packing,
+# cpu+mem+gpu constraints") and 5 ("8-pool batched solve ... 100k x 10k"):
+# 8 pools, 100,000 jobs x 10,000 hosts in all, each pool its own
+# synth_trace (own seed, 50 users, 64 GB / 32 cpu hosts, submits over
+# 60 s): (name, jobs, hosts, DRU mode)
+MP_POOLS = (("alpha", 30_000, 3_000, "default"),) + tuple(
+    (f"pool{k}", 10_000, 1_000, "gpu" if k == 7 else "default")
+    for k in range(1, 8))
+# the GPU column (bench.py:532-545): a tenth of the jobs ask for 1-3 gpus,
+# a fifth of the hosts carry 8, drawn from MP_GPU_SEED
+MP_GPU_SEED = 5
+MP_CYCLES = 3
+# the slices' knobs (chunk 1024, tuned rounds / passes / kc, `pallas`,
+# 16,384 considerable jobs); the hierarchical threshold 2^25 lies between
+# the small pools' padded 16384 x 1024 (2^24) and alpha's 16384 x 4096
+# (2^26), so alpha takes the two-level path (both backends `pallas`,
+# blocks of 1024 hosts) once its window passes 8192 jobs, and the small
+# pools stay flat
+MP_MATCH = dict(max_jobs_considered=16384, chunk=1024, backend="pallas",
+                hierarchical_threshold=1 << 25,
+                hierarchical_coarse_backend="pallas",
+                hierarchical_fine_backend="pallas",
+                hierarchical_nodes_per_block=1024)
+MP_ROUTES = ("serial", "batched", "pipelined")
+MP_KERNELS = {"best_node": ("match", "best_node"),
+              "coarse_pass": ("hierarchical", "coarse_pass"),
+              "best_node_batched": ("hierarchical", "best_node_batched")}
+# the multi-pool agreement replays: 4 pools x 300 jobs x 30 hosts, the
+# last in DruMode.GPU, 6 cycles
+MP_AGREE_POOLS = tuple((f"pool{k}", 300, 30, "gpu" if k == 3 else "default")
+                       for k in range(4))
+MP_AGREE_CYCLES = 6
+
+
+def multipool_trace(pools=MP_POOLS):
+    """(jobs, hosts, SimConfig pools) of the multi-pool slice: one
+    synth_trace per pool (seed = its index), uuids and node ids made unique
+    across pools (tests/test_multipool.py:260-290), and the GPU column."""
+    import numpy as np
+
+    from cook_tpu_torch.sim.simulator import synth_trace
+
+    rng = np.random.default_rng(MP_GPU_SEED)
+    jobs, hosts = [], []
+    for k, (name, n_jobs, n_hosts, _) in enumerate(pools):
+        pjobs, phosts = synth_trace(n_jobs, n_hosts, n_users=50, seed=k,
+                                    submit_span_ms=60_000, pool=name)
+        gpu_job = rng.uniform(size=n_jobs) < 0.1
+        gpus = rng.integers(1, 4, n_jobs)
+        gpu_host = rng.uniform(size=n_hosts) < 0.2
+        for i, j in enumerate(pjobs):
+            j.uuid = f"{name}-{j.uuid}"
+            if gpu_job[i]:
+                j.gpus = float(gpus[i])
+        for i, h in enumerate(phosts):
+            h.node_id = f"{name}-{h.node_id}"
+            h.hostname = f"{name}-{h.hostname}"
+            if gpu_host[i]:
+                h.gpus = 8.0
+        jobs += pjobs
+        hosts += phosts
+    return jobs, hosts, tuple((name, mode) for name, _, _, mode in pools)
+
+
+class RouteProbe:
+    """Per cycle of a multi-pool replay: the rank wall, the match
+    passes' walls (the outcomes' encode / solve / launch: on the batched
+    pass the shared stack and solve count once, on the pipelined pass
+    each pool's solve spans its overlap) and a capacity check after every
+    match call (each pool's on the serial route, each pass on the
+    others)."""
+
+    def __init__(self, sim):
+        self.sim = sim
+        self.cycles = {}
+        s = sim.scheduler
+        rank, match, match_all = (s.rank_cycle, s.match_cycle,
+                                  s.match_cycle_all_pools)
+
+        def cycle():
+            return self.cycles.setdefault(sim.now_ms, dict(
+                rank_s=0.0, encode_s=0.0, solve_s=0.0, launch_s=0.0,
+                match_s=0.0))
+
+        def note(outcomes, wall):
+            c = cycle()
+            c["match_s"] += wall
+            for out in outcomes:
+                for key in ("encode", "solve", "launch"):
+                    c[f"{key}_s"] += out.phase_wall_s.get(key, 0.0)
+            check_capacity(sim)
+
+        def ranked(pool):
+            t0 = time.perf_counter()
+            out = rank(pool)
+            cycle()["rank_s"] += time.perf_counter() - t0
+            return out
+
+        def matched(pool):
+            t0 = time.perf_counter()
+            out = match(pool)
+            note([out], time.perf_counter() - t0)
+            return out
+
+        def matched_all():
+            t0 = time.perf_counter()
+            out = match_all()
+            note(out.values(), time.perf_counter() - t0)
+            return out
+
+        s.rank_cycle, s.match_cycle = ranked, matched
+        s.match_cycle_all_pools = matched_all
+
+
+@contextlib.contextmanager
+def kept_results(module, name, calls):
+    """kept_kw_calls that also keeps each call's result: (args, kwargs,
+    result)."""
+    original = getattr(module, name)
+
+    def keep(*args, **kwargs):
+        out = original(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, keep)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
+
+
+def multipool_sim(jobs, hosts, pools, match, device, route, cycles):
+    """A Simulator on the multi-pool trace driving `route`: the serial
+    per-pool loop, the pool-batched pass (`SimConfig.batched_match`), or
+    the pipelined pass on the same store, clusters and clock steps (the
+    Simulator's batched loop, its pass swapped for
+    `Scheduler.match_cycle_pipelined`: the reference's Simulator has no
+    pipelined knob, and bench.py:576-657 drives it so)."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=cycles, pools=pools,
+        batched_match=route != "serial",
+        scheduler=SchedulerConfig(match=match)), device=device)
+    if route == "pipelined":
+        sim.scheduler.match_cycle_all_pools = \
+            sim.scheduler.match_cycle_pipelined
+    return sim, RouteProbe(sim)
+
+
+def _records_by_cycle(records):
+    out = {}
+    for rec in records:
+        out.setdefault(rec["t_ms"], []).append(rec)
+    return [out[t] for t in sorted(out)]
+
+
+def _solve_shape(rec):
+    return tuple(int(x) for x in rec["solve_shape"].split("x"))
+
+
+def check_multipool_records(label, result, threshold, big="alpha"):
+    """No `solve-failed` skip; every flat pool's padded problem under the
+    threshold; `big` on the two-level path whenever its padded problem
+    reaches it (at least once).  Returns the cycles in which `big` went
+    two-level."""
+    hier_cycles = 0
+    for rec in result.cycle_records:
+        failed = [s for s in rec["skipped"] if s["code"] == "solve-failed"]
+        if failed:
+            raise AssertionError(f"{label}: {len(failed)} solve-failed "
+                                 f"skips in pool {rec['pool']}")
+        if not rec["solve_shape"]:
+            continue
+        hier = rec["backend"].startswith("hier-")
+        if rec["pool"] == big:
+            hier_cycles += hier
+        elif hier:
+            raise AssertionError(f"{label}: pool {rec['pool']} took the "
+                                 "two-level path")
+    if big is not None and not hier_cycles:
+        raise AssertionError(f"{label}: {big} never took the two-level "
+                             "path")
+    return hier_cycles
+
+
+def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
+                    match_overrides=None):
+    """The multi-pool slice at full width (8 pools, 100k x 10k): routes
+    serial, batched and pipelined, `cycles` cycles each at the default
+    SchedulerConfig, counts reset just before each route and read just
+    after, every kernel call kept.  Checks: capacity after every match;
+    pipelined placements equal the serial ones cycle by cycle; no
+    solve-failed skip; alpha two-level on every route once its window
+    reaches the threshold, the other pools flat; each batched stacked flat
+    problem solved again lane by lane with `chunked_match` on `xla`,
+    identical.  Returns ({kernel: launches over the routes}, {kernel:
+    kept calls}, (jobs, hosts, SimConfig pools) of the trace).  The tests
+    run it on the CPU at small `pools`."""
+    import torch
+
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+    from cook_tpu_torch.ops import hierarchical, match as match_ops
+    from cook_tpu_torch.scheduler import matcher
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("multipool")
+    t0 = time.perf_counter()
+    jobs, hosts, sim_pools = multipool_trace(pools)
+    print(f"multipool: {len(jobs)} jobs x {len(hosts)} hosts in "
+          f"{len(pools)} pools " + json.dumps(
+              {name: [n_jobs, n_hosts, mode]
+               for name, n_jobs, n_hosts, mode in pools})
+          + f", {sum(1 for j in jobs if j.gpus)} gpu jobs, "
+          f"{sum(1 for h in hosts if h.gpus)} gpu hosts, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    overrides = {**MP_MATCH, **(match_overrides or {})}
+    cfg = default_match_config(**overrides)
+    modules = {"match": match_ops, "hierarchical": hierarchical}
+    launches = {name: 0 for name in MP_KERNELS}
+    calls = {name: [] for name in MP_KERNELS}
+    results, stacked = {}, []
+    for route in MP_ROUTES:
+        sim, probe = multipool_sim(jobs, hosts, sim_pools, cfg, device,
+                                   route, cycles)
+        with contextlib.ExitStack() as stack:
+            for name, (mod, fn) in MP_KERNELS.items():
+                stack.enter_context(kept_calls(modules[mod], fn,
+                                               calls[name]))
+            if route == "batched":
+                stack.enter_context(kept_results(
+                    matcher, "chunked_match_pools", stacked))
+            bn.launches = bnb.launches = cp.launches = 0
+            t0 = time.perf_counter()
+            result = sim.run()
+            wall = time.perf_counter() - t0
+            counts = {"best_node": bn.launches,
+                      "best_node_batched": bnb.launches,
+                      "coarse_pass": cp.launches}
+        for name in launches:
+            launches[name] += counts[name]
+        placed = sum(1 for r in result.rows if r["start_ms"] is not None)
+        hier_cycles = check_multipool_records(
+            f"multipool {route}", result, overrides["hierarchical_threshold"])
+        by_cycle = _records_by_cycle(result.cycle_records)
+        summary = dict(
+            placements=placed, launches=counts,
+            replay_wall_s=round(wall, 2), alpha_two_level_cycles=hier_cycles,
+            phase_wall_s={k: round(v, 4)
+                          for k, v in result.phase_wall_s.items()},
+            cycle_wall_ms=[round(w * 1e3, 1) for w in result.cycle_wall_s],
+            h2d_bytes={f: v["h2d_bytes"]
+                       for f, v in result.data_plane["families"].items()
+                       if v["h2d_bytes"]})
+        print(f"multipool {route} " + json.dumps(summary), flush=True)
+        for k, (t_ms, walls) in enumerate(sorted(probe.cycles.items())):
+            recs = by_cycle[k]
+            line = {key: round(v, 4) for key, v in walls.items()}
+            line["placed"] = sum(len(r["matched"]) for r in recs)
+            line["backends"] = {r["pool"]: r["backend"] for r in recs}
+            flat = [r for r in recs if r["solve_shape"]
+                    and not r["backend"].startswith("hier-")]
+            # the flat solves: the serial route's sum over pools, the
+            # batched route's one shared wall
+            line["flat_solve_s"] = round(
+                max((r["phases"].get("solve", 0.0) for r in flat),
+                    default=0.0) if route == "batched"
+                else sum(r["phases"].get("solve", 0.0) for r in flat), 4)
+            if route == "pipelined":
+                line["pipeline_wall_s"] = round(recs[0]["pipeline_wall_s"],
+                                                4)
+                line["overlap_fraction"] = round(
+                    recs[0]["overlap_fraction"], 4)
+            print(f"multipool {route} cycle {k + 1} (t {t_ms} ms) "
+                  + json.dumps(line), flush=True)
+        if sim.scheduler.device.type != device or placed <= 0:
+            raise AssertionError(f"multipool {route}: solved on "
+                                 f"{sim.scheduler.device}, {placed} placed")
+        if len(probe.cycles) != cycles:
+            raise AssertionError(f"multipool {route}: {len(probe.cycles)} "
+                                 f"probed cycles of {cycles}")
+        results[route] = result
+        del sim, probe
+    # pipelined placements equal serial ones, cycle by cycle (start_ms is
+    # the cycle's clock)
+    ok, diffs = cli.traces_equivalent(results["serial"].rows,
+                                      results["pipelined"].rows)
+    if not ok or results["serial"].to_csv() != results["pipelined"].to_csv():
+        raise AssertionError("multipool: pipelined run trace differs from "
+                             "the serial one:\n" + "\n".join(diffs))
+    print("multipool: pipelined run trace identical to the serial one",
+          flush=True)
+    # the batched pass's flat lanes against the per-pool xla solve
+    if not stacked or any(kw.get("use_pallas") for _, kw, _ in stacked):
+        raise AssertionError(f"multipool: {len(stacked)} batched solves "
+                             "kept, or one on the best_node backend")
+    lanes = 0
+    for i, (args, kwargs, out) in enumerate(stacked):
+        problem = args[0]
+        for p in range(problem.demands.shape[0]):
+            lane = match_ops.chunked_match(match_ops.MatchProblem(
+                *(None if t is None else t[p] for t in problem)), **kwargs)
+            if not (torch.equal(lane.assignment, out.assignment[p])
+                    and torch.equal(lane.new_avail.view(torch.int32),
+                                    out.new_avail[p].view(torch.int32))):
+                raise AssertionError(f"multipool batched solve {i} lane {p}"
+                                     " differs from its per-pool solve")
+            lanes += 1
+    print(f"multipool batched: {lanes} lanes of {len(stacked)} stacked "
+          "solves identical to the per-pool xla chunked_match", flush=True)
+    if device == "cuda":
+        for name in MP_KERNELS:
+            if launches[name] <= 0 or len(calls[name]) != launches[name]:
+                raise AssertionError(f"multipool: kept {len(calls[name])} "
+                                     f"{name} calls, {launches[name]} "
+                                     "launches")
+    print("multipool launches " + json.dumps(launches), flush=True)
+    return launches, calls, (jobs, hosts, sim_pools)
+
+
+def multipool_exact_phase(jobs, hosts, pools, device="cuda", big="alpha"):
+    """(d): one cycle at chunk 0 (the exact greedy) on the flat pools
+    (every pool but `big`), their jobs all submitted at t 0 so that the
+    cycle holds a full window: the batched pass (`greedy_match_pools`,
+    one step places a job row of every pool) against the serial route (a
+    `greedy_match` per pool).  Run traces identical; both solve walls
+    printed."""
+    import dataclasses
+
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("multipool exact")
+    flat_jobs = [dataclasses.replace(j, submit_time_ms=0) for j in jobs
+                 if j.pool != big]
+    flat_hosts = [h for h in hosts if h.pool != big]
+    flat_pools = tuple(p for p in pools if p[0] != big)
+    cfg = default_match_config(**{**MP_MATCH, "chunk": 0})
+    rows, walls = {}, {}
+    for route in ("serial", "batched"):
+        sim, probe = multipool_sim(flat_jobs, flat_hosts, flat_pools, cfg,
+                                   device, route, 1)
+        t0 = time.perf_counter()
+        result = sim.run()
+        wall = time.perf_counter() - t0
+        check_multipool_records(f"multipool exact {route}", result, 1 << 62,
+                                big=None)
+        [walls[route]] = probe.cycles.values()
+        walls[route]["replay_s"] = wall
+        rows[route] = result.rows
+        shapes = sorted({r["solve_shape"] for r in result.cycle_records})
+        print(f"multipool exact {route} " + json.dumps(dict(
+            placements=sum(1 for r in result.rows
+                           if r["start_ms"] is not None),
+            solve_shapes=shapes,
+            **{k: round(v, 4) for k, v in walls[route].items()})),
+            flush=True)
+        del sim, probe
+    ok, diffs = cli.traces_equivalent(rows["serial"], rows["batched"])
+    if not ok:
+        raise AssertionError("multipool exact: batched differs from "
+                             "serial:\n" + "\n".join(diffs))
+    print(f"multipool exact: batched solve {walls['batched']['solve_s']:.4f}"
+          f" s against the serial solves' {walls['serial']['solve_s']:.4f} s"
+          f" ({len(flat_pools)} pools), run traces identical", flush=True)
+    return walls
+
+
+def multipool_launches_phase(calls):
+    """Every kernel launch of the multi-pool routes held against its plain
+    version, bit for bit."""
+    phase("multipool launches")
+    max_err = {}
+    for name, kept in calls.items():
+        err = 0.0
+        for i, args in enumerate(kept):
+            _, e = check_identical(name, f"multipool launch {i}", args)
+            err = max(err, e)
+        max_err[name] = err
+        print(f"multipool: {len(kept)}/{len(kept)} {name} launches "
+              "identical to the plain version", flush=True)
+    return max_err
+
+
+def multipool_agreement_phase(devices=("cuda", "cpu"),
+                              pools=MP_AGREE_POOLS, cycles=MP_AGREE_CYCLES):
+    """The small multi-pool trace (4 pools x 300 jobs x 30 hosts, one in
+    DruMode.GPU) on the batched and pipelined routes, on the card and on
+    the CPU: run traces identical, and pipelined = serial on the CPU."""
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("multipool agreement")
+    jobs, hosts, sim_pools = multipool_trace(pools)
+    cfg = default_match_config(**MP_MATCH)
+    rows = {}
+    for route in ("batched", "pipelined", "serial"):
+        for device in devices if route != "serial" else devices[-1:]:
+            sim, _ = multipool_sim(jobs, hosts, sim_pools, cfg, device,
+                                   route, cycles)
+            result = sim.run()
+            check_multipool_records(f"multipool agreement {route}", result,
+                                    1 << 62, big=None)
+            rows[route, device] = result.rows
+    for route in ("batched", "pipelined"):
+        ok, diffs = cli.traces_equivalent(rows[route, devices[0]],
+                                          rows[route, devices[-1]])
+        if not ok:
+            raise AssertionError(f"multipool agreement {route}: card and "
+                                 "CPU differ:\n" + "\n".join(diffs))
+        placed = sum(1 for r in rows[route, devices[0]]
+                     if r["start_ms"] is not None)
+        print(f"multipool agreement {route}: {devices[0]} and "
+              f"{devices[-1]} run traces identical ({placed} placements)",
+              flush=True)
+    ok, diffs = cli.traces_equivalent(rows["pipelined", devices[-1]],
+                                      rows["serial", devices[-1]])
+    if not ok:
+        raise AssertionError("multipool agreement: pipelined differs from "
+                             "serial:\n" + "\n".join(diffs))
+
+
 # ------------------------------------------------------------- rebalance
 
 # the victim search at the rebalance slice's padded shape, had every job
@@ -2662,6 +3124,14 @@ def main() -> int:
         del gang_runs, gang_calls
         gang_agreement_phase(workdir)
     gang_admission_phase()
+    mp_launches, mp_calls, mp_trace = multipool_phase()
+    for name, err in multipool_launches_phase(mp_calls).items():
+        errs[name] = max(errs[name], err)
+        launches[name] += mp_launches[name]
+    del mp_calls
+    multipool_exact_phase(*mp_trace)
+    del mp_trace
+    multipool_agreement_phase()
     paged_rows, err = paged_coarse_phase()
     errs["coarse_pass"] = max(errs["coarse_pass"], err)
     print("coarse_pass paged " + json.dumps(paged_rows), flush=True)

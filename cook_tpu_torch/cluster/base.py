@@ -1,8 +1,10 @@
 """The ComputeCluster boundary: the pluggable backend interface.
 
 Port of `cook_tpu/cluster/base.py` without its fault-injection points
-(a later slice) and without the async launch fan-out and elastic scaling
-that only the pipelined match pass and the capacity plane use.
+(a later slice) and the elastic scaling the capacity plane uses.  The
+async launch fan-out of the pipelined match pass is here: one launch
+worker per cluster (`launch_tasks_async`, bounded by
+`launch_queue_bound`) and `wait_all_launches`.
 
 Mirrors the reference's `ComputeCluster` protocol
 (Cook's compute_cluster.clj:27-112): offers in,
@@ -18,7 +20,7 @@ import enum
 import logging
 import threading
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from cook_tpu_torch.faults.breaker import BreakerParams, CircuitBreaker
 
@@ -168,6 +170,19 @@ class KillLock:
         return self._Write(self)
 
 
+def wait_all_launches(clusters, timeout: Optional[float] = None) -> list:
+    """Block until every cluster's in-flight async launch batches have
+    completed; returns the clusters still busy at the timeout.  THE one
+    drain idiom — Scheduler.drain_launches and the pipelined pass's
+    end-of-cycle drain both go through here."""
+    stuck = []
+    for cluster in clusters:
+        wait = getattr(cluster, "wait_launches", None)
+        if wait is not None and not wait(timeout=timeout):
+            stuck.append(cluster)
+    return stuck
+
+
 def safe_pool_offers(cluster, pool: str) -> Optional[list]:
     """One cluster's offers for one pool, fault-injectable: an offer RPC
     raising returns None (the cluster is skipped this scan) instead of
@@ -224,6 +239,18 @@ class ComputeCluster(abc.ABC):
         # The matcher caps each cycle's launches on this cluster at the
         # bucket's balance and spends through it.
         self.launch_rate_limiter = None
+        # async launch fan-out (scheduler/pipeline.py): one worker thread
+        # per cluster serializes this backend's launch RPCs off the match
+        # cycle's critical path; the semaphore bounds queued batches so a
+        # stalled backend applies backpressure instead of growing an
+        # unbounded queue.  Lazily created on first launch_tasks_async.
+        # The worker touches only the backend and, through its callbacks,
+        # the store: never the card
+        self.launch_queue_bound = 8
+        self._launch_executor = None
+        self._launch_pending: set = set()
+        self._launch_sema: Optional[threading.BoundedSemaphore] = None
+        self._launch_lock = threading.Lock()
         # circuit breaker over this backend's launch/kill RPC outcomes
         # (faults/breaker.py): open = accepts_work False, so a
         # failing backend stops receiving offers/launches until a
@@ -278,6 +305,81 @@ class ComputeCluster(abc.ABC):
             self.breaker.note_failure()
             return
         self.breaker.note_success()
+
+    # --- async launch fan-out (scheduler/pipeline.py) ---
+
+    def launch_tasks_async(self, pool: str, specs: Sequence[TaskSpec], *,
+                           done_cb: Optional[Callable] = None):
+        """Launch `specs` on this cluster's single worker thread and
+        return a Future.
+
+        The worker holds the kill-lock's READ side around the backend
+        call, so a concurrent kill (write side) still excludes mid-launch
+        exactly as the synchronous path does.  `done_cb(specs, exc)` runs
+        on the worker AFTER the kill-lock is released (exc is None on
+        success) — callers use it to flow launch failures back into the
+        store's state machine; an RPC error must never be swallowed by
+        the async boundary.  Backpressure: at most `launch_queue_bound`
+        batches may be queued; beyond that this call blocks."""
+        import concurrent.futures
+
+        with self._launch_lock:
+            if self._launch_executor is None:
+                self._launch_executor = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1,
+                    thread_name_prefix=f"launch-{self.name}")
+                self._launch_sema = threading.BoundedSemaphore(
+                    self.launch_queue_bound)
+        self._launch_sema.acquire()
+        specs = list(specs)
+
+        def work():
+            exc = None
+            try:
+                with self.kill_lock.read():
+                    self.run_launch(pool, specs)
+            except Exception as e:  # noqa: BLE001 — flows to done_cb
+                exc = e
+            finally:
+                self._launch_sema.release()
+            if done_cb is not None:
+                try:
+                    done_cb(specs, exc)
+                except Exception:  # noqa: BLE001 — observability only
+                    log.exception("launch done_cb failed (cluster %s)",
+                                  self.name)
+            elif exc is not None:
+                log.error("async launch_tasks failed (cluster %s, "
+                          "%d specs)", self.name, len(specs),
+                          exc_info=exc)
+
+        future = self._launch_executor.submit(work)
+        with self._launch_lock:
+            self._launch_pending.add(future)
+        future.add_done_callback(self._launch_done)
+        return future
+
+    def _launch_done(self, future) -> None:
+        with self._launch_lock:
+            self._launch_pending.discard(future)
+
+    def pending_launches(self) -> int:
+        """Launch batches dispatched but not yet completed."""
+        with self._launch_lock:
+            return len(self._launch_pending)
+
+    def wait_launches(self, timeout: Optional[float] = None) -> bool:
+        """Block until every in-flight async launch batch has completed
+        (tests, clean shutdown, and the pipelined cycle's default drain).
+        Returns False on timeout."""
+        import concurrent.futures
+
+        with self._launch_lock:
+            pending = list(self._launch_pending)
+        if not pending:
+            return True
+        _, not_done = concurrent.futures.wait(pending, timeout=timeout)
+        return not not_done
 
     # --- autoscaling ---
     def autoscaling(self, pool: str) -> bool:

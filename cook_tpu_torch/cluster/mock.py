@@ -64,13 +64,17 @@ class MockCluster(ComputeCluster):
         self.clock = clock
         self.default_runtime_ms = default_runtime_ms
         self.running: dict[str, _RunningTask] = {}
-        # keeps offer scans from iterating `running` mid-mutation.  Status
-        # callbacks are always emitted OUTSIDE it — the callback chain
+        # async launch workers (ComputeCluster.launch_tasks_async) mutate
+        # `running` off the scheduler thread; this lock keeps offer scans
+        # from iterating a dict mid-mutation.  Status callbacks are always
+        # emitted OUTSIDE it — the callback chain
         # re-enters the store (and from there possibly this cluster's kill
         # path), and holding the lock across it would invert lock order
         # against kill_lock/store
         self._mutate_lock = threading.RLock()
-        # kills that raced a launch not yet applied: the launch must not
+        # kills that raced a launch batch still queued (or about to be
+        # queued — the kill can land between the match transaction and
+        # launch_tasks_async) on the async executor: the launch must not
         # resurrect them.  Recorded unconditionally; FIFO-ordered so the
         # capacity bound evicts the OLDEST (stalest) entry
         self._killed_before_launch: "OrderedDict[str, None]" = OrderedDict()
@@ -138,8 +142,8 @@ class MockCluster(ComputeCluster):
         for spec in specs:
             with self._mutate_lock:
                 if spec.task_id in self._killed_before_launch:
-                    # a kill raced this launch; the killer already drove
-                    # the store transition — launching now would resurrect
+                    # a kill raced this batch in the async launch queue;
+                    # the killer already drove the store transition — launching now would resurrect
                     # a terminal task
                     self._killed_before_launch.pop(spec.task_id, None)
                     continue

@@ -438,8 +438,22 @@ def h2d(array, family: Optional[str] = None, *, device):
     """`torch.as_tensor` onto `device` + ledger accounting — THE
     instrumented host->device put for tensor builds.  Logical bytes: the
     host array's nbytes, whatever device it lands on (a CPU run counts
-    what a card run would move)."""
+    what a card run would move).
+
+    On a CUDA side stream (a pipelined stage's, scheduler/pipeline.py)
+    the array is staged through pinned memory and copied with
+    `non_blocking=True`, queued on that stream: a pageable copy would
+    block the host until the copy is done, and on the default stream
+    wait for every kernel already queued, so the next pool's encode
+    would wait for this pool's solve.  (The caching host allocator keeps
+    the pinned block until the copy has run.)"""
     array = np.asarray(array)
-    out = torch.as_tensor(array, device=device)
+    device = torch.device(device)
+    if device.type == "cuda" and (torch.cuda.current_stream(device)
+                                  != torch.cuda.default_stream(device)):
+        out = torch.as_tensor(array).pin_memory().to(device,
+                                                     non_blocking=True)
+    else:
+        out = torch.as_tensor(array, device=device)
     note_h2d(int(array.nbytes), family=family)
     return out

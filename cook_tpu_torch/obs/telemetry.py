@@ -1,7 +1,6 @@
 """DeviceTelemetry: the facade the scheduler owns.
 
-A copy of `cook_tpu/obs/telemetry.py` without the pool-batched solve
-entry (the port has no pool-batched match yet) and the incident hook (no
+A copy of `cook_tpu/obs/telemetry.py` without the incident hook (no
 incident recorder yet).  The solve seconds it is given end in the device-
 to-host copy of the result (`ops/common.fetch_result`), never at an
 asynchronous launch, and the memory-gauge refresh reads host-side
@@ -85,14 +84,44 @@ class DeviceTelemetry:
         return compiled
 
     def record_match_solve(self, pool: str, shape, backend: str,
-                           seconds: float) -> bool:
+                           seconds: float,
+                           overlapped: bool = False) -> bool:
         """The per-pool match path's entry point: compile accounting +
-        per-pool latency baseline + device-memory gauge refresh.  (The
-        reference's `overlapped` flag serves its pipelined cycle, which
-        the port has not got yet.)"""
-        compiled = self.record_solve("match", shape, backend, seconds,
-                                     pool=pool)
-        self._observe_latency(pool, seconds, compiled)
+        per-pool latency baseline + device-memory gauge refresh.
+        `overlapped=True` (the pipelined cycle) keeps the wall out of
+        EVERY latency surface — regression baseline, solve histogram,
+        and the per-pool last-solve snapshot: the pipelined solve wall
+        (dispatch -> fetch) deliberately spans neighbor pools' host
+        work, so there is no honest device-latency scalar to export —
+        publishing the inflated one would fire phantom regressions the
+        moment the pipeline is enabled.  Compile accounting still runs
+        (it is shape-keyed, not time-keyed)."""
+        compiled = self.record_solve(
+            "match", shape, backend,
+            None if overlapped else seconds, pool=pool)
+        if not overlapped:
+            self._observe_latency(pool, seconds, compiled)
+        self._refresh_memory_gauges()
+        return compiled
+
+    def record_batched_match_solve(self, pools: list, shape, backend: str,
+                                   seconds: float) -> bool:
+        """The pool-batched path: ONE stacked solve served every pool, so
+        the observatory sees one solve (op `match_batched`), while each
+        participating pool's latency baseline observes the shared batch
+        wall time (no pool's cycle can finish sooner than the batch)."""
+        compiled = self.observatory.observe_solve("match_batched", shape,
+                                                  backend)
+        self._solve_hist.observe(seconds,
+                                 {"op": "match_batched", "backend": backend})
+        sig = shape if isinstance(shape, str) else shape_signature(shape)
+        for pool in pools:
+            with self._lock:
+                self._last_solve[pool] = {
+                    "op": "match_batched", "shape": sig, "backend": backend,
+                    "compiled": compiled, "seconds": seconds,
+                }
+            self._observe_latency(pool, seconds, compiled)
         self._refresh_memory_gauges()
         return compiled
 

@@ -49,17 +49,40 @@ def _nbytes(tree) -> int:
 
 
 class PendingResult:
-    """Handle to a dispatched device computation; `fetch()` is the one
-    completion observation (same semantics as `fetch_result`)."""
+    """Handle to a dispatched device computation (one tensor or a tuple
+    of them); `fetch()` is the one completion observation (same semantics
+    as `fetch_result`)."""
 
-    __slots__ = ("_tree",)
+    __slots__ = ("_tree", "_host", "_done")
 
     def __init__(self, tree):
         self._tree = tree
+        self._host = None
+        self._done = None
+
+    def copy_to_host_async(self, stream) -> None:
+        """Queue the device-to-host copy now, on CUDA `stream`, into pinned
+        host memory behind a recorded event (the pipelined pass: the copy
+        follows the solve on the stage's stream, and `fetch()` then waits
+        for the event alone).  A no-op for a result on the CPU."""
+        if not isinstance(self._tree, torch.Tensor) or \
+                self._tree.device.type != "cuda":
+            return
+        host = torch.empty(self._tree.shape, dtype=self._tree.dtype,
+                           pin_memory=True)
+        host.copy_(self._tree, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record(stream)
+        self._host = host
 
     def fetch(self):
         """Block until the device result is materialized host-side."""
-        return fetch_result(self._tree)
+        if self._done is None:
+            return fetch_result(self._tree)
+        self._done.synchronize()
+        out = self._host.numpy()
+        data_plane.note_d2h(int(out.nbytes))
+        return out
 
 
 def dispatch(fn, *args, **kwargs) -> PendingResult:

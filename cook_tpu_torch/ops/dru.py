@@ -4,6 +4,7 @@ Port of `cook_tpu/ops/dru.py` (`dru_rank`, :53-121): a lexicographic sort
 of all tasks by (user, order_key), per-user segmented cumulative dominant
 shares, then one global stable sort by (dru, order_key).  Inputs are
 fixed-size padded tensors with a `valid` mask, as in the reference.
+`dru_rank_pools` is the same rank over a leading pool axis (:123-129).
 """
 from __future__ import annotations
 
@@ -104,3 +105,16 @@ def dru_rank(
     rank = inverse_permutation(order)
     return DruResult(dru=dru, rank=rank.to(torch.int32),
                      order=order.to(torch.int32))
+
+
+def dru_rank_pools(tasks: DruTasks, mem_div: torch.Tensor,
+                   cpu_div: torch.Tensor, gpu_div: torch.Tensor) -> DruResult:
+    """`dru_rank` over a leading pool axis (the reference's `jax.vmap` of
+    it, `cook_tpu/ops/dru.py:126`): every field of `tasks` is [P, T] and
+    the divisors [P, U].  Each pool ranks alone — its sorts and segmented
+    sums never cross pools — so the batch is each pool's `dru_rank`,
+    stacked.  Returns a DruResult of [P, T] tensors."""
+    lanes = [dru_rank(DruTasks(*(t[p] for t in tasks)), mem_div[p],
+                      cpu_div[p], gpu_div[p])
+             for p in range(tasks.user.shape[0])]
+    return DruResult(*(torch.stack(field) for field in zip(*lanes)))

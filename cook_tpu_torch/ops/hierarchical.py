@@ -13,7 +13,8 @@ solves in three passes:
   2. **fine** — jobs scatter to their blocks (host side, schedule order,
      slot-cap overflow spills) and every block's [slots, nodes_per_block]
      problem solves as one batch with blocks as the leading axis: a
-     chunked solve per block (`xla`) or, per pass, the hand-written Hopper
+     pool-batched chunked solve, blocks as pools (`xla`,
+     `ops/match.chunked_match_pools`) or, per pass, the hand-written Hopper
      `best_node_batched` kernel plus batched conflict rounds (`pallas`,
      `_fine_fused`);
   3. **refine** — bounded extra coarse+fine rounds re-offer every leftover
@@ -59,6 +60,7 @@ from cook_tpu_torch.ops.match import (
     MatchResult,
     backend_flags,
     chunked_match,
+    chunked_match_pools,
     conflict_round_batched,
     vmap_safe_backend,
 )
@@ -292,20 +294,13 @@ def _fine_solve(problems: MatchProblem, params: HierParams) -> MatchResult:
     if params.fine_backend == "pallas":
         return _fine_fused(problems, rounds=params.rounds,
                            passes=max(params.passes, params.fine_passes))
-    # the reference's jax.vmap of chunked_match, as a loop over blocks
-    # (batching it is the *_pools work of ROADMAP Queue A item 1)
+    # the reference's jax.vmap of chunked_match: the block axis is the
+    # pool-batched matcher's leading axis
     backend = vmap_safe_backend(params.backend)
     chunk = _chunk_for(params.chunk, problems.demands.shape[1])
-    results = [
-        chunked_match(MatchProblem(*(None if t is None else t[i]
-                                     for t in problems)),
-                      chunk=chunk, rounds=params.rounds,
-                      passes=params.passes, kc=params.kc,
-                      **backend_flags(backend))
-        for i in range(problems.demands.shape[0])]
-    return MatchResult(
-        assignment=torch.stack([r.assignment for r in results]),
-        new_avail=torch.stack([r.new_avail for r in results]))
+    return chunked_match_pools(problems, chunk=chunk, rounds=params.rounds,
+                               passes=params.passes, kc=params.kc,
+                               **backend_flags(backend))
 
 
 def hierarchical_match(

@@ -9,6 +9,11 @@ Port of `cook_tpu/ops/match.py` (see its docstring for the scheme):
     The candidate pass is an exact top-kc (`xla`), a class-shared top-kc
     (`bucketed`), or the hand-written Hopper `best_node` kernel (`pallas`,
     the backend name kept from the reference's configs).
+  * `greedy_match_pools` / `chunked_match_pools`: the reference's
+    `jax.vmap`s of the two over a leading pool axis (`match.py:418-420`),
+    written with that axis in every tensor; the one-problem functions are
+    the batch of one, so the serial and the pool-batched solves run the
+    same code.
 
 The reference's `approx_max_k` / `top_k` pick becomes an exact top-kc that
 breaks ties by first index (a stable descending sort): `torch.topk` orders
@@ -85,34 +90,61 @@ def vmap_safe_backend(backend: str) -> str:
     return "xla" if backend == "pallas" else backend
 
 
-def greedy_match(problem: MatchProblem) -> MatchResult:
-    """Sequential-order greedy matcher (exact Fenzo-order semantics; J
-    steps of O(N) vector work each, with no host synchronisation: the
-    chosen node stays a one-element index tensor, since indexing with a
-    0-d tensor reads it on the host)."""
+def _as_pools(problem: MatchProblem) -> MatchProblem:
+    """One problem as a batch of one pool: a leading axis of 1 on every
+    field (views, no copy)."""
+    return MatchProblem(*(None if t is None else t[None] for t in problem))
+
+
+def _lane(result: MatchResult) -> MatchResult:
+    """The one pool of a batch-of-one result."""
+    return MatchResult(assignment=result.assignment[0],
+                       new_avail=result.new_avail[0])
+
+
+def greedy_match_pools(problem: MatchProblem) -> MatchResult:
+    """Pool-batched exact greedy (the reference's `jax.vmap(greedy_match)`):
+    every field carries a leading pool axis P (demands [P, J, R], avail
+    [P, N, R], ...).  Step i places job row i of every pool at once: the
+    scores are [P, N], the argmax runs per pool (first index on a tie),
+    and the chosen node's availability is read and written back through
+    the flat index p * N + node.  Nothing syncs the host: the chosen
+    nodes stay tensors.  Returns assignment [P, J] int32 and new_avail
+    [P, N, R]."""
     avail = problem.avail.clone()
+    p, n, r = avail.shape
+    rows = avail.view(p * n, r)   # shares avail's storage
     totals, node_valid = problem.totals, problem.node_valid
     denom = totals.clamp_min(1e-30)
-    j = problem.demands.shape[0]
-    assignment = torch.empty(j, dtype=torch.int32, device=avail.device)
+    base = torch.arange(p, device=avail.device) * n
+    j = problem.demands.shape[1]
+    assignment = torch.empty((p, j), dtype=torch.int32, device=avail.device)
     for i in range(j):
-        demand = problem.demands[i]
-        fits = (avail >= demand[None, :]).all(-1)
-        feasible = fits & node_valid & problem.job_valid[i]
+        demand = problem.demands[:, i]                        # [P, R]
+        fits = (avail >= demand[:, None, :]).all(-1)         # [P, N]
+        feasible = fits & node_valid & problem.job_valid[:, i, None]
         if problem.feasible is not None:
-            feasible = feasible & problem.feasible[i]
-        used = totals - avail[:, :2]
-        fit = binpack_fitness(used[:, 0], used[:, 1], demand[0], demand[1],
-                              denom[:, 0], denom[:, 1])
+            feasible = feasible & problem.feasible[:, i]
+        used = totals - avail[..., :2]
+        fit = binpack_fitness(used[..., 0], used[..., 1], demand[:, 0:1],
+                              demand[:, 1:2], denom[..., 0], denom[..., 1])
         if problem.node_bonus is not None:
             fit = fit + problem.node_bonus
         score = torch.where(feasible, fit, torch.full_like(fit, -BIG))
-        best = torch.argmax(score).reshape(1)
-        placed = score.index_select(0, best) > -BIG
-        take = torch.where(placed, demand, torch.zeros_like(demand))
-        avail.index_copy_(0, best, avail.index_select(0, best) - take)
-        assignment[i] = torch.where(placed, best, -1)[0]
+        best = torch.argmax(score, dim=1)                     # [P]
+        placed = score.gather(1, best[:, None])[:, 0] > -BIG
+        take = torch.where(placed[:, None], demand, torch.zeros_like(demand))
+        flat = base + best
+        rows.index_copy_(0, flat, rows.index_select(0, flat) - take)
+        assignment[:, i] = torch.where(placed, best, -1)
     return MatchResult(assignment=assignment, new_avail=avail)
+
+
+def greedy_match(problem: MatchProblem) -> MatchResult:
+    """Sequential-order greedy matcher (exact Fenzo-order semantics; J
+    steps of O(N) vector work each, with no host synchronisation): the
+    pool-batched greedy on a batch of one."""
+    return _lane(greedy_match_pools(_as_pools(problem)))
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -215,31 +247,32 @@ def conflict_round(avail, assignment, cand_val, cand_idx, d, n, *,
 
 
 def _top_kc(score: torch.Tensor, kc: int):
-    """Exact top-kc per row, ties to the first index (jax `top_k`'s
-    order)."""
-    s = torch.sort(score, dim=1, descending=True, stable=True)
-    return s.values[:, :kc], s.indices[:, :kc].to(torch.int32)
+    """Exact top-kc along the last axis, ties to the first index (jax
+    `top_k`'s order)."""
+    s = torch.sort(score, dim=-1, descending=True, stable=True)
+    return s.values[..., :kc], s.indices[..., :kc].to(torch.int32)
 
 
 def _bucket_ids(d: torch.Tensor, active: torch.Tensor, n_res: int):
-    """Demand classes: 8 log-mem levels x 4 log-cpu levels x gpu bit (x
-    disk bit when the resource column exists)."""
+    """Demand classes of d [P, K, R] (levels taken per pool over its
+    active rows): 8 log-mem levels x 4 log-cpu levels x gpu bit (x disk
+    bit when the resource column exists)."""
     def levels(x, n_levels):
-        lo = torch.where(active, x, torch.inf).min()
-        hi = torch.where(active, x, -torch.inf).max()
+        lo = torch.where(active, x, torch.inf).amin(-1, keepdim=True)
+        hi = torch.where(active, x, -torch.inf).amax(-1, keepdim=True)
         scale = torch.clamp_min(hi - lo, 1e-6)
         lv = torch.floor((x - lo) / scale * n_levels)
         return torch.clamp(lv, 0, n_levels - 1).to(torch.int32)
 
-    b = levels(torch.log(d[:, 0].clamp_min(1e-3)), 8) * 4
-    b = b + levels(torch.log(d[:, 1].clamp_min(1e-3)), 4)
-    b = b * 2 + (d[:, 2] > 0).to(torch.int32)
+    b = levels(torch.log(d[..., 0].clamp_min(1e-3)), 8) * 4
+    b = b + levels(torch.log(d[..., 1].clamp_min(1e-3)), 4)
+    b = b * 2 + (d[..., 2] > 0).to(torch.int32)
     if n_res > 3:
-        b = b * 2 + (d[:, 3] > 0).to(torch.int32)
+        b = b * 2 + (d[..., 3] > 0).to(torch.int32)
     return b
 
 
-def chunked_match(
+def chunked_match_pools(
     problem: MatchProblem,
     *,
     chunk: int = 1024,
@@ -250,16 +283,24 @@ def chunked_match(
     use_pallas: bool = False,
     bucketed: bool = False,
 ) -> MatchResult:
-    """Fast chunked greedy matcher (see `cook_tpu/ops/match.py`).
+    """Pool-batched fast chunked greedy matcher (the reference's
+    `jax.vmap(chunked_match)`; see `cook_tpu/ops/match.py`): every field
+    carries a leading pool axis P, and each chunk's candidate pass and
+    conflict rounds (`conflict_round_batched`) run over all P pools at
+    once, each pool's sorts, ranks and prefix sums along its own rows.
+    Returns assignment [P, J] int32 and new_avail [P, N, R].
 
     `use_approx` is kept for the reference's signature; the port's top-kc
-    is exact either way (the reference's `approx_max_k` equals `top_k` on
-    a CPU, which is what the parity tests compare).  `use_pallas` swaps
-    the candidate pass for the `best_node` kernel, which returns each
-    job's single best node (kc is effectively 1, so give it more
-    `passes`).  `bucketed` computes one candidate list per demand class
-    and needs passes >= 2 (the final pass is the exact per-job cleanup)."""
-    j, n = problem.demands.shape[0], problem.avail.shape[0]
+    is exact either way (the reference's `approx_max_k` orders ties among
+    equal scores differently on some inputs: ROADMAP Queue C port item 3).
+    `use_pallas` swaps the candidate pass for the `best_node` kernel, one
+    launch per pool, which returns each job's single best node (kc is
+    effectively 1, so give it more `passes`); the pool-batched scheduler
+    pass never asks for it (`vmap_safe_backend`).  `bucketed` computes one
+    candidate list per demand class and needs passes >= 2 (the final pass
+    is the exact per-job cleanup)."""
+    p, j = problem.demands.shape[:2]
+    n = problem.avail.shape[1]
     if j % chunk:
         raise ValueError(f"pad jobs ({j}) to a multiple of chunk ({chunk})")
     if use_pallas and bucketed:
@@ -279,27 +320,28 @@ def chunked_match(
 
     def score_topk(avail, demand_matrix, gate):
         """Shared candidate scoring: feasibility x fitness over the rows of
-        `demand_matrix` ([M, R], jobs or demand classes), gated by `gate`
-        ([M, N]-broadcastable), -> top-kc per row."""
-        fits = (avail[None, :, :] >= demand_matrix[:, None, :]).all(-1)
+        `demand_matrix` ([P, M, R], jobs or demand classes), gated by
+        `gate` ([P, M, N]-broadcastable), -> top-kc per row."""
+        fits = (avail[:, None, :, :] >= demand_matrix[:, :, None, :]).all(-1)
         feasible = fits & gate
-        used0 = totals[:, 0] - avail[:, 0]
-        used1 = totals[:, 1] - avail[:, 1]
-        fit = binpack_fitness(used0[None, :], used1[None, :],
-                              demand_matrix[:, 0:1], demand_matrix[:, 1:2],
-                              denom[None, :, 0], denom[None, :, 1])
+        used0 = totals[..., 0] - avail[..., 0]
+        used1 = totals[..., 1] - avail[..., 1]
+        fit = binpack_fitness(used0[:, None, :], used1[:, None, :],
+                              demand_matrix[..., 0:1],
+                              demand_matrix[..., 1:2],
+                              denom[:, None, :, 0], denom[:, None, :, 1])
         if problem.node_bonus is not None:
-            fit = fit + problem.node_bonus[None, :]
+            fit = fit + problem.node_bonus[:, None, :]
         return _top_kc(torch.where(feasible, fit, -BIG), kc)
 
     avail = problem.avail
     out = []
     for c0 in range(0, j, chunk):
-        d = problem.demands[c0:c0 + chunk]
-        ok = problem.job_valid[c0:c0 + chunk]
-        fr = (problem.feasible[c0:c0 + chunk]
+        d = problem.demands[:, c0:c0 + chunk]
+        ok = problem.job_valid[:, c0:c0 + chunk]
+        fr = (problem.feasible[:, c0:c0 + chunk]
               if problem.feasible is not None else None)
-        mask_arg = (fr & node_valid[None, :]
+        mask_arg = (fr & node_valid[:, None, :]
                     if use_pallas and fr is not None else None)
 
         def candidate_pass(avail, assignment, use_bucket):
@@ -308,36 +350,50 @@ def chunked_match(
             if use_bucket:
                 active = ok & unplaced
                 bid = _bucket_ids(d, active, n_res).long()
-                bdem = torch.zeros((n_buckets, n_res), dtype=d.dtype,
+                bdem = torch.zeros((p, n_buckets, n_res), dtype=d.dtype,
                                    device=d.device).scatter_reduce_(
-                    0, bid[:, None].expand(-1, n_res),
-                    torch.where(active[:, None], d, 0.0), "amax")
-                bval, bidx = score_topk(avail, bdem, node_valid[None, :])
-                return (torch.where(active[:, None], bval[bid], -BIG),
-                        bidx[bid])
+                    1, bid[..., None].expand(-1, -1, n_res),
+                    torch.where(active[..., None], d, 0.0), "amax")
+                bval, bidx = score_topk(avail, bdem, node_valid[:, None, :])
+                per_job = bid[..., None].expand(-1, -1, bval.shape[-1])
+                return (torch.where(active[..., None],
+                                    bval.gather(1, per_job), -BIG),
+                        bidx.gather(1, per_job))
             if use_pallas:
                 # placed/invalid jobs are excluded by an unsatisfiable
                 # demand
-                d_eff = torch.where((ok & unplaced)[:, None], d, 2 * BIG)
-                val, idx = best_node(d_eff, avail, totals, valid_arg,
-                                     mask_arg)
-                return val[:, None], idx.clamp_min(0)[:, None]
-            gate = node_valid[None, :] & (ok & unplaced)[:, None]
+                d_eff = torch.where((ok & unplaced)[..., None], d, 2 * BIG)
+                picks = [best_node(d_eff[q], avail[q], totals[q],
+                                   valid_arg[q],
+                                   None if mask_arg is None else mask_arg[q])
+                         for q in range(p)]
+                val = torch.stack([v for v, _ in picks])
+                idx = torch.stack([i for _, i in picks])
+                return val[..., None], idx.clamp_min(0)[..., None]
+            gate = node_valid[:, None, :] & (ok & unplaced)[..., None]
             if fr is not None:
                 gate = gate & fr
             return score_topk(avail, d, gate)
 
-        assignment = torch.full((d.shape[0],), -1, dtype=torch.int32,
+        assignment = torch.full((p, d.shape[1]), -1, dtype=torch.int32,
                                 device=d.device)
         recheck = fr if bucketed else None
-        for p in range(passes):
+        for pas in range(passes):
             # bucketed mode: class-shared candidates for the early passes,
             # then ONE exact per-job pass for the stragglers
             cand_val, cand_idx = candidate_pass(
-                avail, assignment, use_bucket=bucketed and p < passes - 1)
+                avail, assignment, use_bucket=bucketed and pas < passes - 1)
             for _ in range(rounds):
-                avail, assignment = conflict_round(
+                avail, assignment = conflict_round_batched(
                     avail, assignment, cand_val, cand_idx, d, n,
                     recheck_mask=recheck)
         out.append(assignment)
-    return MatchResult(assignment=torch.cat(out), new_avail=avail)
+    return MatchResult(assignment=torch.cat(out, dim=1), new_avail=avail)
+
+
+def chunked_match(problem: MatchProblem, **knobs) -> MatchResult:
+    """Fast chunked greedy matcher on one problem (see
+    `cook_tpu/ops/match.py` and `chunked_match_pools`, whose knobs it
+    takes): the pool-batched matcher on a batch of one, so that the
+    serial and the pool-batched solves are one code path."""
+    return _lane(chunked_match_pools(_as_pools(problem), **knobs))

@@ -8,10 +8,15 @@ telemetry fields, with the reference's defaults) and a `Scheduler` with
 over `models/columnar.ColumnarJobIndex`, or `ranking.rank_pool` with
 `use_columnar_index=False`; sampling the fairness observatory and
 reporting the DRU solve's padded shape to the telemetry), `match_cycle`
-(without speculation or rate limiting; a flight-recorder cycle record per
-match, the encode cache and the telemetry passed to the matcher;
-honouring and releasing the rebalancer's host reservations and gang
-admission's `gang:<group>` ones), `rebalance_cycle` (the victim search on
+(without speculation; a flight-recorder cycle record per match, the
+encode cache and the telemetry passed to the matcher; honouring and
+releasing the rebalancer's host reservations and gang admission's
+`gang:<group>` ones; the per-user launch rate limit,
+`user_launch_rate_per_minute`, filtering the considerable window and
+spent through after the match), the multi-pool passes
+`match_cycle_all_pools` (pool-batched, matcher.match_pools_batched) and
+`match_cycle_pipelined` (scheduler/pipeline.py, async launches;
+`drain_launches`), `rebalance_cycle` (the victim search on
 the device, the preemption ledger and the cycle record's preemptions,
 `_transact_preemption`, host reservations for multi-victim decisions,
 then `_gang_admission_cycle`: topology-aware drain-vs-kill admission of
@@ -43,6 +48,7 @@ from cook_tpu_torch.cluster.base import (
     ComputeCluster,
     safe_pool_offers,
     scan_pool_offers,
+    wait_all_launches,
 )
 from cook_tpu_torch.device import resolve
 from cook_tpu_torch.models.columnar import ColumnarJobIndex
@@ -71,7 +77,12 @@ from cook_tpu_torch.scheduler.matcher import (
     MatchOutcome,
     PoolMatchState,
     match_pool,
+    match_pools_batched,
     topology_block_width,
+)
+from cook_tpu_torch.scheduler.pipeline import (
+    PipelineParams,
+    match_pools_pipelined,
 )
 from cook_tpu_torch.scheduler.ranking import (
     RankedQueue,
@@ -79,6 +90,7 @@ from cook_tpu_torch.scheduler.ranking import (
     rank_pool,
 )
 from cook_tpu_torch.scheduler.ranking_columnar import rank_pool_columnar
+from cook_tpu_torch.scheduler.ratelimit import TokenBucketRateLimiter
 from cook_tpu_torch.scheduler.rebalancer import (
     Decision,
     RebalancerParams,
@@ -108,6 +120,18 @@ class SchedulerConfig:
     # shadow-solve every Nth solvable match cycle per pool (0 keeps the
     # telemetry but never shadow-solves)
     quality_sample_every: int = 25
+    # per-user launch rate limit (quota.clj:118 + rate_limit.clj): a token
+    # bucket per (user, pool) refilled at this many launches a minute,
+    # holding `user_launch_burst` tokens (0 = the rate); 0 disables
+    user_launch_rate_per_minute: float = 0.0
+    user_launch_burst: float = 0.0
+    # pipelined multi-pool match pass (scheduler/pipeline.py): overlap
+    # host encode/launch with the device solve; depth = max in-flight
+    # solves (2 = double-buffered)
+    pipeline_depth: int = 2
+    # fan backend launches out on the per-cluster launch executors during
+    # the pipelined pass (kills still exclude via the kill-lock)
+    async_launch: bool = True
 
 
 class Scheduler:
@@ -126,6 +150,15 @@ class Scheduler:
         self.clusters = list(clusters)
         self.config = config or SchedulerConfig()
         self.device = resolve(device)
+        self.launch_rate_limiter = None
+        if self.config.user_launch_rate_per_minute > 0:
+            self.launch_rate_limiter = TokenBucketRateLimiter(
+                tokens_replenished_per_minute=(
+                    self.config.user_launch_rate_per_minute),
+                bucket_size=(self.config.user_launch_burst
+                             or self.config.user_launch_rate_per_minute),
+                clock=store.clock,
+            )
         self._task_seq = itertools.count()
         self.pool_queues: dict[str, RankedQueue] = {}
         self.pool_match_state: dict[str, PoolMatchState] = {}
@@ -371,6 +404,99 @@ class Scheduler:
                 telemetry=self.telemetry,
                 encode_cache=self.encode_cache,
             )
+        self._after_match(pool, outcome, flight)
+        return outcome
+
+    def match_cycle_all_pools(self) -> dict[str, MatchOutcome]:
+        """Pool-batched multi-pool match: every scheduling pool's flat
+        problem solved in one device call, a pool at or over the
+        hierarchical threshold through the two-level path alone
+        (matcher.match_pools_batched).  The reference's mesh argument has
+        no counterpart on one card."""
+        pools, flights = self._begin_multi_pool_cycle()
+        outcomes = match_pools_batched(
+            self.store, pools, self.pool_queues, self.clusters,
+            self.config.match, self.pool_match_state,
+            device=self.device,
+            make_task_id=self._make_task_id,
+            launch_filter=self._make_launch_filter(),
+            record_placement_failure=self._record_placement_failure,
+            host_reservations=self.host_reservations,
+            host_attrs=self.host_attr_cache,
+            flights=flights,
+            telemetry=self.telemetry,
+            encode_cache=self.encode_cache,
+        )
+        self._finish_multi_pool_cycle(pools, outcomes, flights)
+        return outcomes
+
+    def match_cycle_pipelined(self) -> dict[str, MatchOutcome]:
+        """Pipelined multi-pool match pass (scheduler/pipeline.py): pool
+        k's device solve overlaps pool k+1's host encode and pool k-1's
+        finalize/launch; transactions still commit in pool order and
+        launches fan out on the per-cluster executors.  (The reference
+        also commits speculative solves here; the port has no
+        speculation.)"""
+        pools, flights = self._begin_multi_pool_cycle()
+        outcomes = match_pools_pipelined(
+            self.store, pools, self.pool_queues, self.clusters,
+            self.config.match, self.pool_match_state,
+            device=self.device,
+            make_task_id=self._make_task_id,
+            launch_filter=self._make_launch_filter(),
+            record_placement_failure=self._record_placement_failure,
+            host_reservations=self.host_reservations,
+            host_attrs=self.host_attr_cache,
+            flights=flights,
+            telemetry=self.telemetry,
+            encode_cache=self.encode_cache,
+            recorder=self.recorder,
+            params=PipelineParams(depth=self.config.pipeline_depth,
+                                  async_launch=self.config.async_launch),
+        )
+        self._finish_multi_pool_cycle(pools, outcomes, flights)
+        return outcomes
+
+    def drain_launches(self, timeout: Optional[float] = None) -> bool:
+        """Wait for every cluster's in-flight async launch batches."""
+        return not wait_all_launches(self.clusters, timeout=timeout)
+
+    def _begin_multi_pool_cycle(self):
+        """Shared prologue of the batched and pipelined multi-pool
+        passes: flight builders, rank-if-missing, rank/quarantine
+        credit, per-pool match state.  (The reference's overload
+        admission clamp is not ported: ROADMAP Queue A item 4.)"""
+        pools = [p for p in self.store.pools.values() if p.schedules_jobs]
+        flights = {pool.name: self._begin_cycle(pool.name) for pool in pools}
+        for pool in pools:
+            if pool.name not in self.pool_queues:
+                self.rank_cycle(pool)
+            self._credit_rank_and_quarantine(
+                flights[pool.name], pool.name, self.pool_queues[pool.name])
+            self.pool_match_state.setdefault(
+                pool.name,
+                PoolMatchState(
+                    num_considerable=self.config.match.max_jobs_considered),
+            )
+        return pools, flights
+
+    def _finish_multi_pool_cycle(self, pools, outcomes, flights) -> None:
+        """Shared epilogue of the batched and pipelined multi-pool
+        passes: what `match_cycle` does after its match, pool by pool."""
+        for pool in pools:
+            self._after_match(pool, outcomes[pool.name], flights[pool.name])
+
+    def _after_match(self, pool: Pool, outcome: MatchOutcome,
+                     flight) -> None:
+        """A pool's match epilogue on every path: per-user rate-limiter
+        spend-through, host-reservation release, the queue's upkeep, the
+        spare cache, the record commit."""
+        # charge launches against the per-user rate limiter (without the
+        # spend-through the bucket refills to full burst every cycle and
+        # the configured sustained rate is never enforced)
+        if self.launch_rate_limiter is not None:
+            for job, _ in outcome.matched:
+                self.launch_rate_limiter.spend((job.user, job.pool))
         matched_uuids = {j.uuid for j, _ in outcome.matched}
         # launched jobs release their host reservations; a placed gang
         # releases its group-wide gang:<group> reservations
@@ -382,6 +508,7 @@ class Scheduler:
                 host: tag for host, tag in self.host_reservations.items()
                 if tag not in matched_tags
             }
+        queue = self.pool_queues[pool.name]
         queue.jobs = [j for j in queue.jobs if j.uuid not in matched_uuids]
         # cache spare resources for the rebalancer (view-incubating-offers,
         # scheduler.clj:1537): offers minus what this cycle just placed
@@ -389,7 +516,6 @@ class Scheduler:
         if flight.record is not None:
             flight.record.head_matched = outcome.head_matched
         self._commit_cycle(flight)
-        return outcome
 
     def _cache_spare(self, pool: Pool) -> None:
         spare: dict[str, Resources] = {}
@@ -635,7 +761,25 @@ class Scheduler:
         self.placement_failures[job.uuid] = reason
 
     def _make_launch_filter(self):
-        """Considerable-job filter for one cycle.  The reference combines
-        a per-user launch rate limit with the JobLaunchFilter plugins; both
-        arrive with later slices, so no job is filtered here (None)."""
-        return None
+        """Considerable-job filter for one cycle: the per-user launch
+        rate limit (pending-jobs->considerable-jobs, scheduler.clj:729),
+        or None when it is off.  The rate budget is snapshotted at cycle
+        start and debited as jobs are selected, so one cycle can't select
+        more launches than the bucket holds.  (The reference also runs the
+        JobLaunchFilter plugins here; the port has no plugins.)"""
+        if self.launch_rate_limiter is None:
+            return None
+        budget: dict = {}
+
+        def launch_filter(job: Job) -> bool:
+            key = (job.user, job.pool)
+            remaining = budget.get(key)
+            if remaining is None:
+                remaining = self.launch_rate_limiter.tokens_available(key)
+            if remaining < 1.0:
+                budget[key] = remaining
+                return False
+            budget[key] = remaining - 1.0
+            return True
+
+        return launch_filter

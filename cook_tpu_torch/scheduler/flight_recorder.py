@@ -22,8 +22,8 @@ static guess.
 
 A copy of `cook_tpu/scheduler/flight_recorder.py` (the same record schema
 and reason codes) without the writers of layers the port has not got:
-speculation, device-resident state and the asynchronous launch fan-out
-(their record fields stay, at their defaults).  A `device=True` phase is
+speculation and device-resident state (their record fields stay, at their
+defaults).  A `device=True` phase is
 timed by the caller's block, and the match path's solve block ends in the
 device-to-host copy of the assignment (`ops/common.fetch_result`), which
 waits for the card: a device phase never ends at an asynchronous launch.
@@ -545,6 +545,27 @@ class FlightRecorder:
                 "that ran concurrently (host/device overlap)").set(
                 record.overlap_fraction, {"pool": record.pool})
         return record
+
+    def note_async_launch_failure(self, record: Optional[CycleRecord],
+                                  job_uuid: str, code: str,
+                                  detail: str = "") -> None:
+        """Record an async launch-fan-out failure: appends the skip to
+        the cycle record AND updates the per-job index, both under the
+        recorder lock.  The callback runs on a cluster launch-worker
+        thread and may land before OR after the record committed, so it
+        must not touch the CycleBuilder directly (single-threaded by
+        construction) — this is the same locked mutate-committed-record
+        pattern annotate_preemptions uses, serialized against
+        records_json renders and commit."""
+        detail = detail or REASON_TEXT.get(code, "")
+        with self._lock:
+            cycle_id = 0
+            if record is not None:
+                cycle_id = record.cycle_id
+                record.skipped.append(
+                    {"job": job_uuid, "code": code, "detail": detail})
+            self._note_reason(job_uuid, cycle_id, code, detail,
+                              record=record)
 
     def _note_reason(self, job_uuid: str, cycle_id: int, code: str,
                      detail: str, *, record: Optional[CycleRecord] = None,

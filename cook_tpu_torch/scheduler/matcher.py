@@ -29,8 +29,16 @@ and gang accounting) and reports the solve to the device telemetry
 (`telemetry=`: compile accounting, latency baseline, sampled CPU shadow
 solves) through `record_solve_outcome`.
 
+Many pools in one cycle: `match_pools_batched` (the pool-batched pass:
+flat pools stacked by `stack_pool_problems` and solved in one call of
+`chunked_match_pools` or `greedy_match_pools`, pools at or over the
+threshold on the two-level path alone) and, in `scheduler/pipeline.py`,
+the pipelined pass, which finalizes with `async_launch` (each cluster's
+launches on its launch worker, failures through `launch_failure_cb`).
+
 Left for later slices: the device-residency, predictor, roofline-probe
-and exact-kernel quality-audit branches.  The reference's device-fallback
+and exact-kernel quality-audit branches, and the reference's mesh branch
+of the pool-batched pass.  The reference's device-fallback
 ladder (re-solving a failed device solve on the CPU) has no counterpart:
 here a solve error propagates, so a fault of the card or the kernel is
 never hidden.
@@ -68,7 +76,12 @@ from cook_tpu_torch.models.entities import (
 from cook_tpu_torch.models.store import JobStore, TransactionVetoed
 from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.obs.compile_observatory import shape_signature
-from cook_tpu_torch.ops.common import PendingResult, bucket_size, pad_to
+from cook_tpu_torch.ops.common import (
+    PendingResult,
+    bucket_size,
+    fetch_result,
+    pad_to,
+)
 from cook_tpu_torch.ops.gang import (
     np_block_free_hosts,
     np_gang_filter,
@@ -78,7 +91,9 @@ from cook_tpu_torch.ops.match import (
     MatchProblem,
     backend_flags,
     chunked_match,
+    chunked_match_pools,
     greedy_match,
+    greedy_match_pools,
     vmap_safe_backend,
 )
 from cook_tpu_torch.scheduler.constraints import (
@@ -468,12 +483,17 @@ def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig,
 
 def record_solve_outcome(prepared: "PreparedPool", assignment: np.ndarray,
                          config: MatchConfig, pool_name: str,
-                         solve_s: float, flight, telemetry) -> None:
-    """The post-solve protocol (reference `record_solve_outcome`, its
-    telemetry, quality and flight parts): compile and latency telemetry,
-    quality sampling, and the cycle record's solve identity and
-    hierarchical accounting.  `solve_s` ends in the device-to-host copy of
-    the assignment."""
+                         solve_s: float, flight, telemetry, *,
+                         overlapped: bool = False) -> None:
+    """The post-solve protocol shared by the serial, pool-batched
+    (hierarchical lanes) and pipelined paths (reference
+    `record_solve_outcome`, its telemetry, quality and flight parts):
+    compile and latency telemetry, quality sampling, and the cycle
+    record's solve identity and hierarchical accounting.  `solve_s` ends
+    in the device-to-host copy of the assignment.  `overlapped=True` for
+    walls measured under overlap (the pipelined pass: they span neighbour
+    pools' host work and must not feed any latency surface — see
+    DeviceTelemetry.record_match_solve)."""
     shape = problem_shape(prepared.problem)
     backend = solve_backend(config)
     hier = prepared.hier_stats
@@ -483,7 +503,8 @@ def record_solve_outcome(prepared: "PreparedPool", assignment: np.ndarray,
     compiled = False
     if telemetry is not None:
         compiled = telemetry.record_match_solve(pool_name, shape, backend,
-                                                solve_s)
+                                                solve_s,
+                                                overlapped=overlapped)
         telemetry.quality.observe_cycle(prepared, assignment, pool_name)
     flight.note_solve(shape_signature(shape), backend, compiled)
     if hier is not None:
@@ -771,10 +792,18 @@ def finalize_pool_match(
     make_task_id: Callable[[Job], str],
     record_placement_failure: Optional[Callable[[Job, str], None]] = None,
     flight=NULL_CYCLE,
+    async_launch: bool = False,
+    launch_failure_cb: Optional[Callable] = None,
 ) -> MatchOutcome:
     """Apply a solved assignment: group validation, launch transactions,
     backend launches, autoscaling, head-of-queue backoff; every job's
-    outcome lands in the cycle record (`flight`) with its reason code."""
+    outcome lands in the cycle record (`flight`) with its reason code.
+
+    `async_launch` moves each cluster's backend launch onto that
+    cluster's bounded launch executor (ComputeCluster.launch_tasks_async)
+    so RPC latency leaves the cycle's critical path; failures flow
+    through `launch_failure_cb(specs, exc)` (default: the same
+    fail_launched_specs flow-back the synchronous path uses)."""
     outcome = prepared.outcome
     considerable = prepared.considerable
     pool = prepared.pool
@@ -1020,12 +1049,33 @@ def finalize_pool_match(
         _note_gang_metrics(pool.name, considered_n, placed_gangs,
                            block_reasons)
 
+    if launch_failure_cb is None:
+        # the synchronous default may write the builder (same thread); an
+        # async default must not — the callback runs on the cluster's
+        # launch-worker thread, and CycleBuilder is single-threaded by
+        # construction (the pipelined pass supplies a recorder-locked
+        # callback instead)
+        sync_note = (None if async_launch
+                     else lambda uuid, detail: flight.note_skip(
+                         uuid, flight_codes.LAUNCH_FAILED, detail))
+
+        def launch_failure_cb(specs, exc):
+            fail_launched_specs(store, specs, exc, note_reason=sync_note)
+
     for cname, specs in launches_per_cluster.items():
         cluster = cluster_by_name[cname]
         limiter = getattr(cluster, "launch_rate_limiter", None)
         if limiter is not None:
             # spend-through: charge the work that is about to happen
             limiter.spend(cname, float(len(specs)))
+        if async_launch:
+            # the worker holds the kill-lock read side itself; failures
+            # arrive on the worker thread via the callback
+            cluster.launch_tasks_async(
+                pool.name, specs,
+                done_cb=lambda sp, exc, _cb=launch_failure_cb:
+                    _cb(sp, exc) if exc is not None else None)
+            continue
         try:
             # read side of the kill-lock: kills can't interleave mid-launch
             with cluster.kill_lock.read():
@@ -1035,10 +1085,7 @@ def finalize_pool_match(
             log.exception("launch_tasks failed (cluster %s, pool %s, "
                           "%d specs); failing its specs and continuing",
                           cname, pool.name, len(specs))
-            fail_launched_specs(
-                store, specs, exc,
-                note_reason=lambda uuid, detail: flight.note_skip(
-                    uuid, flight_codes.LAUNCH_FAILED, detail))
+            launch_failure_cb(specs, exc)
 
     # autoscaling: surface unmatched demand to autoscaling clusters
     # (trigger-autoscaling!, scheduler.clj:1178,1509)
@@ -1259,6 +1306,191 @@ def match_pool(
                                     fine_solve=hier["fine_s"],
                                     refine=hier["refine_s"])
     return outcome
+
+
+def stack_pool_problems(problems: Sequence[MatchProblem]) -> MatchProblem:
+    """Every pool's problem padded to shared (J, N) buckets and stacked
+    on a leading pool axis: the [P, J, N] tensors are allocated once and
+    each pool is copied into its corner (padding then stacking would hold
+    two copies of the mask).  Padded lanes have job_valid and node_valid
+    False, zero demand and zero capacity, so the solves place nothing
+    there.  If any pool carries a topology node_bonus, every lane gets
+    one (zeros = no preference, decision-identical to absent)."""
+    first = problems[0]
+    p = len(problems)
+    max_j = max(q.demands.shape[0] for q in problems)
+    max_n = max(q.avail.shape[0] for q in problems)
+    n_res = first.demands.shape[-1]
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=first.demands.device)
+
+    out = MatchProblem(
+        demands=zeros(p, max_j, n_res),
+        job_valid=zeros(p, max_j, dtype=torch.bool),
+        avail=zeros(p, max_n, n_res),
+        totals=zeros(p, max_n, 2),
+        node_valid=zeros(p, max_n, dtype=torch.bool),
+        feasible=zeros(p, max_j, max_n, dtype=torch.bool),
+        node_bonus=(zeros(p, max_n)
+                    if any(q.node_bonus is not None for q in problems)
+                    else None))
+    for i, q in enumerate(problems):
+        j, n = q.demands.shape[0], q.avail.shape[0]
+        out.demands[i, :j] = q.demands
+        out.job_valid[i, :j] = q.job_valid
+        out.avail[i, :n] = q.avail
+        out.totals[i, :n] = q.totals
+        out.node_valid[i, :n] = q.node_valid
+        out.feasible[i, :j, :n] = q.feasible
+        if q.node_bonus is not None:
+            out.node_bonus[i, :n] = q.node_bonus
+    return out
+
+
+def match_pools_batched(
+    store: JobStore,
+    pools: Sequence[Pool],
+    queues: dict[str, RankedQueue],
+    clusters: Sequence[ComputeCluster],
+    config: MatchConfig,
+    states: dict[str, PoolMatchState],
+    *,
+    device: torch.device,
+    make_task_id: Callable[[Job], str],
+    launch_filter: Optional[Callable[[Job], bool]] = None,
+    record_placement_failure: Optional[Callable[[Job, str], None]] = None,
+    host_reservations: Optional[dict[str, str]] = None,
+    host_attrs: Optional[dict[str, dict]] = None,
+    flights: Optional[dict] = None,
+    telemetry=None,
+    encode_cache=None,
+) -> dict[str, MatchOutcome]:
+    """Solve EVERY pool's match problem in one batched device call (the
+    reference's `match_pools_batched`, BASELINE configuration 5: pools
+    as the leading batch axis of one solve, where Cook round-robins pools
+    on one thread, scheduler.clj:2508-2517).
+
+    Every pool is prepared under its own data-plane scope and cycle
+    record.  A pool at or over `hierarchical_threshold` solves alone
+    through the two-level path (`HierarchicalPending`), as the serial
+    path would; the flat pools are stacked (`stack_pool_problems`, its
+    wall credited to each flat pool's `tensor_build`) and solved by
+    `chunked_match_pools` (the backend through `vmap_safe_backend`: the
+    reference's `pallas` becomes `xla` here) or, at `chunk=0`,
+    `greedy_match_pools`; the shared solve runs with no data-plane scope
+    (its fetch lands in the ledger totals once, never per pool).  Each
+    pool then finalizes (transactions and launches) in pool order, as in
+    the per-pool path.  The reference's mesh branch and its CPU-fallback
+    tier are not ported: a solve error propagates.
+
+    `outcome.phase_wall_s` per pool: its own encode and launch (and, for a
+    two-level pool, its own solve and its split); the shared stack and
+    solve are credited once, to the first flat lane's outcome, so that a
+    sum over the pools counts them once."""
+    flights = flights or {}
+    for f in flights.values():
+        if f.record is not None:
+            f.record.batched = True
+
+    def pool_flight(pool_name: str):
+        return flights.get(pool_name, NULL_CYCLE)
+
+    prepared_list = []
+    walls: dict[str, dict[str, float]] = {}
+    for pool in pools:
+        flight = pool_flight(pool.name)
+        t0 = time.perf_counter()
+        # per-pool scope around the build: each pool's H2D attributes to
+        # its own record
+        with data_plane.activate(flight.dp), flight.phase("tensor_build"):
+            prepared_list.append(prepare_pool_problem(
+                store, pool, queues[pool.name], clusters, config,
+                states[pool.name], device=device,
+                launch_filter=launch_filter,
+                host_reservations=host_reservations, host_attrs=host_attrs,
+                flight=flight, encode_cache=encode_cache))
+        walls[pool.name] = {"encode": time.perf_counter() - t0}
+    solvable = [p for p in prepared_list if p.solvable]
+    # a pool at/over the hierarchical threshold must not ride the flat
+    # batched solve (the [J, N] wall the decomposition exists to avoid)
+    hier_pools = [p for p in solvable if hierarchical_enabled(config,
+                                                              p.problem)]
+    flat = [p for p in solvable if p not in hier_pools]
+    assignments: dict[str, np.ndarray] = {}
+    for p in hier_pools:
+        name = p.pool.name
+        flight = pool_flight(name)
+        t_solve = time.perf_counter()
+        with data_plane.activate(flight.dp), \
+                flight.phase("solve", device=True):
+            assignments[name] = HierarchicalPending(p, config,
+                                                    telemetry).fetch()
+        solve_s = time.perf_counter() - t_solve
+        record_solve_outcome(p, assignments[name], config, name, solve_s,
+                             flight, telemetry)
+        hier = p.hier_stats
+        walls[name].update(solve=solve_s, coarse_solve=hier["coarse_s"],
+                           fine_solve=hier["fine_s"],
+                           refine=hier["refine_s"])
+    if flat:
+        t_stack = time.perf_counter()
+        stacked = stack_pool_problems([p.problem for p in flat])
+        # the shared pad/stack is host work, not solve time: credit it as
+        # tensor_build so device_s stays an honest accelerator figure
+        stack_s = time.perf_counter() - t_stack
+        for p in flat:
+            pool_flight(p.pool.name).add_phase("tensor_build", stack_s)
+        t_solve = time.perf_counter()
+        if config.chunk:
+            result = chunked_match_pools(
+                stacked, chunk=config.chunk, rounds=config.chunk_rounds,
+                passes=config.chunk_passes, kc=config.chunk_kc,
+                **backend_flags(vmap_safe_backend(config.backend)))
+        else:
+            result = greedy_match_pools(stacked)
+        with data_plane.family(data_plane.FAM_SOLVE):
+            stacked_assignment = fetch_result(result.assignment)
+        # one shared device call solved every flat pool: each one's record
+        # carries the full solve wall (no pool's cycle can finish sooner
+        # than the batch).  The recorded shape is the padded batch, the
+        # device truth the compile observatory keys programs by
+        solve_s = time.perf_counter() - t_solve
+        batch_shape = tuple(stacked.feasible.shape)
+        backend = (vmap_safe_backend(config.backend) if config.chunk
+                   else "exact")
+        compiled = False
+        if telemetry is not None:
+            compiled = telemetry.record_batched_match_solve(
+                [p.pool.name for p in flat], batch_shape, backend, solve_s)
+        for i, p in enumerate(flat):
+            name = p.pool.name
+            flight = pool_flight(name)
+            flight.add_phase("solve", solve_s, device=True)
+            flight.note_solve(shape_signature(batch_shape), backend,
+                              compiled)
+            assignments[name] = stacked_assignment[i][: len(p.considerable)]
+            if telemetry is not None:
+                telemetry.quality.observe_cycle(p, assignments[name], name)
+        first = walls[flat[0].pool.name]
+        first.update(encode=first["encode"] + stack_s, solve=solve_s)
+
+    outcomes: dict[str, MatchOutcome] = {}
+    for prepared in prepared_list:
+        name = prepared.pool.name
+        flight = pool_flight(name)
+        t_launch = time.perf_counter()
+        with data_plane.activate(flight.dp), flight.phase("launch"):
+            outcome = finalize_pool_match(
+                store, prepared,
+                assignments.get(name, np.empty(0, dtype=np.int32)), config,
+                states[name], clusters, make_task_id=make_task_id,
+                record_placement_failure=record_placement_failure,
+                flight=flight)
+        outcome.phase_wall_s.update(walls[name],
+                                    launch=time.perf_counter() - t_launch)
+        outcomes[name] = outcome
+    return outcomes
 
 
 def _apply_backoff(config: MatchConfig, state: PoolMatchState,

@@ -67,6 +67,7 @@ def sim_config(args) -> SimConfig:
         cycle_ms=args.cycle_ms,
         rebalance_every=args.rebalance_every,
         max_cycles=args.max_cycles,
+        batched_match=args.batched,
         scheduler=SchedulerConfig(
             match=default_match_config(
                 max_jobs_considered=args.considerable,
@@ -181,6 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["xla", "pallas", "bucketed"],
                    help="candidate-pass backend; default = tuned config")
     r.add_argument("--considerable", type=int, default=1000)
+    r.add_argument("--batched", action="store_true",
+                   help="one device call for all pools")
     r.add_argument("--safe-dru-threshold", type=float, default=1.0)
     r.add_argument("--min-dru-diff", type=float, default=0.5)
     r.add_argument("--max-preemption", type=int, default=100)

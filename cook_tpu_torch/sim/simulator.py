@@ -3,7 +3,9 @@
 Port of `cook_tpu/sim/simulator.py`: drive the REAL scheduler against the
 in-memory mock backend with frozen, manually-advanced virtual time; each
 cycle is: flush completions -> submit due jobs -> rank -> match ->
-[rebalance, every `rebalance_every` cycles].  Inputs
+[rebalance, every `rebalance_every` cycles], pool by pool, or with
+`SimConfig.batched_match` every pool's rank, then ONE pool-batched match
+pass (`Scheduler.match_cycle_all_pools`), then the rebalances.  Inputs
 are a job trace + host list (the same JSON both packages read); output is
 a run trace (job, task, submit/start/end, host, status) whose CSV is
 byte-compatible with the reference's, so `sim.cli compare` works across
@@ -120,6 +122,7 @@ class SimConfig:
     max_cycles: int = 10_000
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     pools: tuple = (("default", "default"),)  # (name, dru_mode)
+    batched_match: bool = False      # one device call for all pools
     # cycles between in-run health evaluations (0 = end-of-run only)
     health_every: int = 4
 
@@ -381,22 +384,42 @@ class Simulator:
                 t_submit = time.perf_counter()
                 self.store.submit_jobs(batch, list(groups.values()))
                 phase_wall["submit"] += time.perf_counter() - t_submit
-            # 3. rank -> match (-> rebalance) per pool
+            # 3. rank -> match (-> rebalance) per pool, or every pool's
+            # rank, then one pool-batched match pass, then the rebalances
             t_cycle = time.perf_counter()
-            for pool in pools:
+            rebalance = (cfg.rebalance_every
+                         and cycle % cfg.rebalance_every == 0)
+            if cfg.batched_match and len(pools) > 1:
                 t0 = time.perf_counter()
-                self.scheduler.rank_cycle(pool)
+                for pool in pools:
+                    self.scheduler.rank_cycle(pool)
                 t1 = time.perf_counter()
-                outcome = self.scheduler.match_cycle(pool)
+                outcomes = self.scheduler.match_cycle_all_pools()
                 t2 = time.perf_counter()
                 phase_wall["rank"] += t1 - t0
                 phase_wall["match"] += t2 - t1
-                for name, wall in outcome.phase_wall_s.items():
-                    phase_wall[name] = phase_wall.get(name, 0.0) + wall
-                if cfg.rebalance_every and cycle % cfg.rebalance_every == 0:
-                    t3 = time.perf_counter()
-                    self.scheduler.rebalance_cycle(pool)
-                    phase_wall["rebalance"] += time.perf_counter() - t3
+                for outcome in outcomes.values():
+                    for name, wall in outcome.phase_wall_s.items():
+                        phase_wall[name] = phase_wall.get(name, 0.0) + wall
+                if rebalance:
+                    for pool in pools:
+                        self.scheduler.rebalance_cycle(pool)
+                    phase_wall["rebalance"] += time.perf_counter() - t2
+            else:
+                for pool in pools:
+                    t0 = time.perf_counter()
+                    self.scheduler.rank_cycle(pool)
+                    t1 = time.perf_counter()
+                    outcome = self.scheduler.match_cycle(pool)
+                    t2 = time.perf_counter()
+                    phase_wall["rank"] += t1 - t0
+                    phase_wall["match"] += t2 - t1
+                    for name, wall in outcome.phase_wall_s.items():
+                        phase_wall[name] = phase_wall.get(name, 0.0) + wall
+                    if rebalance:
+                        t3 = time.perf_counter()
+                        self.scheduler.rebalance_cycle(pool)
+                        phase_wall["rebalance"] += time.perf_counter() - t3
             cycle_wall.append(time.perf_counter() - t_cycle)
             # 3c. in-run health watch
             if (cfg.health_every and cycle % cfg.health_every == 0

@@ -6,9 +6,9 @@
   included (feasibility masks, `nodes_per_block` 0 and > 0, ragged last
   blocks);
 - the all-or-nothing property of tests/test_gang.py:109 on the port's
-  serial, batched (chunked) and hierarchical match paths, each beside the
-  reference on the same rig with the same placements.  The pipelined path
-  (`match_cycle_pipelined`) is not ported yet, so it has no case here;
+  serial, batched (chunked), pipelined (`match_cycle_pipelined`) and
+  hierarchical match paths, each beside the reference on the same rig
+  with the same placements;
 - the store's gang-submit invariants, drain-vs-kill admission and the
   scheduler's admission cycle (tests/test_gang.py:234-421);
 - a gang that can only place partly places nothing in either package (a
@@ -309,7 +309,7 @@ PKGS = (REF, PORT)
 # another order than the port's exact first-index top-kc (on 8 empty
 # hosts it lists host 1 first): both packages hold the property there,
 # on different hosts
-PATHS = ("serial", "batched", "batched-xla", "hierarchical")
+PATHS = ("serial", "batched", "batched-xla", "pipelined", "hierarchical")
 
 
 def _hosts(P, n, mem=1000.0, cpus=8.0):
@@ -394,7 +394,10 @@ def _property_run(P, path):
 
     def cycle():
         scheduler.rank_cycle(pool)
-        outcome = scheduler.match_cycle(pool)
+        if path == "pipelined":
+            outcome = scheduler.match_cycle_pipelined()["default"]
+        else:
+            outcome = scheduler.match_cycle(pool)
         placements.append(sorted((j.uuid, o.hostname)
                                  for j, o in outcome.matched))
 
@@ -420,8 +423,8 @@ def _property_run(P, path):
 
 @pytest.mark.parametrize("path", PATHS)
 def test_gang_never_partially_places_like_the_reference(path, monkeypatch):
-    """The acceptance property on the port's serial, batched and
-    hierarchical paths, with the reference's placements cycle by cycle
+    """The acceptance property on the port's serial, batched, pipelined
+    and hierarchical paths, with the reference's placements cycle by cycle
     (`_property_run` asserts the property itself).
 
     On the hierarchical path the reference's `hierarchical_match` raises

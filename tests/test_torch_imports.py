@@ -80,8 +80,20 @@ DEFAULT_CONFIG_MODULES = ("cook_tpu_torch.models.columnar",
                           "cook_tpu_torch.sim.cli")
 
 
+# the multi-pool slice's modules, new (the pipelined pass, the rate
+# limiter copy) and extended (the pool-batched ops, the async launch
+# fan-out, the batched telemetry)
+MULTIPOOL_MODULES = ("cook_tpu_torch.scheduler.pipeline",
+                     "cook_tpu_torch.scheduler.ratelimit",
+                     "cook_tpu_torch.ops.match",
+                     "cook_tpu_torch.ops.dru",
+                     "cook_tpu_torch.ops.common",
+                     "cook_tpu_torch.cluster.base",
+                     "cook_tpu_torch.cluster.mock")
+
+
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
-                         + DEFAULT_CONFIG_MODULES)
+                         + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"
@@ -141,6 +153,10 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
     # recorder and telemetry on, and no device memory stats to read
     assert cpu.columnar is not None and cpu.encode_cache is not None
     assert cpu.recorder is not None and cpu.telemetry is not None
+    # the multi-pool knobs at the reference's defaults: no launch rate
+    # limit, a double-buffered pipeline with async launches
+    assert cpu.launch_rate_limiter is None
+    assert (cpu.config.pipeline_depth, cpu.config.async_launch) == (2, True)
     assert cpu.telemetry.health()["checks"]["device_memory"] == {
         "observable": False}
     with pytest.raises(ValueError, match="unsupported device"):
