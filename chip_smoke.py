@@ -23,6 +23,13 @@ and prints no result line):
                   evicted before each run (cold) and without (warm), of the
                   plain version (cold, replayed from a CUDA graph so that
                   its host dispatch stays out), beside the bound.
+  3a. device update — the device-residency updaters
+                  (`ops/device_update.py`) on the card: padded scatters
+                  (repeated last (index, row) pairs, which `index_copy_`
+                  lands in any order) into bool, bfloat16 and float32
+                  buffers and their gathers, 20 times each, equal to the
+                  CPU's; a gather on one CUDA stream ordered before a
+                  scatter on another that waits for it.
   4. slice      — the flat path, through the simulator's CLI: a synthetic
                   trace of 100,000 jobs x 10,000 hosts replayed for 3
                   cycles with the chunked matcher on the `best_node`
@@ -46,6 +53,24 @@ and prints no result line):
                   and the one with the most live rows run 5 times; the
                   standalone `best_block` on the first scoring step of the
                   busiest coarse pass (the call the plain version makes).
+  7a. resident slice — device residency (scheduler/device_state.py):
+                  the flat slice through `sim.cli run --resident`, its run
+                  trace equal to the slice's; per cycle the device_state
+                  stats (rebuild, reason, delta rows, resident rows and
+                  bytes), H2D bytes by family and encode wall beside the
+                  classic slice's, and both submit walls.
+  7b. quantized slice — the flat slice with `quantized` (bfloat16 cost
+                  tensors) and residency: placements, the packing ratio
+                  against the float32 slice, the demoted pools.
+  7c. unchanged-pool rig — 16,384 jobs of 60 GB / 30 cpus on 10,000 hosts
+                  of 64 GB / 32 cpus, all submitted at t 0 and running past
+                  the run, 3 cycles, residency on: cycle 1 rebuilds
+                  `cold`, cycles 2-3 report no rebuild and 0 delta rows and
+                  move <= 0.1x cycle 1's node-encode + feasibility H2D.
+  7d. resident hier slice — the hierarchical slice with residency on: run
+                  trace equal to the classic hierarchical run's.
+                  Every `best_node`, `coarse_pass` and `best_node_batched`
+                  launch of 7a-7d is held against its plain version.
   8. agreement  — small traces replayed on the card and on the CPU, flat
                   and hierarchical, whose run traces must agree.
   9. gang slice — the same 100k x 10k trace with every tenth job a gang
@@ -104,6 +129,15 @@ and prints no result line):
  11d. multipool agreement — 4 pools x 300 jobs x 30 hosts (one in
                   DruMode.GPU), batched and pipelined, on the card and on
                   the CPU: identical run traces (and pipelined = serial).
+ 11e. resident multipool — the serial and pipelined routes of 11a again
+                  with residency on: both run traces equal the classic
+                  serial route's; every launch held against its plain
+                  version.
+ 11f. resident streams — the unchanged-pool rig as 8 pools with 64 late
+                  jobs a pool at 30 s and 60 s: every warm cycle a 64-row
+                  delta written in place on one pipelined stage's stream
+                  into buffers another stage read; resident serial,
+                  resident pipelined and classic serial run traces equal.
  12. coarse_pass paged — `coarse_pass` past its shared memory (B 1024 at
                   R 4 and R 8, B 512 at R 8, and both sides of the edge at
                   R 8): identical to the plain version, bit-identical over
@@ -128,7 +162,10 @@ and prints no result line):
                   reservations after every cycle equal): one on the flat
                   `pallas` matcher, whose `best_node` launches are counted
                   and each held against the plain version, and one whose
-                  decisions take two victims and reserve the host.
+                  decisions take two victims and reserve the host; each
+                  again with the rebalancer's resident row mirror
+                  (`RebalancerParams.resident`) on the card and on the
+                  CPU, equal to the replay without it.
  16. report     — a `{"kernels": [...]}` line, then the last line
                   `{"ok": true, "device": {...}}`.
 
@@ -154,6 +191,11 @@ submit step's wall.  Two phases follow the agreement phase (8):
                   CPU's, printed).
   8b. cache neutrality — on the card, the flat replay with the encode
                   cache on, off and on again: identical run traces.
+  8c. resident default-config agreement — the small trace at the default
+                  configuration with residency and `quantized` on, on the
+                  card and on the CPU: run traces and cycle records (the
+                  device_state stats among them) equal, and the run trace
+                  equal to the card's replay with `quantized` alone.
 After the launches phase (5), `encode cache on / off` replays the flat
 slice twice more, with the cache off and on: run traces identical to the
 slice's, the encode walls per cycle, and a host profile (cProfile) of the
@@ -848,7 +890,11 @@ def check_identical(name, label, args):
 
     mod = _module(name)
     outs = getattr(mod, name)(*args)
-    refs = getattr(mod, f"{name}_reference")(*args)
+    # the wrapper casts bfloat16 cost tensors to float32 at its boundary
+    # (MatchConfig.quantized); the plain version takes them so cast
+    refs = getattr(mod, f"{name}_reference")(*(
+        a.float() if isinstance(a, torch.Tensor)
+        and a.dtype == torch.bfloat16 else a for a in args))
     torch.cuda.synchronize()
     err = 0.0
     for got, want in zip(outs, refs):
@@ -1197,17 +1243,18 @@ def report_cycles(label, result, probe):
     return totals
 
 
-def _slice_summary(label, sim, hosts, result, wall, launches):
+def _slice_summary(label, sim, hosts, result, wall, launches,
+                   device="cuda"):
     from cook_tpu_torch.sim import cli
 
     summary = cli.run_summary(result, sim.trace_jobs, hosts)
-    matched = sum(1 for r in result.rows if r["start_ms"] is not None)
+    matched = n_placed(result.rows)
     summary.update(matched=matched, launches=launches,
                    replay_wall_s=round(wall, 2),
                    cycle_wall_ms=[round(s * 1e3, 1)
                                   for s in result.cycle_wall_s])
     print(f"{label} " + json.dumps(summary), flush=True)
-    if sim.scheduler.device.type != "cuda":
+    if sim.scheduler.device.type != device:
         raise AssertionError(f"the {label} solved on "
                              f"{sim.scheduler.device}")
     if matched <= 0:
@@ -1242,11 +1289,11 @@ def slice_phase(trace, workdir):
     # shows the solve's tensors were on the card
     _slice_summary("slice", sim, hosts, result, wall,
                    {"best_node": launches})
-    report_cycles("slice", result, probe[0])
+    totals = report_cycles("slice", result, probe[0])
     if launches <= 0 or len(calls) != launches:
         raise AssertionError(f"kept {len(calls)} best_node calls but the "
                              f"kernel counted {launches} launches")
-    return launches, calls
+    return launches, calls, _resident_view(result, totals)
 
 
 PROFILE_TOP = 10
@@ -1375,10 +1422,15 @@ def walls_phase(trace, workdir, device="cuda"):
         for label, rows in walls.items()}), flush=True)
 
 
-def hier_slice_phase(trace):
+def hier_slice_phase(trace, resident=False, quantized=False,
+                     label="hier slice", device="cuda", match_args=None):
     """The hierarchical path on the flat slice's trace: every solve goes
     coarse (one coarse_pass launch) -> scatter -> fine (best_node_batched)
-    -> refine.  Returns ({kernel: launches}, {kernel: kept calls})."""
+    -> refine; with `resident`, the problems come from the device-resident
+    mirror (SimConfig.resident), and with `quantized` the cost tensors are
+    bfloat16.  No host ends the run over its capacity (_slice_summary).
+    Returns ({kernel:
+    launches}, {kernel: kept calls}, the run's result, the simulator)."""
     from cook_tpu_torch.ops import best_block as bb
     from cook_tpu_torch.ops import best_node as bn
     from cook_tpu_torch.ops import best_node_batched as bnb
@@ -1388,12 +1440,13 @@ def hier_slice_phase(trace):
     from cook_tpu_torch.sim.simulator import SimConfig, Simulator, load_trace
     from cook_tpu_torch.utils.config import default_match_config
 
-    phase("hier slice")
+    phase(label)
     jobs, hosts = load_trace(trace)
-    match = default_match_config(**HIER_MATCH)
+    match = default_match_config(**(match_args or HIER_MATCH),
+                                 quantized=quantized)
     sim = Simulator(jobs, hosts, SimConfig(
-        cycle_ms=30_000, max_cycles=3,
-        scheduler=SchedulerConfig(match=match)), device="cuda")
+        cycle_ms=30_000, max_cycles=3, resident=resident,
+        scheduler=SchedulerConfig(match=match)), device=device)
     probe = CycleProbe(sim)
     calls = {"coarse_pass": [], "best_node_batched": []}
     solves = []
@@ -1419,18 +1472,18 @@ def hier_slice_phase(trace):
                         "coarse_pass": cp.launches}
         finally:
             hierarchical.hierarchical_match = solve
-    _slice_summary("hier slice", sim, hosts, result, wall, launches)
-    report_cycles("hier slice", result, probe)
+    _slice_summary(label, sim, hosts, result, wall, launches, device)
+    report_cycles(label, result, probe)
     last = {k: solves[-1][k] for k in (
         "blocks", "block_pad", "nodes_per_block", "jobs_per_block",
         "fine_shape", "coarse_shape", "spilled", "refine_rounds",
         "refine_placed", "placed", "backend", "coarse_backend", "coarse_s",
         "fine_s", "refine_s")}
-    print(f"hier slice: {len(solves)} hierarchical solves; the last "
+    print(f"{label}: {len(solves)} hierarchical solves; the last "
           + json.dumps(last), flush=True)
     walls = {k: sum(st[k] for st in solves)
              for k in ("coarse_s", "fine_s", "refine_s", "total_s")}
-    print("hier slice: solve walls summed over the solves (s) "
+    print(f"{label}: solve walls summed over the solves (s) "
           + json.dumps(walls), flush=True)
     if len(solves) != result.cycles:
         raise AssertionError(f"{len(solves)} hierarchical solves in "
@@ -1440,11 +1493,12 @@ def hier_slice_phase(trace):
         raise AssertionError(f"{launches['best_block']} best_block launches "
                              "on the hierarchical path")
     for name, kept in calls.items():
-        if launches[name] <= 0 or len(kept) != launches[name]:
+        if device == "cuda" and (launches[name] <= 0
+                                 or len(kept) != launches[name]):
             raise AssertionError(f"kept {len(kept)} {name} calls but the "
                                  f"kernel counted {launches[name]} "
                                  "launches")
-    return launches, calls
+    return launches, calls, result, sim
 
 
 DETERMINISM_RUNS = 5
@@ -1568,6 +1622,408 @@ def agreement_phase(workdir, n_jobs=3000, n_hosts=300):
               "placements)", flush=True)
 
 
+# ------------------------------------------------------- device residency
+
+# the unchanged-pool rig: jobs that fill a host each (60 GB / 30 cpus on 64
+# GB / 32 cpu hosts), all submitted at t 0 and running past the run, so
+# every cycle after the first sees the same pool and the same waiting rows
+RIG_JOBS = 16_384
+RIG_HOSTS = 10_000
+RIG_JOB = dict(mem=61_440.0, cpus=30.0, runtime_ms=10**9)
+RIG_HOST = dict(mem=65_536.0, cpus=32.0)
+RESIDENT_CYCLES = 3
+# the encode families the mirror keeps resident (obs/data_plane.py)
+ENCODE_FAMILIES = ("node-encode", "job-feasibility")
+
+
+def n_placed(rows) -> int:
+    """Jobs of a run's trace rows that started (at any time, t 0 too)."""
+    return sum(1 for r in rows if r["start_ms"] is not None)
+
+
+def _resident_view(result, totals):
+    """What the resident phases compare a classic replay with: its run
+    trace, placed jobs, per-cycle encode walls and H2D bytes by family,
+    and its submit and encode totals."""
+    return dict(
+        csv=result.to_csv(),
+        placed=[r["job_uuid"] for r in result.rows
+                if r["start_ms"] is not None],
+        encode=[r["phases"].get("tensor_build", 0.0)
+                for r in result.cycle_records],
+        h2d=[{f: v["h2d_bytes"] for f, v in r["data_plane"].items()
+              if v["h2d_bytes"]} for r in result.cycle_records],
+        submit_s=totals["submit_s"], encode_s=totals["encode_s"])
+
+
+def _encode_h2d(record) -> int:
+    """A cycle record's node-encode + job-feasibility H2D bytes."""
+    fams = record["data_plane"]
+    return sum(fams.get(f, {}).get("h2d_bytes", 0) for f in ENCODE_FAMILIES)
+
+
+def _device_states(result):
+    """Each cycle record's device_state, its wall rounded."""
+    out = []
+    for rec in result.cycle_records:
+        ds = dict(rec.get("device_state") or {})
+        if "update_s" in ds:
+            ds["update_s"] = round(ds["update_s"], 4)
+        out.append(ds)
+    return out
+
+
+def packing_weight(placed, jobs) -> float:
+    """The placed jobs' demand weight, each resource over the trace's mean
+    demand (the quality monitor's weighting): the packing ratio of two
+    runs of one trace is the ratio of their weights."""
+    by_uuid = {j.uuid: j for j in jobs}
+    mem = sum(j.mem for j in jobs) / len(jobs)
+    cpus = sum(j.cpus for j in jobs) / len(jobs)
+    return sum(by_uuid[u].mem / mem + by_uuid[u].cpus / cpus
+               for u in placed)
+
+
+def hold_launches(name, calls, label):
+    """Every kept launch of kernel `name` against its plain version, bit
+    for bit.  Returns the max error."""
+    err = 0.0
+    for i, args in enumerate(calls):
+        _, e = check_identical(name, f"{label} launch {i}", args)
+        err = max(err, e)
+    print(f"{label}: {len(calls)} {name} launches identical to the plain "
+          "version", flush=True)
+    return err
+
+
+def _kept_best_node(run):
+    """run() with every best_node call of the flat matcher kept and the
+    launch count reset just before and read just after: (run's value,
+    launches, calls)."""
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+
+    calls = []
+    with kept_calls(match, "best_node", calls):
+        bn.launches = 0
+        out = run()
+        launches = bn.launches
+    return out, launches, calls
+
+
+def _check_launches(label, launches, calls, device):
+    """On the card: the kernel launched, once per kept call (the count
+    proves the solve's tensors were on the card)."""
+    if device == "cuda" and (launches <= 0 or len(calls) != launches):
+        raise AssertionError(f"{label}: kept {len(calls)} best_node calls "
+                             f"but the kernel counted {launches} launches")
+
+
+def resident_slice_phase(trace, workdir, classic, device="cuda",
+                         slice_args=SLICE_ARGS):
+    """(a) The flat slice again with device residency on
+    (`sim.cli run --resident`, SimConfig.resident): its run trace must be
+    the classic replay's, the first cycle rebuilds `cold`; per cycle the
+    device_state stats, the H2D bytes by family and the encode wall beside
+    the classic run's, and the submit walls of both.  Returns (best_node
+    launches, kept calls)."""
+    from cook_tpu_torch.sim import cli
+
+    phase("resident slice")
+    args = cli.build_parser().parse_args(
+        ["run", "--trace", trace, "--out",
+         os.path.join(workdir, "resident.csv"), "--device", device,
+         *slice_args, "--resident"])
+    probe = []
+    (sim, hosts, result), launches, calls = _kept_best_node(
+        lambda: cli.replay(args, on_sim=lambda sim: probe.append(
+            CycleProbe(sim))))
+    if sim.scheduler.device_state is None or \
+            sim.scheduler.device.type != device:
+        raise AssertionError("resident slice: no resident state on the "
+                             f"{device}")
+    totals = report_cycles("resident slice", result, probe[0])
+    if result.to_csv() != classic["csv"]:
+        raise AssertionError("resident slice: the run trace differs from "
+                             "the classic slice's")
+    states = _device_states(result)
+    built = [ds for ds in states if ds]
+    if not built or built[0].get("reason") != "cold":
+        raise AssertionError(f"resident slice: first build {built[:1]}")
+    for i, (ds, rec) in enumerate(zip(states, result.cycle_records)):
+        print("resident slice cycle " + json.dumps(dict(
+            cycle=rec["cycle"], device_state=ds,
+            h2d_bytes={f: v["h2d_bytes"] for f, v in
+                       rec["data_plane"].items() if v["h2d_bytes"]},
+            classic_h2d_bytes=classic["h2d"][i],
+            encode_s=round(rec["phases"].get("tensor_build", 0.0), 4),
+            classic_encode_s=round(classic["encode"][i], 4))), flush=True)
+    print("resident slice: run trace = the classic slice's; " + json.dumps(
+        dict(placed=n_placed(result.rows),
+             launches=launches,
+             submit_s=round(totals["submit_s"], 4),
+             classic_submit_s=round(classic["submit_s"], 4),
+             encode_s=round(totals["encode_s"], 4),
+             classic_encode_s=round(classic["encode_s"], 4),
+             device_state=result.data_plane["device_state"])), flush=True)
+    _check_launches("resident slice", launches, calls, device)
+    return launches, calls
+
+
+def rig_trace(n_jobs=RIG_JOBS, n_hosts=RIG_HOSTS, pool="default",
+              late=0):
+    """The unchanged-pool rig's jobs and hosts (TraceJob / TraceHost of
+    the port), all jobs submitted at t 0; `late` more at each of 30 s
+    and 60 s."""
+    from cook_tpu_torch.sim.simulator import TraceHost, TraceJob
+
+    jobs = [TraceJob(uuid=f"{pool}-rig-{i:05d}", user=f"user{i % 50}",
+                     submit_time_ms=0, pool=pool, **RIG_JOB)
+            for i in range(n_jobs)]
+    jobs += [TraceJob(uuid=f"{pool}-late-{t}-{i:03d}", user=f"user{i % 50}",
+                      submit_time_ms=t, pool=pool, **RIG_JOB)
+             for t in (30_000, 60_000) for i in range(late)]
+    hosts = [TraceHost(node_id=f"{pool}-node-{i:05d}",
+                       hostname=f"{pool}-host-{i:05d}", pool=pool,
+                       **RIG_HOST) for i in range(n_hosts)]
+    return jobs, hosts
+
+
+def unchanged_pool_phase(device="cuda", n_jobs=RIG_JOBS, n_hosts=RIG_HOSTS,
+                         match_overrides=None):
+    """(b) The unchanged-pool rig at full width with residency on: 16,384
+    jobs that fill a host each, 10,000 hosts, all submitted at t 0 and
+    running past the run, 3 cycles on the slices' flat knobs.  Cycle 1
+    rebuilds `cold`; cycles 2-3 report `rebuild` false and `delta_rows`
+    0, and move <= 0.1x cycle 1's node-encode + feasibility H2D bytes.
+    The rig again without residency: the same run trace, and its encode
+    walls and bytes beside.  Returns (best_node launches, kept calls)."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("unchanged-pool rig")
+    jobs, hosts = rig_trace(n_jobs, n_hosts)
+    match = default_match_config(**{
+        "max_jobs_considered": n_jobs, "chunk": 1024, "backend": "pallas",
+        **(match_overrides or {})})
+
+    def rig(resident):
+        return Simulator(jobs, hosts, SimConfig(
+            cycle_ms=30_000, max_cycles=RESIDENT_CYCLES, resident=resident,
+            scheduler=SchedulerConfig(match=match)), device=device)
+
+    sim = rig(True)
+    t0 = time.perf_counter()
+    result, launches, calls = _kept_best_node(sim.run)
+    wall = time.perf_counter() - t0
+    check_capacity(sim)
+    classic = rig(False).run()
+    if classic.to_csv() != result.to_csv():
+        raise AssertionError("unchanged-pool rig: the resident run trace "
+                             "differs from the classic one")
+    states = _device_states(result)
+    encode = [_encode_h2d(r) for r in result.cycle_records]
+    for rec, ds, nbytes, crec in zip(result.cycle_records, states, encode,
+                                     classic.cycle_records):
+        print("unchanged-pool rig cycle " + json.dumps(dict(
+            cycle=rec["cycle"], considered=rec["considered"],
+            matched=len(rec["matched"]), device_state=ds,
+            encode_h2d_bytes=nbytes, classic_encode_h2d_bytes=_encode_h2d(
+                crec),
+            h2d_bytes={f: v["h2d_bytes"] for f, v in
+                       rec["data_plane"].items() if v["h2d_bytes"]},
+            encode_s=round(rec["phases"].get("tensor_build", 0.0), 4),
+            classic_encode_s=round(crec["phases"].get("tensor_build", 0.0),
+                                   4))), flush=True)
+    if len(states) != RESIDENT_CYCLES or states[0].get("reason") != "cold":
+        raise AssertionError(f"unchanged-pool rig: {states}")
+    for ds in states[1:]:
+        if ds.get("rebuild") is not False or ds.get("delta_rows") != 0:
+            raise AssertionError(f"unchanged-pool rig: warm cycle {ds}")
+    ratios = [round(e / encode[0], 6) for e in encode[1:]]
+    if any(r > 0.1 for r in ratios):
+        raise AssertionError(f"unchanged-pool rig: warm / cold encode H2D "
+                             f"{ratios} over 0.1")
+    print(f"unchanged-pool rig: {n_jobs} jobs x {n_hosts} hosts, run trace "
+          f"= the classic rig's; cycle 1 cold, cycles 2-3 warm with 0 delta "
+          f"rows; warm / cold "
+          f"node-encode + feasibility H2D {ratios}; "
+          f"{n_placed(result.rows)} placed, "
+          f"best_node launches {launches}, replay {wall:.1f} s", flush=True)
+    _check_launches("unchanged-pool rig", launches, calls, device)
+    return launches, calls
+
+
+def quantized_slice_phase(trace, classic, device="cuda",
+                          slice_args=SLICE_ARGS):
+    """(c) The flat slice with `quantized` (bfloat16 cost tensors) and
+    residency on: placements, the packing ratio against the float32 slice
+    (the classic run), the demoted pools and each cycle's device_state.
+    Returns (best_node launches, kept calls)."""
+    import dataclasses
+
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.sim.simulator import Simulator, load_trace
+
+    phase("quantized slice")
+    args = cli.build_parser().parse_args(
+        ["run", "--trace", trace, "--device", device, *slice_args,
+         "--resident"])
+    cfg = cli.sim_config(args)
+    cfg.scheduler = dataclasses.replace(
+        cfg.scheduler, match=dataclasses.replace(cfg.scheduler.match,
+                                                 quantized=True))
+    jobs, hosts = load_trace(trace)
+    sim = Simulator(jobs, hosts, cfg, device=device)
+    t0 = time.perf_counter()
+    result, launches, calls = _kept_best_node(sim.run)
+    wall = time.perf_counter() - t0
+    check_capacity(sim)
+    states = _device_states(result)
+    built = [ds for ds in states if ds]
+    if not built or built[0].get("quantized") is not True:
+        raise AssertionError(f"quantized slice: first build {built[:1]}")
+    placed = [r["job_uuid"] for r in result.rows
+              if r["start_ms"] is not None]
+    ratio = packing_weight(placed, jobs) / packing_weight(classic["placed"],
+                                                          jobs)
+    print("quantized slice " + json.dumps(dict(
+        placed=len(placed), f32_placed=len(classic["placed"]),
+        packing_ratio_vs_f32=round(ratio, 6),
+        trace_equals_f32=result.to_csv() == classic["csv"],
+        demoted_pools=sim.scheduler.device_state.demoted_pools(),
+        device_state=states, launches=launches,
+        replay_s=round(wall, 1))), flush=True)
+    _check_launches("quantized slice", launches, calls, device)
+    return launches, calls
+
+
+def resident_hier_phase(trace, classic_csv, classic_placed):
+    """(c) The hierarchical slice with residency on: its run trace must be
+    the classic hierarchical run's.  Returns ({kernel: launches},
+    {kernel: kept calls})."""
+    from cook_tpu_torch.sim.simulator import load_trace
+
+    launches, calls, result, _ = hier_slice_phase(
+        trace, resident=True, label="resident hier slice")
+    if result.to_csv() != classic_csv:
+        raise AssertionError("resident hier slice: the run trace differs "
+                             "from the classic hierarchical run's")
+    jobs, _ = load_trace(trace)
+    placed = [r["job_uuid"] for r in result.rows
+              if r["start_ms"] is not None]
+    print("resident hier slice: run trace = the classic hierarchical "
+          "run's; " + json.dumps(dict(
+              placed=len(placed),
+              packing_ratio_vs_classic=round(
+                  packing_weight(placed, jobs)
+                  / packing_weight(classic_placed, jobs), 6),
+              device_state=_device_states(result))), flush=True)
+    return launches, calls
+
+
+def bf16_launches(calls) -> int:
+    """Kept launches that took at least one bfloat16 tensor."""
+    import torch
+
+    return sum(1 for args in calls if any(
+        isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+        for a in args))
+
+
+def quantized_hier_phase(trace, classic_csv, classic_placed, device="cuda",
+                         match_args=None):
+    """(c) The hierarchical slice with residency and `quantized` on: its
+    placements, the packing ratio against the float32 hierarchical run
+    (the classic one), the demoted pools and each cycle's device_state;
+    no host over its capacity (hier_slice_phase); bfloat16 cost tensors
+    reach both kernels (the wrappers cast them at their boundary).
+    Returns ({kernel: launches}, {kernel: kept calls})."""
+    from cook_tpu_torch.sim.simulator import load_trace
+
+    label = "quantized hier slice"
+    launches, calls, result, sim = hier_slice_phase(
+        trace, resident=True, quantized=True, label=label, device=device,
+        match_args=match_args)
+    states = _device_states(result)
+    built = [ds for ds in states if ds]
+    if not built or built[0].get("quantized") is not True:
+        raise AssertionError(f"{label}: first build {built[:1]}")
+    bf16 = {name: bf16_launches(kept) for name, kept in calls.items()}
+    if not all(bf16.values()):
+        raise AssertionError(f"{label}: launches with bfloat16 arguments "
+                             f"{bf16}")
+    jobs, _ = load_trace(trace)
+    placed = [r["job_uuid"] for r in result.rows
+              if r["start_ms"] is not None]
+    print(f"{label} " + json.dumps(dict(
+        placed=len(placed), f32_placed=len(classic_placed),
+        packing_ratio_vs_f32=round(
+            packing_weight(placed, jobs)
+            / packing_weight(classic_placed, jobs), 6),
+        trace_equals_f32=result.to_csv() == classic_csv,
+        demoted_pools=sim.scheduler.device_state.demoted_pools(),
+        device_state=states, launches=launches,
+        bf16_launches=bf16)), flush=True)
+    return launches, calls
+
+
+def resident_default_agreement_phase(workdir, devices=("cuda", "cpu")):
+    """(d) The 3,000 x 300 default-config replay with residency and
+    `quantized` on, on the card and on the CPU: run traces and every
+    cycle record's decision fields (the device_state stats among them,
+    their wall aside) equal; and the run trace equal to the card's replay
+    with `quantized` alone (no residency)."""
+    import dataclasses
+
+    from cook_tpu_torch.sim.simulator import load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("resident default-config agreement")
+    jobs, hosts = load_trace(os.path.join(workdir, "small.json"))
+    quantized = default_match_config(**DEFAULT_AGREEMENT["flat"][0],
+                                     quantized=True)
+    resident = dataclasses.replace(quantized, device_residency=True)
+
+    def decisions(result):
+        out = []
+        for rec in result.cycle_records:
+            rec = record_decisions(rec)
+            rec["device_state"] = {k: v for k, v in
+                                   rec["device_state"].items()
+                                   if k != "update_s"}
+            out.append(rec)
+        return out
+
+    runs = {}
+    for device in devices:
+        sim, result = default_replay(jobs, hosts, resident, device)
+        runs[device] = (result, sim.scheduler.device_state.demoted_pools())
+    (card, card_demoted), (cpu, cpu_demoted) = (runs[d] for d in devices)
+    if card.to_csv() != cpu.to_csv() or decisions(card) != decisions(cpu):
+        raise AssertionError("resident default agreement: card and CPU "
+                             "differ (run trace or cycle records)")
+    if card_demoted != cpu_demoted:
+        raise AssertionError(f"resident default agreement: demoted pools "
+                             f"card {card_demoted} CPU {cpu_demoted}")
+    _, classic = default_replay(jobs, hosts, quantized, devices[0])
+    if classic.to_csv() != card.to_csv():
+        raise AssertionError("resident default agreement: the resident "
+                             "replay's run trace differs from the replay "
+                             "without residency")
+    print("resident default agreement: card = CPU (run trace, "
+          f"{len(card.cycle_records)} cycle records) = the replay without "
+          "residency; " + json.dumps(dict(
+              placed=n_placed(card.rows),
+              demoted_pools=card_demoted,
+              device_state=card.data_plane["device_state"],
+              reasons=[r["device_state"].get("reason")
+                       for r in card.cycle_records],
+              quantized=[r["device_state"].get("quantized")
+                         for r in card.cycle_records])), flush=True)
+
+
 # ------------------------------------------------ the default configuration
 
 # the default-config agreement replays: the small trace, 6 cycles, the
@@ -1669,7 +2125,7 @@ def default_agreement_phase(workdir, devices=("cuda", "cpu")):
               f"efficiency {card_q['last']}; final verdict "
               f"{card.health['status']} {card.health['reasons']}, in-run "
               f"reasons {[c['reasons'] for c in card.health_checks]}; "
-              f"placements {sum(1 for r in card.rows if r['start_ms'])}; "
+              f"placements {n_placed(card.rows)}; "
               f"replay walls card {card_s:.1f} s, CPU {cpu_s:.1f} s",
               flush=True)
 
@@ -1839,7 +2295,7 @@ def gang_slice_phase(trace, device="cuda"):
             finally:
                 hierarchical.hierarchical_match = solve
         counts = {k: v - before[k] for k, v in gang_counts().items()}
-        placed = sum(1 for r in result.rows if r["start_ms"] is not None)
+        placed = n_placed(result.rows)
         summary = dict(
             placements=placed, gangs_launched_per_cycle=[c[0] for c in checks],
             gang_counts=counts, launches=launches, replay_wall_s=round(wall, 2),
@@ -2252,19 +2708,21 @@ def kept_results(module, name, calls):
         setattr(module, name, original)
 
 
-def multipool_sim(jobs, hosts, pools, match, device, route, cycles):
+def multipool_sim(jobs, hosts, pools, match, device, route, cycles,
+                  resident=False):
     """A Simulator on the multi-pool trace driving `route`: the serial
     per-pool loop, the pool-batched pass (`SimConfig.batched_match`), or
     the pipelined pass on the same store, clusters and clock steps (the
     Simulator's batched loop, its pass swapped for
     `Scheduler.match_cycle_pipelined`: the reference's Simulator has no
-    pipelined knob, and bench.py:576-657 drives it so)."""
+    pipelined knob, and bench.py:576-657 drives it so); `resident` turns
+    device residency on (SimConfig.resident)."""
     from cook_tpu_torch.scheduler.core import SchedulerConfig
     from cook_tpu_torch.sim.simulator import SimConfig, Simulator
 
     sim = Simulator(jobs, hosts, SimConfig(
         cycle_ms=30_000, max_cycles=cycles, pools=pools,
-        batched_match=route != "serial",
+        batched_match=route != "serial", resident=resident,
         scheduler=SchedulerConfig(match=match)), device=device)
     if route == "pipelined":
         sim.scheduler.match_cycle_all_pools = \
@@ -2309,7 +2767,7 @@ def check_multipool_records(label, result, threshold, big="alpha"):
 
 
 def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
-                    match_overrides=None):
+                    match_overrides=None, serial_csv=None):
     """The multi-pool slice at full width (8 pools, 100k x 10k): routes
     serial, batched and pipelined, `cycles` cycles each at the default
     SchedulerConfig, counts reset just before each route and read just
@@ -2319,7 +2777,8 @@ def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
     reaches the threshold, the other pools flat; each batched stacked flat
     problem solved again lane by lane with `chunked_match` on `xla`,
     identical.  Returns ({kernel: launches over the routes}, {kernel:
-    kept calls}, (jobs, hosts, SimConfig pools) of the trace).  The tests
+    kept calls}, (jobs, hosts, SimConfig pools) of the trace), and appends
+    the serial route's run trace to `serial_csv` when given.  The tests
     run it on the CPU at small `pools`."""
     import torch
 
@@ -2366,7 +2825,7 @@ def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
                       "coarse_pass": cp.launches}
         for name in launches:
             launches[name] += counts[name]
-        placed = sum(1 for r in result.rows if r["start_ms"] is not None)
+        placed = n_placed(result.rows)
         hier_cycles = check_multipool_records(
             f"multipool {route}", result, overrides["hierarchical_threshold"])
         by_cycle = _records_by_cycle(result.cycle_records)
@@ -2417,6 +2876,8 @@ def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
                              "the serial one:\n" + "\n".join(diffs))
     print("multipool: pipelined run trace identical to the serial one",
           flush=True)
+    if serial_csv is not None:
+        serial_csv.append(results["serial"].to_csv())
     # the batched pass's flat lanes against the per-pool xla solve
     if not stacked or any(kw.get("use_pallas") for _, kw, _ in stacked):
         raise AssertionError(f"multipool: {len(stacked)} batched solves "
@@ -2443,6 +2904,184 @@ def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
                                      "launches")
     print("multipool launches " + json.dumps(launches), flush=True)
     return launches, calls, (jobs, hosts, sim_pools)
+
+
+def resident_multipool_phase(jobs, hosts, pools, serial_csv,
+                             device="cuda", cycles=MP_CYCLES,
+                             match_overrides=None):
+    """The multi-pool slice's serial and pipelined routes again with
+    device residency on: each pool's mirror is written in place on one
+    pipelined stage's CUDA stream and read on a later one's, so the
+    pipelined run trace must equal the resident serial one, and both the
+    classic serial one (`serial_csv`).  Counts reset just before each
+    route and read just after, every kernel call kept.  Returns ({kernel:
+    launches over the two routes}, {kernel: kept calls})."""
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+    from cook_tpu_torch.ops import hierarchical, match as match_ops
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("resident multipool")
+    cfg = default_match_config(**{**MP_MATCH, **(match_overrides or {})})
+    modules = {"match": match_ops, "hierarchical": hierarchical}
+    launches = {name: 0 for name in MP_KERNELS}
+    calls = {name: [] for name in MP_KERNELS}
+    csvs = {}
+    for route in ("serial", "pipelined"):
+        sim, _ = multipool_sim(jobs, hosts, pools, cfg, device, route,
+                               cycles, resident=True)
+        with contextlib.ExitStack() as stack:
+            for name, (mod, fn) in MP_KERNELS.items():
+                stack.enter_context(kept_calls(modules[mod], fn,
+                                               calls[name]))
+            bn.launches = bnb.launches = cp.launches = 0
+            t0 = time.perf_counter()
+            result = sim.run()
+            wall = time.perf_counter() - t0
+        counts = {"best_node": bn.launches,
+                  "best_node_batched": bnb.launches,
+                  "coarse_pass": cp.launches}
+        for name in launches:
+            launches[name] += counts[name]
+        if sim.scheduler.device_state is None:
+            raise AssertionError(f"resident multipool {route}: no "
+                                 "resident state")
+        csvs[route] = result.to_csv()
+        states = {}
+        for rec in result.cycle_records:
+            ds = rec.get("device_state") or {}
+            states.setdefault(rec["pool"], []).append(
+                (ds.get("reason"), ds.get("delta_rows")) if ds else None)
+        print(f"resident multipool {route} " + json.dumps(dict(
+            placements=n_placed(result.rows),
+            launches=counts, replay_wall_s=round(wall, 2),
+            phase_wall_s={k: round(v, 4)
+                          for k, v in result.phase_wall_s.items()},
+            device_state=result.data_plane["device_state"],
+            per_pool=states)), flush=True)
+        del sim
+    if not csvs["serial"] == csvs["pipelined"] == serial_csv:
+        raise AssertionError("resident multipool: the resident serial, "
+                             "resident pipelined and classic serial run "
+                             "traces differ")
+    if device == "cuda":
+        for name in MP_KERNELS:
+            if launches[name] <= 0 or len(calls[name]) != launches[name]:
+                raise AssertionError(f"resident multipool: kept "
+                                     f"{len(calls[name])} {name} calls, "
+                                     f"{launches[name]} launches")
+    print("resident multipool: pipelined = serial = the classic serial run "
+          "trace; launches " + json.dumps(launches), flush=True)
+    return launches, calls
+
+
+def resident_streams_phase(device="cuda", n_pools=8, jobs_per_pool=1900,
+                           hosts_per_pool=1250, late=64):
+    """Delta scatters across pipelined streams: the unchanged-pool rig as
+    8 pools (1,900 jobs x 1,250 hosts each, 10,000 hosts in all), with 64
+    more jobs a pool at 30 s and at 60 s, so every pool's cycles 2-3 are
+    warm delta updates (no rebuild, 64 new rows) written in place on one
+    stage's CUDA stream into buffers the previous cycle's stage read on
+    another.  Serial and pipelined routes with residency on, and serial
+    without: equal run traces.  Returns (best_node launches, kept
+    calls)."""
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("resident streams")
+    jobs, hosts = [], []
+    for p in range(n_pools):
+        j, h = rig_trace(jobs_per_pool, hosts_per_pool, pool=f"rig{p}",
+                         late=late)
+        jobs += j
+        hosts += h
+    pools = tuple((f"rig{p}", "default") for p in range(n_pools))
+    match = default_match_config(max_jobs_considered=16384, chunk=1024,
+                                 backend="pallas")
+    csvs, launches, calls = {}, 0, []
+    for route, resident in (("serial", False), ("serial", True),
+                            ("pipelined", True)):
+        sim, _ = multipool_sim(jobs, hosts, pools, match, device, route,
+                               RESIDENT_CYCLES, resident=resident)
+        result, n, kept = _kept_best_node(sim.run)
+        check_capacity(sim)
+        csvs[route, resident] = result.to_csv()
+        if not resident:
+            continue
+        launches += n
+        calls += kept
+        states = [r["device_state"] for r in result.cycle_records]
+        warm = [ds for ds in states if ds and not ds["rebuild"]]
+        if len(warm) != (RESIDENT_CYCLES - 1) * n_pools or any(
+                ds["delta_rows"] != late for ds in warm):
+            raise AssertionError(f"resident streams {route}: warm cycles "
+                                 f"{warm}")
+        print(f"resident streams {route}: " + json.dumps(dict(
+            placed=n_placed(result.rows),
+            launches=n, device_state=result.data_plane["device_state"])),
+            flush=True)
+    if len(set(csvs.values())) != 1:
+        raise AssertionError("resident streams: run traces differ between "
+                             "the resident serial, resident pipelined and "
+                             "classic serial routes")
+    print(f"resident streams: {n_pools} pools, every warm cycle a "
+          f"{late}-row delta on each route; pipelined = serial = the "
+          "classic serial run trace", flush=True)
+    _check_launches("resident streams", launches, calls, device)
+    return launches, calls
+
+
+def device_update_phase(device="cuda", reps=20):
+    """The in-place updaters on the card against the CPU: a padded delta
+    (5 rows, padded to the 8-row bucket by repeating the last pair, which
+    `index_copy_` may land in any order) into bool, bfloat16 and float32
+    buffers, and the gathers, `reps` times each, equal to the CPU's; and
+    a gather queued on one stream, then a scatter on a second stream that
+    waits for it, reads the buffer as it was before the scatter."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops import device_update as du
+
+    phase("device update")
+    rng = np.random.default_rng(0)
+    idx = np.array([3, 9, 1, 12, 7], dtype=np.int32)
+    cases = {
+        "feasibility": (torch.bool, rng.uniform(size=(5, 16384)) > 0.5),
+        "bf16 demands": (torch.bfloat16, rng.uniform(0, 9e3, (5, 4))),
+        "f32 demands": (torch.float32, rng.uniform(0, 9e3, (5, 4))),
+    }
+    perm = torch.tensor([12, 3, 16, 9, 0, 16, 7, 1], dtype=torch.int32)
+    for label, (dtype, rows) in cases.items():
+        host = torch.as_tensor(rows).to(dtype)
+        want = torch.zeros((17,) + host.shape[1:], dtype=dtype)
+        du.scatter_rows(want, idx, host)
+        want_g = du.gather_rows(want, perm)
+        for _ in range(reps):
+            buf = torch.zeros_like(want, device=device)
+            du.scatter_rows(buf, idx, host)
+            got_g = du.gather_rows(buf, perm.to(device))
+            if not (torch.equal(buf.cpu(), want)
+                    and torch.equal(got_g.cpu(), want_g)):
+                raise AssertionError(f"device update {label}: the card's "
+                                     "buffer differs from the CPU's")
+    if device == "cuda":
+        buf = torch.zeros((17, 16384), dtype=torch.bool, device=device)
+        first, second = torch.cuda.Stream(), torch.cuda.Stream()
+        first.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(first):
+            before = du.gather_rows(buf, perm.to(device))
+        second.wait_stream(first)
+        with torch.cuda.stream(second):
+            du.scatter_rows(buf, idx, np.ones((5, 16384), dtype=bool))
+        torch.cuda.current_stream().wait_stream(second)
+        if bool(before.any()) or not bool(buf[idx.tolist()].all()):
+            raise AssertionError("device update: the cross-stream order "
+                                 "did not hold")
+    print(f"device update: padded scatters and gathers on the {device} "
+          f"equal the CPU's over {reps} repeats (bool, bfloat16, float32)"
+          "; a gather on one stream ordered before a scatter on another",
+          flush=True)
 
 
 def multipool_exact_phase(jobs, hosts, pools, device="cuda", big="alpha"):
@@ -2787,7 +3426,7 @@ class RebalanceLog:
         self.cycles = []        # per rebalance cycle: decisions summary
         self.released = 0
         self.placed_on_reserved = 0
-        s = sim.scheduler
+        s = self.scheduler = sim.scheduler
         match, rebalance = s.match_cycle, s.rebalance_cycle
 
         def match_cycle(pool):
@@ -2983,15 +3622,20 @@ def whole_host_trace(trace_job, trace_host, hosts=64, host_mem=65_536.0,
                   for i in range(hosts)]
 
 
-def _rebalance_replay(jobs, hosts, match, device):
+def _rebalance_replay(jobs, hosts, match, device, resident=False):
     """(result, RebalanceLog) of a 6-cycle replay with a rebalance after
-    every match and the default share 1/500 of the fleet."""
+    every match and the default share 1/500 of the fleet; `resident`
+    serves the rebalancer's victim tensors from its resident row mirror
+    (RebalancerParams.resident)."""
     from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
     from cook_tpu_torch.sim.simulator import SimConfig, Simulator
 
     sim = Simulator(jobs, hosts, SimConfig(
         cycle_ms=30_000, max_cycles=REB_CYCLES, rebalance_every=1,
-        scheduler=SchedulerConfig(match=match)), device=device)
+        scheduler=SchedulerConfig(
+            match=match, rebalancer=RebalancerParams(resident=resident))),
+        device=device)
     set_default_share(sim, hosts)
     log = RebalanceLog(sim)
     return sim.run(), log
@@ -3002,7 +3646,10 @@ def rebalance_agreement_phase():
     fairness ledgers and reservations after every cycle equal.  The first
     on the flat `pallas` matcher, each of its `best_node` launches held
     against the plain version; the second with multi-victim decisions and
-    host reservations.  Returns the first replay's best_node launches."""
+    host reservations.  Each is replayed again with the rebalancer's
+    resident row mirror (RebalancerParams.resident) on the card and on the
+    CPU: equal to each other and to the replay without it.  Returns the
+    first replay's best_node launches."""
     from cook_tpu_torch.ops import best_node as bn
     from cook_tpu_torch.ops import match as match_mod
     from cook_tpu_torch.scheduler.matcher import MatchConfig
@@ -3054,7 +3701,22 @@ def rebalance_agreement_phase():
                 check_identical("best_node", f"rebalance replay launch {i}",
                                 args)
             launches = n
-        placed = sum(1 for r in card.rows if r["start_ms"] is not None)
+        for device in ("cuda", "cpu"):
+            res, res_log = _rebalance_replay(jobs, hosts, match, device,
+                                             resident=True)
+            if (res.to_csv() != card.to_csv()
+                    or ledger_view(res) != ledger_view(card)
+                    or res_log.reservations != card_log.reservations):
+                raise AssertionError(
+                    f"rebalance agreement {label}: the resident mirror's "
+                    f"replay on {device} differs from the replay without "
+                    "it")
+            mirror = res_log.scheduler._rebalance_mirrors["default"]
+            print(f"rebalance agreement {label}: resident mirror on "
+                  f"{device}: run trace, ledger and reservations = the "
+                  f"replay without it; last build "
+                  + json.dumps(mirror.last), flush=True)
+        placed = n_placed(card.rows)
         print(f"rebalance agreement {label}: card = CPU (run trace, "
               f"ledger, reservations after every cycle); victims per "
               f"cycle {victims}, reservations made {reserved}, released "
@@ -3080,20 +3742,26 @@ def main() -> int:
     card = device_phase()
     build_phase()
     errs = kernel_phase()
+    device_update_phase()
     rows = {}
     with tempfile.TemporaryDirectory(prefix="cook-smoke-") as workdir:
         trace = os.path.join(workdir, "trace.json")
         t0 = time.perf_counter()
         cli.main(["synth", *SYNTH_ARGS, "--out", trace])
         print(f"synth {time.perf_counter() - t0:.1f} s", flush=True)
-        flat_launches, calls = slice_phase(trace, workdir)
+        flat_launches, calls, classic = slice_phase(trace, workdir)
         launches = {"best_node": flat_launches}
         rows["best_node"], err, _ = launch_phase("best_node", calls,
                                                  _unplaced)
         errs["best_node"] = max(errs["best_node"], err)
         del calls
         walls_phase(trace, workdir)
-        hier_launches, hier_calls = hier_slice_phase(trace)
+        hier_launches, hier_calls, hier_result, _ = hier_slice_phase(
+            trace)
+        hier_csv = hier_result.to_csv()
+        hier_placed = [r["job_uuid"] for r in hier_result.rows
+                       if r["start_ms"] is not None]
+        del hier_result
         for name in ("best_block", "best_node_batched", "coarse_pass"):
             launches[name] = hier_launches[name]
         rows["best_node_batched"], err, _ = launch_phase(
@@ -3110,8 +3778,32 @@ def main() -> int:
         rows["best_block"], err = block_step_phase(busiest)
         errs["best_block"] = max(errs["best_block"], err)
         del busiest
+        # device residency: (a) the flat slice resident, (c) quantized
+        # and the hierarchical slice resident, (b) the unchanged-pool rig
+        for label, run in (
+                ("resident slice",
+                 lambda: resident_slice_phase(trace, workdir, classic)),
+                ("quantized slice",
+                 lambda: quantized_slice_phase(trace, classic)),
+                ("unchanged-pool rig", unchanged_pool_phase)):
+            n, res_calls = run()
+            launches["best_node"] += n
+            errs["best_node"] = max(errs["best_node"], hold_launches(
+                "best_node", res_calls, label))
+            del res_calls
+        for label, run in (
+                ("resident hier slice", resident_hier_phase),
+                ("quantized hier slice", quantized_hier_phase)):
+            res_launches, res_calls = run(trace, hier_csv, hier_placed)
+            for name, kept in res_calls.items():
+                launches[name] += res_launches[name]
+                errs[name] = max(errs[name], hold_launches(
+                    name, kept, label))
+            del res_calls
+        del classic
         agreement_phase(workdir)
         default_agreement_phase(workdir)
+        resident_default_agreement_phase(workdir)
         cache_neutrality_phase(workdir)
         gang_runs = gang_slice_phase(trace)
         gang_ops_phase(*gang_runs.pop("ops"))
@@ -3124,13 +3816,25 @@ def main() -> int:
         del gang_runs, gang_calls
         gang_agreement_phase(workdir)
     gang_admission_phase()
-    mp_launches, mp_calls, mp_trace = multipool_phase()
+    mp_serial = []
+    mp_launches, mp_calls, mp_trace = multipool_phase(serial_csv=mp_serial)
     for name, err in multipool_launches_phase(mp_calls).items():
         errs[name] = max(errs[name], err)
         launches[name] += mp_launches[name]
     del mp_calls
     multipool_exact_phase(*mp_trace)
-    del mp_trace
+    mp_launches, mp_calls = resident_multipool_phase(*mp_trace,
+                                                     mp_serial[0])
+    for name, kept in mp_calls.items():
+        launches[name] += mp_launches[name]
+        errs[name] = max(errs[name], hold_launches(
+            name, kept, "resident multipool"))
+    del mp_trace, mp_calls, mp_serial
+    n, res_calls = resident_streams_phase()
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], hold_launches(
+        "best_node", res_calls, "resident streams"))
+    del res_calls
     multipool_agreement_phase()
     paged_rows, err = paged_coarse_phase()
     errs["coarse_pass"] = max(errs["coarse_pass"], err)

@@ -436,9 +436,10 @@ def note_padding(op: str, shape, valid_cells: int,
 
 def h2d(array, family: Optional[str] = None, *, device):
     """`torch.as_tensor` onto `device` + ledger accounting — THE
-    instrumented host->device put for tensor builds.  Logical bytes: the
-    host array's nbytes, whatever device it lands on (a CPU run counts
-    what a card run would move).
+    instrumented host->device put for tensor builds.  `array` is a numpy
+    array or a CPU tensor (the quantized bfloat16 cost tensors, which
+    numpy cannot hold).  Logical bytes: the host array's nbytes, whatever
+    device it lands on (a CPU run counts what a card run would move).
 
     On a CUDA side stream (a pipelined stage's, scheduler/pipeline.py)
     the array is staged through pinned memory and copied with
@@ -447,13 +448,13 @@ def h2d(array, family: Optional[str] = None, *, device):
     wait for every kernel already queued, so the next pool's encode
     would wait for this pool's solve.  (The caching host allocator keeps
     the pinned block until the copy has run.)"""
-    array = np.asarray(array)
+    host = (array if isinstance(array, torch.Tensor)
+            else torch.as_tensor(np.asarray(array)))
     device = torch.device(device)
     if device.type == "cuda" and (torch.cuda.current_stream(device)
                                   != torch.cuda.default_stream(device)):
-        out = torch.as_tensor(array).pin_memory().to(device,
-                                                     non_blocking=True)
+        out = host.pin_memory().to(device, non_blocking=True)
     else:
-        out = torch.as_tensor(array, device=device)
-    note_h2d(int(array.nbytes), family=family)
+        out = host.to(device)
+    note_h2d(int(host.nbytes), family=family)
     return out

@@ -3,7 +3,9 @@
 A copy of `cook_tpu/obs/quality_monitor.py`: the shadow solve is the
 port's `ops/cpu_reference.np_greedy_match`, and its fetches of the
 problem tensors are detached from the cycle's data-plane scope and tagged
-`fallback`, as in the reference.
+`fallback`, as in the reference.  Sample listeners (`add_listener`) see
+every recorded sample: the quantization parity guard
+(scheduler/device_state.py) rides them.
 
 The reference's periodic exact-kernel audit (not ported) guards one
 cycle's parity; this monitor guards the TREND.  Every
@@ -31,6 +33,7 @@ from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.obs.baseline import RollingBaseline
 from cook_tpu_torch.ops import cpu_reference as ref
 from cook_tpu_torch.ops.common import fetch_result
+from cook_tpu_torch.utils.callbacks import notify_all
 from cook_tpu_torch.utils.metrics import global_registry
 
 
@@ -49,6 +52,11 @@ class QualityMonitor:
         self._baselines: dict[str, RollingBaseline] = {}
         self._last: dict[str, float] = {}
         self._in_drift: dict[str, bool] = {}
+        # sample listeners (fn(pool, ratio)): the quantization parity
+        # guard (scheduler/device_state.py) rides every shadow-solve
+        # sample this way — ONE wiring site covers the serial, batched
+        # and pipelined paths
+        self._listeners: list = []
         self._lock = threading.Lock()
         self._gauge = global_registry.gauge(
             "obs.quality.efficiency",
@@ -136,9 +144,20 @@ class QualityMonitor:
             return 1.0
         return dev_w / ref_w
 
+    def add_listener(self, fn) -> None:
+        """Register fn(pool, ratio), called on every recorded sample
+        (outside the monitor lock; must not call back into the
+        monitor)."""
+        with self._lock:
+            self._listeners.append(fn)
+
     def record_sample(self, pool: str, ratio: float) -> None:
         """Feed one efficiency sample (the shadow path calls this; tests
-        and offline replays can inject samples directly)."""
+        and offline replays can inject samples directly).  Listener
+        failures are logged, never propagated — a guard must not cost
+        the monitor its sample."""
+        notify_all(self._listeners, f"quality-sample pool={pool}",
+                   pool, ratio)
         with self._lock:
             baseline = self._baselines.get(pool)
             if baseline is None:

@@ -12,7 +12,12 @@ from __future__ import annotations
 
 import torch
 
-from cook_tpu_torch.ops.best_node import check_inputs, fits, score_argmax
+from cook_tpu_torch.ops.best_node import (
+    check_inputs,
+    fits,
+    kernel_floats,
+    score_argmax,
+)
 
 # kernel launches since the last reset (see ops/best_node.launches)
 launches = 0
@@ -71,8 +76,11 @@ def best_block(demands: torch.Tensor, block_avail: torch.Tensor,
 
     demands [K, R]; block_avail (summed free capacity) and block_max (max
     single-node free capacity) [B, R]; block_totals (summed capacity, the
-    fitness denominators) [B, 2] float32; block_valid [B] bool; all
-    contiguous and on one device (2 <= R <= 8)."""
+    fitness denominators) [B, 2] float32 (bfloat16 is cast to float32
+    here); block_valid [B] bool; all contiguous and on one device
+    (2 <= R <= 8)."""
+    demands, block_avail, block_max, block_totals = kernel_floats(
+        demands, block_avail, block_max, block_totals)
     _check(demands, block_avail, block_max, block_totals, block_valid)
     if demands.device.type == "cuda":
         return _launch(demands, block_avail, block_max, block_totals,

@@ -7,9 +7,14 @@ plain PyTorch version of the same function, which is also what the kernel
 is held against on the card.  Nothing falls back: a CUDA call that cannot
 launch raises.
 
-`fits`, `score_argmax` and `check_inputs` are shared with the other two
-kernels' modules (`ops/best_block.py`, `ops/best_node_batched.py`), as the
-kernels share `csrc/score_tile.cuh`.
+`fits`, `score_argmax`, `kernel_floats` and `check_inputs` are shared
+with the other kernels' modules (`ops/best_block.py`,
+`ops/best_node_batched.py`, `ops/coarse_pass.py`), as the kernels share
+`csrc/score_tile.cuh`.  Every wrapper takes bfloat16 cost tensors (the
+quantized match state, `MatchConfig.quantized`) and casts them to
+float32 at its boundary, as the reference casts its inputs before every
+Pallas call (`cook_tpu/ops/pallas_match.py:177-178`); the kernels
+themselves read float32.
 """
 from __future__ import annotations
 
@@ -55,6 +60,14 @@ def score_argmax(demands: torch.Tensor, avail: torch.Tensor,
     val = score.gather(-1, idx[..., None])[..., 0]
     found = val > -BIG
     return val, torch.where(found, idx, -1).to(torch.int32)
+
+
+def kernel_floats(*tensors):
+    """The cost tensors as the kernels read them: bfloat16 ones cast to
+    float32 (the reference's boundary cast), every other dtype as given
+    (`check_inputs` then refuses anything but float32)."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t
+                 for t in tensors)
 
 
 def check_inputs(kernel: str, floats, bools) -> None:
@@ -137,9 +150,11 @@ def best_node(demands: torch.Tensor, avail: torch.Tensor,
     """Per-job best feasible node: (best_score [K] f32, best_idx [K] int32);
     best_idx is -1 (and score -BIG) when no node is feasible.
 
-    demands [K, R], avail [N, R], totals [N, 2] float32; node_valid [N]
-    and the optional constraint mask feasible [K, N] bool; all contiguous
-    and on one device.  All R columns must fit (2 <= R <= 8)."""
+    demands [K, R], avail [N, R], totals [N, 2] float32 (bfloat16 is
+    cast to float32 here); node_valid [N] and the optional constraint
+    mask feasible [K, N] bool; all contiguous and on one device.  All R
+    columns must fit (2 <= R <= 8)."""
+    demands, avail, totals = kernel_floats(demands, avail, totals)
     _check(demands, avail, totals, node_valid, feasible)
     if demands.device.type == "cuda":
         return _launch(demands, avail, totals, node_valid, feasible)

@@ -14,7 +14,12 @@ from typing import Optional
 
 import torch
 
-from cook_tpu_torch.ops.best_node import check_inputs, fits, score_argmax
+from cook_tpu_torch.ops.best_node import (
+    check_inputs,
+    fits,
+    kernel_floats,
+    score_argmax,
+)
 
 # kernel launches since the last reset (see ops/best_node.launches)
 launches = 0
@@ -78,9 +83,11 @@ def best_node_batched(demands: torch.Tensor, avail: torch.Tensor,
     [B, S] f32, best_idx [B, S] int32, block-local); best_idx is -1 (and
     score -BIG) when no node of the block is feasible.
 
-    demands [B, S, R], avail [B, N, R], totals [B, N, 2] float32;
-    node_valid [B, N] and the optional constraint mask feasible [B, S, N]
-    bool; all contiguous and on one device (2 <= R <= 8, B <= 65535)."""
+    demands [B, S, R], avail [B, N, R], totals [B, N, 2] float32
+    (bfloat16 is cast to float32 here); node_valid [B, N] and the
+    optional constraint mask feasible [B, S, N] bool; all contiguous and
+    on one device (2 <= R <= 8, B <= 65535)."""
+    demands, avail, totals = kernel_floats(demands, avail, totals)
     _check(demands, avail, totals, node_valid, feasible)
     if demands.device.type == "cuda":
         return _launch(demands, avail, totals, node_valid, feasible)

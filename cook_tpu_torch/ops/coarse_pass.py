@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from cook_tpu_torch.ops.best_block import best_block_reference
-from cook_tpu_torch.ops.best_node import MAX_R, check_inputs
+from cook_tpu_torch.ops.best_node import MAX_R, check_inputs, kernel_floats
 from cook_tpu_torch.ops.common import BIG
 from cook_tpu_torch.ops.match import conflict_round
 
@@ -182,9 +182,12 @@ def coarse_pass(demands: torch.Tensor, active: torch.Tensor,
     bool; block_avail (the starting summed free capacity) and block_max
     (the per-resource max single node, fixed for the pass) [B, R],
     block_totals [B, 2] float32, block_valid [B] bool; all contiguous and
-    on one device.  `chunk` divides J; the availability carries across
-    passes and chunks.  On the card any B runs: past the shared memory
-    the kernel pages its block state to device memory (`paged`)."""
+    on one device (bfloat16 cost tensors are cast to float32 here).
+    `chunk` divides J; the availability carries across passes and chunks.
+    On the card any B runs: past the shared memory the kernel pages its
+    block state to device memory (`paged`)."""
+    demands, block_avail, block_max, block_totals = kernel_floats(
+        demands, block_avail, block_max, block_totals)
     _check(demands, active, block_avail, block_max, block_totals,
            block_valid, chunk, passes, rounds)
     if demands.device.type == "cuda":

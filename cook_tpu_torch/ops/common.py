@@ -27,14 +27,18 @@ def fetch_result(tree):
     timed solve ends in this call so a timing means the same thing
     everywhere.  Being THE completion observation also makes it THE D2H
     accounting site: the result's logical bytes land in the data-plane
-    ledger (obs/data_plane.py) under the ambient tensor family."""
-    out = _to_host(tree)
-    data_plane.note_d2h(_nbytes(out))
-    return out
+    ledger (obs/data_plane.py) under the ambient tensor family.  A
+    bfloat16 tensor (a quantized cost tensor) crosses as its 2 bytes an
+    element and comes back as float32 numpy, which holds its values
+    exactly (numpy has no bfloat16)."""
+    data_plane.note_d2h(_nbytes(tree))
+    return _to_host(tree)
 
 
 def _to_host(tree):
     if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:
+            tree = tree.float()
         return tree.cpu().numpy()
     items = [_to_host(t) for t in tree]
     # a NamedTuple takes its fields positionally, a list/tuple an iterable
@@ -43,9 +47,22 @@ def _to_host(tree):
 
 
 def _nbytes(tree) -> int:
-    if isinstance(tree, np.ndarray):
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
         return int(tree.nbytes)
     return sum(_nbytes(t) for t in tree)
+
+
+def host_cast(arr: np.ndarray, dtype: torch.dtype):
+    """float32 rows as the host array that crosses the bus in `dtype`: the
+    numpy array itself for float32, a CPU tensor for bfloat16 (the
+    quantized cost tensors; numpy has no bfloat16), so that the put
+    counts the dtype's bytes and the card receives the rounded values.
+    The rounding is round-to-nearest-even, as numpy's (ml_dtypes)
+    `astype(bfloat16)` in the reference."""
+    if dtype == torch.float32:
+        return np.ascontiguousarray(arr, dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)) \
+        .to(dtype)
 
 
 class PendingResult:

@@ -264,11 +264,15 @@ def _fine_fused(problems: MatchProblem, *, rounds: int,
     """Fused fine batch solve: per pass, ONE `best_node_batched` launch
     picks each unplaced job's best node in its block; the batched conflict
     rounds then accept against the block's availability (single-candidate
-    picks, as in the pallas coarse pass)."""
+    picks, as in the pallas coarse pass).  The availability the rounds
+    carry is float32 (a bfloat16 one is cast here, as the reference casts
+    it, `cook_tpu/ops/hierarchical.py:400-402`); bfloat16 demands and
+    totals are cast where they are read, at the kernel's boundary and in
+    the rounds."""
     b, s, _ = problems.demands.shape
     npb = problems.avail.shape[1]
-    demands = problems.demands
-    avail = problems.avail
+    demands, totals = problems.demands, problems.totals
+    avail = problems.avail.float()
     if problems.feasible is not None:
         # node validity rides in the mask, as the reference passes it
         feas_arg = problems.feasible & problems.node_valid[:, None, :]
@@ -281,8 +285,8 @@ def _fine_fused(problems: MatchProblem, *, rounds: int,
     for _ in range(passes):
         active = problems.job_valid & (assignment < 0)
         d_eff = torch.where(active[..., None], demands, 2 * BIG)
-        val, idx = best_node_batched(d_eff, avail, problems.totals,
-                                     valid_arg, feas_arg)
+        val, idx = best_node_batched(d_eff, avail, totals, valid_arg,
+                                     feas_arg)
         cand_val, cand_idx = val[..., None], idx.clamp_min(0)[..., None]
         for _ in range(rounds):
             avail, assignment = conflict_round_batched(

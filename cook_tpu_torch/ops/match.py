@@ -175,7 +175,16 @@ def conflict_round_batched(avail, assignment, cand_val, cand_idx, d, n, *,
     optional recheck_mask [B, S, N].  Every sort, rank and prefix sum runs
     along the slot axis of one row, so each problem gets exactly what the
     one-problem round gives it; the accepted demand scatters through the
-    flat index b * N + node."""
+    flat index b * N + node.
+
+    Bfloat16 cost tensors (MatchConfig.quantized) are read as float32 and
+    the round's sums run in float32: the prefix accept adds up to a
+    chunk's demands, far past bfloat16's 8 significant bits, and summed in
+    bfloat16 it admits several times a host's capacity.  The availability
+    the round returns is rounded back to the cost dtype, as the
+    reference's loop carries it."""
+    cost = avail.dtype
+    avail, d = avail.float(), d.float()
     bsz, k = assignment.shape
     n_res = avail.shape[-1]
     dev = avail.device
@@ -219,7 +228,7 @@ def conflict_round_batched(avail, assignment, cand_val, cand_idx, d, n, *,
     delta = torch.zeros_like(avail).view(-1, n_res).index_add_(
         0, flat.view(-1), torch.where(accept[..., None], d, 0.0)
         .view(-1, n_res)).view(avail.shape)
-    return avail - delta, assignment
+    return (avail - delta).to(cost), assignment
 
 
 def conflict_round(avail, assignment, cand_val, cand_idx, d, n, *,

@@ -24,6 +24,13 @@ waiting gangs, scheduler/gang.py), `handle_status_update` and `_on_event`
 (completions from the backend into the store's state machine,
 kill-on-complete fan-out, wasted-work accounting of kills the rebalancer
 did not make), `_make_task_id`, `_make_launch_filter` and `_cache_spare`.
+With `MatchConfig.device_residency` or `quantized` the scheduler owns a
+`device_state.DeviceResidentState` (subscribed to the encode cache, its
+parity guard registered with the quality monitor) and hands it to the
+rank cycle (resident DRU columns, under `device_residency`) and to every
+match path; with `RebalancerParams.resident` it owns one
+`device_state.ResidentRows` mirror per pool for the rebalancer's victim
+tensors (`_rebalance_mirror`).
 The runtime predictor, elastic capacity, incidents, the profile capturer,
 the overload admission controller and the job-lifecycle tracker are later
 slices: `Scheduler.predictor` is None, as in the reference with
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import logging
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -59,6 +67,10 @@ from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.obs.device_monitor import device_memory_stats
 from cook_tpu_torch.obs.fairness import FairnessObservatory
 from cook_tpu_torch.obs.telemetry import DeviceTelemetry
+from cook_tpu_torch.scheduler.device_state import (
+    DeviceResidentState,
+    ResidentRows,
+)
 from cook_tpu_torch.scheduler.encode_cache import EncodeCache
 from cook_tpu_torch.scheduler.flight_recorder import (
     EXCEEDS_POOL_CAPACITY,
@@ -97,6 +109,8 @@ from cook_tpu_torch.scheduler.rebalancer import (
     rebalance_pool,
 )
 from cook_tpu_torch.utils.metrics import global_registry
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -193,6 +207,17 @@ class Scheduler:
                          if self.config.use_columnar_index else None)
         self.encode_cache = (EncodeCache(store)
                              if self.config.use_encode_cache else None)
+        # device-resident match state (scheduler/device_state.py): per-pool
+        # encode tensors stay on the device across cycles with O(delta)
+        # in-place updates; also hosts the quantization parity guard, so
+        # it exists whenever either knob is on (the observatory reference
+        # is set after telemetry below)
+        self.device_state = None
+        if self.config.match.device_residency or self.config.match.quantized:
+            self.device_state = DeviceResidentState(
+                encode_cache=self.encode_cache, device=self.device)
+        # pool -> the rebalancer's resident row mirror (_rebalance_mirror)
+        self._rebalance_mirrors: dict[str, ResidentRows] = {}
         # per-cycle flight recorder: structured decision records
         self.recorder = (
             FlightRecorder(capacity=self.config.flight_recorder_capacity)
@@ -207,6 +232,23 @@ class Scheduler:
                 memory_stats_fn=functools.partial(device_memory_stats,
                                                   self.device),
             )
+        if self.device_state is not None and self.telemetry is not None:
+            # compile accounting for the update/gather programs, and the
+            # quantization parity guard riding every shadow-solve sample
+            # (one wiring site covers the serial, batched and pipelined
+            # paths)
+            self.device_state.observatory = self.telemetry.observatory
+            self.telemetry.quality.add_listener(
+                self.device_state.note_quality)
+        elif self.config.match.quantized:
+            # the parity guard rides the QualityMonitor's shadow-solve
+            # samples; without device telemetry no samples ever flow, so
+            # bf16 drift would go undetected AND undemoted — say so
+            log.warning(
+                "MatchConfig.quantized is on but device_telemetry is "
+                "off: the QualityMonitor parity guard cannot run, so "
+                "bf16 packing drift will never demote to f32 — enable "
+                "device_telemetry or disable quantized")
         # pool -> the last rank cycle's wall, credited to the next match
         # cycle's record
         self._last_rank_s: dict[str, float] = {}
@@ -302,16 +344,23 @@ class Scheduler:
         t_rank = time.perf_counter()
         limits_active, max_mem, max_cpus, max_gpus = \
             self._pool_capacity_probe(pool)
+        # DRU-column residency rides the match knob: with residency on,
+        # the rank cycle's task columns reuse their resident device
+        # copies when content is unchanged (device_state.resident_array)
+        dru_state = (self.device_state
+                     if self.config.match.device_residency else None)
         if self.columnar is not None:
             queue = rank_pool_columnar(
                 self.store, self.columnar, pool, device=self.device,
                 capacity_limits=((max_mem, max_cpus, max_gpus)
-                                 if limits_active else None))
+                                 if limits_active else None),
+                device_state=dru_state)
         else:
             filt = (offensive_job_filter(max_mem, max_cpus, max_gpus)
                     if limits_active else None)
             queue = rank_pool(self.store, pool, device=self.device,
-                              offensive_job_filter=filt)
+                              offensive_job_filter=filt,
+                              device_state=dru_state)
         for uuid in queue.quarantined:
             self.placement_failures[uuid] = (
                 "The job's resource demands exceed every host in the pool."
@@ -403,6 +452,7 @@ class Scheduler:
                 flight=flight,
                 telemetry=self.telemetry,
                 encode_cache=self.encode_cache,
+                device_state=self.device_state,
             )
         self._after_match(pool, outcome, flight)
         return outcome
@@ -426,6 +476,7 @@ class Scheduler:
             flights=flights,
             telemetry=self.telemetry,
             encode_cache=self.encode_cache,
+            device_state=self.device_state,
         )
         self._finish_multi_pool_cycle(pools, outcomes, flights)
         return outcomes
@@ -453,6 +504,7 @@ class Scheduler:
             recorder=self.recorder,
             params=PipelineParams(depth=self.config.pipeline_depth,
                                   async_launch=self.config.async_launch),
+            device_state=self.device_state,
         )
         self._finish_multi_pool_cycle(pools, outcomes, flights)
         return outcomes
@@ -563,6 +615,20 @@ class Scheduler:
             resident=bool(overrides.get("resident", base.resident)),
         )
 
+    def _rebalance_mirror(self, pool: Pool) -> ResidentRows:
+        """Per-pool ResidentRows mirror for the rebalancer's victim
+        tensors — owned HERE so it outlives every cycle (warm reuse is the
+        point; a cycle-scoped mirror would always rebuild cold)."""
+        mirror = self._rebalance_mirrors.get(pool.name)
+        if mirror is None:
+            mirror = ResidentRows(
+                f"rebalance:{pool.name}",
+                observatory=(self.telemetry.observatory
+                             if self.telemetry is not None else None),
+                family=data_plane.FAM_REBALANCE, device=self.device)
+            self._rebalance_mirrors[pool.name] = mirror
+        return mirror
+
     def rebalance_cycle(self, pool: Pool) -> list[Decision]:
         """One pool's preemption pass (rebalancer.clj:434-533): the
         victim search on the device, the preemption ledger, the kills, a
@@ -579,6 +645,8 @@ class Scheduler:
             host_info=self.last_host_info.get(pool.name),
             device=self.device,
             telemetry=self.telemetry,
+            resident=(self._rebalance_mirror(pool)
+                      if params.resident else None),
         )
         # fairness ledger: per-victim wasted-work seconds must be read
         # BEFORE _transact_preemption flips the instances terminal (the

@@ -39,18 +39,27 @@ that hold mostly dropped rows are compacted).  `feasibility` writes into a fresh
 array each call, padded to the solve's shape when asked, so the host
 reservations the matcher applies afterwards narrow this cycle's rows
 only, never the cached ones.
+
+Consumers that mirror this cache (the device-resident state,
+scheduler/device_state.py) `subscribe()` a callback and observe
+invalidations as they land — `("row-dropped", job_uuid=...)` when a
+job's rows drop, `("epoch-bumped", epoch=...)` on a conservative full
+invalidation — and read `feasibility`'s `served` report (a `RowServe`
+per cacheable job: how its row was obtained this cycle) instead of
+diffing fingerprints every cycle.
 """
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 
 from cook_tpu_torch.models.store import Event, JobStore
 from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.scheduler.constraints import EncodedNodes, encode_nodes
+from cook_tpu_torch.utils.callbacks import notify_all
 from cook_tpu_torch.utils.metrics import global_registry
 
 # events that can change which quota/share/config-derived constraints
@@ -218,13 +227,30 @@ def offers_fingerprint(cluster_offers: Sequence[tuple]) -> int:
     ))
 
 
+class RowServe(NamedTuple):
+    """How one cacheable job's feasibility row was served this cycle —
+    the per-row report consumers (the device mirror) key residency on.
+    `cached` is False when the row could not be written back (epoch
+    moved mid-compute, open balanced pre-row, mid-compute invalidation):
+    such rows must not be treated as stable by any downstream cache."""
+
+    epoch: int
+    fresh: bool      # recomputed this cycle (False = served from cache)
+    cached: bool     # the row is (still) in the cache at `epoch`
+
+
 class EncodeCache:
-    """Per-pool incremental encode state, invalidated by store events."""
+    """Per-pool incremental encode state, invalidated by store events.
+
+    Subscriber callbacks (`subscribe`) run OUTSIDE the cache lock (they
+    may take their own locks) on the event-delivering thread; they must
+    be cheap and must not call back into the cache."""
 
     def __init__(self, store: Optional[JobStore] = None):
         self._pools: dict[str, _PoolEntry] = {}
         self._epoch = 0
         self._lock = threading.Lock()
+        self._subscribers: list[Callable] = []
         self._rows_counter = global_registry.counter(
             "match.encode_cache.rows",
             "feasibility rows served from / recomputed into the host-"
@@ -236,6 +262,21 @@ class EncodeCache:
         if store is not None:
             store.add_watcher(self._on_event)
 
+    # ------------------------------------------------------ subscribers
+
+    def subscribe(self, callback: Callable) -> None:
+        """Register an invalidation observer: callback(kind, **info)
+        with kind "row-dropped" (job_uuid=...) or "epoch-bumped"
+        (epoch=...)."""
+        with self._lock:
+            self._subscribers.append(callback)
+
+    def _notify(self, kind: str, **info) -> None:
+        # a sick subscriber must never block store-event delivery (the
+        # mirror rebuilds from its own staleness checks; losing one
+        # notification costs a rebuild, not correctness)
+        notify_all(self._subscribers, f"encode-cache {kind}", kind, **info)
+
     # ------------------------------------------------------- invalidation
 
     def _on_event(self, event: Event) -> None:
@@ -243,6 +284,8 @@ class EncodeCache:
         if kind in _EPOCH_EVENTS:
             with self._lock:
                 self._epoch += 1
+                epoch = self._epoch
+            self._notify("epoch-bumped", epoch=epoch)
             return
         if kind == "instance/status":
             # failed-instance history feeds the novel-host constraint.
@@ -256,6 +299,7 @@ class EncodeCache:
     def _drop_job(self, job_uuid: Optional[str]) -> None:
         if not job_uuid:
             return
+        epoch_bumped = False
         with self._lock:
             for entry in self._pools.values():
                 entry.drop(job_uuid)
@@ -268,12 +312,19 @@ class EncodeCache:
                     # back to a conservative epoch bump rather than
                     # forgetting an invalidation
                     self._epoch += 1
+                    epoch_bumped = True
                     entry.dropped.clear()
+            epoch = self._epoch
+        self._notify("row-dropped", job_uuid=job_uuid)
+        if epoch_bumped:
+            self._notify("epoch-bumped", epoch=epoch)
 
     def clear(self) -> None:
         with self._lock:
             self._pools.clear()
             self._epoch += 1
+            epoch = self._epoch
+        self._notify("epoch-bumped", epoch=epoch)
 
     @property
     def epoch(self) -> int:
@@ -343,6 +394,7 @@ class EncodeCache:
         compute: Callable[[list, dict[int, np.ndarray]], np.ndarray],
         balanced_pre_rows: Optional[dict[int, np.ndarray]] = None,
         pad_shape: Optional[tuple[int, int]] = None,
+        served: Optional[dict[str, RowServe]] = None,
     ) -> np.ndarray:
         """Assemble the [J, N] mask from cached rows plus a delta
         computation.
@@ -356,7 +408,13 @@ class EncodeCache:
 
         With `pad_shape` (>= [J, N]) the mask comes back padded to it,
         the padding False: the solve's padded mask, built once (its
-        [:J, :N] view is the mask)."""
+        [:J, :N] view is the mask).
+
+        `served` (out-param) collects a RowServe per CACHEABLE job: how
+        its row was obtained this cycle.  The device mirror keys slot
+        persistence on it — a row the host cache itself refused to keep
+        (mid-compute invalidation, open pre-closure) must not persist on
+        device either."""
         j = len(jobs)
         uuids = [job.uuid for job in jobs]
         # cacheable_job, inlined: one generator step per job
@@ -389,6 +447,10 @@ class EncodeCache:
                 # write-back completes must not be overwritten by a row
                 # computed from pre-event store state
                 entry.computing += 1
+        if served is not None:
+            hit_serve = RowServe(epoch, fresh=False, cached=True)
+            for ji in hit_idx.tolist():
+                served[uuids[ji]] = hit_serve
         if subset_idx.size:
             subset = [jobs[i] for i in subset_idx.tolist()]
             sub_pre_rows: dict[int, np.ndarray] = {}
@@ -421,6 +483,14 @@ class EncodeCache:
                             entry.store([uuids[subset_idx[k]] for k in keep],
                                         submask, keep, epoch)
                             entry.evict(MAX_ROWS_PER_POOL)
+                    else:
+                        keep = []
+                if served is not None:
+                    kept = set(keep)
+                    for k, ji in enumerate(subset_idx.tolist()):
+                        if cacheable[ji]:
+                            served[uuids[ji]] = RowServe(
+                                epoch, fresh=True, cached=k in kept)
             finally:
                 with self._lock:
                     entry = self._pools.setdefault(pool, _PoolEntry())

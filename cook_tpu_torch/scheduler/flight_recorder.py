@@ -21,9 +21,8 @@ keeps a bounded per-job index of the LAST cycle decision so
 static guess.
 
 A copy of `cook_tpu/scheduler/flight_recorder.py` (the same record schema
-and reason codes) without the writers of layers the port has not got:
-speculation and device-resident state (their record fields stay, at their
-defaults).  A `device=True` phase is
+and reason codes) without the writers of the layer the port has not got,
+speculation (its record fields stay, at their defaults).  A `device=True` phase is
 timed by the caller's block, and the match path's solve block ends in the
 device-to-host copy of the assignment (`ops/common.fetch_result`), which
 waits for the card: a device phase never ends at an asynchronous launch.
@@ -360,6 +359,13 @@ class CycleBuilder:
         rec.hier_refine_placed = int(stats.get("refine_placed", 0))
         rec.block_stats = list(stats.get("block_stats", []))
 
+    def note_device_state(self, stats: dict) -> None:
+        """Record the cycle's device-resident state outcome
+        (scheduler/device_state.py build stats: resident bytes, delta
+        rows vs rebuild, update wall)."""
+        self.record.device_state = {
+            k: v for k, v in stats.items() if not k.startswith("_")}
+
     def note_gang(self, *, considered: int, placed: int, blocked: int,
                   reasons: Optional[dict] = None) -> None:
         """Record the cycle's gang outcome (matcher finalize chokepoint):
@@ -452,6 +458,9 @@ class NullCycle:
         pass
 
     def note_gang(self, *a, **kw) -> None:
+        pass
+
+    def note_device_state(self, *a) -> None:
         pass
 
 

@@ -36,9 +36,15 @@ threshold on the two-level path alone) and, in `scheduler/pipeline.py`,
 the pipelined pass, which finalizes with `async_launch` (each cluster's
 launches on its launch worker, failures through `launch_failure_cb`).
 
-Left for later slices: the device-residency, predictor, roofline-probe
-and exact-kernel quality-audit branches, and the reference's mesh branch
-of the pool-batched pass.  The reference's device-fallback
+Device-resident match state (`MatchConfig.device_residency`,
+scheduler/device_state.py): `prepare_pool_problem` serves the problem
+from the pool's resident mirror when an encode cache and a
+`device_state` are given and the cycle has no host reservations; with
+`quantized` the cost tensors are bfloat16 on either build path.
+
+Left for later slices: the predictor, roofline-probe and exact-kernel
+quality-audit branches, and the reference's mesh branch of the
+pool-batched pass.  The reference's device-fallback
 ladder (re-solving a failed device solve on the CPU) has no counterpart:
 here a solve error propagates, so a fault of the card or the kernel is
 never hidden.
@@ -80,6 +86,7 @@ from cook_tpu_torch.ops.common import (
     PendingResult,
     bucket_size,
     fetch_result,
+    host_cast,
     pad_to,
 )
 from cook_tpu_torch.ops.gang import (
@@ -157,6 +164,17 @@ class MatchConfig:
     # fine-solve backend: "xla" (a chunked solve per block) or "pallas"
     # (the best_node_batched kernel)
     hierarchical_fine_backend: str = "xla"
+    # device-resident match state (scheduler/device_state.py): per-pool
+    # demand/feasibility tensors stay on the device across cycles;
+    # unchanged rows move ZERO bytes, deltas apply as in-place scatters.
+    # Off by default, as in the reference
+    device_residency: bool = False
+    # quantized cost tensors: demands/avail/totals cross (and stay
+    # resident) as bfloat16 — half the bytes; feasibility is already
+    # bool.  Guarded by the QualityMonitor parity floor
+    # (device_state.QUANTIZATION_PARITY_FLOOR): a pool whose packing
+    # efficiency drifts under it demotes to f32
+    quantized: bool = False
     # gang scheduling (ops/gang.py + scheduler/gang.py): jobs submitted
     # with gang_size=k place all-or-nothing — k distinct hosts inside ONE
     # topology block on the hierarchical path, whole-pool all-or-nothing
@@ -300,11 +318,19 @@ def build_match_problem(
     chunk: int = 0,
     config: Optional[MatchConfig] = None,
     padded_feasible: Optional[np.ndarray] = None,
+    quantized: bool = False,
 ) -> MatchProblem:
     """The padded problem tensors on `device`: jobs to `padded_job_axis`,
     nodes to their power-of-two bucket, padding invalid.
     `padded_feasible`, when given, is the mask already padded to
-    `padded_shape` (the encode cache builds it so)."""
+    `padded_shape` (the encode cache builds it so).  `quantized` builds
+    the cost tensors (demands, avail, totals) as bfloat16, cast on the
+    host so the transfer moves 2 bytes an element
+    (`MatchConfig.quantized`; parity guarded by the QualityMonitor
+    demotion ladder)."""
+    from cook_tpu_torch.scheduler.device_state import quantized_dtype
+
+    dtype = quantized_dtype() if quantized else torch.float32
     j, n = len(jobs), nodes.n
     pad_j, pad_n = padded_shape(j, n, chunk)
     demands, avail, totals = encode_problem_arrays(jobs, nodes.offers,
@@ -324,10 +350,10 @@ def build_match_problem(
         return data_plane.h2d(arr, family=fam, device=device)
 
     return MatchProblem(
-        demands=put(pad_to(demands, pad_j)),
+        demands=put(host_cast(pad_to(demands, pad_j), dtype)),
         job_valid=put(pad_to(np.ones(j, dtype=bool), pad_j, fill=False)),
-        avail=put(pad_to(avail, pad_n)),
-        totals=put(pad_to(totals, pad_n)),
+        avail=put(host_cast(pad_to(avail, pad_n), dtype)),
+        totals=put(host_cast(pad_to(totals, pad_n), dtype)),
         node_valid=put(pad_to(np.ones(n, dtype=bool), pad_n, fill=False)),
         feasible=put(feas, data_plane.FAM_FEASIBILITY),
     )
@@ -659,6 +685,7 @@ def prepare_pool_problem(
     host_attrs: Optional[dict[str, dict]] = None,
     flight=NULL_CYCLE,
     encode_cache=None,
+    device_state=None,
 ) -> PreparedPool:
     """Gather offers + considerable jobs and encode the tensor problem.
     `host_reservations` (hostname -> reserving job uuid, set by the
@@ -670,7 +697,18 @@ def prepare_pool_problem(
     the reservation closure below narrows this cycle's rows only.  (The
     reference bypasses the cache while its estimated-completion constraint
     is active; the port has not got that constraint yet, so the cache is
-    always in use when given.)"""
+    always in use when given.)
+
+    With `device_state` (scheduler/device_state.py) AND
+    `config.device_residency`, the problem comes from the pool's resident
+    mirror: unchanged rows move zero bytes.  The mirror needs the cache's
+    per-row serve report, so it is bypassed without a cache, and on a
+    cycle with host reservations (they narrow rows for this cycle only).
+    Either build takes the mask the cache padded (for the mirror, with
+    one more row: the mirror's buffer layout), so no second padded copy
+    is made.  `device_state` also carries the quantization
+    guard: `quantized_for` decides the cost tensors' dtype on either
+    path."""
     prepared = PreparedPool(pool=pool, outcome=MatchOutcome())
 
     # offers from every running cluster (scheduler.clj:1574-1585); an
@@ -717,6 +755,9 @@ def prepare_pool_problem(
      prepared.group_balance_counts) = gather_group_context(
         store, considerable, host_attrs=merged_attrs)
     offer_locations = [c.location for c, _ in prepared.cluster_offers]
+    use_mirror = (encode_cache is not None and device_state is not None
+                  and config.device_residency and not host_reservations)
+    served: Optional[dict] = {} if use_mirror else None
 
     def compute_rows(subset, pre_rows):
         return feasibility_mask(
@@ -733,10 +774,14 @@ def prepare_pool_problem(
 
     padded = None
     if encode_cache is not None:
+        pad_shape = padded_shape(len(considerable), nodes.n, config.chunk)
+        if use_mirror:
+            # the mirror's row layout: one more row, its all-zero pad row
+            pad_shape = (pad_shape[0] + 1, pad_shape[1])
         padded = encode_cache.feasibility(
             pool.name, considerable, nodes.n, nodes_fp, compute_rows,
             balanced_pre_rows=prepared.balanced_pre_rows,
-            pad_shape=padded_shape(len(considerable), nodes.n, config.chunk))
+            pad_shape=pad_shape, served=served)
         feasible = padded[:len(considerable), :nodes.n]
     else:
         feasible = compute_rows(considerable, prepared.balanced_pre_rows)
@@ -766,13 +811,26 @@ def prepare_pool_problem(
             if ji in prepared.balanced_pre_rows:
                 prepared.balanced_pre_rows[ji] &= allowed
     prepared.feasible = feasible
-    prepared.problem = build_match_problem(considerable, nodes, feasible,
-                                           device=device,
-                                           chunk=config.chunk, config=config,
-                                           padded_feasible=padded)
+    if use_mirror:
+        # device-resident path: unchanged rows move zero bytes; the
+        # mirror's problem is shape- and content-identical to the classic
+        # build below (padded_job_axis is shared)
+        prepared.problem = device_state.build_problem(
+            pool.name, considerable, nodes, feasible, nodes_fp, served,
+            config, flight=flight, padded_feasible=padded)
+    else:
+        quantized = (device_state.quantized_for(config, pool.name)
+                     if device_state is not None else config.quantized)
+        prepared.problem = build_match_problem(
+            considerable, nodes, feasible, device=device,
+            chunk=config.chunk, config=config, padded_feasible=padded,
+            quantized=quantized)
     bonus = topology_bonus(nodes, config)
     if bonus is not None:
-        # the topology distance term, padded to the node axis
+        # the topology distance term rides every build path (classic,
+        # quantized, device-resident) as a post-assembly field: [N]
+        # floats are negligible next to the [J, N] mask, so residency
+        # doesn't mirror them; padded to the node axis
         pad_n = int(prepared.problem.avail.shape[0])
         prepared.problem = prepared.problem._replace(
             node_bonus=data_plane.h2d(pad_to(bonus, pad_n),
@@ -833,9 +891,14 @@ def finalize_pool_match(
     )
     if any(assignment[ji] < 0 for ji in prepared.balanced_pre_rows):
         # retry balanced-group jobs the stale pre-mask closed out, against
-        # post-cycle counts (intra-cycle leveling re-opens values)
-        demands, remaining, totals = encode_problem_arrays(
-            considerable, nodes.offers, config)
+        # post-cycle counts (intra-cycle leveling re-opens values); the
+        # rows are the problem's values (bfloat16-rounded under
+        # MatchConfig.quantized, as the reference reads them back from the
+        # device tensors) in float32
+        demands, remaining, totals = (
+            _problem_values(a, prepared.problem.demands.dtype)
+            for a in encode_problem_arrays(considerable, nodes.offers,
+                                           config))
         placed_mask = assignment >= 0
         np.subtract.at(remaining, assignment[placed_mask],
                        demands[placed_mask])
@@ -1116,6 +1179,14 @@ def finalize_pool_match(
     return outcome
 
 
+def _problem_values(arr: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """float32 host rows as the solve saw them: rounded through `dtype`
+    (bfloat16 under MatchConfig.quantized) and back to float32."""
+    if dtype == torch.float32:
+        return arr
+    return host_cast(arr, dtype).float().numpy()
+
+
 def _gang_chokepoint(prepared: PreparedPool, assignment: np.ndarray,
                      config: MatchConfig):
     """The gang all-or-nothing chokepoint every solve path funnels
@@ -1261,6 +1332,7 @@ def match_pool(
     flight=NULL_CYCLE,
     telemetry=None,
     encode_cache=None,
+    device_state=None,
 ) -> MatchOutcome:
     """One pool's match cycle end to end (prepare -> solve -> finalize).
     A solve error propagates: there is no CPU re-solve behind the card.
@@ -1275,7 +1347,8 @@ def match_pool(
         prepared = prepare_pool_problem(
             store, pool, queue, clusters, config, state, device=device,
             launch_filter=launch_filter, host_reservations=host_reservations,
-            host_attrs=host_attrs, flight=flight, encode_cache=encode_cache)
+            host_attrs=host_attrs, flight=flight, encode_cache=encode_cache,
+            device_state=device_state)
     t1 = time.perf_counter()
     solve_s = 0.0
     assignment = np.empty(0, dtype=np.int32)
@@ -1321,8 +1394,13 @@ def stack_pool_problems(problems: Sequence[MatchProblem]) -> MatchProblem:
     max_j = max(q.demands.shape[0] for q in problems)
     max_n = max(q.avail.shape[0] for q in problems)
     n_res = first.demands.shape[-1]
+    # the cost tensors' dtype: bfloat16 when every pool is quantized, else
+    # float32 (the reference's stack promotes a mixed batch the same way)
+    cost = first.demands.dtype
+    for q in problems[1:]:
+        cost = torch.promote_types(cost, q.demands.dtype)
 
-    def zeros(*shape, dtype=torch.float32):
+    def zeros(*shape, dtype=cost):
         return torch.zeros(shape, dtype=dtype, device=first.demands.device)
 
     out = MatchProblem(
@@ -1332,7 +1410,7 @@ def stack_pool_problems(problems: Sequence[MatchProblem]) -> MatchProblem:
         totals=zeros(p, max_n, 2),
         node_valid=zeros(p, max_n, dtype=torch.bool),
         feasible=zeros(p, max_j, max_n, dtype=torch.bool),
-        node_bonus=(zeros(p, max_n)
+        node_bonus=(zeros(p, max_n, dtype=torch.float32)
                     if any(q.node_bonus is not None for q in problems)
                     else None))
     for i, q in enumerate(problems):
@@ -1365,6 +1443,7 @@ def match_pools_batched(
     flights: Optional[dict] = None,
     telemetry=None,
     encode_cache=None,
+    device_state=None,
 ) -> dict[str, MatchOutcome]:
     """Solve EVERY pool's match problem in one batched device call (the
     reference's `match_pools_batched`, BASELINE configuration 5: pools
@@ -1409,7 +1488,8 @@ def match_pools_batched(
                 states[pool.name], device=device,
                 launch_filter=launch_filter,
                 host_reservations=host_reservations, host_attrs=host_attrs,
-                flight=flight, encode_cache=encode_cache))
+                flight=flight, encode_cache=encode_cache,
+                device_state=device_state))
         walls[pool.name] = {"encode": time.perf_counter() - t0}
     solvable = [p for p in prepared_list if p.solvable]
     # a pool at/over the hierarchical threshold must not ride the flat

@@ -23,6 +23,11 @@ runs the multi-pool match pass as a pipeline:
     decision still right).  Each stage's stream first waits for the
     driving thread's stream, and the driving stream waits for the stage's
     stream once it finishes.  On the CPU the plain code runs;
+  * with device residency (scheduler/device_state.py) a pool's resident
+    buffers are written in place on one stage's stream and read on a
+    later stage's: the stream waits above order those uses, and each use
+    is recorded on its stream for the allocator
+    (`ops/device_update.mark_use`);
   * a depth-bounded stage queue bounds in-flight solves (depth 2 by
     default: one solving, one just dispatched), so device memory holds at
     most `depth` pools' problems;
@@ -151,6 +156,7 @@ def match_pools_pipelined(
     encode_cache=None,
     recorder=None,
     params: Optional[PipelineParams] = None,
+    device_state=None,
 ) -> dict[str, MatchOutcome]:
     """Run every pool's match cycle through the pipelined engine.
 
@@ -283,7 +289,7 @@ def match_pools_pipelined(
                 stage.state, device=device, launch_filter=launch_filter,
                 host_reservations=host_reservations,
                 host_attrs=host_attrs, flight=flight,
-                encode_cache=encode_cache)
+                encode_cache=encode_cache, device_state=device_state)
         t1 = time.perf_counter()
         stage.t_build = t1 - t0
         if stage.prepared.solvable:

@@ -17,8 +17,11 @@ slack rows, and only changed users' DRU rows are rescored and written
 back in place (dru.clj:128 `next-task->scored-task`) — so the <=
 max_preemption decisions per cycle ship O(changed) bytes, not O(tasks).
 
-Not ported yet: the device-resident row mirror (`params.resident`, the
-device-residency slice) raises NotImplementedError; the elastic
+With `params.resident` the cycle-start victim tensors come from a
+caller-owned device-resident row mirror (`device_state.ResidentRows`,
+one row per running task keyed by task id): a task that survived since
+the last cycle ships zero bytes.  The classic path uploads them whole,
+under the same `rebalance-state` data-plane family.  The elastic
 `reclaimer` stays a parameter, None here; the scheduler passes its
 device `telemetry`.
 """
@@ -34,6 +37,7 @@ import torch
 from cook_tpu_torch.device import resolve
 from cook_tpu_torch.models.entities import DruMode, Instance, Job, Pool, Resources
 from cook_tpu_torch.models.store import JobStore
+from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.ops.common import BIG, bucket_size, fetch_result
 from cook_tpu_torch.ops.rebalance import (
     RebalanceState,
@@ -60,9 +64,8 @@ class RebalancerParams:
     # instead of joining the preemptable rows
     fast_cycle: bool = False
     # serve the cycle-start victim tensors from a device-resident
-    # keyed-row mirror: not ported yet (the device-residency slice), so
-    # True raises NotImplementedError.  Config key: [scheduler]
-    # resident_rebalancer
+    # keyed-row mirror (device_state.ResidentRows, owned by the caller so
+    # it outlives every cycle)
     resident: bool = False
     # ---- gang admission (scheduler/gang.py) ----
     # topology-aware whole-gang admission from the rebalance cycle
@@ -115,12 +118,8 @@ class RebalanceCycle:
         host_info: Optional[dict[str, tuple[dict, str]]] = None,
         *,
         device: Optional[Union[str, torch.device]] = None,
+        resident=None,
     ):
-        if params.resident:
-            raise NotImplementedError(
-                "RebalancerParams.resident: the device-resident row mirror "
-                "is not ported yet (the device-residency slice, ROADMAP "
-                "Queue A item 7)")
         self.store = store
         self.pool = pool
         self.params = params
@@ -194,12 +193,49 @@ class RebalanceCycle:
         self._next_slack = n_tasks
 
         # device tensors; per-decision updates are small in-place writes
-        self._dev_host = self._put(host_np)
-        self._dev_res = self._put(res_np)
-        self._dev_dru = self._put(self._dru_np)
-        self._dev_elig = self._put(self._elig_np)
-        self._dev_spare = self._put(spare)
-        self._dev_host_ok = self._put(np.arange(len(spare)) < h)
+        if resident is not None and params.resident:
+            if resident.device != self.device:
+                raise ValueError(
+                    f"resident mirror {resident.name} lives on "
+                    f"{resident.device}, the cycle on {self.device}")
+            # keyed-row mirror: one row per RUNNING task keyed by task
+            # id, gathered into this cycle's row order on the device — a
+            # task that survived since the last cycle ships zero bytes.
+            # Slack rows beyond n_tasks gather the all-zero pad row, so
+            # the host encodes host + 1 (the pad's 0 decodes to the -1
+            # "unknown host" sentinel the slack rows need)
+            cols, _stats = resident.build(
+                self.row_ids[:n_tasks],
+                {
+                    "host1": (host_np[:n_tasks] + 1).astype(np.int32),
+                    "res": res_np[:n_tasks],
+                    "dru": self._dru_np[:n_tasks],
+                    "elig": self._elig_np[:n_tasks],
+                },
+                out_len=total,
+            )
+            self._dev_host = cols["host1"] - 1
+            self._dev_res = cols["res"]
+            self._dev_dru = cols["dru"]
+            self._dev_elig = cols["elig"]
+            # the decisions write spare in place (_apply): a device copy
+            # of the shared resident tensor, no transfer
+            self._dev_spare = resident.whole_array("spare", spare).clone()
+            self._dev_host_ok = resident.whole_array(
+                "host_ok", np.arange(len(spare)) < h)
+        else:
+            # classic full upload, ledger-accounted under the same family
+            # so cold-vs-warm bytes compare honestly
+            def put(arr):
+                return data_plane.h2d(arr, family=data_plane.FAM_REBALANCE,
+                                      device=self.device)
+
+            self._dev_host = put(host_np)
+            self._dev_res = put(res_np)
+            self._dev_dru = put(self._dru_np)
+            self._dev_elig = put(self._elig_np)
+            self._dev_spare = put(spare)
+            self._dev_host_ok = put(np.arange(len(spare)) < h)
         self._spare_np = spare.copy()
         self.preempted: set[str] = set()
         self._sorted = None
@@ -498,6 +534,7 @@ def rebalance_pool(
     host_info: Optional[dict] = None,
     telemetry=None,
     reclaimer=None,
+    resident=None,
     *,
     device: Optional[Union[str, torch.device]] = None,
 ) -> list[Decision]:
@@ -508,13 +545,19 @@ def rebalance_pool(
     given, it may return a refreshed spare map (loaned capacity
     reclaimed), and the victim search runs against that (a later slice;
     the port's scheduler passes None).  `telemetry` records one solve per
-    decision."""
+    decision.
+
+    `resident` is an optional `device_state.ResidentRows` mirror owned by
+    the caller (it must OUTLIVE the cycle — warm reuse is the whole
+    point) on the cycle's device; it serves the cycle-start victim
+    tensors when `params.resident` is set."""
     if reclaimer is not None:
         refreshed = reclaimer(pool.name, pending_in_dru_order, host_spare)
         if refreshed is not None:
             host_spare = refreshed
     cycle = RebalanceCycle(store, pool, host_spare, params,
-                           host_info=host_info, device=device)
+                           host_info=host_info, device=device,
+                           resident=resident)
     solve_shape = (int(cycle._dev_host.shape[0]),
                    int(cycle._dev_spare.shape[0]))
     decisions = []

@@ -6,6 +6,7 @@ between two run traces — of either package, the formats are the same.
 
     python -m cook_tpu_torch.sim.cli run --trace trace.json --out run.csv [--device cpu]
     python -m cook_tpu_torch.sim.cli run --trace trace.json --rebalance-every 1 ...
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --resident ...
     python -m cook_tpu_torch.sim.cli synth --jobs 1000 --hosts 100 --out trace.json
     python -m cook_tpu_torch.sim.cli compare run1.csv run2.csv
 
@@ -68,6 +69,7 @@ def sim_config(args) -> SimConfig:
         rebalance_every=args.rebalance_every,
         max_cycles=args.max_cycles,
         batched_match=args.batched,
+        resident=args.resident,
         scheduler=SchedulerConfig(
             match=default_match_config(
                 max_jobs_considered=args.considerable,
@@ -184,6 +186,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--considerable", type=int, default=1000)
     r.add_argument("--batched", action="store_true",
                    help="one device call for all pools")
+    r.add_argument("--resident", action="store_true",
+                   help="device-resident match state "
+                        "(scheduler/device_state.py): encode tensors "
+                        "stay on the device across cycles, O(delta) "
+                        "updates")
     r.add_argument("--safe-dru-threshold", type=float, default=1.0)
     r.add_argument("--min-dru-diff", type=float, default=0.5)
     r.add_argument("--max-preemption", type=int, default=100)

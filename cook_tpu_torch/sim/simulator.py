@@ -123,6 +123,10 @@ class SimConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     pools: tuple = (("default", "default"),)  # (name, dru_mode)
     batched_match: bool = False      # one device call for all pools
+    # device-resident match state (scheduler/device_state.py): keep the
+    # encode tensors on the device across cycles with O(delta) updates —
+    # sets the scheduler's MatchConfig.device_residency knob
+    resident: bool = False
     # cycles between in-run health evaluations (0 = end-of-run only)
     health_every: int = 4
 
@@ -292,6 +296,13 @@ class Simulator:
         self.config.pools = tuple(self.config.pools) + tuple(
             (name, "default") for name in extra
         )
+        if self.config.resident:
+            # copies: the caller's configurations stay as they were given
+            sched = self.config.scheduler
+            self.config = dataclasses.replace(
+                self.config, scheduler=dataclasses.replace(
+                    sched, match=dataclasses.replace(
+                        sched.match, device_residency=True)))
         self.store = JobStore(clock=lambda: self.now_ms)
         for name, mode in self.config.pools:
             self.store.set_pool(Pool(name=name, dru_mode=DruMode(mode)))
@@ -490,9 +501,10 @@ def _data_plane_summary(families0: dict, records: list[dict]) -> dict:
     """The run's data-plane numbers: the process ledger's byte deltas
     since `families0` (in total and per family; concurrent simulators in
     one process would overlap) and the mean rebuild fraction / padding
-    waste off the cycle records (the reference's `data_plane` keys but
-    its `device_state`, which waits for device residency, plus
-    `families`)."""
+    waste off the cycle records, and the device-residency attribution off
+    the same records (how many match cycles rode O(delta) updates vs full
+    rebuilds, and the rows scattered): the reference's `data_plane` keys,
+    plus `families`."""
     families = {}
     for fam, now in _dp.LEDGER.family_totals().items():
         before = families0.get(fam, {})
@@ -503,6 +515,8 @@ def _data_plane_summary(families0: dict, records: list[dict]) -> dict:
                 if r.get("rebuild_fraction") is not None]
     wastes = [r["padding_waste"] for r in records
               if r.get("padding_waste") is not None]
+    ds_records = [r["device_state"] for r in records
+                  if r.get("device_state")]
     return {
         "h2d_bytes": sum(f["h2d_bytes"] for f in families.values()),
         "d2h_bytes": sum(f["d2h_bytes"] for f in families.values()),
@@ -510,6 +524,16 @@ def _data_plane_summary(families0: dict, records: list[dict]) -> dict:
                                   if rebuilds else None),
         "mean_padding_waste": (sum(wastes) / len(wastes)
                                if wastes else None),
+        "device_state": {
+            "cycles": len(ds_records),
+            "rebuilds": sum(1 for d in ds_records if d.get("rebuild")),
+            "delta_cycles": sum(1 for d in ds_records
+                                if not d.get("rebuild")),
+            "delta_rows": sum(d.get("delta_rows", 0) for d in ds_records
+                              if not d.get("rebuild")),
+            "resident_bytes": (ds_records[-1].get("resident_bytes", 0)
+                               if ds_records else 0),
+        },
         "families": families,
     }
 

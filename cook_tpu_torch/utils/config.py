@@ -91,9 +91,14 @@ def default_match_config(**overrides) -> MatchConfig:
         hierarchical_use_mesh=bool(d.get("hierarchical_use_mesh", True)),
         hierarchical_fine_backend=str(
             d.get("hierarchical_fine_backend", "xla")),
+        # device-resident match state + quantized cost tensors
+        # (scheduler/device_state.py)
+        device_residency=bool(d.get("device_residency", False)),
+        quantized=bool(d.get("quantized", False)),
         # topology-aware gang scheduling (scheduler/gang.py; the match
         # chokepoint in finalize_pool_match)
         gang_enabled=bool(d.get("gang_enabled", True)),
         topology_weight=float(d.get("topology_weight", 0.0)),
         topology_block_hosts=int(d.get("topology_block_hosts", 0)),
     )
+

@@ -92,8 +92,23 @@ MULTIPOOL_MODULES = ("cook_tpu_torch.scheduler.pipeline",
                      "cook_tpu_torch.cluster.mock")
 
 
+# the device-residency slice's modules, new (the resident state, the
+# in-place updaters, the listener fan-out copy) and extended (the rank
+# paths' resident columns, the kernel wrappers' bfloat16 boundary casts,
+# the configuration keys)
+RESIDENCY_MODULES = ("cook_tpu_torch.scheduler.device_state",
+                     "cook_tpu_torch.ops.device_update",
+                     "cook_tpu_torch.utils.callbacks",
+                     "cook_tpu_torch.scheduler.ranking",
+                     "cook_tpu_torch.ops.best_node",
+                     "cook_tpu_torch.ops.best_node_batched",
+                     "cook_tpu_torch.ops.best_block",
+                     "cook_tpu_torch.utils.config")
+
+
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
-                         + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES)
+                         + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES
+                         + RESIDENCY_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"
@@ -137,7 +152,7 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
     from cook_tpu_torch import device
     from cook_tpu_torch.models.store import JobStore
     from cook_tpu_torch.scheduler.core import Scheduler
-    from cook_tpu_torch.sim.simulator import Simulator, synth_trace
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator, synth_trace
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -157,6 +172,12 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
     # limit, a double-buffered pipeline with async launches
     assert cpu.launch_rate_limiter is None
     assert (cpu.config.pipeline_depth, cpu.config.async_launch) == (2, True)
+    # device residency and quantization off, as in the reference: no
+    # resident state, no rebalancer mirror
+    assert cpu.device_state is None and not cpu.config.rebalancer.resident
+    resident = Simulator(jobs, hosts, SimConfig(resident=True),
+                         device="cpu").scheduler
+    assert resident.device_state.device.type == "cpu"
     assert cpu.telemetry.health()["checks"]["device_memory"] == {
         "observable": False}
     with pytest.raises(ValueError, match="unsupported device"):

@@ -234,11 +234,23 @@ def test_fast_cycle_equals_exact_where_order_cannot_drift(scenario):
 
 
 def test_resident_mirror_is_not_ported():
-    store, jobs, spare, _, _ = hogs(PORT, False)
-    params = port_rb.RebalancerParams(resident=True)
-    with pytest.raises(NotImplementedError, match="device-residency"):
-        port_rb.rebalance_pool(store, store.pools["default"], jobs, spare,
-                               params, device="cpu")
+    """The resident row mirror is ported now (tests/
+    test_torch_resident_mirrors.py holds it to the reference): with
+    `resident=True` and no mirror passed, the cycle uploads its tensors
+    as with `resident=False`, as the reference's does, and decides the
+    same; with a mirror, too."""
+    from cook_tpu_torch.scheduler.device_state import ResidentRows
+
+    sigs = []
+    for resident, mirror in ((False, None), (True, None),
+                             (True, ResidentRows("rebalance:t",
+                                                 device="cpu"))):
+        store, jobs, spare, params, _ = hogs(PORT, False,
+                                             resident=resident)
+        sigs.append(_sig(port_rb.rebalance_pool(
+            store, store.pools["default"], jobs, spare, params,
+            resident=mirror, device="cpu")))
+    assert sigs[0] and sigs[0] == sigs[1] == sigs[2]
 
 
 def test_padded_axes_bucket_as_the_reference():
