@@ -196,10 +196,40 @@ submit step's wall.  Two phases follow the agreement phase (8):
                   card and on the CPU: run traces and cycle records (the
                   device_state stats among them) equal, and the run trace
                   equal to the card's replay with `quantized` alone.
-After the launches phase (5), `encode cache on / off` replays the flat
-slice twice more, with the cache off and on: run traces identical to the
-slice's, the encode walls per cycle, and a host profile (cProfile) of the
-last cycle's `prepare_pool_problem` in each.
+After the launches phase (5), `walls` replays the flat slice five more
+times (a profiled pair with the cache off and on, then the cache off, on
+and the recorder off, once each): run traces identical to the slice's,
+the walls per cycle, and host profiles (cProfile) of the profiled pair's
+last cycle.
+
+Speculation (scheduler/prediction.py), after the residency phases (7d):
+
+  S1. speculation wave — `completion_heavy_trace` at 100,000 jobs x
+                  10,000 hosts of 64 GB / 32 cpus (one job a host, 30 s,
+                  one user), 6 cycles on the exact greedy (16,384
+                  considerable), speculation off and on: identical run
+                  traces, hit fraction >= 0.2, a lower pre-launch p50 on,
+                  no `solve-error`, no H2D byte on a hit cycle; the
+                  dispatch walls (and their greedy's enqueue), the hit
+                  cycles' commit walls and bytes printed.
+  S2. speculation on the kernels — the wave on the flat slice's `pallas`
+                  knobs and on `HIER_MATCH`, 4 cycles each, off and on:
+                  identical traces, hits on both; the flat slice (its
+                  trace and knobs, 3 cycles) speculating: run trace = the
+                  classic slice's, hits and drops by reason printed.
+                  Every `best_node`, `coarse_pass` and `best_node_batched`
+                  launch of the speculative solves kept and held against
+                  its plain version; every launch of these runs counted.
+  S3. pipelined speculation — 8 pools, each the wave at 12,500 x 1,250,
+                  `match_cycle_pipelined` for 4 passes at the default
+                  SchedulerConfig, off and on: identical placements, every
+                  pool a hit on passes 3-4.
+  S4. speculation agreement — the reference's scenarios at small size on
+                  the card and on the CPU (the 3-user columnar wave: 1 hit,
+                  7 `queue-shifted`, 1 `epoch-stale`; the estimated-
+                  completion constraint: nothing dispatched; residency with
+                  an epoch bump mid-flight: `epoch-stale`): equal run
+                  traces, cycle records' speculation fields and stats.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -413,8 +443,11 @@ def gang_mix(jobs, every=GANG_EVERY, sizes=GANG_SIZES):
             else j for j in jobs]
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def device_phase():
@@ -1337,13 +1370,14 @@ def _profile_last(target, name, cycles, prof):
 # last cycle's host profiles), then unprofiled runs for the walls: the
 # cache off and on and the defaults with the flight recorder and the
 # telemetry off (the data-plane accounting runs in the record's scope, so
-# it goes too), twice each, interleaved, so host noise shows beside the
-# differences (twice: the multi-pool phases need the time)
+# it goes too), once each (once: the multi-pool and speculation phases
+# need the time; the profiled pair's walls show the host noise beside
+# them)
 CACHE_OFF = dict(use_encode_cache=False)
 RECORDER_OFF = dict(flight_recorder_capacity=0, device_telemetry=False)
 WALL_RUNS = (("cache off", CACHE_OFF, True), ("cache on", {}, True),
-             *((("cache off", CACHE_OFF, False), ("cache on", {}, False),
-                ("recorder off", RECORDER_OFF, False)) * 2))
+             ("cache off", CACHE_OFF, False), ("cache on", {}, False),
+             ("recorder off", RECORDER_OFF, False))
 WALL_PHASES = ("rank", "encode", "solve", "launch")
 
 
@@ -3727,6 +3761,463 @@ def rebalance_agreement_phase():
     return launches
 
 
+# ------------------------------------------------------------- speculation
+
+# the speculation wave (sim/loadgen.completion_heavy_trace) at the slices'
+# width and host shape: 100,000 jobs x 10,000 hosts of 64 GB / 32 cpus,
+# each job the size of a host and 30 s long, one user, all at t 0 — every
+# cycle completes one wave and places the next
+SPEC_WAVE = dict(jobs=100_000, hosts=10_000, runtime_ms=30_000,
+                 host_mem=65_536.0, host_cpus=32.0, n_users=1)
+SPEC_CYCLES = 6
+# the exact greedy (chunk 0) at the slices' window: the reference's own
+# A/B scenario (tests/test_prediction.py:411)
+SPEC_EXACT = dict(max_jobs_considered=16_384, chunk=0)
+# the flat slice's kernel knobs, and the hierarchical slice's
+SPEC_PALLAS = dict(max_jobs_considered=16_384, chunk=1024, backend="pallas",
+                   chunk_rounds=3, chunk_passes=3, chunk_kc=64)
+SPEC_KERNEL_CYCLES = 4
+# tests/test_prediction.py:422's bar
+SPEC_HIT_FRACTION = 0.2
+# the pipelined speculation rig: 8 pools, each the wave at 12,500 x 1,250
+SPEC_POOLS = 8
+SPEC_POOL_WAVE = dict(SPEC_WAVE, jobs=12_500, hosts=1_250)
+SPEC_PIPELINED_CYCLES = 4
+SPEC_KERNELS = {"best_node": ("match", "best_node"),
+                "coarse_pass": ("hierarchical", "coarse_pass"),
+                "best_node_batched": ("hierarchical", "best_node_batched")}
+
+
+def wave_trace(wave=None, prefix="", pool="default"):
+    """The speculation wave (`wave`, default SPEC_WAVE: the arguments of
+    completion_heavy_trace); with `prefix`, its uuids and hosts renamed
+    into pool `pool`."""
+    from cook_tpu_torch.sim.loadgen import completion_heavy_trace
+
+    jobs, hosts = completion_heavy_trace(**(wave or SPEC_WAVE))
+    if prefix:
+        for j in jobs:
+            j.uuid, j.pool = f"{prefix}-{j.uuid}", pool
+        for h in hosts:
+            h.node_id = h.hostname = f"{prefix}-{h.hostname}"
+            h.pool = pool
+    return jobs, hosts
+
+
+class SpecProbe:
+    """A speculating scheduler's speculator, watched: every dispatch that
+    put a solve in flight timed whole (the predicted rank, prepare and
+    solve dispatch) and its solve's enqueue alone (the host's hold while
+    `dispatch_pool_solve` queues the kernels); under `watching()`, the
+    arguments of every hand-kernel call made while the speculator runs
+    (the dispatch's, and the hierarchical solve that runs at the commit's
+    fetch) kept under kept[kernel], and the fresh solves' not."""
+
+    def __init__(self, scheduler, kept=None):
+        self.active = False
+        self.dispatch_s = []
+        self.enqueue_s = []
+        self.kept = kept
+        spec = scheduler.speculator
+        dispatch, commit = spec.dispatch, spec.try_commit
+
+        def dispatched(*args, **kwargs):
+            self.active = True
+            t0 = time.perf_counter()
+            try:
+                ok = dispatch(*args, **kwargs)
+            finally:
+                self.active = False
+            if ok:
+                self.dispatch_s.append(time.perf_counter() - t0)
+            return ok
+
+        def committed(*args, **kwargs):
+            self.active = True
+            try:
+                return commit(*args, **kwargs)
+            finally:
+                self.active = False
+
+        spec.dispatch, spec.try_commit = dispatched, committed
+
+    @contextlib.contextmanager
+    def watching(self):
+        from cook_tpu_torch.scheduler import prediction
+
+        patched = []
+
+        def patch(module, attr, wrapper):
+            original = getattr(module, attr)
+            patched.append((module, attr, original))
+            setattr(module, attr, wrapper(original))
+
+        def timed(enqueue):
+            def enqueued(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = enqueue(*args, **kwargs)
+                self.enqueue_s.append(time.perf_counter() - t0)
+                return out
+            return enqueued
+
+        def keeping(name):
+            def wrap(kernel):
+                def keep(*args):
+                    if self.active:
+                        self.kept[name].append(args)
+                    return kernel(*args)
+                return keep
+            return wrap
+
+        patch(prediction, "dispatch_pool_solve", timed)
+        if self.kept is not None:
+            for name, (mod_name, attr) in SPEC_KERNELS.items():
+                patch(importlib.import_module(
+                    f"cook_tpu_torch.ops.{mod_name}"), attr, keeping(name))
+        try:
+            yield self
+        finally:
+            for module, attr, original in reversed(patched):
+                setattr(module, attr, original)
+
+
+def _launch_counts():
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+
+    return {"best_node": bn.launches, "coarse_pass": cp.launches,
+            "best_node_batched": bnb.launches}
+
+
+def _reset_launches():
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+
+    bn.launches = bnb.launches = cp.launches = 0
+
+
+def spec_records(result):
+    """Each cycle record's speculation outcome: (pool, cycle, status,
+    reason, backend)."""
+    return [(r["pool"], r["cycle"], r["speculation"],
+             r["speculation_drop"], r["backend"])
+            for r in result.cycle_records]
+
+
+def check_speculation(label, result, scheduler):
+    """No speculation dropped (or skipped) as `solve-error`: a kernel fault
+    must not hide behind a fresh solve.  Returns the drop reasons
+    counted."""
+    from cook_tpu_torch.scheduler.prediction import DROP_SOLVE_ERROR
+
+    errors = [r for r in spec_records(result) if r[3] == DROP_SOLVE_ERROR]
+    stats = scheduler.speculator.stats_json()
+    if errors or DROP_SOLVE_ERROR in stats["drop_reasons"]:
+        raise AssertionError(f"{label}: speculative solves failed "
+                             f"({errors}, {stats['drop_reasons']})")
+    reasons = {}
+    for *_, status, reason, _backend in spec_records(result):
+        if status == "dropped" or reason:
+            reasons[reason] = reasons.get(reason, 0) + 1
+    return reasons
+
+
+def spec_replay(jobs, hosts, match, cycles, speculate, device="cuda",
+                pools=(("default", "default"),), pipelined=False,
+                resident=False, on_sim=None, kept=None, **scheduler_kw):
+    """One replay at the default SchedulerConfig (with `match` and
+    `scheduler_kw`), speculation on or off; `pipelined` drives the
+    pipelined pass (the Simulator's batched loop, its pass swapped);
+    `on_sim(sim)` runs just before the replay; `kept` takes the
+    speculative solves' kernel calls (SpecProbe).  Returns (simulator,
+    result, wall, SpecProbe or None)."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=cycles, pools=pools,
+        batched_match=pipelined, resident=resident, speculate=speculate,
+        scheduler=SchedulerConfig(match=match, **scheduler_kw)),
+        device=device)
+    if pipelined:
+        sim.scheduler.match_cycle_all_pools = \
+            sim.scheduler.match_cycle_pipelined
+    probe = SpecProbe(sim.scheduler, kept) if speculate else None
+    if on_sim is not None:
+        on_sim(sim)
+    t0 = time.perf_counter()
+    with (probe.watching() if probe else contextlib.nullcontext()):
+        result = sim.run()
+    return sim, result, time.perf_counter() - t0, probe
+
+
+def _spec_cycle_line(rec):
+    phases = rec["phases"]
+    return dict(
+        speculation=rec["speculation"], drop=rec["speculation_drop"],
+        backend=rec["backend"], considered=rec["considered"],
+        matched=len(rec["matched"]),
+        **{f"{k}_s": round(phases[k], 4) for k in (
+            "rank", "speculation_commit", "tensor_build", "solve", "launch")
+           if k in phases},
+        h2d_bytes=rec["h2d_bytes"], d2h_bytes=rec["d2h_bytes"])
+
+
+def spec_pair(label, jobs, hosts, match, cycles, kept, **replay_kw):
+    """The replay with speculation off, then on (the hand-kernel calls of
+    its speculative solves kept into `kept`): identical run traces, no
+    `solve-error`, capacity held.  Prints each run's speculation stats,
+    the on-run's cycles and its dispatch and enqueue walls.  Returns (off
+    result, on result, on probe, {kernel: launches in both runs})."""
+    runs = {}
+    launches = {k: 0 for k in SPEC_KERNELS}
+    for speculate in (False, True):
+        _reset_launches()
+        sim, result, wall, probe = spec_replay(
+            jobs, hosts, match, cycles, speculate, kept=kept, **replay_kw)
+        counted = _launch_counts()
+        for k, v in counted.items():
+            launches[k] += v
+        check_capacity(sim)
+        print(f"{label} speculation {'on' if speculate else 'off'}: "
+              + json.dumps(dict(result.speculation_stats(),
+                                placed=n_placed(result.rows),
+                                replay_wall_s=round(wall, 2),
+                                launches=counted)), flush=True)
+        runs[speculate] = (sim, result, probe)
+    (_, off, _), (sim, on, probe) = runs[False], runs[True]
+    if on.to_csv() != off.to_csv():
+        raise AssertionError(f"{label}: run traces differ with "
+                             "speculation on and off")
+    reasons = check_speculation(label, on, sim.scheduler)
+    for rec in on.cycle_records:
+        print(f"{label} on, cycle {rec['cycle']} pool {rec['pool']} "
+              + json.dumps(_spec_cycle_line(rec)), flush=True)
+    print(f"{label}: run traces identical; speculator "
+          + json.dumps(sim.scheduler.speculator.stats_json())
+          + f"; drops / skips by reason {json.dumps(reasons)}; dispatch "
+          f"walls (s) {[round(s, 4) for s in probe.dispatch_s]}, their "
+          f"solve enqueue (s) {[round(s, 4) for s in probe.enqueue_s]}",
+          flush=True)
+    return off, on, probe, launches
+
+
+def speculation_wave_phase(device="cuda", wave=None, cycles=SPEC_CYCLES):
+    """The speculation wave on the exact greedy (16,384 considerable),
+    `cycles` cycles with speculation off, then on: identical run traces,
+    hit fraction >= 0.2, a lower pre-launch p50 with speculation on, no
+    `solve-error`, and no H2D byte on a hit cycle's record (only the
+    assignment's fetch remains).  Prints the dispatch walls (and their
+    greedy's enqueue), the hit cycles' commit walls and bytes."""
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("speculation wave")
+    jobs, hosts = wave_trace(wave)
+    kept = {k: [] for k in SPEC_KERNELS}
+    off, on, probe, _ = spec_pair(
+        "speculation wave", jobs, hosts, default_match_config(**SPEC_EXACT),
+        cycles, kept, device=device)
+    s_off, s_on = off.speculation_stats(), on.speculation_stats()
+    if s_on["hit_fraction"] < SPEC_HIT_FRACTION:
+        raise AssertionError(f"speculation wave: hit fraction "
+                             f"{s_on['hit_fraction']} < {SPEC_HIT_FRACTION}")
+    if not s_on["pre_launch_p50_ms"] < s_off["pre_launch_p50_ms"]:
+        raise AssertionError(
+            f"speculation wave: pre-launch p50 {s_on['pre_launch_p50_ms']} "
+            f"ms on, not below {s_off['pre_launch_p50_ms']} ms off")
+    hits = [r for r in on.cycle_records if r["speculation"] == "hit"]
+    moved = [r["cycle"] for r in hits if r["h2d_bytes"]]
+    if moved:
+        raise AssertionError(f"speculation wave: hit cycles {moved} moved "
+                             "H2D bytes")
+    print("speculation wave: " + json.dumps(dict(
+        hit_fraction_on=s_on["hit_fraction"],
+        pre_launch_p50_ms_on=s_on["pre_launch_p50_ms"],
+        pre_launch_p50_ms_off=s_off["pre_launch_p50_ms"],
+        dispatch_s=probe.dispatch_s, enqueue_s=probe.enqueue_s,
+        hit_commit_s=[r["phases"]["speculation_commit"] for r in hits],
+        hit_h2d_bytes=[r["h2d_bytes"] for r in hits],
+        hit_d2h_bytes=[r["d2h_bytes"] for r in hits],
+        off_solve_s=[r["phases"].get("solve", 0.0)
+                     for r in off.cycle_records])), flush=True)
+    return s_on
+
+
+def speculation_kernels_phase(trace, classic_csv, device="cuda", wave=None,
+                              cycles=SPEC_KERNEL_CYCLES):
+    """The speculation wave on the flat slice's `pallas` knobs and on the
+    hierarchical slice's, `cycles` cycles each, off and on: identical run
+    traces, hits on both; then the flat slice (the 50-user `synth_trace`,
+    its knobs, 3 cycles) with speculation on: its run trace the classic
+    slice's (`classic_csv`), its hits and drops by reason printed.
+    Returns ({kernel: launches over the runs}, {kernel: the speculative
+    solves' kept calls})."""
+    from cook_tpu_torch.sim.simulator import load_trace
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("speculation on the kernels")
+    jobs, hosts = wave_trace(wave)
+    kept = {k: [] for k in SPEC_KERNELS}
+    launches = {k: 0 for k in SPEC_KERNELS}
+    for label, overrides in (("speculation wave pallas", SPEC_PALLAS),
+                             ("speculation wave hier", HIER_MATCH)):
+        _, on, _, counted = spec_pair(
+            label, jobs, hosts, default_match_config(**overrides), cycles,
+            kept, device=device)
+        if on.speculation_stats()["hits"] <= 0:
+            raise AssertionError(f"{label}: no speculation hit")
+        for k, v in counted.items():
+            launches[k] += v
+    jobs, hosts = load_trace(trace)
+    match = default_match_config(max_jobs_considered=16_384, chunk=1024,
+                                 backend="pallas")
+    _reset_launches()
+    sim, result, wall, probe = spec_replay(jobs, hosts, match, 3, True,
+                                           device=device, kept=kept)
+    for k, v in _launch_counts().items():
+        launches[k] += v
+    if result.to_csv() != classic_csv:
+        raise AssertionError("flat slice with speculation: the run trace "
+                             "differs from the classic slice's")
+    reasons = check_speculation("flat slice speculating", result,
+                                sim.scheduler)
+    print("flat slice speculating: run trace = the classic slice's; "
+          + json.dumps(dict(result.speculation_stats(),
+                            speculator=sim.scheduler.speculator.stats_json(),
+                            by_reason=reasons, replay_wall_s=round(wall, 2),
+                            dispatch_s=probe.dispatch_s,
+                            records=spec_records(result))), flush=True)
+    print("speculative solves' kernel calls kept: "
+          + json.dumps({k: len(v) for k, v in kept.items()}), flush=True)
+    missing = [k for k, v in kept.items() if not v]
+    if missing:
+        raise AssertionError(f"no speculative {missing} call kept")
+    return launches, kept
+
+
+def speculation_pipelined_phase(device="cuda", n_pools=SPEC_POOLS,
+                                pool_wave=SPEC_POOL_WAVE,
+                                cycles=SPEC_PIPELINED_CYCLES):
+    """`n_pools` pools, each the wave at `pool_wave`, through
+    `Scheduler.match_cycle_pipelined` at the default SchedulerConfig, off
+    and on: identical placements, and once the predictor is warm (from
+    the third pass) every pool's cycle a hit."""
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+
+    phase("pipelined speculation")
+    jobs, hosts, pools = [], [], []
+    for k in range(n_pools):
+        name = f"spec{k}"
+        pjobs, phosts = wave_trace(pool_wave, prefix=name, pool=name)
+        jobs += pjobs
+        hosts += phosts
+        pools.append((name, "default"))
+    kept = {k: [] for k in SPEC_KERNELS}
+    _, on, _, _ = spec_pair("pipelined speculation", jobs, hosts,
+                            MatchConfig(), cycles, kept, device=device,
+                            pools=tuple(pools), pipelined=True)
+    by_pool = {}
+    for rec in on.cycle_records:
+        if not rec["pipelined"]:
+            raise AssertionError("pipelined speculation: a record not "
+                                 "pipelined")
+        by_pool.setdefault(rec["pool"], []).append(rec)
+    for name, _mode in pools:
+        recs = sorted(by_pool.get(name, []), key=lambda r: r["t_ms"])
+        warm = [r["speculation"] for r in recs[2:]]
+        if len(recs) != cycles or warm != ["hit"] * (cycles - 2):
+            raise AssertionError(f"pipelined speculation: pool {name}'s "
+                                 f"cycles {[r['speculation'] for r in recs]}")
+    print(f"pipelined speculation: {n_pools} pools hit on every warm pass "
+          f"(passes 3-{cycles})", flush=True)
+
+
+# the agreement replays (the reference test scenarios at small size):
+# (the wave's arguments, MatchConfig overrides, replay overrides, the
+# expected hits and drops by reason, or None to compare card and CPU only)
+SPEC_AGREEMENT = {
+    "3-user columnar wave": (dict(jobs=48, hosts=4, n_users=3, seed=1), {},
+                             {}, (1, {"queue-shifted": 7,
+                                      "epoch-stale": 1})),
+    "completion constraint": (dict(jobs=24, hosts=4),
+                              dict(completion_multiplier=1.5,
+                                   host_lifetime_mins=60.0), {}, None),
+    "resident": (dict(jobs=24, hosts=4), {}, dict(resident=True), None),
+}
+# the resident replay drops its resident state after this match cycle
+SPEC_INVALIDATE_AFTER = 3
+
+
+def _invalidate_after(n):
+    """on_sim hook: drop the scheduler's resident state (an epoch bump)
+    right after its `n`th match cycle, while a speculation is in flight."""
+    def hook(sim):
+        scheduler = sim.scheduler
+        match_cycle = scheduler.match_cycle
+        count = [0]
+
+        def matched(pool):
+            out = match_cycle(pool)
+            count[0] += 1
+            if count[0] == n:
+                scheduler.device_state.invalidate()
+            return out
+
+        scheduler.match_cycle = matched
+    return hook
+
+
+def speculation_agreement_phase(devices=("cuda", "cpu")):
+    """The reference test scenarios at small size on the card and on the
+    CPU: equal run traces, equal `speculation` / `speculation_drop` on
+    every cycle record, equal speculator stats.  The 3-user columnar wave
+    drops 7 `queue-shifted` (the two rank paths' tie orders); the
+    estimated-completion constraint dispatches no speculation; residency
+    with an epoch bump mid-flight drops `epoch-stale`."""
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+    from cook_tpu_torch.sim.loadgen import completion_heavy_trace
+
+    phase("speculation agreement")
+    for label, (wave, overrides, replay_kw, expect) in \
+            SPEC_AGREEMENT.items():
+        runs = {}
+        for device in devices:
+            jobs, hosts = completion_heavy_trace(**wave)
+            on_sim = (_invalidate_after(SPEC_INVALIDATE_AFTER)
+                      if replay_kw.get("resident") else None)
+            sim, result, _, _ = spec_replay(
+                jobs, hosts, MatchConfig(**overrides), 40, True,
+                device=device, device_telemetry=False, on_sim=on_sim,
+                **replay_kw)
+            reasons = check_speculation(f"agreement {label}", result,
+                                        sim.scheduler)
+            runs[device] = (result.to_csv(), spec_records(result),
+                            sim.scheduler.speculator.stats_json(), reasons,
+                            result.speculation_stats()["hits"])
+        card, cpu = (runs[d] for d in devices)
+        if card[:3] != cpu[:3]:
+            raise AssertionError(f"speculation agreement {label}: card and "
+                                 "CPU differ")
+        stats, reasons, hits = card[2:]
+        if expect is not None and (hits, {k: v for k, v in reasons.items()
+                                          if k != "predictor-cold"}) \
+                != expect:
+            raise AssertionError(f"speculation agreement {label}: hits "
+                                 f"{hits}, reasons {reasons}, expected "
+                                 f"{expect}")
+        if "constraint" in label and stats["dispatched"]:
+            raise AssertionError(f"speculation agreement {label}: "
+                                 f"{stats['dispatched']} dispatched")
+        if replay_kw.get("resident") and "epoch-stale" not in reasons:
+            raise AssertionError(f"speculation agreement {label}: no "
+                                 f"epoch-stale drop ({reasons})")
+        print(f"speculation agreement {label}: card = CPU; hits {hits}, "
+              f"speculator {json.dumps(stats)}, by reason "
+              f"{json.dumps(reasons)}", flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cook_tpu_torch")):
         print("chip_smoke.py: cook_tpu_torch/ not found beside the script",
@@ -3800,7 +4291,19 @@ def main() -> int:
                 errs[name] = max(errs[name], hold_launches(
                     name, kept, label))
             del res_calls
+        # speculation: the wave on the exact greedy, on the kernels (and
+        # the flat slice speculating, against the classic slice's trace)
+        speculation_wave_phase()
+        spec_launches, spec_calls = speculation_kernels_phase(
+            trace, classic["csv"])
+        for name, kept in spec_calls.items():
+            launches[name] += spec_launches[name]
+            errs[name] = max(errs[name], hold_launches(
+                name, kept, "speculative solves"))
+        del spec_calls
         del classic
+        speculation_pipelined_phase()
+        speculation_agreement_phase()
         agreement_phase(workdir)
         default_agreement_phase(workdir)
         resident_default_agreement_phase(workdir)

@@ -2,13 +2,14 @@
 handling, kill fan-out, the fairness ledger.
 
 Port of `cook_tpu/scheduler/core.py`: `SchedulerConfig` (its `match`,
-`rebalancer`, columnar-index, encode-cache, flight-recorder and device-
-telemetry fields, with the reference's defaults) and a `Scheduler` with
-`rank_cycle` (the columnar branch, `ranking_columnar.rank_pool_columnar`
-over `models/columnar.ColumnarJobIndex`, or `ranking.rank_pool` with
-`use_columnar_index=False`; sampling the fairness observatory and
-reporting the DRU solve's padded shape to the telemetry), `match_cycle`
-(without speculation; a flight-recorder cycle record per match, the
+`rebalancer`, columnar-index, encode-cache, flight-recorder, device-
+telemetry, speculation, predictor and backfill fields, with the
+reference's defaults) and a `Scheduler` with `rank_cycle` (the columnar
+branch, `ranking_columnar.rank_pool_columnar` over
+`models/columnar.ColumnarJobIndex`, or `ranking.rank_pool` with
+`use_columnar_index=False` or an active backfill term; sampling the
+fairness observatory and reporting the DRU solve's padded shape to the
+telemetry), `match_cycle` (a flight-recorder cycle record per match, the
 encode cache and the telemetry passed to the matcher; honouring and
 releasing the rebalancer's host reservations and gang admission's
 `gang:<group>` ones; the per-user launch rate limit,
@@ -31,11 +32,19 @@ rank cycle (resident DRU columns, under `device_residency`) and to every
 match path; with `RebalancerParams.resident` it owns one
 `device_state.ResidentRows` mirror per pool for the rebalancer's victim
 tensors (`_rebalance_mirror`).
-The runtime predictor, elastic capacity, incidents, the profile capturer,
-the overload admission controller and the job-lifecycle tracker are later
-slices: `Scheduler.predictor` is None, as in the reference with
-speculation off and no backfill weight, so gang admission takes its
-"drain ETA unknown" branch.
+With `speculation` or a positive `backfill_weight` the scheduler owns a
+runtime predictor (`prediction.QuantileRuntimePredictor`, fed from the
+store's completions; gang admission reads its drain ETAs and the
+estimated-completion constraint its runtimes); with `backfill_weight`
+the rank cycle runs `ranking.rank_pool` with the predicted-duration term
+even when the columnar index is on (`_backfill_active`); with
+`speculation` a `prediction.CycleSpeculator` dispatches cycle N+1's solve
+at the end of each match cycle (`_dispatch_speculation`, serial and
+pipelined) and commits or drops it at the next cycle's start
+(`_speculation_commit`: a hit launches its pre-solved assignment, a drop
+solves fresh on the same device).
+Elastic capacity, incidents, the profile capturer, the overload
+admission controller and the job-lifecycle tracker are later slices.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
@@ -64,6 +73,7 @@ from cook_tpu_torch.models.entities import InstanceStatus, Job, Pool, Resources
 from cook_tpu_torch.models.reasons import REASONS_BY_CODE
 from cook_tpu_torch.models.store import Event, JobStore
 from cook_tpu_torch.obs import data_plane
+from cook_tpu_torch.obs.compile_observatory import shape_signature
 from cook_tpu_torch.obs.device_monitor import device_memory_stats
 from cook_tpu_torch.obs.fairness import FairnessObservatory
 from cook_tpu_torch.obs.telemetry import DeviceTelemetry
@@ -88,13 +98,21 @@ from cook_tpu_torch.scheduler.matcher import (
     MatchConfig,
     MatchOutcome,
     PoolMatchState,
+    finalize_pool_match,
     match_pool,
     match_pools_batched,
+    problem_shape,
+    record_considered,
+    solve_backend,
     topology_block_width,
 )
 from cook_tpu_torch.scheduler.pipeline import (
     PipelineParams,
     match_pools_pipelined,
+)
+from cook_tpu_torch.scheduler.prediction import (
+    CycleSpeculator,
+    QuantileRuntimePredictor,
 )
 from cook_tpu_torch.scheduler.ranking import (
     RankedQueue,
@@ -146,6 +164,29 @@ class SchedulerConfig:
     # fan backend launches out on the per-cluster launch executors during
     # the pipelined pass (kills still exclude via the kill-lock)
     async_launch: bool = True
+    # prediction-assisted speculative cycles (scheduler/prediction.py):
+    # while cycle N's launches drain, cycle N+1's solve is pre-encoded
+    # and pre-dispatched against the predicted offer set; it commits at
+    # cycle N+1 start only if the stamped epoch is unchanged (a stale
+    # speculation is dropped, never repaired).  Off by default.
+    speculation: bool = False
+    # how far ahead (store-clock ms) a running task's predicted finish
+    # may sit and still be assumed complete by the speculative solve;
+    # the simulator pins this to its cycle_ms
+    speculation_horizon_ms: float = 30_000.0
+    # runtime predictor (per-(user, command-fingerprint) rolling
+    # quantiles)
+    predictor_quantile: float = 0.75
+    predictor_window: int = 64
+    predictor_min_samples: int = 3
+    # predicted-duration backfill (ops/dru.py): a bounded scoring term
+    # added to each pending task's DRU before the global order sort, so
+    # predicted-short jobs backfill ahead at near-equal fairness.  0
+    # disables (rank order untouched — the default)
+    backfill_weight: float = 0.0
+    # predicted duration that saturates the backfill term (fraction
+    # clamps to 1 at/above this)
+    backfill_norm_ms: float = 600_000.0
 
 
 class Scheduler:
@@ -184,9 +225,6 @@ class Scheduler:
         # (reserve-hosts!, rebalancer.clj:419), or gang:<group> for a
         # gang admission's hosts (any member of the group may claim them)
         self.host_reservations: dict[str, str] = {}
-        # the runtime predictor gang admission asks for drain ETAs; not
-        # ported yet, so every busy host's ETA is unknown
-        self.predictor = None
         # the last rebalance cycle's gang admissions (GangAdmission.to_json)
         self.last_gang_admissions: list[dict] = []
         # accumulating hostname -> attributes cache: fully-occupied hosts
@@ -216,6 +254,25 @@ class Scheduler:
         if self.config.match.device_residency or self.config.match.quantized:
             self.device_state = DeviceResidentState(
                 encode_cache=self.encode_cache, device=self.device)
+        # runtime prediction + speculative cycles (prediction.py): the
+        # predictor feeds from instance completions (gang admission's
+        # drain ETAs read it too); the speculator pre-dispatches cycle
+        # N+1's solve while cycle N drains
+        self.predictor = None
+        self.speculator = None
+        if self.config.speculation or self.config.backfill_weight > 0:
+            self.predictor = QuantileRuntimePredictor(
+                quantile=self.config.predictor_quantile,
+                window=self.config.predictor_window,
+                min_samples=self.config.predictor_min_samples,
+            ).attach(store)
+        if self.config.speculation:
+            self.speculator = CycleSpeculator(
+                store, self.clusters, self.predictor, device=self.device,
+                horizon_ms=self.config.speculation_horizon_ms,
+                encode_cache=self.encode_cache,
+                device_state=self.device_state,
+            )
         # pool -> the rebalancer's resident row mirror (_rebalance_mirror)
         self._rebalance_mirrors: dict[str, ResidentRows] = {}
         # per-cycle flight recorder: structured decision records
@@ -337,10 +394,22 @@ class Scheduler:
                 max_gpus = max(max_gpus, offer.gpus)
         return max_mem > 0 and not autoscales, max_mem, max_cpus, max_gpus
 
+    def _offensive_filter(self, pool: Pool):
+        """The pool's current offensive-job filter (or None)."""
+        limits_active, max_mem, max_cpus, max_gpus = \
+            self._pool_capacity_probe(pool)
+        return (offensive_job_filter(max_mem, max_cpus, max_gpus)
+                if limits_active else None)
+
+    @property
+    def _backfill_active(self) -> bool:
+        return self.config.backfill_weight > 0 and self.predictor is not None
+
     def rank_cycle(self, pool: Pool) -> RankedQueue:
         """Rank the pool's pending jobs, through the columnar index when
-        it is on, quarantining jobs no host in the pool could ever hold
-        (the offensive-job filter, scheduler.clj:2198-2257)."""
+        it is on (and no backfill term is active), quarantining jobs no
+        host in the pool could ever hold (the offensive-job filter,
+        scheduler.clj:2198-2257)."""
         t_rank = time.perf_counter()
         limits_active, max_mem, max_cpus, max_gpus = \
             self._pool_capacity_probe(pool)
@@ -349,18 +418,25 @@ class Scheduler:
         # copies when content is unchanged (device_state.resident_array)
         dru_state = (self.device_state
                      if self.config.match.device_residency else None)
-        if self.columnar is not None:
+        if self.columnar is not None and not self._backfill_active:
             queue = rank_pool_columnar(
                 self.store, self.columnar, pool, device=self.device,
                 capacity_limits=((max_mem, max_cpus, max_gpus)
                                  if limits_active else None),
                 device_state=dru_state)
         else:
+            # predicted-duration backfill routes through the full encoder
+            # (the columnar fast path carries no duration column)
             filt = (offensive_job_filter(max_mem, max_cpus, max_gpus)
                     if limits_active else None)
-            queue = rank_pool(self.store, pool, device=self.device,
-                              offensive_job_filter=filt,
-                              device_state=dru_state)
+            queue = rank_pool(
+                self.store, pool, device=self.device,
+                offensive_job_filter=filt,
+                predictor=(self.predictor if self._backfill_active
+                           else None),
+                backfill_weight=self.config.backfill_weight,
+                backfill_norm_ms=self.config.backfill_norm_ms,
+                device_state=dru_state)
         for uuid in queue.quarantined:
             self.placement_failures[uuid] = (
                 "The job's resource demands exceed every host in the pool."
@@ -433,29 +509,119 @@ class Scheduler:
             PoolMatchState(
                 num_considerable=self.config.match.max_jobs_considered),
         )
-        # the cycle's data-plane scope (match_pool re-enters it around
-        # each of its sections)
+        # the cycle's data-plane scope covers the speculation commit too:
+        # a hit's only transfer is the speculative assignment's fetch (its
+        # tensor build ran during the PREVIOUS cycle's drain, scope-less),
+        # so hit cycles report near-zero H2D; match_pool re-enters the
+        # scope around each of its sections
+        walls: dict[str, float] = {}
         with data_plane.activate(flight.dp):
-            outcome = match_pool(
-                self.store,
-                pool,
-                queue,
-                self.clusters,
-                self.config.match,
-                state,
-                device=self.device,
+            outcome = self._try_speculative_cycle(pool, queue, state,
+                                                  flight, walls)
+        if outcome is None:
+            with data_plane.activate(flight.dp):
+                outcome = match_pool(
+                    self.store,
+                    pool,
+                    queue,
+                    self.clusters,
+                    self.config.match,
+                    state,
+                    device=self.device,
+                    make_task_id=self._make_task_id,
+                    launch_filter=self._make_launch_filter(),
+                    record_placement_failure=self._record_placement_failure,
+                    host_reservations=self.host_reservations,
+                    host_attrs=self.host_attr_cache,
+                    flight=flight,
+                    telemetry=self.telemetry,
+                    encode_cache=self.encode_cache,
+                    predictor=self.predictor,
+                    device_state=self.device_state,
+                )
+        outcome.phase_wall_s.update(walls)
+        self._after_match(pool, outcome, flight)
+        # speculate cycle N+1 while this cycle's work drains (launches in
+        # the serial path are synchronous, so every event this cycle
+        # produced has already landed — the guard token opens clean)
+        self._dispatch_speculation([pool])
+        return outcome
+
+    # ------------------------------------------------ speculative cycles
+
+    def _speculation_commit(self, pool, queue, state, flight, walls):
+        """One pool's speculation commit attempt (the commit rule of
+        scheduler/prediction.py), recorded on the cycle record, its wall
+        in `walls["speculation_commit"]`.  On a hit the cycle-record
+        bookkeeping a fresh prepare would have done (counts, rank context,
+        not-considered index, solve identity, quality sample) runs here.
+        Returns the CommitResult, or None when no speculator is
+        attached."""
+        if self.speculator is None:
+            return None
+        t0 = time.perf_counter()
+        with flight.phase("speculation_commit"):
+            result = self.speculator.try_commit(
+                pool, queue, state, self.config.match,
+                launch_filter=self._make_launch_filter())
+        walls["speculation_commit"] = time.perf_counter() - t0
+        flight.note_speculation(result.status, result.reason)
+        if result.ok:
+            prepared = result.prepared
+            record_considered(flight, queue, prepared.considerable,
+                              len(prepared.cluster_offers))
+            # the backend label marks the cycle as speculative-served; no
+            # telemetry latency sample — the solve's wall spanned the
+            # previous cycle's drain, not this cycle's critical path
+            flight.note_solve(
+                shape_signature(problem_shape(prepared.problem)),
+                f"spec-{solve_backend(self.config.match)}", False)
+            if self.telemetry is not None:
+                self.telemetry.quality.observe_cycle(
+                    prepared, result.assignment, pool.name)
+        return result
+
+    def _try_speculative_cycle(self, pool, queue, state, flight, walls):
+        """Serve the cycle from a committed speculation; None = solve
+        fresh (nothing in flight, or the speculation was dropped)."""
+        result = self._speculation_commit(pool, queue, state, flight,
+                                          walls)
+        if result is None or not result.ok:
+            return None
+        t0 = time.perf_counter()
+        with flight.phase("launch"):
+            outcome = finalize_pool_match(
+                self.store, result.prepared, result.assignment,
+                self.config.match, state, self.clusters,
                 make_task_id=self._make_task_id,
-                launch_filter=self._make_launch_filter(),
                 record_placement_failure=self._record_placement_failure,
+                flight=flight)
+        walls["launch"] = time.perf_counter() - t0
+        return outcome
+
+    def _dispatch_speculation(self, pools) -> None:
+        """End-of-cycle speculative dispatch (prediction.py): predict the
+        completions the next cycle will see, pre-encode its problem and
+        queue its solve on the card, which works through the drain and
+        the inter-cycle idle.  Runs AFTER the cycle's launches and their
+        store events have landed, or the guard would mark the fresh
+        speculation stale against our own events."""
+        if self.speculator is None:
+            return
+        for pool in pools:
+            state = self.pool_match_state.get(pool.name)
+            if state is None:
+                continue
+            self.speculator.dispatch(
+                pool, self.config.match, state,
+                launch_filter=self._make_launch_filter(),
                 host_reservations=self.host_reservations,
                 host_attrs=self.host_attr_cache,
-                flight=flight,
-                telemetry=self.telemetry,
-                encode_cache=self.encode_cache,
-                device_state=self.device_state,
-            )
-        self._after_match(pool, outcome, flight)
-        return outcome
+                offensive_job_filter=self._offensive_filter(pool),
+                predictor_for_rank=(self.predictor
+                                    if self._backfill_active else None),
+                backfill_weight=self.config.backfill_weight,
+                backfill_norm_ms=self.config.backfill_norm_ms)
 
     def match_cycle_all_pools(self) -> dict[str, MatchOutcome]:
         """Pool-batched multi-pool match: every scheduling pool's flat
@@ -476,6 +642,7 @@ class Scheduler:
             flights=flights,
             telemetry=self.telemetry,
             encode_cache=self.encode_cache,
+            predictor=self.predictor,
             device_state=self.device_state,
         )
         self._finish_multi_pool_cycle(pools, outcomes, flights)
@@ -485,10 +652,26 @@ class Scheduler:
         """Pipelined multi-pool match pass (scheduler/pipeline.py): pool
         k's device solve overlaps pool k+1's host encode and pool k-1's
         finalize/launch; transactions still commit in pool order and
-        launches fan out on the per-cluster executors.  (The reference
-        also commits speculative solves here; the port has no
-        speculation.)"""
+        launches fan out on the per-cluster executors.  With a
+        speculator, each pool's in-flight speculation is committed or
+        dropped up front (a committed pool enters the pass pre-solved),
+        and the next pass's solves are dispatched once the pass's
+        launches have drained."""
         pools, flights = self._begin_multi_pool_cycle()
+        speculative = {}
+        walls: dict[str, dict[str, float]] = {}
+        if self.speculator is not None:
+            for pool in pools:
+                # per-pool scope: the commit's assignment fetch (a hit's
+                # only transfer) attributes to its own cycle record
+                walls[pool.name] = {}
+                with data_plane.activate(flights[pool.name].dp):
+                    result = self._speculation_commit(
+                        pool, self.pool_queues[pool.name],
+                        self.pool_match_state[pool.name],
+                        flights[pool.name], walls[pool.name])
+                if result.ok:
+                    speculative[pool.name] = result
         outcomes = match_pools_pipelined(
             self.store, pools, self.pool_queues, self.clusters,
             self.config.match, self.pool_match_state,
@@ -504,9 +687,17 @@ class Scheduler:
             recorder=self.recorder,
             params=PipelineParams(depth=self.config.pipeline_depth,
                                   async_launch=self.config.async_launch),
+            predictor=self.predictor,
+            speculative=speculative,
             device_state=self.device_state,
         )
+        for name, pool_walls in walls.items():
+            outcomes[name].phase_wall_s.update(pool_walls)
         self._finish_multi_pool_cycle(pools, outcomes, flights)
+        # the pass drained its async launches, so every launch event has
+        # landed: speculate the next pass's solves into the inter-cycle
+        # idle
+        self._dispatch_speculation(pools)
         return outcomes
 
     def drain_launches(self, timeout: Optional[float] = None) -> bool:

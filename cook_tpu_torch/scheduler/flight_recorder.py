@@ -20,12 +20,12 @@ keeps a bounded per-job index of the LAST cycle decision so
 `/unscheduled_jobs` can answer with the real reason code instead of a
 static guess.
 
-A copy of `cook_tpu/scheduler/flight_recorder.py` (the same record schema
-and reason codes) without the writers of the layer the port has not got,
-speculation (its record fields stay, at their defaults).  A `device=True` phase is
-timed by the caller's block, and the match path's solve block ends in the
-device-to-host copy of the assignment (`ops/common.fetch_result`), which
-waits for the card: a device phase never ends at an asynchronous launch.
+A copy of `cook_tpu/scheduler/flight_recorder.py` (the same record schema,
+reason codes and writers, `note_speculation` among them). A `device=True`
+phase is timed by the caller's block, and the match path's solve block
+ends in the device-to-host copy of the assignment
+(`ops/common.fetch_result`), which waits for the card: a device phase
+never ends at an asynchronous launch.
 """
 from __future__ import annotations
 
@@ -359,6 +359,14 @@ class CycleBuilder:
         rec.hier_refine_placed = int(stats.get("refine_placed", 0))
         rec.block_stats = list(stats.get("block_stats", []))
 
+    def note_speculation(self, status: str, reason: str = "") -> None:
+        """Record the cycle's speculation-commit outcome ("hit" /
+        "dropped" / "none") and drop/skip reason (scheduler/
+        prediction.py)."""
+        self.record.speculation = status
+        self.record.speculation_drop = reason
+        self.record.speculative = status == "hit"
+
     def note_device_state(self, stats: dict) -> None:
         """Record the cycle's device-resident state outcome
         (scheduler/device_state.py build stats: resident bytes, delta
@@ -461,6 +469,9 @@ class NullCycle:
         pass
 
     def note_device_state(self, *a) -> None:
+        pass
+
+    def note_speculation(self, *a, **kw) -> None:
         pass
 
 

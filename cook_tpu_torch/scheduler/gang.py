@@ -1,9 +1,10 @@
 """Topology-aware gang admission: preempt-less drain vs. contiguous kill.
 
 Copy of `cook_tpu/scheduler/gang.py` (jax-free), its imports the port's.
-The port's `Scheduler.predictor` is None until the runtime predictor is
-ported, so every busy host's drain ETA is unknown and admissions take the
-kill path (`_host_states`).
+Drain ETAs come from the scheduler's runtime predictor
+(`scheduler/prediction.py`, built with speculation or a backfill weight);
+without one every busy host's ETA is unknown and admissions take the kill
+path (`_host_states`).
 
 The matcher's gang chokepoint (matcher.py / ops/gang.py) makes gang
 placement all-or-nothing, but it can only SAY no — when every topology

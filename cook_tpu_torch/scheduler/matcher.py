@@ -42,12 +42,17 @@ from the pool's resident mirror when an encode cache and a
 `device_state` are given and the cycle has no host reservations; with
 `quantized` the cost tensors are bfloat16 on either build path.
 
-Left for later slices: the predictor, roofline-probe and exact-kernel
-quality-audit branches, and the reference's mesh branch of the
-pool-batched pass.  The reference's device-fallback
-ladder (re-solving a failed device solve on the CPU) has no counterpart:
-here a solve error propagates, so a fault of the card or the kernel is
-never hidden.
+The estimated-completion constraint (`MatchConfig.completion_multiplier`,
+`host_lifetime_mins`, `agent_start_grace_mins`; `estimated_end_times`,
+the runtime predictor filling in undeclared runtimes) closes hosts that
+die before a job's estimated end; `prepare_pool_problem` bypasses the
+encode cache (and the resident mirror) while it is active.
+
+Left for later slices: the roofline-probe and exact-kernel quality-audit
+branches, and the reference's mesh branch of the pool-batched pass. The
+reference's device-fallback ladder (re-solving a failed device solve on
+the CPU) has no counterpart: here a solve error propagates, so a fault
+of the card or the kernel is never hidden.
 
 Reference: `handle-fenzo-pool` / `handle-resource-offers!` / `launch-
 matched-tasks!` (Cook's scheduler.clj:617-1651) with the Fenzo solve
@@ -79,6 +84,7 @@ from cook_tpu_torch.models.entities import (
     JobState,
     Pool,
 )
+from cook_tpu_torch.models.reasons import REASONS_BY_NAME
 from cook_tpu_torch.models.store import JobStore, TransactionVetoed
 from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.obs.compile_observatory import shape_signature
@@ -135,6 +141,11 @@ class MatchConfig:
     # kernel), or "bucketed" (class-shared candidate lists + exact
     # cleanup pass) — the reference's backend names
     backend: str = "xla"
+    # estimated-completion constraint (constraints.clj:385 +
+    # estimated-completion-config): 0 multiplier or lifetime = disabled
+    completion_multiplier: float = 0.0
+    host_lifetime_mins: float = 0.0
+    agent_start_grace_mins: float = 10.0
     # extra memory a checkpointing job consumes for its tooling, applied
     # at MATCH time (demands + TaskSpec) so placement and the launched
     # pod agree (calculate-effective-resources, api.clj:1152)
@@ -610,6 +621,51 @@ def gather_group_context(
     return groups, group_used_hosts, group_attr_value, group_balance_counts
 
 
+# reasons of an instance that died with its host (agent-removed analogs):
+# their runtimes feed the estimated-completion constraint
+AGENT_REMOVED_CODES = frozenset(
+    REASONS_BY_NAME[name].code
+    for name in ("node-removed", "could-not-reconstruct-state")
+    if name in REASONS_BY_NAME
+)
+
+
+def estimated_end_times(store: JobStore, jobs: Sequence[Job],
+                        config: MatchConfig,
+                        predictor=None) -> Optional[np.ndarray]:
+    """Per-job estimated completion time in epoch ms, -1 = no estimate
+    (build-estimated-completion-constraint, constraints.clj:410-432):
+    max of scaled expected runtime and the runtimes of instances that
+    died with the host, capped at host-lifetime - grace so a
+    full-lifetime job can still start on a fresh host.  `predictor`
+    (scheduler/prediction.py) supplies an observed-runtime estimate for
+    jobs that declared no expected_runtime_ms.  None while the
+    constraint is off."""
+    if not (config.completion_multiplier > 0
+            and config.host_lifetime_mins > 0):
+        return None
+    now_ms = store.clock()
+    cap_ms = (config.host_lifetime_mins
+              - config.agent_start_grace_mins) * 60_000.0
+    out = np.full(len(jobs), -1.0)
+    for ji, job in enumerate(jobs):
+        runtime = job.expected_runtime_ms
+        if not runtime and predictor is not None:
+            runtime = predictor.predict_runtime_ms(job.user,
+                                                   job.command) or 0.0
+        expected = (runtime * config.completion_multiplier
+                    if runtime else 0.0)
+        for inst in store.job_instances(job.uuid):
+            if (inst.status.terminal
+                    and inst.reason_code in AGENT_REMOVED_CODES
+                    and inst.end_time_ms > inst.start_time_ms):
+                expected = max(expected,
+                               inst.end_time_ms - inst.start_time_ms)
+        if expected > 0:
+            out[ji] = now_ms + min(expected, cap_ms)
+    return out
+
+
 def assign_ports(offer, used: set, count: int) -> Optional[tuple]:
     """Pick `count` concrete ports from the offer's free ranges, skipping
     ports already taken this cycle (mesos/task.clj port assignment)."""
@@ -685,25 +741,30 @@ def prepare_pool_problem(
     host_attrs: Optional[dict[str, dict]] = None,
     flight=NULL_CYCLE,
     encode_cache=None,
+    predictor=None,
     device_state=None,
 ) -> PreparedPool:
     """Gather offers + considerable jobs and encode the tensor problem.
     `host_reservations` (hostname -> reserving job uuid, set by the
-    rebalancer) closes each reserved host to every other job.
+    rebalancer) closes each reserved host to every other job.  With the
+    estimated-completion constraint on (`MatchConfig.completion_multiplier`
+    and `host_lifetime_mins`), each job's estimated end
+    (`estimated_end_times`, the `predictor` filling in jobs that declared
+    no runtime) closes the hosts that die before it.
 
     With `encode_cache` (scheduler/encode_cache.py) the node encoding and
     per-job feasibility rows are incremental: an unchanged pool re-encodes
     O(delta) rows instead of O(J x N).  The cache serves a fresh mask, so
-    the reservation closure below narrows this cycle's rows only.  (The
-    reference bypasses the cache while its estimated-completion constraint
-    is active; the port has not got that constraint yet, so the cache is
-    always in use when given.)
+    the reservation closure below narrows this cycle's rows only.  The
+    cache is bypassed while the estimated-completion constraint is active
+    (rows become clock-dependent).
 
     With `device_state` (scheduler/device_state.py) AND
     `config.device_residency`, the problem comes from the pool's resident
     mirror: unchanged rows move zero bytes.  The mirror needs the cache's
-    per-row serve report, so it is bypassed without a cache, and on a
-    cycle with host reservations (they narrow rows for this cycle only).
+    per-row serve report, so it is bypassed without a cache (or with the
+    cache bypassed), and on a cycle with host reservations (they narrow
+    rows for this cycle only).
     Either build takes the mask the cache padded (for the mirror, with
     one more row: the mirror's buffer layout), so no second padded copy
     is made.  `device_state` also carries the quantization
@@ -734,7 +795,10 @@ def prepare_pool_problem(
     if not considerable or not prepared.cluster_offers:
         return prepared
 
-    if encode_cache is not None:
+    est_end_ms = estimated_end_times(store, considerable, config,
+                                     predictor=predictor)
+    use_cache = encode_cache is not None and est_end_ms is None
+    if use_cache:
         nodes, nodes_fp = encode_cache.encoded_nodes(
             pool.name, prepared.cluster_offers)
     else:
@@ -755,11 +819,11 @@ def prepare_pool_problem(
      prepared.group_balance_counts) = gather_group_context(
         store, considerable, host_attrs=merged_attrs)
     offer_locations = [c.location for c, _ in prepared.cluster_offers]
-    use_mirror = (encode_cache is not None and device_state is not None
+    use_mirror = (use_cache and device_state is not None
                   and config.device_residency and not host_reservations)
     served: Optional[dict] = {} if use_mirror else None
 
-    def compute_rows(subset, pre_rows):
+    def compute_rows(subset, pre_rows, est_end=None):
         return feasibility_mask(
             subset,
             nodes,
@@ -769,11 +833,13 @@ def prepare_pool_problem(
             group_balance_counts=prepared.group_balance_counts,
             groups=prepared.groups,
             offer_locations=offer_locations,
+            job_est_end_ms=est_end,
+            host_lifetime_mins=config.host_lifetime_mins,
             balanced_pre_rows=pre_rows,
         )
 
     padded = None
-    if encode_cache is not None:
+    if use_cache:
         pad_shape = padded_shape(len(considerable), nodes.n, config.chunk)
         if use_mirror:
             # the mirror's row layout: one more row, its all-zero pad row
@@ -784,10 +850,12 @@ def prepare_pool_problem(
             pad_shape=pad_shape, served=served)
         feasible = padded[:len(considerable), :nodes.n]
     else:
-        feasible = compute_rows(considerable, prepared.balanced_pre_rows)
-        # cache off: every encode row was freshly computed, so the
-        # residency ledger reports a full rebuild (the cache path's notes
-        # come from EncodeCache itself)
+        feasible = compute_rows(considerable, prepared.balanced_pre_rows,
+                                est_end_ms)
+        # cache off or bypassed (the estimated-completion constraint made
+        # rows clock-dependent): every encode row was freshly computed, so
+        # the residency ledger reports a full rebuild (the cache path's
+        # notes come from EncodeCache itself)
         data_plane.note_residency(len(considerable) * nodes.n, 0)
         data_plane.note_residency(data_plane.NODE_ROW_BYTES * nodes.n, 0,
                                   kind="nodes")
@@ -1332,6 +1400,7 @@ def match_pool(
     flight=NULL_CYCLE,
     telemetry=None,
     encode_cache=None,
+    predictor=None,
     device_state=None,
 ) -> MatchOutcome:
     """One pool's match cycle end to end (prepare -> solve -> finalize).
@@ -1348,7 +1417,7 @@ def match_pool(
             store, pool, queue, clusters, config, state, device=device,
             launch_filter=launch_filter, host_reservations=host_reservations,
             host_attrs=host_attrs, flight=flight, encode_cache=encode_cache,
-            device_state=device_state)
+            predictor=predictor, device_state=device_state)
     t1 = time.perf_counter()
     solve_s = 0.0
     assignment = np.empty(0, dtype=np.int32)
@@ -1443,6 +1512,7 @@ def match_pools_batched(
     flights: Optional[dict] = None,
     telemetry=None,
     encode_cache=None,
+    predictor=None,
     device_state=None,
 ) -> dict[str, MatchOutcome]:
     """Solve EVERY pool's match problem in one batched device call (the
@@ -1489,7 +1559,7 @@ def match_pools_batched(
                 launch_filter=launch_filter,
                 host_reservations=host_reservations, host_attrs=host_attrs,
                 flight=flight, encode_cache=encode_cache,
-                device_state=device_state))
+                predictor=predictor, device_state=device_state))
         walls[pool.name] = {"encode": time.perf_counter() - t0}
     solvable = [p for p in prepared_list if p.solvable]
     # a pool at/over the hierarchical threshold must not ride the flat

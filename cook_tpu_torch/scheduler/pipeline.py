@@ -1,9 +1,9 @@
 """Pipelined match cycle: overlap host encode/launch with the device solve.
 
-Port of `cook_tpu/scheduler/pipeline.py` without speculation.  The serial
-cycle (matcher.match_pool) runs tensor_build -> blocking fetch -> launch
+Port of `cook_tpu/scheduler/pipeline.py`. The serial cycle
+(matcher.match_pool) runs tensor_build -> blocking fetch -> launch
 strictly in sequence: the card idles while the host builds tensors and
-fans out launches, and the host idles while the card solves.  This module
+fans out launches, and the host idles while the card solves. This module
 runs the multi-pool match pass as a pipeline:
 
     pool k:    prepare ----> dispatch . . . . [card solves] . . fetch -> finalize
@@ -46,7 +46,11 @@ runs the multi-pool match pass as a pipeline:
     not ported), so a fault of the card or a kernel is never hidden;
   * a pool at or over `hierarchical_threshold` solves through
     `HierarchicalPending`, whose two-level solve runs at `fetch()` on the
-    host's schedule: it overlaps nothing, in the reference too.
+    host's schedule: it overlaps nothing, in the reference too;
+  * a pool whose speculation committed (`speculative`, scheduler/
+    prediction.py) enters pre-solved: no prepare, no dispatch, no slot in
+    the stage queue — it finalizes as soon as it reaches the queue head,
+    so pool-order commits still hold.
 
 Overlap accounting: each participating CycleRecord keeps per-phase times
 with the serial path's semantics (solve = dispatch-end -> fetch-complete
@@ -88,12 +92,15 @@ from cook_tpu_torch.scheduler.ranking import RankedQueue
 log = logging.getLogger(__name__)
 
 # the phases whose summed time the overlap accounting compares against
-# the pass wall (rank runs outside the pipelined pass).  The four walls
-# are DISJOINT per pool: the solve interval starts where the dispatch
-# phase ends, so nothing is double-counted and a pass that degenerated to
-# serial genuinely reports overlap 0.  (The reference also counts its
-# speculation_commit phase, which the port has not got.)
-PIPELINE_PHASES = ("tensor_build", "dispatch", "solve", "launch")
+# the pass wall (rank runs outside the pipelined pass).  The walls are
+# DISJOINT per pool: the solve interval starts where the dispatch phase
+# ends, so nothing is double-counted and a pass that degenerated to
+# serial genuinely reports overlap 0.  speculation_commit is the
+# validation wall of a pool served from a committed speculative solve —
+# such pools have no tensor_build / dispatch / solve phases this cycle
+# (that work ran during the PREVIOUS cycle's drain)
+PIPELINE_PHASES = ("tensor_build", "dispatch", "solve", "launch",
+                   "speculation_commit")
 
 
 @dataclass
@@ -128,6 +135,11 @@ class _Stage:
     t_dispatch: float = 0.0
     t_build: float = 0.0
     t_dispatch_s: float = 0.0
+    # committed speculative assignment (scheduler/prediction.py): the
+    # solve already ran during the previous cycle's drain — this stage
+    # skips dispatch/fetch and finalizes at the queue head without
+    # holding a slot
+    speculative_assignment: object = None
 
     def on_stream(self):
         """The stage's CUDA stream as the current one (nothing on the
@@ -156,17 +168,23 @@ def match_pools_pipelined(
     encode_cache=None,
     recorder=None,
     params: Optional[PipelineParams] = None,
+    predictor=None,
+    speculative: Optional[dict] = None,
     device_state=None,
 ) -> dict[str, MatchOutcome]:
     """Run every pool's match cycle through the pipelined engine.
 
     Same decision semantics as looping `matcher.match_pool` over the
     pools (the parity tests pin this); only the schedule differs.
+    `speculative` maps pool name -> a COMMITTED prediction.CommitResult
+    (validated by the caller against the speculation commit rule): such
+    pools skip prepare + dispatch and finalize its assignment.
     `outcome.phase_wall_s` per pool: encode (tensor_build), dispatch,
     solve (dispatch-end -> fetch-complete, so it spans the host work
     interleaved meanwhile) and launch."""
     params = params or PipelineParams()
     flights = flights or {}
+    speculative = speculative or {}
     outcomes: dict[str, MatchOutcome] = {}
     device = torch.device(device)
     main_stream = (torch.cuda.current_stream(device)
@@ -199,7 +217,11 @@ def match_pools_pipelined(
         flight = stage.flight
         assignment = np.empty(0, dtype=np.int32)
         walls = {"encode": stage.t_build, "dispatch": stage.t_dispatch_s}
-        if stage.pending is not None:
+        if stage.speculative_assignment is not None:
+            # served from a committed speculation: its solve's telemetry
+            # ran when the speculation was validated — straight to launch
+            assignment = stage.speculative_assignment
+        elif stage.pending is not None:
             solve_failed = False
             t_fetch = time.perf_counter()
             try:
@@ -273,6 +295,20 @@ def match_pools_pipelined(
     depth = max(1, params.depth)
     for pool in pools:
         flight = pool_flight(pool.name)
+        hit = speculative.get(pool.name)
+        if hit is not None:
+            # pre-solved pool: no prepare, no dispatch, no slot — pending
+            # stays None, so the drain below finalizes it as soon as it
+            # reaches the queue head
+            inflight.append(_Stage(
+                pool=pool, prepared=hit.prepared, state=states[pool.name],
+                flight=flight, speculative_assignment=hit.assignment))
+            while inflight and (
+                    inflight[0].pending is None
+                    or sum(1 for s in inflight if s.pending is not None)
+                    >= depth):
+                finish(inflight.popleft())
+            continue
         stage = _Stage(pool=pool, prepared=None, state=states[pool.name],
                        flight=flight)
         if main_stream is not None:
@@ -289,7 +325,8 @@ def match_pools_pipelined(
                 stage.state, device=device, launch_filter=launch_filter,
                 host_reservations=host_reservations,
                 host_attrs=host_attrs, flight=flight,
-                encode_cache=encode_cache, device_state=device_state)
+                encode_cache=encode_cache, predictor=predictor,
+                device_state=device_state)
         t1 = time.perf_counter()
         stage.t_build = t1 - t0
         if stage.prepared.solvable:

@@ -1,10 +1,11 @@
 """The rank cycle: store state -> DRU kernel -> ordered pending queue.
 
 Port of `cook_tpu/scheduler/ranking.py` (`RankedQueue`, `QuotaWalk`,
-`offensive_job_filter`, `rank_pool`).  The DRU tensors are built on the
-caller's device, each column's host-to-device bytes noted in the data
-plane (`dru-columns`); the columnar fast path is `ranking_columnar.py`,
-and device-resident DRU columns are a later slice.
+`offensive_job_filter`, `rank_pool` with its predicted-duration backfill
+term).  The DRU tensors are built on the caller's device, each column's
+host-to-device bytes noted in the data plane (`dru-columns`), resident
+across cycles with a `device_state`; the columnar fast path is
+`ranking_columnar.py`.
 
 Reference: `rank-jobs` + `sort-jobs-by-dru-pool`
 (Cook's scheduler/scheduler.clj:2057-2296) —
@@ -145,16 +146,24 @@ def rank_pool(
     *,
     device: torch.device,
     offensive_job_filter=None,
+    predictor=None,
+    backfill_weight: float = 0.0,
+    backfill_norm_ms: float = 600_000.0,
     device_state=None,
 ) -> RankedQueue:
     """Rank one pool's pending jobs by cumulative DRU on `device`.
 
+    With `predictor` (scheduler/prediction.py) and a positive
+    `backfill_weight`, each pending task carries a predicted-duration
+    column into the DRU solve: fraction = min(predicted_runtime /
+    backfill_norm_ms, 1), no-estimate jobs pinned at 1 (never boosted).
+    `ops/dru.dru_rank` adds `weight x fraction` to the DRU before the
+    global order sort — short-job backfill as a bounded scoring term.
+    Weight 0 (the default) reproduces the unadjusted order exactly.
+
     With `device_state` (scheduler/device_state.py) each DRU column stays
     resident and re-uploads only when its content changed — an unchanged
-    queue's rank cycle moves zero DRU bytes.  The reference's
-    predicted-duration backfill term (its `predictor` and
-    `backfill_weight` arguments) arrives with the prediction slice;
-    `ops/dru.dru_rank` already takes the column."""
+    queue's rank cycle moves zero DRU bytes."""
     pool_name = pool.name
     pending = store.pending_jobs(pool_name)
     quarantined: list[str] = []
@@ -232,6 +241,19 @@ def rank_pool(
         divs[:, i] = (min(share.mem, BIG), min(share.cpus, BIG),
                       min(share.gpus, BIG))
 
+    # predicted-duration backfill column: pending tasks with an estimate
+    # get fraction = min(est / norm, 1); everything else (running tasks,
+    # cold keys) pins at 1.0 — neutral-worst, so an unestimated job is
+    # never boosted past an estimated one
+    backfill = None
+    if predictor is not None and backfill_weight > 0:
+        backfill = np.ones(n, dtype=np.float32)
+        norm = max(float(backfill_norm_ms), 1.0)
+        for k, job in enumerate(pending):
+            est = predictor.predict_runtime_ms(job.user, job.command)
+            if est is not None:
+                backfill[len(running) + k] = min(est / norm, 1.0)
+
     pad_t = bucket_size(n)
     data_plane.note_padding("dru", (pad_t,), valid_cells=n,
                             padded_cells=pad_t)
@@ -240,7 +262,10 @@ def rank_pool(
         pad_to(gpus, pad_t), pad_to(order_key, pad_t, fill=BIG),
         pad_to(np.ones(n, dtype=bool), pad_t, fill=False), divs,
         gpu_mode=(pool.dru_mode == DruMode.GPU), device=device,
-        device_state=device_state, pool_name=pool_name)
+        device_state=device_state, pool_name=pool_name,
+        backfill=(pad_to(backfill, pad_t, fill=1.0)
+                  if backfill is not None else None),
+        backfill_weight=backfill_weight)
     order, dru = result
 
     ranked_jobs: list[Job] = []
@@ -257,13 +282,15 @@ def rank_pool(
 
 def solve_dru(user, mem, cpus, gpus, order_key, valid, divs, *,
               gpu_mode: bool, device: torch.device, device_state=None,
-              pool_name: str = ""):
+              pool_name: str = "", backfill=None,
+              backfill_weight: float = 0.0):
     """The DRU solve both rank paths share: the padded task columns and
     the share divisors ([3, U], one column each) to `device`
     (`dru-columns` bytes), `dru_rank` there, and (order, dru) fetched back
     to the host.  With `device_state` each column is the resident copy
     of `pool_name`'s column when its content is unchanged
-    (`DeviceResidentState.resident_array`: zero bytes move)."""
+    (`DeviceResidentState.resident_array`: zero bytes move).  `backfill`
+    (padded [T] fractions, or None) is the backfill term's column."""
     fam = data_plane.FAM_DRU
 
     if device_state is not None:
@@ -285,7 +312,11 @@ def solve_dru(user, mem, cpus, gpus, order_key, valid, divs, *,
     mem_div = put("mem_div", divs[0])
     cpu_div = put("cpu_div", divs[1])
     gpu_div = put("gpu_div", divs[2])
-    result = dru_ops.dru_rank(tasks, mem_div, cpu_div, gpu_div,
-                              gpu_mode=gpu_mode)
+    result = dru_ops.dru_rank(
+        tasks, mem_div, cpu_div, gpu_div, gpu_mode=gpu_mode,
+        backfill=(put("backfill", np.asarray(backfill, dtype=np.float32))
+                  if backfill is not None else None),
+        backfill_weight=(backfill_weight if backfill is not None
+                         else None))
     with data_plane.family(fam):
         return fetch_result((result.order, result.dru))

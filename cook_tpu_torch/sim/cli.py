@@ -7,7 +7,9 @@ between two run traces — of either package, the formats are the same.
     python -m cook_tpu_torch.sim.cli run --trace trace.json --out run.csv [--device cpu]
     python -m cook_tpu_torch.sim.cli run --trace trace.json --rebalance-every 1 ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --resident ...
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --speculate ...
     python -m cook_tpu_torch.sim.cli synth --jobs 1000 --hosts 100 --out trace.json
+    python -m cook_tpu_torch.sim.cli synth --completion-heavy --jobs 48 --out trace.json
     python -m cook_tpu_torch.sim.cli compare run1.csv run2.csv
 
 `run` solves on the CUDA card unless `--device cpu` is given; with no card
@@ -21,6 +23,7 @@ import json
 
 from cook_tpu_torch.scheduler.core import SchedulerConfig
 from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
+from cook_tpu_torch.sim.loadgen import completion_heavy_trace
 from cook_tpu_torch.sim.simulator import (
     SimConfig,
     Simulator,
@@ -32,10 +35,10 @@ from cook_tpu_torch.utils.config import default_match_config
 
 def run_summary(result, jobs, hosts) -> dict:
     """The summary `run` prints: the reference's keys that the port can
-    fill, the device-telemetry health verdict and the data-plane summary
-    (its rebuild fraction among them) included (`cook_tpu/sim/cli.py`
-    also reports incidents, elastic and speculation numbers from layers
-    not ported yet)."""
+    fill, the device-telemetry health verdict, the speculation A/B numbers
+    and the data-plane summary (its rebuild fraction among them) included
+    (`cook_tpu/sim/cli.py` also reports incident and elastic numbers from
+    layers not ported yet)."""
     completed = sum(1 for r in result.rows if r["status"] == "success")
     p50 = (sorted(result.cycle_wall_s)[len(result.cycle_wall_s) // 2] * 1000
            if result.cycle_wall_s else 0.0)
@@ -55,6 +58,10 @@ def run_summary(result, jobs, hosts) -> dict:
         "health_reasons": result.health.get("reasons", []),
         "queued_wait_p50_ms": (sorted(waits)[len(waits) // 2]
                                if waits else None),
+        # speculation A/B numbers (with --speculate; zeros otherwise): the
+        # fraction of cycles served from a committed speculative solve and
+        # the cycle-start-to-first-launch p50 it exists to lower
+        "speculation": result.speculation_stats(),
         # device data-plane summary: bytes the run moved host<->device and
         # the mean rebuild fraction of the encode rows
         "data_plane": result.data_plane,
@@ -70,6 +77,7 @@ def sim_config(args) -> SimConfig:
         max_cycles=args.max_cycles,
         batched_match=args.batched,
         resident=args.resident,
+        speculate=args.speculate,
         scheduler=SchedulerConfig(
             match=default_match_config(
                 max_jobs_considered=args.considerable,
@@ -119,11 +127,17 @@ def write_trace(path: str, jobs, hosts) -> None:
 
 
 def cmd_synth(args) -> int:
-    jobs, hosts = synth_trace(
-        args.jobs, args.hosts, n_users=args.users, seed=args.seed,
-        mean_runtime_ms=args.mean_runtime_ms,
-        submit_span_ms=args.submit_span_ms,
-    )
+    if args.completion_heavy:
+        # the speculative-cycle wave-drain scenario (sim/loadgen.py
+        # completion_heavy_trace, the reference's 4 hosts); pair with
+        # `run --speculate`
+        jobs, hosts = completion_heavy_trace(jobs=args.jobs, seed=args.seed)
+    else:
+        jobs, hosts = synth_trace(
+            args.jobs, args.hosts, n_users=args.users, seed=args.seed,
+            mean_runtime_ms=args.mean_runtime_ms,
+            submit_span_ms=args.submit_span_ms,
+        )
     write_trace(args.out, jobs, hosts)
     print(f"wrote {len(jobs)} jobs / {len(hosts)} hosts to {args.out}")
     return 0
@@ -191,6 +205,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(scheduler/device_state.py): encode tensors "
                         "stay on the device across cycles, O(delta) "
                         "updates")
+    r.add_argument("--speculate", action="store_true",
+                   help="prediction-assisted speculative match cycles "
+                        "(scheduler/prediction.py): overlap cycle N+1's "
+                        "solve with cycle N's drain")
     r.add_argument("--safe-dru-threshold", type=float, default=1.0)
     r.add_argument("--min-dru-diff", type=float, default=0.5)
     r.add_argument("--max-preemption", type=int, default=100)
@@ -203,6 +221,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--mean-runtime-ms", type=int, default=120_000)
     s.add_argument("--submit-span-ms", type=int, default=300_000)
+    s.add_argument("--completion-heavy", action="store_true",
+                   help="wave-drain speculation scenario (one job per "
+                        "host per cycle); pair with `run --speculate`")
     s.add_argument("--out", default="trace.json")
     s.set_defaults(fn=cmd_synth)
 

@@ -27,8 +27,12 @@ data-plane summary (`SimResult.data_plane`: the run's H2D/D2H bytes, per
 family as well, and the mean rebuild fraction and padding waste off the
 records).  `phase_wall_s["submit"]` is the submit step's wall: the store's
 event fan-out, where the columnar index and the encode cache keep up.
-Elastic, speculation, residency, fault schedules, incidents and metrics
-history are later slices.
+`SimConfig.resident` turns device residency on; `SimConfig.speculate`
+turns speculative match cycles on with the horizon pinned to one cycle
+(`SimResult.speculation_stats`: hit fraction and pre-launch p50, and a
+`speculation_commit` wall in `phase_wall_s` when a speculator runs).
+Elastic, fault schedules, incidents and metrics history are later
+slices.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from cook_tpu_torch.models.store import JobStore
 from cook_tpu_torch.obs import data_plane as _dp
 from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
 from cook_tpu_torch.scheduler.flight_recorder import FlightRecorder
+from cook_tpu_torch.scheduler.prediction import pre_launch_ms
 
 
 @dataclass
@@ -127,6 +132,11 @@ class SimConfig:
     # encode tensors on the device across cycles with O(delta) updates —
     # sets the scheduler's MatchConfig.device_residency knob
     resident: bool = False
+    # prediction-assisted speculative cycles (scheduler/prediction.py):
+    # enables the scheduler's speculator with the horizon pinned to ONE
+    # sim cycle — a running task predicted to finish by the next cycle's
+    # clock is assumed complete by the speculative solve
+    speculate: bool = False
     # cycles between in-run health evaluations (0 = end-of-run only)
     health_every: int = 4
 
@@ -163,6 +173,22 @@ class SimResult:
         """Per-started-task queued wait (start - submit)."""
         return [r["start_ms"] - r["submit_ms"] for r in self.rows
                 if r["start_ms"] is not None]
+
+    def speculation_stats(self) -> dict:
+        """Speculation A/B summary off the cycle records: the fraction of
+        job-considering cycles served from a committed speculative solve
+        and the cycle-start-to-first-launch p50 (the latency speculation
+        exists to lower; prediction.PRE_LAUNCH_PHASES)."""
+        active = [r for r in self.cycle_records if r.get("considered")]
+        hits = sum(1 for r in active if r.get("speculation") == "hit")
+        latencies = sorted(pre_launch_ms(r) for r in active)
+        return {
+            "cycles": len(active),
+            "hits": hits,
+            "hit_fraction": hits / len(active) if active else 0.0,
+            "pre_launch_p50_ms": (latencies[len(latencies) // 2]
+                                  if latencies else 0.0),
+        }
 
     def gang_stats(self, jobs: Sequence["TraceJob"],
                    hosts: Sequence["TraceHost"] = (),
@@ -303,6 +329,14 @@ class Simulator:
                 self.config, scheduler=dataclasses.replace(
                     sched, match=dataclasses.replace(
                         sched.match, device_residency=True)))
+        if self.config.speculate:
+            # completions flush exactly one cycle_ms ahead: predict to
+            # that horizon (a wider one would assume completions the next
+            # cycle won't see yet — a guaranteed prediction-miss)
+            self.config = dataclasses.replace(
+                self.config, scheduler=dataclasses.replace(
+                    self.config.scheduler, speculation=True,
+                    speculation_horizon_ms=float(self.config.cycle_ms)))
         self.store = JobStore(clock=lambda: self.now_ms)
         for name, mode in self.config.pools:
             self.store.set_pool(Pool(name=name, dru_mode=DruMode(mode)))

@@ -71,6 +71,11 @@ def default_match_config(**overrides) -> MatchConfig:
         chunk_passes=int(d.get("chunk_passes", 2)),
         chunk_kc=int(d.get("chunk_kc", 128)),
         backend=str(d.get("backend", "xla")),
+        # estimated-completion constraint (matcher.estimated_end_times):
+        # 0 multiplier or lifetime = off
+        completion_multiplier=float(d.get("completion_multiplier", 0.0)),
+        host_lifetime_mins=float(d.get("host_lifetime_mins", 0.0)),
+        agent_start_grace_mins=float(d.get("agent_start_grace_mins", 10.0)),
         checkpoint_memory_overhead_mb=float(
             d.get("checkpoint_memory_overhead_mb", 0.0)),
         # hierarchical two-level matcher (ops/hierarchical.py): engages

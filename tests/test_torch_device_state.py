@@ -12,8 +12,11 @@ family (node-encode, job-feasibility).  The contracts the reference's
 tests hold are held on the port too: warm encode H2D <= 0.1x the cold
 cycle's, resident placements = classic placements, one update program
 per bucket, demotion below the parity floor and none above it.  The
-speculation cases and the fused-fine-backend cases of the reference file
-are out of this slice (ROADMAP).
+speculation cases (tests/test_device_state.py:448, :490: a resident-state
+invalidation between speculative dispatch and commit drops the
+speculation `epoch-stale`; a hit with residency on) compare the cycle
+records' speculation fields.  The fused-fine-backend cases of the
+reference file are out of scope (ROADMAP).
 
 Every compared value is an integer, a bool or a string: all comparisons
 are exact."""
@@ -662,6 +665,79 @@ def test_sim_resident_leaves_the_callers_config_as_given():
     sim = port_sim.Simulator([], [], config, device="cpu")
     assert sim.config.scheduler.match.device_residency is True
     assert config.scheduler.match.device_residency is False
+
+
+# ------------------------------------------------------------ speculation
+
+
+def _speculation_rig(P):
+    """tests/test_device_state.py:448's rig: one host, three jobs that
+    fill it for 10 s each, residency on, speculation with a one-wave
+    horizon."""
+    clock = FakeClock()
+    store = P.store.JobStore(clock=clock)
+    store.set_pool(P.ent.Pool(name="default"))
+    cluster = P.mock.MockCluster(
+        "mock", [P.mock.MockHost(node_id="h0", hostname="h0", mem=1000,
+                                 cpus=4, pool="default")], clock=clock)
+    scheduler = P.core.Scheduler(store, [cluster], P.core.SchedulerConfig(
+        match=P.matcher.MatchConfig(chunk=0, device_residency=True,
+                                    **P.mkw),
+        speculation=True, speculation_horizon_ms=10_000,
+        predictor_min_samples=1), **P.kw)
+    store.submit_jobs([P.ent.Job(
+        uuid=f"j{i}", user="u0", pool="default", command="true",
+        expected_runtime_ms=10_000,
+        resources=P.ent.Resources(mem=1000.0, cpus=4.0)) for i in range(3)])
+
+    def cycle():
+        pool = store.pools["default"]
+        scheduler.rank_cycle(pool)
+        outcome = scheduler.match_cycle(pool)
+        record = scheduler.recorder.records(limit=1)[0]
+        return ([j.uuid for j, _ in outcome.matched], record.speculation,
+                record.speculation_drop, record.backend)
+
+    def wave():
+        clock.advance(10_000)
+        cluster.advance_to(clock())
+
+    return scheduler, cycle, wave
+
+
+def test_speculation_drops_on_resident_epoch_bump():
+    """A resident-state invalidation between speculative dispatch and
+    commit vetoes the commit: the speculative problem was built from
+    dropped device tensors."""
+    views = []
+    for P in BOTH:
+        scheduler, cycle, wave = _speculation_rig(P)
+        first = cycle()                     # j0 fresh; predictor cold
+        wave()
+        second = cycle()                    # j1 fresh; speculates j2
+        assert scheduler.speculator.stats_json()["inflight"] == ["default"]
+        scheduler.device_state.invalidate()  # dropped mid-flight
+        wave()
+        third = cycle()
+        assert third[1:3] == ("dropped", "epoch-stale")
+        assert third[0] == ["j2"]           # the fresh solve placed it
+        views.append((first, second, third,
+                      scheduler.speculator.stats_json()))
+    assert views[0] == views[1]
+
+
+def test_speculation_hit_with_residency_enabled():
+    views = []
+    for P in BOTH:
+        scheduler, cycle, wave = _speculation_rig(P)
+        runs = [cycle()]
+        wave()
+        runs.append(cycle())
+        wave()
+        runs.append(cycle())
+        assert runs[-1][:2] == (["j2"], "hit")
+        views.append((runs, scheduler.speculator.stats_json()))
+    assert views[0] == views[1]
 
 
 # ---------------------------------------------------- resident DRU columns

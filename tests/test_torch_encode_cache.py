@@ -481,26 +481,33 @@ def test_padded_serve_is_the_mask_padded_with_false(n_nodes, pad):
 
 
 def test_estimated_completion_bypasses_the_reference_cache_only():
-    """The reference serves no row from its cache while its estimated-
-    completion constraint is active (rows become clock-dependent).  The
-    port has not got that constraint (ROADMAP Queue A item 4): its
-    MatchConfig has no knob for it, so its cache path is unconditional."""
-    clock = FakeClock()
-    store = REF.store.JobStore(clock=clock)
-    store.set_pool(REF.ent.Pool(name="default"))
-    cluster = REF.mock.MockCluster("m", _hosts(REF, 3), clock=clock)
-    store.submit_jobs([REF.ent.Job(
-        uuid="j", user="u", pool="default", expected_runtime_ms=60_000,
-        resources=REF.ent.Resources(mem=1.0, cpus=1.0))])
-    scheduler = REF.core.Scheduler(store, [cluster], REF.core.SchedulerConfig(
-        match=REF.matcher.MatchConfig(completion_multiplier=1.5,
-                                      host_lifetime_mins=60.0)))
-    before = _counts(REF)
-    pool = store.pools["default"]
-    scheduler.rank_cycle(pool)
-    scheduler.match_cycle(pool)
-    assert _counts(REF) == before
-    assert not hasattr(PORT.matcher.MatchConfig(), "completion_multiplier")
+    """Neither package serves a row from its cache while the estimated-
+    completion constraint is active (rows become clock-dependent), and
+    both place the job; with the constraint off the same cycle goes
+    through the cache.  (Until the port had the constraint, only the
+    reference's cache stood aside: hence the name.)"""
+    for P in (REF, PORT):
+        for constrained in (True, False):
+            clock = FakeClock()
+            store = P.store.JobStore(clock=clock)
+            store.set_pool(P.ent.Pool(name="default"))
+            cluster = P.mock.MockCluster("m", _hosts(P, 3), clock=clock)
+            store.submit_jobs([P.ent.Job(
+                uuid="j", user="u", pool="default",
+                expected_runtime_ms=60_000,
+                resources=P.ent.Resources(mem=1.0, cpus=1.0))])
+            match = (P.matcher.MatchConfig(completion_multiplier=1.5,
+                                           host_lifetime_mins=60.0)
+                     if constrained else P.matcher.MatchConfig())
+            scheduler = P.core.Scheduler(store, [cluster],
+                                         P.core.SchedulerConfig(match=match),
+                                         **P.kw)
+            before = _counts(P)
+            pool = store.pools["default"]
+            scheduler.rank_cycle(pool)
+            outcome = scheduler.match_cycle(pool)
+            assert [j.uuid for j, _ in outcome.matched] == ["j"]
+            assert (_counts(P) == before) == constrained
 
 
 def test_a_reservation_does_not_leak_into_the_next_cycles_rows():

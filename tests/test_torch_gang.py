@@ -646,7 +646,8 @@ def test_waiting_gangs_skips_partial_complements():
 # ------------------------------------- scheduler-level admission cycle
 
 
-def _fleet_rig(P, n_hosts=4, block_hosts=BLOCK_HOSTS, gang_size=4):
+def _fleet_rig(P, n_hosts=4, block_hosts=BLOCK_HOSTS, gang_size=4,
+               **config_kw):
     """tests/test_gang.py:346: occupants of the gang's own user fill
     every host (so the DRU rebalancer stays quiet and only gang admission
     acts), then a gang asks for `gang_size` whole hosts."""
@@ -656,7 +657,8 @@ def _fleet_rig(P, n_hosts=4, block_hosts=BLOCK_HOSTS, gang_size=4):
     cluster = P.mock.MockCluster("m", _hosts(P, n_hosts), clock=clock)
     scheduler = _scheduler(P, store, [cluster], P.core.SchedulerConfig(
         match=P.matcher.MatchConfig(gang_enabled=True,
-                                    topology_block_hosts=block_hosts)))
+                                    topology_block_hosts=block_hosts),
+        **config_kw))
     pool = store.pools["default"]
     store.submit_jobs([
         _pinned(P, h.hostname, mem=900.0, user="ganguser",
@@ -706,10 +708,10 @@ def test_core_admission_preempts_reserves_and_places():
 
 
 def test_core_admission_drains_without_killing():
-    """A warm predictor (occupants predicted done in ~30 s, a kill would
+    """A fixed predictor (occupants predicted done in ~30 s, a kill would
     waste 120 s): admission goes preempt-less, nobody dies, and the gang
-    lands after the natural drain.  The port has no runtime predictor yet,
-    so both schedulers get the same fixed one."""
+    lands after the natural drain.  (The scheduler's own predictor warmed
+    by observations: the next case.)"""
     views = []
     for P in PKGS:
         clock, store, cluster, scheduler, pool = _fleet_rig(P)
@@ -724,6 +726,36 @@ def test_core_admission_drains_without_killing():
         scheduler.rank_cycle(pool)
         scheduler.match_cycle(pool)
         assert len(set(_placed_hosts(store, "g-core"))) == 4
+        assert scheduler.host_reservations == {}
+        views.append((first, _admission_view(store, scheduler)))
+    assert views[0] == views[1]
+
+
+def test_core_admission_drains_with_the_warm_runtime_predictor():
+    """tests/test_gang.py:396: the scheduler's own runtime predictor (on
+    through a backfill weight), warmed by three observations of the
+    occupants' (user, command), predicts them done in ~30 s: admission
+    drains instead of killing, and the gang lands after the drain — in
+    both packages, the admissions, reservations and instances equal."""
+    views = []
+    for P in PKGS:
+        clock, store, cluster, scheduler, pool = _fleet_rig(
+            P, backfill_weight=0.01)
+        for _ in range(3):
+            scheduler.predictor.observe("ganguser", "true", 60_000.0)
+        scheduler.rebalance_cycle(pool)
+        [adm] = scheduler.last_gang_admissions
+        assert adm["mode"] == "drain" and adm["victims"] == []
+        assert adm["predicted_wait_ms"] == pytest.approx(30_000.0)
+        assert len(scheduler.host_reservations) == 4
+        assert len(store.running_instances("default")) == 4
+        first = _admission_view(store, scheduler)
+        clock.advance(40_000)
+        cluster.advance_to(clock())
+        scheduler.rank_cycle(pool)
+        scheduler.match_cycle(pool)
+        placed = _placed_hosts(store, "g-core")
+        assert len(placed) == 4 and len(set(placed)) == 4
         assert scheduler.host_reservations == {}
         views.append((first, _admission_view(store, scheduler)))
     assert views[0] == views[1]

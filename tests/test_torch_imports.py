@@ -106,9 +106,18 @@ RESIDENCY_MODULES = ("cook_tpu_torch.scheduler.device_state",
                      "cook_tpu_torch.utils.config")
 
 
+# the prediction slice's modules, new (the runtime predictor and the
+# speculator, a copy of a jax-free reference module) and extended (the
+# speculative pipelined stage, the simulator's A/B, the CLI flags)
+PREDICTION_MODULES = ("cook_tpu_torch.scheduler.prediction",
+                      "cook_tpu_torch.scheduler.pipeline",
+                      "cook_tpu_torch.scheduler.flight_recorder",
+                      "cook_tpu_torch.sim.cli")
+
+
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
                          + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES
-                         + RESIDENCY_MODULES)
+                         + RESIDENCY_MODULES + PREDICTION_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"
@@ -175,6 +184,14 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
     # device residency and quantization off, as in the reference: no
     # resident state, no rebalancer mirror
     assert cpu.device_state is None and not cpu.config.rebalancer.resident
+    # speculation and backfill off, as in the reference: no predictor, no
+    # speculator; with speculation on, the speculative solve runs on the
+    # scheduler's device
+    assert cpu.predictor is None and cpu.speculator is None
+    speculating = Simulator(jobs, hosts, SimConfig(speculate=True),
+                            device="cpu").scheduler
+    assert speculating.speculator.device.type == "cpu"
+    assert speculating.predictor is not None
     resident = Simulator(jobs, hosts, SimConfig(resident=True),
                          device="cpu").scheduler
     assert resident.device_state.device.type == "cpu"
