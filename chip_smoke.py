@@ -152,7 +152,7 @@ and prints no result line):
                   the sort's share.
  14. rebalance slice — the full-size rebalance path through the port's
                   Simulator: `preemption_heavy_trace` at 100,000 jobs x
-                  10,000 hosts, 6 cycles of rank -> exact greedy match ->
+                  10,000 hosts, 4 cycles of rank -> exact greedy match ->
                   rebalance on the card; capacity checked after every
                   match and rebalance; the padded axes checked; each
                   cycle's first and busiest search rerun on the CPU port,
@@ -206,7 +206,7 @@ Speculation (scheduler/prediction.py), after the residency phases (7d):
 
   S1. speculation wave — `completion_heavy_trace` at 100,000 jobs x
                   10,000 hosts of 64 GB / 32 cpus (one job a host, 30 s,
-                  one user), 6 cycles on the exact greedy (16,384
+                  one user), 5 cycles on the exact greedy (16,384
                   considerable), speculation off and on: identical run
                   traces, hit fraction >= 0.2, a lower pre-launch p50 on,
                   no `solve-error`, no H2D byte on a hit cycle; the
@@ -221,15 +221,56 @@ Speculation (scheduler/prediction.py), after the residency phases (7d):
                   launch of the speculative solves kept and held against
                   its plain version; every launch of these runs counted.
   S3. pipelined speculation — 8 pools, each the wave at 12,500 x 1,250,
-                  `match_cycle_pipelined` for 4 passes at the default
+                  `match_cycle_pipelined` for 3 passes at the default
                   SchedulerConfig, off and on: identical placements, every
-                  pool a hit on passes 3-4.
+                  pool a hit on pass 3.
   S4. speculation agreement — the reference's scenarios at small size on
                   the card and on the CPU (the 3-user columnar wave: 1 hit,
                   7 `queue-shifted`, 1 `epoch-stale`; the estimated-
                   completion constraint: nothing dispatched; residency with
                   an epoch bump mid-flight: `epoch-stale`): equal run
                   traces, cycle records' speculation fields and stats.
+
+Elastic capacity plane (ops/elastic.py, elastic/), after the rebalance
+agreement (15) and before the report (16):
+
+ 17. elastic solve — `weighted_demand` + `solve_capacity_plan` (torch
+                  code: no hand kernel runs in them) on the card at
+                  [8, 32768] (the multi-pool slice's padded shape) and
+                  [8, 131072] (one pool holding the 100,000-job backlog),
+                  six live pools and two padded, live loans with a full
+                  reclaim, a partial one and none, headroom 0.1: against
+                  the port on the CPU and the numpy oracles, amounts
+                  within rtol 1e-4, atol 1e-2 (shortage 1e-1),
+                  holds_borrowed / can_lend and the move sets after
+                  MIN_MOVE identical, the full reclaim the loan bit for
+                  bit; CUDA-event times of one plan (median of 20, cold
+                  and warm), its host-clock wall, its kernel launches
+                  (torch.profiler) and the bytes it reads.
+ 18. elastic multipool — the multi-pool slice (11a's trace and knobs) on
+                  the serial route for 3 cycles with `elastic_every=1`:
+                  after every match, plan and reclaim no host over
+                  capacity (the `elastic@pool` hosts too), the ledger
+                  non-negative and equal to the running sum of the
+                  committed moves, the nets summing to zero; every plan's
+                  inputs solved again on the CPU port (the same moves);
+                  every `best_node`, `coarse_pass` and `best_node_batched`
+                  launch held against its plain version; per cycle the
+                  elastic wall and inside it the solve, `_demand_inputs`,
+                  the commit and `reconcile`, the elastic-plan H2D bytes
+                  and the placements beside 11a's serial route.
+ 19. elastic residency — 18's final queues planned 3 times with
+                  `ElasticParams.resident` off and on: equal plans, warm
+                  plans <= 0.1x the cold plan's elastic-plan H2D bytes.
+ 20. elastic agreement — the two-pool loan, the reclaim before
+                  preemption across a failover (journal in a temporary
+                  directory: the control victim search picks task-bob,
+                  the real cycle reclaims and picks nobody) and the
+                  imbalanced A/B at 24 jobs, on the card and on the CPU:
+                  identical run traces, plans and ledgers; then on the
+                  card the A/B at 1,000 busy jobs on 10 hosts against
+                  1,240 idle ones (its elastic run under 18's checks): the
+                  p50 queued wait lower with elastic_every 1 than 0.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -3240,11 +3281,15 @@ REBALANCE_CASES = ("victims", "spare tie", "none", "quota")
 # x 10,000 hosts (the hog's 20,000 half-host jobs fill the fleet at t=0;
 # 80,000 late jobs of 49 users arrive at 60 s), the default share 1/500 of
 # the fleet, RebalancerParams() defaults, the exact greedy (chunk 0) over
-# 16384 considerable jobs, a rebalance after every match, 6 cycles of 30 s
+# 16384 considerable jobs, a rebalance after every match, cycles of 30 s
 REB_TRACE = dict(hosts=10_000, host_mem=65_536, host_cpus=32,
                  hog_jobs=20_000, late_jobs=80_000, n_late_users=49,
                  runtime_ms=600_000, late_arrival_ms=60_000, seed=0)
 REB_CYCLES = 6
+# the slice's depth: 4 cycles (decisions from cycle 3 on; it ran 6 before
+# the elastic phases needed the time); the victim search at the slice's
+# padded shapes is also held by the rebalance cases (13)
+REB_SLICE_CYCLES = 4
 # the rebalance agreement's flat `pallas` matcher (tests/test_torch_sim.py
 # CONFIGS["pallas"]): chunks of 16 fill a uniform fleet in one cycle
 REB_PALLAS = dict(max_jobs_considered=16384, chunk=16, backend="pallas",
@@ -3499,7 +3544,8 @@ def ledger_view(result):
             for e in result.fairness["pools"]["default"]["ledger"]]
 
 
-def rebalance_slice_phase(trace=REB_TRACE, device="cuda"):
+def rebalance_slice_phase(trace=REB_TRACE, device="cuda",
+                          cycles=REB_SLICE_CYCLES):
     """The full-size rebalance path through the port's Simulator (the
     REB_TRACE replay on the card); the first and the last victim search
     of each cycle, and the one with the most victims, rerun on the CPU
@@ -3518,7 +3564,7 @@ def rebalance_slice_phase(trace=REB_TRACE, device="cuda"):
     t0 = time.perf_counter()
     jobs, hosts = preemption_heavy_trace(**trace)
     sim = Simulator(jobs, hosts, SimConfig(
-        cycle_ms=30_000, max_cycles=REB_CYCLES, rebalance_every=1,
+        cycle_ms=30_000, max_cycles=cycles, rebalance_every=1,
         scheduler=SchedulerConfig(
             match=MatchConfig(max_jobs_considered=16384))), device=device)
     set_default_share(sim, hosts)
@@ -3769,7 +3815,10 @@ def rebalance_agreement_phase():
 # cycle completes one wave and places the next
 SPEC_WAVE = dict(jobs=100_000, hosts=10_000, runtime_ms=30_000,
                  host_mem=65_536.0, host_cpus=32.0, n_users=1)
-SPEC_CYCLES = 6
+# 5 cycles (hits on cycles 3-5; it ran 6 before the elastic phases needed
+# the time): speculation at these shapes is also held by S2's kernel-knob
+# waves
+SPEC_CYCLES = 5
 # the exact greedy (chunk 0) at the slices' window: the reference's own
 # A/B scenario (tests/test_prediction.py:411)
 SPEC_EXACT = dict(max_jobs_considered=16_384, chunk=0)
@@ -3782,7 +3831,10 @@ SPEC_HIT_FRACTION = 0.2
 # the pipelined speculation rig: 8 pools, each the wave at 12,500 x 1,250
 SPEC_POOLS = 8
 SPEC_POOL_WAVE = dict(SPEC_WAVE, jobs=12_500, hosts=1_250)
-SPEC_PIPELINED_CYCLES = 4
+# 3 passes (pass 3 hits; it ran 4 before the elastic phases needed the
+# time): the pipelined pass's placements are also held against the
+# serial route at the multi-pool slice's shapes (11a)
+SPEC_PIPELINED_CYCLES = 3
 SPEC_KERNELS = {"best_node": ("match", "best_node"),
                 "coarse_pass": ("hierarchical", "coarse_pass"),
                 "best_node_batched": ("hierarchical", "best_node_batched")}
@@ -4218,6 +4270,781 @@ def speculation_agreement_phase(devices=("cuda", "cpu")):
               f"{json.dumps(reasons)}", flush=True)
 
 
+# --------------------------------------------------------------- elastic
+
+# the plan's two shapes: the multi-pool slice's padded [8, 32768] (alpha's
+# 30,000 jobs) and one pool holding BASELINE's 100,000-job backlog
+ELASTIC_SHAPES = ((8, 32_768), (8, 131_072))
+ELASTIC_LIVE = 6          # live pools of the 8; the last two padded
+ELASTIC_HEADROOM = 0.1
+ELASTIC_HALF_LIFE = 64.0  # ElasticParams.rank_half_life
+# the amounts' tolerances of tests/test_elastic.py:71, :83-85
+EL_RTOL, EL_ATOL, EL_SHORT_ATOL = 1e-4, 1e-2, 1e-1
+# the imbalanced A/B on the card (the test's own size, 24 jobs on 2 + 4
+# hosts, runs card against CPU): 1,000 busy jobs on 10 busy hosts against
+# 1,240 idle ones.  The busy hosts (64 GB / 32 cpus) run 4 jobs of 8 GB /
+# 8 cpus each and strand 32 GB apiece: from 23 busy hosts on, the pool's
+# scalar spare memory covers the rank-weighted demand's (~92 jobs, 736
+# GB), the plan then loans cpus alone and the elastic host places nothing
+# (ROADMAP Queue C reference item 9), so the A/B keeps the busy pool small.
+EL_AB = dict(busy_jobs=1_000, busy_hosts=10, idle_hosts=1_240)
+EL_AB_CYCLES = 60
+EL_AB_SMALL = dict(busy_jobs=24)
+EL_AB_SMALL_CYCLES = 60
+
+
+def elastic_inputs(p, j, live=ELASTIC_LIVE, seed=0):
+    """numpy inputs of one plan at [p, j]: `live` pools with queues of
+    the simulator's job shapes (pool 0's the whole j, the others random
+    lengths), the rest padded; three live loans: 0 -> 1 with pool 0 short
+    by twice it (a full reclaim), 2 -> 3 with pool 2 short by half of it
+    (a partial one), 4 -> 5 with pool 4 not short (none).  Returns (res,
+    valid, supply, outstanding, pool_valid, oracle demand)."""
+    import numpy as np
+
+    from cook_tpu_torch.ops import cpu_reference
+
+    rng = np.random.default_rng(seed)
+    res = np.zeros((p, j, 3), np.float32)
+    valid = np.zeros((p, j), bool)
+    lengths = [j] + [int(n) for n in rng.integers(j // 8, j, live - 1)]
+    for i, n in enumerate(lengths):
+        res[i, :n, 0] = rng.integers(1, 64, n) * 512.0
+        res[i, :n, 1] = rng.integers(1, 32, n) * 0.5
+        res[i, :n, 2] = (rng.uniform(size=n) < 0.1) * rng.integers(1, 4, n)
+        valid[i, :n] = True
+    demand = cpu_reference.ref_weighted_demand(res, valid,
+                                               ELASTIC_HALF_LIFE)
+    dem = demand.astype(np.float32)
+    supply = (rng.uniform(0.0, 2.0, (p, 3)) * dem.mean(axis=0)).astype(
+        np.float32)
+    outstanding = np.zeros((p, p, 3), np.float32)
+    outstanding[0, 1] = np.round(0.2 * dem[0])
+    supply[0] = np.maximum(dem[0] - 2.0 * outstanding[0, 1], 0.0)
+    outstanding[2, 3] = np.round(0.4 * dem[2])
+    supply[2] = np.maximum(dem[2] - 0.5 * outstanding[2, 3], 0.0)
+    outstanding[4, 5] = np.round(0.1 * dem[5])
+    supply[4] = 2.0 * dem[4]
+    for borrower, lender in ((1, 0), (3, 2)):
+        supply[borrower] = 10.0 * outstanding[lender, borrower] + 1.0
+    supply[live:] = 0.0
+    pool_valid = np.arange(p) < live
+    return res, valid, supply, outstanding, pool_valid, demand
+
+
+def elastic_move_set(reclaim, loan, n_pools):
+    """{(kind, from, to)} of the moves the planner would commit (any
+    dimension at or over its MIN_MOVE)."""
+    from cook_tpu_torch.elastic.planner import MIN_MOVE
+    from cook_tpu_torch.ops.elastic import ELASTIC_RESOURCE_DIMS
+
+    out = set()
+    for kind, matrix in (("reclaim", reclaim), ("loan", loan)):
+        for li in range(n_pools):
+            for bi in range(n_pools):
+                if li != bi and any(
+                        matrix[li, bi, d] >= MIN_MOVE[dim]
+                        for d, dim in enumerate(ELASTIC_RESOURCE_DIMS)):
+                    out.add((kind, li, bi))
+    return out
+
+
+def elastic_solve(res, valid, supply, outstanding, pool_valid, device,
+                  half_life=ELASTIC_HALF_LIFE, headroom=ELASTIC_HEADROOM):
+    """One plan on `device` from numpy or tensor inputs: (demand, plan,
+    holds_borrowed), all numpy."""
+    import torch
+
+    from cook_tpu_torch.ops import elastic
+
+    def put(a):
+        return torch.as_tensor(a).to(device)
+
+    demand = elastic.weighted_demand(put(res), put(valid), half_life)
+    problem = elastic.ElasticProblem(demand, put(supply), put(outstanding),
+                                     put(pool_valid))
+    plan = elastic.solve_capacity_plan(problem, headroom)
+    held = elastic.holds_borrowed(problem, plan)
+    return (demand.cpu().numpy(), type(plan)(*(t.cpu().numpy()
+                                                for t in plan)),
+            held.cpu().numpy())
+
+
+def check_elastic_plan(label, got, want, n_pools):
+    """Two (demand, plan, holds_borrowed) triples agree: amounts within
+    the tolerances, holds_borrowed (and so can_lend) and the move sets
+    identical.  Shortages and loans are differences of demand and supply:
+    where those run to millions of MB, one float32 rounding of the
+    operands is 0.125 MB, over the absolute tolerance of a difference
+    that should be 0.  So each resource's absolute tolerance is at least
+    16 float32 epsilons of its largest demand (3 MB at a demand of 1.5
+    million MB, 0.004 cpus at 1,500 cpus)."""
+    import numpy as np
+
+    (d1, p1, h1), (d2, p2, h2) = got, want
+    floor = 16 * float(np.finfo(np.float32).eps) * np.abs(d2).max(axis=0)
+
+    def close(name, a, b, atol):
+        # atol per resource (the last axis), broadcast over pools
+        bad = np.abs(a - b) > np.maximum(atol, floor) + EL_RTOL * np.abs(b)
+        if bad.any():
+            i = tuple(np.argwhere(bad)[0])
+            raise AssertionError(f"{label}: {name}{list(i)} {a[i]} != "
+                                 f"{b[i]} ({int(bad.sum())} elements)")
+
+    close("demand", d1, d2, EL_ATOL)
+    for name, atol in (("reclaim", EL_ATOL), ("loan", EL_ATOL),
+                       ("shortage", EL_SHORT_ATOL)):
+        close(name, getattr(p1, name), getattr(p2, name), atol)
+    if not np.array_equal(h1, h2):
+        raise AssertionError(f"{label}: holds_borrowed {h1} != {h2}")
+    m1 = elastic_move_set(p1.reclaim, p1.loan, n_pools)
+    m2 = elastic_move_set(p2.reclaim, p2.loan, n_pools)
+    if m1 != m2:
+        raise AssertionError(f"{label}: move sets differ: {sorted(m1 ^ m2)}")
+    return float(max(np.abs(p1.reclaim - p2.reclaim).max(),
+                     np.abs(p1.loan - p2.loan).max()))
+
+
+def _profiled_launches(fn):
+    """Device kernels one call of fn() launched, by torch.profiler: (count,
+    names), or (None, []) where the profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(kernels), sorted(set(kernels))) if kernels else (None, [])
+
+
+def elastic_solve_phase(device="cuda", shapes=ELASTIC_SHAPES):
+    """17. The plan solve (`ops/elastic.py`, torch code: no hand kernel
+    runs in it) on the card at the slice's two shapes, against the port
+    on the CPU and the numpy oracles: amounts within tolerance,
+    holds_borrowed / can_lend and the move sets identical, the full
+    reclaim exact.  CUDA-event times of one plan, cold and warm, its
+    launches (torch.profiler) and the bytes it reads."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops import cpu_reference, elastic
+
+    phase("elastic solve")
+    rows = {}
+    for p, j in shapes:
+        label = f"elastic {p}x{j}"
+        res, valid, supply, outstanding, pool_valid, demand = \
+            elastic_inputs(p, j)
+        oracle = cpu_reference.ref_capacity_plan(
+            demand, supply, outstanding, pool_valid, ELASTIC_HEADROOM)
+        oracle_held = (outstanding - oracle[0]).sum(axis=(0, 2)) > 0
+        want = (demand, elastic.ElasticPlan(*oracle), oracle_held)
+        cpu = elastic_solve(res, valid, supply, outstanding, pool_valid,
+                            "cpu")
+        check_elastic_plan(f"{label} cpu vs oracle", cpu, want, p)
+        card = elastic_solve(res, valid, supply, outstanding, pool_valid,
+                             device)
+        err = max(check_elastic_plan(f"{label} card vs cpu", card, cpu, p),
+                  check_elastic_plan(f"{label} card vs oracle", card, want,
+                                     p))
+        plan = card[1]
+        # the pinned cases: the full reclaim returns the loan whole, its
+        # borrower may lend; the partial and unreclaimed borrowers may not
+        if not np.array_equal(plan.reclaim[0, 1], outstanding[0, 1]):
+            raise AssertionError(f"{label}: the full reclaim is not the "
+                                 "loan bit for bit")
+        if list(card[2][[1, 3, 5]]) != [False, True, True]:
+            raise AssertionError(f"{label}: holds_borrowed {card[2]}")
+        if not 0 < plan.reclaim[2, 3, 0] < outstanding[2, 3, 0]:
+            raise AssertionError(f"{label}: the partial reclaim is "
+                                 f"{plan.reclaim[2, 3]}")
+        moves = sorted(elastic_move_set(plan.reclaim, plan.loan, p))
+        row = dict(moves=len(moves), max_abs_err=err,
+                   can_lend=[bool(x) for x in pool_valid & ~card[2]])
+        if device == "cuda":
+            dev = [torch.as_tensor(a).to(device)
+                   for a in (res, valid, supply, outstanding, pool_valid)]
+
+            def one_plan():
+                d = elastic.weighted_demand(dev[0], dev[1],
+                                            ELASTIC_HALF_LIFE)
+                return elastic.solve_capacity_plan(elastic.ElasticProblem(
+                    d, dev[2], dev[3], dev[4]), ELASTIC_HEADROOM)
+
+            nbytes = sum(int(a.nbytes) for a in (res, valid, supply,
+                                                 outstanding, pool_valid))
+            row.update(ms=cuda_ms(one_plan, cold=True),
+                       warm_ms=cuda_ms(one_plan),
+                       wall_ms=wall_ms(one_plan), bytes_read=nbytes,
+                       bound_ms=nbytes / PEAK_BYTES_S * 1e3,
+                       bound_by="bytes")
+            launches, names = _profiled_launches(one_plan)
+            row["launches"] = ("not measured (no device events)"
+                               if launches is None else launches)
+            row["kernels"] = len(names)
+        rows[label] = row
+        print(f"{label}: card = CPU = oracle, moves {moves} "
+              + json.dumps(row), flush=True)
+    return rows
+
+
+def _apply_moves(ledger, moves):
+    """The store's ledger arithmetic (apply_capacity_moves), kept apart
+    as the running sum of the committed moves."""
+    for move in moves:
+        key = (move["from"], move["to"])
+        entry = ledger.get(key, {d: 0.0 for d in ("mem", "cpus", "gpus")})
+        for dim in entry:
+            amount = float(move.get(dim, 0.0))
+            entry[dim] = (max(entry[dim] - amount, 0.0)
+                          if move["kind"] == "reclaim"
+                          else entry[dim] + amount)
+        if any(v > 1e-6 for v in entry.values()):
+            ledger[key] = entry
+        else:
+            ledger.pop(key, None)
+
+
+class ElasticProbe:
+    """Per cycle of an elastic replay: the elastic phase's wall and,
+    inside it, the solve (the record's duration), `_demand_inputs`, the
+    commit (with its reconcile) and `reconcile`; the elastic-plan H2D
+    bytes; and after every match, plan and reclaim: capacity (the
+    `elastic@pool` hosts too), a non-negative ledger equal to the running
+    sum of the committed moves, and nets summing to zero across pools."""
+
+    def __init__(self, sim):
+        from cook_tpu_torch.obs import data_plane
+
+        self.sim = sim
+        self.cycles = {}
+        self.ledger = {}
+        self.checks = 0
+        s, planner = sim.scheduler, sim.scheduler.elastic
+
+        def cycle():
+            return self.cycles.setdefault(sim.now_ms, dict(
+                elastic_s=0.0, solve_s=0.0, demand_inputs_s=0.0,
+                commit_s=0.0, reconcile_s=0.0, h2d_bytes=0, plans=0,
+                moves=0, placed=0))
+
+        def timed(obj, name, key):
+            original = getattr(obj, name)
+
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = original(*args, **kwargs)
+                cycle()[key] += time.perf_counter() - t0
+                return out
+            setattr(obj, name, run)
+
+        def fam_h2d():
+            return data_plane.LEDGER.family_totals().get(
+                data_plane.FAM_ELASTIC, {}).get("h2d_bytes", 0)
+
+        match, plan, reclaim, elastic_cycle = (
+            s.match_cycle, planner.plan_cycle, planner.reclaim_for,
+            s.elastic_cycle)
+
+        def matched(pool):
+            out = match(pool)
+            cycle()["placed"] += len(out.matched)
+            self.check()
+            return out
+
+        def planned(queues):
+            record = plan(queues)
+            if record is not None:
+                c = cycle()
+                c["solve_s"] += record.duration_s
+                c["plans"] += 1
+                c["moves"] += len(record.moves)
+                if record.txn_id:
+                    _apply_moves(self.ledger, record.moves)
+            self.check()
+            return record
+
+        def reclaimed(pool, pending, host_spare):
+            out = reclaim(pool, pending, host_spare)
+            if out is not None:
+                _apply_moves(self.ledger, planner.recorder.records_json(
+                    limit=1)[-1]["moves"])
+            self.check()
+            return out
+
+        def elastic_timed():
+            b0 = fam_h2d()
+            t0 = time.perf_counter()
+            out = elastic_cycle()
+            c = cycle()
+            c["elastic_s"] += time.perf_counter() - t0
+            c["h2d_bytes"] += fam_h2d() - b0
+            return out
+
+        s.match_cycle = matched
+        planner.plan_cycle = planned
+        planner.reclaim_for = reclaimed
+        s.elastic_cycle = elastic_timed
+        timed(planner, "_demand_inputs", "demand_inputs_s")
+        timed(planner, "_commit", "commit_s")
+        timed(planner, "reconcile", "reconcile_s")
+
+    def check(self):
+        sim = self.sim
+        check_capacity(sim)
+        store = sim.store
+        if store.capacity_ledger != self.ledger:
+            raise AssertionError(
+                f"ledger {store.encoded_capacity_ledger()} is not the "
+                f"running sum of the committed moves {self.ledger}")
+        if any(v < 0 for entry in store.capacity_ledger.values()
+               for v in entry.values()):
+            raise AssertionError(f"negative ledger "
+                                 f"{store.encoded_capacity_ledger()}")
+        for dim in ("mem", "cpus", "gpus"):
+            net = sum(store.net_capacity_adjustment(p)[dim]
+                      for p in store.pools)
+            scale = 1.0 + sum(e[dim] for e in
+                              store.capacity_ledger.values())
+            if abs(net) > 1e-9 * scale:
+                raise AssertionError(f"nets sum to {net} {dim}")
+        self.checks += 1
+
+
+def elastic_replan_check(label, plans, device):
+    """Each kept plan (weighted_demand's and solve_capacity_plan's
+    arguments on `device`) solved again on the CPU port: the same moves,
+    amounts within the tolerances.  Returns the max error."""
+    import torch
+
+    from cook_tpu_torch.ops import elastic
+
+    err = 0.0
+    for i, ((wd_args, _, demand), (sp_args, _, plan)) in enumerate(plans):
+        res, valid, half_life = wd_args
+        problem, headroom = sp_args
+        held = elastic.holds_borrowed(problem, plan)
+        card = (demand.cpu().numpy(),
+                type(plan)(*(t.cpu().numpy() for t in plan)),
+                held.cpu().numpy())
+        cpu = elastic_solve(res.cpu(), valid.cpu(),
+                            problem.supply.cpu(), problem.outstanding.cpu(),
+                            problem.pool_valid.cpu(), "cpu",
+                            half_life=half_life, headroom=headroom)
+        n_pools = int(torch.as_tensor(problem.pool_valid).sum())
+        err = max(err, check_elastic_plan(f"{label} plan {i}", card, cpu,
+                                          n_pools))
+    print(f"{label}: {len(plans)} plans solved again on the CPU port, the "
+          f"same moves, max abs error {err:.3g}", flush=True)
+    return err
+
+
+def elastic_slice_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
+                        match_overrides=None, classic_placed=None):
+    """18. The multi-pool slice (8 pools, 100k x 10k) on the serial route
+    with the elastic plane planning every cycle (`elastic_every=1`) at the
+    default SchedulerConfig: ElasticProbe's checks after every match,
+    plan and reclaim; every plan's inputs kept and solved again on the CPU
+    port; every `best_node`, `coarse_pass` and `best_node_batched` launch
+    kept and held against its plain version.  Per cycle the elastic walls,
+    the elastic-plan H2D bytes and the placements beside the classic
+    serial route's (`classic_placed`, per cycle, from phase 11a).  Returns
+    ({kernel: launches}, {kernel: max error}, the scheduler's final
+    queues, (jobs, hosts, SimConfig pools))."""
+    from cook_tpu_torch.elastic import planner as planner_mod
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+    from cook_tpu_torch.ops import hierarchical, match as match_ops
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+    from cook_tpu_torch.utils.config import default_match_config
+
+    phase("elastic multipool")
+    jobs, hosts, sim_pools = multipool_trace(pools)
+    cfg = default_match_config(**{**MP_MATCH, **(match_overrides or {})})
+    sim = Simulator(jobs, hosts, SimConfig(
+        cycle_ms=30_000, max_cycles=cycles, pools=sim_pools,
+        elastic_every=1, scheduler=SchedulerConfig(match=cfg)),
+        device=device)
+    probe = ElasticProbe(sim)
+    modules = {"match": match_ops, "hierarchical": hierarchical}
+    calls = {name: [] for name in MP_KERNELS}
+    demands, plans = [], []
+    with contextlib.ExitStack() as stack:
+        for name, (mod, fn) in MP_KERNELS.items():
+            stack.enter_context(kept_calls(modules[mod], fn, calls[name]))
+        stack.enter_context(kept_results(planner_mod, "weighted_demand",
+                                         demands))
+        stack.enter_context(kept_results(planner_mod,
+                                         "solve_capacity_plan", plans))
+        bn.launches = bnb.launches = cp.launches = 0
+        t0 = time.perf_counter()
+        result = sim.run()
+        wall = time.perf_counter() - t0
+        launches = {"best_node": bn.launches,
+                    "best_node_batched": bnb.launches,
+                    "coarse_pass": cp.launches}
+    placed = n_placed(result.rows)
+    committed = [p for p in result.elastic_plans if p["txn_id"]]
+    summary = dict(placements=placed, launches=launches,
+                   replay_wall_s=round(wall, 2), plans=len(
+                       result.elastic_plans), committed=len(committed),
+                   checks=probe.checks,
+                   phase_wall_s={k: round(v, 4) for k, v in
+                                 result.phase_wall_s.items()},
+                   ledger=result.capacity_ledger)
+    print("elastic multipool " + json.dumps(summary), flush=True)
+    for k, (t_ms, c) in enumerate(sorted(probe.cycles.items())):
+        line = {key: (round(v, 4) if isinstance(v, float) else v)
+                for key, v in c.items()}
+        if classic_placed is not None:
+            line["classic_placed"] = classic_placed[k]
+        print(f"elastic multipool cycle {k + 1} (t {t_ms} ms) "
+              + json.dumps(line), flush=True)
+    if sim.scheduler.device.type != device or placed <= 0:
+        raise AssertionError(f"elastic multipool: solved on "
+                             f"{sim.scheduler.device}, {placed} placed")
+    if len(plans) != len(result.elastic_plans) or not plans:
+        raise AssertionError(f"elastic multipool: {len(plans)} solves "
+                             f"kept, {len(result.elastic_plans)} plans")
+    errs = {"elastic": elastic_replan_check(
+        "elastic multipool", list(zip(demands, plans)), device)}
+    if device == "cuda":
+        for name in MP_KERNELS:
+            if launches[name] <= 0 or len(calls[name]) != launches[name]:
+                raise AssertionError(f"elastic multipool: kept "
+                                     f"{len(calls[name])} {name} calls, "
+                                     f"{launches[name]} launches")
+            errs[name] = hold_launches(name, calls[name],
+                                       "elastic multipool")
+    elif not all(calls.values()):
+        raise AssertionError("elastic multipool: a kernel was never called")
+    queues = dict(sim.scheduler.pool_queues)
+    return launches, errs, queues, (jobs, hosts, sim_pools)
+
+
+def elastic_residency_phase(queues, trace, device="cuda", plans=3):
+    """19. Phase 18's final queues planned by `CapacityPlanner.plan_cycle`
+    with `resident` off and on, each on a fresh store and mock cluster of
+    the slice's pools and hosts, `plans` times: the plans equal, and every
+    warm plan of the unchanged queues moves <= 0.1x the cold plan's
+    elastic-plan H2D bytes (tests/test_resident_mirrors.py:179-195)."""
+    from cook_tpu_torch.cluster.mock import MockCluster, MockHost
+    from cook_tpu_torch.elastic import CapacityPlanner, ElasticParams
+    from cook_tpu_torch.models.entities import DruMode, Pool
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.obs import data_plane
+    from cook_tpu_torch.txn import TransactionLog
+
+    phase("elastic residency")
+    _, hosts, sim_pools = trace
+
+    def fam_h2d():
+        return data_plane.LEDGER.family_totals().get(
+            data_plane.FAM_ELASTIC, {}).get("h2d_bytes", 0)
+
+    runs = {}
+    for resident in (False, True):
+        store = JobStore(clock=lambda: 0)
+        for name, mode in sim_pools:
+            store.set_pool(Pool(name=name, dru_mode=DruMode(mode)))
+        cluster = MockCluster("sim", [MockHost(
+            node_id=h.node_id, hostname=h.hostname, mem=h.mem, cpus=h.cpus,
+            gpus=h.gpus, pool=h.pool) for h in hosts], clock=store.clock)
+        planner = CapacityPlanner(
+            store, [cluster], TransactionLog(store),
+            ElasticParams(enabled=True, resident=resident), device=device)
+        out, moved = [], []
+        for _ in range(plans):
+            b0 = fam_h2d()
+            record = planner.plan_cycle(queues)
+            moved.append(fam_h2d() - b0)
+            out.append((record.demand, record.moves, record.unmet))
+            if resident:
+                stats = planner._resident.last
+                moved[-1] = (moved[-1], stats["reason"]
+                             if stats["rebuild"] else "warm")
+        runs[resident] = (out, moved)
+    if runs[True][0] != runs[False][0]:
+        raise AssertionError("elastic residency: plans differ with the "
+                             "mirror on")
+    (cold, reason), warm = runs[True][1][0], runs[True][1][1:]
+    if reason != "cold" or any(kind != "warm" or b > 0.1 * cold
+                               for b, kind in warm):
+        raise AssertionError(f"elastic residency: cold {cold} ({reason}), "
+                             f"warm {warm}")
+    print("elastic residency: plans equal with the mirror off and on; "
+          "elastic-plan H2D bytes " + json.dumps({
+              "classic": runs[False][1], "cold": cold,
+              "warm": [b for b, _ in warm],
+              "warm_over_cold": [round(b / cold, 6) for b, _ in warm]}),
+          flush=True)
+    return cold, [b for b, _ in warm]
+
+
+def _el_job(uuid, user, pool, mem, cpus):
+    from cook_tpu_torch.models.entities import Job, Resources
+
+    return Job(uuid=uuid, user=user, pool=pool, priority=50, max_retries=1,
+               resources=Resources(mem=mem, cpus=cpus), command="true")
+
+
+def _el_two_pool(device, clock, data_dir=None):
+    """tests/test_elastic.py's two-pool rig: pools lender and borrower, one
+    16-cpu lender host, the elastic plane on, a journal in `data_dir`."""
+    from cook_tpu_torch.cluster.mock import MockCluster, MockHost
+    from cook_tpu_torch.elastic import ElasticParams
+    from cook_tpu_torch.models import persistence
+    from cook_tpu_torch.models.entities import Pool
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
+    from cook_tpu_torch.txn import TransactionLog
+
+    store = JobStore(clock=clock)
+    journal = (persistence.attach_journal(
+        store, os.path.join(data_dir, "journal.jsonl"))
+        if data_dir is not None else None)
+    store.set_pool(Pool(name="lender"))
+    store.set_pool(Pool(name="borrower"))
+    cluster = MockCluster("m", [MockHost(node_id="l0", hostname="l0",
+                                         mem=16000, cpus=16,
+                                         pool="lender")], clock=clock)
+    scheduler = Scheduler(
+        store, [cluster],
+        SchedulerConfig(elastic=ElasticParams(enabled=True)),
+        txn=TransactionLog(store, journal=journal), device=device)
+    return store, cluster, scheduler, journal
+
+
+class _Clock:
+    def __init__(self, now_ms=1_000_000):
+        self.now_ms = now_ms
+
+    def __call__(self):
+        return self.now_ms
+
+
+def elastic_loan_replay(device):
+    """tests/test_elastic.py:340: borrower demand pulls a loan out of the
+    idle lender; the next match places on the elastic host."""
+    store, cluster, scheduler, _ = _el_two_pool(device, _Clock())
+    for i in range(6):
+        store.submit_jobs([_el_job(f"j{i}", "alice", "borrower", 2000, 2)])
+    record = scheduler.elastic_cycle()
+    if not record or not record.moves or record.moves[0]["kind"] != "loan":
+        raise AssertionError(f"elastic loan ({device}): {record}")
+    borrower = store.pools["borrower"]
+    scheduler.rank_cycle(borrower)
+    outcome = scheduler.match_cycle(borrower)
+    cycle = scheduler.recorder.records_json(pool="borrower")[-1]
+    if cycle["elastic_plan"] != record.plan_id:
+        raise AssertionError("elastic loan: the cycle record's plan id")
+    return dict(plans=scheduler.elastic.recorder.records_json(),
+                ledger=store.encoded_capacity_ledger(),
+                placed=sorted((j.uuid, o.hostname)
+                              for j, o in outcome.matched))
+
+
+def elastic_failover_replay(device, data_dir):
+    """tests/test_elastic.py:437: the lender loans to the borrower; the
+    leader dies; the recovered leader (journal-replayed ledger) sees the
+    lender's demand return and reclaims before its victim search picks
+    anyone.  The control search without the reclaimer picks task-bob."""
+    from cook_tpu_torch.cluster.mock import MockCluster, MockHost
+    from cook_tpu_torch.elastic import ElasticParams
+    from cook_tpu_torch.models import persistence
+    from cook_tpu_torch.models.entities import InstanceStatus, Resources, Share
+    from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
+    from cook_tpu_torch.scheduler.rebalancer import (
+        RebalancerParams,
+        rebalance_pool,
+    )
+    from cook_tpu_torch.txn import TransactionLog
+
+    clock = _Clock()
+    store, _, scheduler, journal = _el_two_pool(device, clock, data_dir)
+    for i in range(4):
+        store.submit_jobs([_el_job(f"c{i}", "carol", "borrower", 3000, 3)])
+    loan = scheduler.elastic_cycle()
+    journal.close()
+    store2 = persistence.recover(data_dir)
+    if store2.capacity_ledger != store.capacity_ledger:
+        raise AssertionError("elastic failover: the recovered ledger")
+    cluster2 = MockCluster("m", [MockHost(node_id="l0", hostname="l0",
+                                          mem=16000, cpus=16,
+                                          pool="lender")], clock=clock)
+    scheduler2 = Scheduler(
+        store2, [cluster2],
+        SchedulerConfig(elastic=ElasticParams(enabled=True)),
+        txn=TransactionLog(store2), device=device)
+    scheduler2.elastic.reconcile()
+    store2.set_share(Share(user="bob", pool="lender",
+                           resources=Resources(mem=100.0, cpus=1.0)))
+    store2.submit_jobs([_el_job("bob", "bob", "lender", 8000, 8)])
+    store2.create_instance("bob", "task-bob", hostname="l0", node_id="l0",
+                           compute_cluster="m")
+    store2.update_instance_state("task-bob", InstanceStatus.RUNNING, None)
+    store2.submit_jobs([_el_job("alice", "alice", "lender", 8000, 8)])
+    lender = store2.pools["lender"]
+    scheduler2.rank_cycle(lender)
+    scheduler2.match_cycle(lender)
+    control = rebalance_pool(
+        store2, lender, scheduler2.pool_queues["lender"].jobs,
+        scheduler2.last_unmatched_offers["lender"], RebalancerParams(),
+        device=device)
+    decisions = scheduler2.rebalance_cycle(lender)
+    if (not control or "task-bob" not in control[0].task_ids
+            or decisions or store2.outstanding_loans_from("lender")
+            or store2.instances["task-bob"].status.terminal):
+        raise AssertionError(
+            f"elastic failover ({device}): control "
+            f"{[d.task_ids for d in control]}, real {decisions}, ledger "
+            f"{store2.encoded_capacity_ledger()}")
+    scheduler2.rank_cycle(lender)
+    outcome = scheduler2.match_cycle(lender)
+    plans = scheduler2.elastic.recorder.records_json()
+    if "reclaim-on-demand" not in [p["kind"] for p in plans]:
+        raise AssertionError("elastic failover: no reclaim-on-demand")
+    return dict(plans=[*loan.to_json()["moves"], *plans[-1]["moves"]],
+                kinds=[p["kind"] for p in plans],
+                control=[d.task_ids for d in control],
+                ledger=store2.encoded_capacity_ledger(),
+                placed=sorted((j.uuid, o.hostname)
+                              for j, o in outcome.matched))
+
+
+def elastic_ab(device, trace_kw, cycles):
+    """The imbalanced A/B: `imbalanced_pool_trace(**trace_kw)` replayed
+    with elastic_every 0 and 1, the second under ElasticProbe's checks.
+    Returns {every: SimResult}."""
+    from cook_tpu_torch.scheduler.core import SchedulerConfig
+    from cook_tpu_torch.sim.loadgen import imbalanced_pool_trace
+    from cook_tpu_torch.sim.simulator import SimConfig, Simulator
+
+    jobs, hosts = imbalanced_pool_trace(runtime_ms=60_000, **trace_kw)
+    out = {}
+    for every in (0, 1):
+        sim = Simulator(jobs, hosts, SimConfig(
+            cycle_ms=30_000, max_cycles=cycles, elastic_every=every,
+            pools=(("busy", "default"), ("idle", "default")),
+            scheduler=SchedulerConfig(flight_recorder_capacity=64)),
+            device=device)
+        probe = ElasticProbe(sim) if every else None
+        out[every] = sim.run()
+        if probe is not None and not probe.checks:
+            raise AssertionError("elastic A/B: nothing checked")
+    return out
+
+
+def placements_by_cycle(csv_text, cycles, cycle_ms=30_000):
+    """Placements per cycle of a run trace's CSV (start_ms is the cycle's
+    clock)."""
+    import csv
+    import io
+
+    out = [0] * cycles
+    for row in csv.DictReader(io.StringIO(csv_text)):
+        if row["start_ms"] not in ("", "None"):
+            out[int(row["start_ms"]) // cycle_ms] += 1
+    return out
+
+
+def _p50(result):
+    import numpy as np
+
+    return float(np.percentile(result.queued_wait_ms(), 50))
+
+
+def _same_moves(label, a, b):
+    key = [(m["kind"], m["from"], m["to"]) for m in a]
+    if key != [(m["kind"], m["from"], m["to"]) for m in b]:
+        raise AssertionError(f"{label}: moves {a} != {b}")
+    for x, y in zip(a, b):
+        for dim in ("mem", "cpus", "gpus"):
+            if abs(x[dim] - y[dim]) > EL_ATOL + EL_RTOL * abs(y[dim]):
+                raise AssertionError(f"{label}: {dim} {x} != {y}")
+
+
+def _same_plans(label, a, b):
+    if [p["kind"] for p in a] != [p["kind"] for p in b]:
+        raise AssertionError(f"{label}: plan kinds differ")
+    for x, y in zip(a, b):
+        _same_moves(label, x["moves"], y["moves"])
+
+
+def elastic_agreement_phase(devices=("cuda", "cpu"), ab=EL_AB,
+                            ab_cycles=EL_AB_CYCLES):
+    """20. The reference's elastic scenarios on the card and on the CPU:
+    the two-pool loan, the reclaim before preemption across a failover
+    (persistence in a temporary directory) and the imbalanced A/B at the
+    test's size: run traces identical, ledgers and plan records agreeing
+    (moves exactly, amounts within tolerance), the control victim search
+    picking task-bob while the real cycle reclaims and picks nobody.  Then
+    on devices[0] the A/B at `ab` (the p50 queued wait lower with
+    elastic_every 1 than 0; both p50s and the walls printed)."""
+    phase("elastic agreement")
+    got = {}
+    for device in devices:
+        with tempfile.TemporaryDirectory(prefix="cook-elastic-") as d:
+            got[device] = dict(loan=elastic_loan_replay(device),
+                               failover=elastic_failover_replay(device, d),
+                               ab=elastic_ab(device, EL_AB_SMALL,
+                                             EL_AB_SMALL_CYCLES))
+    card, cpu = got[devices[0]], got[devices[-1]]
+    for name in ("loan", "failover"):
+        a, b = card[name], cpu[name]
+        if name == "loan":
+            _same_plans(name, a["plans"], b["plans"])
+        else:
+            _same_moves(name, a["plans"], b["plans"])
+            if a["kinds"] != b["kinds"] or a["control"] != b["control"]:
+                raise AssertionError(f"elastic {name}: card {a} CPU {b}")
+        _same_moves(name, [dict(r, kind="row") for r in a["ledger"]],
+                    [dict(r, kind="row") for r in b["ledger"]])
+        if a["placed"] != b["placed"]:
+            raise AssertionError(f"elastic {name}: placements differ")
+    for every in (0, 1):
+        a, b = card["ab"][every], cpu["ab"][every]
+        if a.to_csv() != b.to_csv():
+            raise AssertionError(f"elastic A/B every {every}: run traces "
+                                 "differ")
+        _same_plans(f"A/B every {every}", a.elastic_plans, b.elastic_plans)
+    small = {every: _p50(card["ab"][every]) for every in (0, 1)}
+    if not small[1] < small[0]:
+        raise AssertionError(f"elastic A/B: p50 {small}")
+    print(f"elastic agreement: loan, failover (control victim "
+          f"{card['failover']['control']}, real cycle none, reclaim "
+          f"{card['failover']['plans'][-1]}) and the A/B at 24 jobs: "
+          f"{devices[0]} = {devices[-1]}; p50 queued wait static "
+          f"{small[0]} ms, elastic {small[1]} ms", flush=True)
+    t0 = time.perf_counter()
+    big = elastic_ab(devices[0], ab, ab_cycles)
+    wall = time.perf_counter() - t0
+    p50 = {every: _p50(big[every]) for every in (0, 1)}
+    loans = [m for p in big[1].elastic_plans for m in p["moves"]]
+    print("elastic A/B " + json.dumps(dict(
+        ab, devices=devices[0], p50_static_ms=p50[0],
+        p50_elastic_ms=p50[1], wall_s=round(wall, 2),
+        placed={e: n_placed(r.rows) for e, r in big.items()},
+        cycles={e: r.cycles for e, r in big.items()},
+        committed_plans=sum(1 for p in big[1].elastic_plans if p["moves"]),
+        loaned_mem=sum(m["mem"] for m in loans),
+        loaned_cpus=sum(m["cpus"] for m in loans),
+        on_elastic_hosts=sum(1 for r in big[1].rows
+                             if r["host"].startswith("elastic@")),
+        elastic_wall_s=round(big[1].phase_wall_s.get("elastic", 0.0), 4))),
+        flush=True)
+    if not p50[1] < p50[0]:
+        raise AssertionError(f"elastic A/B at {ab}: p50 {p50}")
+    return p50
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cook_tpu_torch")):
         print("chip_smoke.py: cook_tpu_torch/ not found beside the script",
@@ -4326,6 +5153,7 @@ def main() -> int:
         launches[name] += mp_launches[name]
     del mp_calls
     multipool_exact_phase(*mp_trace)
+    mp_classic_placed = placements_by_cycle(mp_serial[0], MP_CYCLES)
     mp_launches, mp_calls = resident_multipool_phase(*mp_trace,
                                                      mp_serial[0])
     for name, kept in mp_calls.items():
@@ -4347,6 +5175,17 @@ def main() -> int:
     reb_launches = rebalance_agreement_phase()
     print(f"best_node launches inside the flat rebalance replay: "
           f"{reb_launches}", flush=True)
+    # the elastic capacity plane: the solve alone, the multi-pool slice
+    # planning every cycle, the resident plan mirror, the agreement replays
+    elastic_solve_phase()
+    el_launches, el_errs, el_queues, el_trace = elastic_slice_phase(
+        classic_placed=mp_classic_placed)
+    for name in MP_KERNELS:
+        launches[name] += el_launches[name]
+        errs[name] = max(errs[name], el_errs[name])
+    elastic_residency_phase(el_queues, el_trace)
+    del el_queues, el_trace
+    elastic_agreement_phase()
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{

@@ -1,10 +1,11 @@
 """The ComputeCluster boundary: the pluggable backend interface.
 
 Port of `cook_tpu/cluster/base.py` without its fault-injection points
-(a later slice) and the elastic scaling the capacity plane uses.  The
-async launch fan-out of the pipelined match pass is here: one launch
-worker per cluster (`launch_tasks_async`, bounded by
-`launch_queue_bound`) and `wait_all_launches`.
+(the match path's points are a later slice).  The async launch fan-out
+of the pipelined match pass is here: one launch worker per cluster
+(`launch_tasks_async`, bounded by `launch_queue_bound`) and
+`wait_all_launches`; so is the elastic capacity plane's hook,
+`supports_scale` / `scale`.
 
 Mirrors the reference's `ComputeCluster` protocol
 (Cook's compute_cluster.clj:27-112): offers in,
@@ -380,6 +381,24 @@ class ComputeCluster(abc.ABC):
             return True
         _, not_done = concurrent.futures.wait(pending, timeout=timeout)
         return not not_done
+
+    # --- elastic capacity (cook_tpu_torch/elastic/) ---
+    def supports_scale(self) -> bool:
+        """True when this backend can apply elastic pool-capacity
+        adjustments (scale())."""
+        return False
+
+    def scale(self, pool: str, adjustment: dict) -> dict:
+        """Converge the pool's ELASTIC capacity to `adjustment` — a
+        declarative target ({"mem": MB, "cpus": n, "gpus": n}; positive
+        grows the pool with loaned-in capacity, negative withholds
+        loaned-out capacity from its offers).  Declarative (a target,
+        not a delta) so the call is idempotent: a promoted leader
+        replays the ledger-derived net per pool and converges, no
+        matter where the old leader died between commit and resize.
+        Returns the adjustment actually in force.  Default: inelastic
+        backend, nothing applied."""
+        return {}
 
     # --- autoscaling ---
     def autoscaling(self, pool: str) -> bool:

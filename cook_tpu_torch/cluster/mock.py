@@ -1,7 +1,8 @@
 """In-memory mock compute cluster: the simulator backbone.
 
-Port of `cook_tpu/cluster/mock.py` without elastic scaling (the capacity
-plane is a later slice).
+Port of `cook_tpu/cluster/mock.py`, elastic scaling included: `scale`
+materializes a pool's borrowed capacity as one `elastic@{pool}` host and
+withholds a lender pool's loaned-out capacity from its offers.
 
 Plays the role of the reference's in-memory Mesos master mock
 (Cook's mesos/mesos_mock.clj): hosts with fixed
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 from cook_tpu_torch.cluster.base import (
@@ -82,6 +83,10 @@ class MockCluster(ComputeCluster):
         self.launched_count = 0
         self.killed_count = 0
         self.sandbox_url_fn = sandbox_url_fn
+        # elastic capacity adjustments per pool (scale()): positive nets
+        # materialize as a synthetic borrowed-capacity host, negative
+        # nets are withheld from the pool's offers
+        self.pool_adjust: dict[str, dict] = {}
 
     def retrieve_sandbox_url_path(self, task_id: str) -> str:
         if self.sandbox_url_fn is not None:
@@ -99,6 +104,13 @@ class MockCluster(ComputeCluster):
         with self._mutate_lock:
             hosts = list(self.hosts.values())
             running = list(self.running.values())
+        # a net-lender pool's loaned-out capacity is withheld from its
+        # offers (scale() with negative dims): walk the deficit down
+        # across hosts in stable order so the matcher simply sees less
+        # spare — running tasks are untouched (loans move FREE capacity)
+        adj = self.pool_adjust.get(pool, {})
+        deficit = {d: max(-float(adj.get(d, 0.0)), 0.0)
+                   for d in ("mem", "cpus", "gpus")}
         # ONE pass over the running tasks builds per-node usage and taken
         # ports — per-host _host_used/_free_port_ranges calls would make
         # the offer scan O(hosts x tasks) in snapshot copies alone
@@ -117,13 +129,20 @@ class MockCluster(ComputeCluster):
             if h.pool != pool:
                 continue
             um, uc, ug, ud = used.get(h.node_id, (0.0, 0.0, 0.0, 0.0))
+            free = {"mem": max(h.mem - um, 0.0),
+                    "cpus": max(h.cpus - uc, 0.0),
+                    "gpus": max(h.gpus - ug, 0.0)}
+            for dim in free:
+                take = min(deficit[dim], free[dim])
+                free[dim] -= take
+                deficit[dim] -= take
             offers.append(
                 Offer(
                     node_id=h.node_id,
                     hostname=h.hostname,
-                    mem=max(h.mem - um, 0.0),
-                    cpus=max(h.cpus - uc, 0.0),
-                    gpus=max(h.gpus - ug, 0.0),
+                    mem=free["mem"],
+                    cpus=free["cpus"],
+                    gpus=free["gpus"],
                     disk=max(h.disk - ud, 0.0),
                     attributes=h.attributes,
                     total_mem=h.mem,
@@ -134,6 +153,46 @@ class MockCluster(ComputeCluster):
                 )
             )
         return offers
+
+    # ------------------------------------------------------ elastic scale
+
+    ELASTIC_NODE_PREFIX = "elastic@"
+
+    def supports_scale(self) -> bool:
+        return True
+
+    def scale(self, pool: str, adjustment: dict) -> dict:
+        """Converge the pool's elastic capacity to the declarative
+        target: positive dims materialize as one synthetic
+        `elastic@{pool}` host holding the borrowed capacity (launchable
+        like any host); negative dims are withheld from the pool's
+        offers in pending_offers.  A reclaimed-away elastic host still
+        running tasks is drained (capacity zeroed, tasks finish) rather
+        than yanked — reclaim is non-disruptive by design."""
+        adj = {d: float(adjustment.get(d, 0.0))
+               for d in ("mem", "cpus", "gpus")}
+        self.pool_adjust[pool] = adj
+        node_id = self.ELASTIC_NODE_PREFIX + pool
+        positive = {d: max(v, 0.0) for d, v in adj.items()}
+        host = self.hosts.get(node_id)
+        if any(v > 0 for v in positive.values()):
+            if host is None:
+                self.hosts[node_id] = MockHost(
+                    node_id=node_id, hostname=node_id,
+                    mem=positive["mem"], cpus=positive["cpus"],
+                    gpus=positive["gpus"], pool=pool,
+                )
+            else:
+                host.mem = positive["mem"]
+                host.cpus = positive["cpus"]
+                host.gpus = positive["gpus"]
+        elif host is not None:
+            if any(rt.spec.node_id == node_id
+                   for rt in self._running_snapshot()):
+                host.mem = host.cpus = host.gpus = 0.0  # drain
+            else:
+                self.hosts.pop(node_id, None)
+        return adj
 
     # ------------------------------------------------------ task lifecycle
 

@@ -1,14 +1,19 @@
 """Event-sourced in-memory job store: the framework's source of truth.
 
-Port of `cook_tpu/models/store.py`, reduced to what the rank -> match ->
-launch slice drives: submits, launches, status updates, kills, retries,
-shares, quotas, pool moves (`move_job_pool`, whose `job/pool-moved` event
-the columnar index and the encode cache consume), the gang-submit
-invariants (`_validate_gangs`) and the queries the scheduler reads.  The
-store lock is a plain `threading.RLock` (the reference profiles it
-through its contention observatory); the
-journal codec, idempotency records, elastic capacity ledger and shard
-handoff arrive with the slices that use them.
+Port of `cook_tpu/models/store.py`: submits, launches, status updates,
+kills, retries, instance progress and output, shares, quotas, pool moves
+(`move_job_pool`, whose `job/pool-moved` event the columnar index and
+the encode cache consume), the gang-submit invariants
+(`_validate_gangs`), the queries the scheduler reads, and what the commit pipeline (`txn/`), the journal
+(`models/persistence.py`) and the elastic capacity plane read: the
+event's journal line (`Event.to_json`), the transaction table
+(`record_txn` / `note_txn`), the runtime-mutable config
+(`update_dynamic_config`), the capacity ledger (`apply_capacity_moves`
+and its queries), `reset_seq`, `snapshot_events`, `recovered_stats` and
+the resync listeners.  The store lock is a plain `threading.RLock` (the
+reference wraps it in its contention observatory's profiled lock, which
+`obs/contention.py` holds for the REST slice's `/debug/contention`);
+shard handoff arrives with the sharded control plane.
 
 Plays the role Datomic plays in the reference (`cook.datomic`,
 `cook/datomic.clj`): serialized transactions,
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Optional, Sequence
@@ -56,6 +62,15 @@ class Event:
     data: dict[str, Any]
     entities: Optional[dict[str, Any]] = None
 
+    def to_json(self) -> str:
+        from cook_tpu_torch.models import codec
+
+        d = {"seq": self.seq, "kind": self.kind, "data": self.data}
+        if self.entities:
+            d["entities"] = {k: codec.encode(v)
+                             for k, v in self.entities.items()}
+        return json.dumps(d)
+
 
 Watcher = Callable[[Event], None]
 
@@ -76,6 +91,10 @@ class JobStore:
         self._last_seq = 0
         self._events: list[Event] = []
         self._watchers: list[Watcher] = []
+        # what the last persistence.recover replayed (snapshot seq,
+        # journal entries)
+        self.recovered_stats: dict[str, int] = {}
+        self._resync_listeners: list[Callable[[], None]] = []
         self.mea_culpa_limit = mea_culpa_limit
         # clock returns milliseconds; injectable for the frozen-time simulator
         self.clock = clock or (lambda: 0)
@@ -93,6 +112,20 @@ class JobStore:
         # params + incremental configs); the rebalance cycle reads its
         # "rebalancer" overrides
         self.dynamic_config: dict[str, Any] = {}
+        # committed-transaction table: txn_id -> {op, seq, result}
+        # (cook_tpu_torch.txn) — the idempotency record.  Journaled via
+        # txn/committed events and included in snapshots, so a recovered
+        # leader answers retried commits of acked transactions without
+        # re-applying them.  Insertion-ordered; bounded by
+        # TXN_RESULTS_WINDOW.
+        self.txn_results: dict[str, dict[str, Any]] = {}
+        # elastic capacity ledger (cook_tpu_torch/elastic/): (lender,
+        # borrower) -> {mem, cpus, gpus} currently on loan.  Mutated only
+        # through the pool/capacity-delta txn op; every mutation's event
+        # carries the full post-transaction ledger so journal replay is a
+        # pure upsert — a recovered leader reconciles cluster capacity
+        # from THIS table.
+        self.capacity_ledger: dict[tuple[str, str], dict[str, float]] = {}
 
         # secondary indexes
         self._user_jobs: dict[str, set[str]] = {}
@@ -105,6 +138,18 @@ class JobStore:
         with self._lock:
             self._watchers.append(watcher)
 
+    def add_resync_listener(self, listener: Callable[[], None]) -> None:
+        """Register a callback for wholesale state replacement
+        (persistence.restore_into).  Event watchers see each incremental
+        commit; a resync invalidates everything at once, so derived state
+        (columnar index, caches) rebuilds from the store instead."""
+        with self._lock:
+            self._resync_listeners.append(listener)
+
+    def _notify_resync(self) -> None:
+        for listener in list(self._resync_listeners):
+            listener()
+
     def events_since(self, seq: int) -> list[Event]:
         with self._lock:
             return [e for e in self._events if e.seq > seq]
@@ -114,6 +159,13 @@ class JobStore:
         unlike `_events`, which only holds this process's events)."""
         with self._lock:
             return self._last_seq
+
+    def reset_seq(self, seq: int) -> None:
+        """Resume event numbering after `seq` (recovery from snapshot or
+        journal replay)."""
+        with self._lock:
+            self._seq = itertools.count(seq + 1)
+            self._last_seq = seq
 
     # retained recent-event window for events_since debugging/polling; the
     # durable record is the journal, so this may be bounded
@@ -132,6 +184,48 @@ class JobStore:
         for event in events:
             for watcher in list(self._watchers):
                 watcher(event)
+
+    # ----------------------------------------------------------- transactions
+
+    # committed-transaction records retained for idempotency answers; old
+    # enough duplicates (>10k commits ago) re-apply, which is safe for
+    # every registered op (all are state-idempotent upserts/kills)
+    TXN_RESULTS_WINDOW = 10_000
+
+    def record_txn(self, txn_id: str, op: str, seq: int, result: Any) -> None:
+        """Remember a committed transaction's outcome (also called from
+        journal/replication replay, persistence.apply_journal)."""
+        with self._lock:
+            self.txn_results[txn_id] = {"op": op, "seq": seq,
+                                        "result": result}
+            while len(self.txn_results) > self.TXN_RESULTS_WINDOW:
+                self.txn_results.pop(next(iter(self.txn_results)))
+
+    def note_txn(self, txn_id: str, op: str, result: Any) -> int:
+        """Seal a transaction: emit the txn/committed record event (it
+        replicates and journals like any entity event) and record the
+        outcome for idempotency.  Called by cook_tpu_torch.txn with the store
+        lock held, right after the op handler applied."""
+        with self._lock:
+            event = self._emit("txn/committed",
+                               {"txn_id": txn_id, "op": op, "result": result})
+            self.record_txn(txn_id, op, event.seq, result)
+            self._fan_out([event])
+            return event.seq
+
+    # ---------------------------------------------------------------- indexes
+
+    def _index_job(self, job: Job, old: Optional[Job]) -> None:
+        self._user_jobs.setdefault(job.user, set()).add(job.uuid)
+        pool = job.pool
+        pending = self._pool_pending.setdefault(pool, set())
+        running = self._pool_running.setdefault(pool, set())
+        pending.discard(job.uuid)
+        running.discard(job.uuid)
+        if job.state == JobState.WAITING:
+            pending.add(job.uuid)
+        elif job.state == JobState.RUNNING:
+            running.add(job.uuid)
 
     # ---------------------------------------------------------------- indexes
 
@@ -445,6 +539,49 @@ class JobStore:
             ])
             return True
 
+    def update_instance_progress(
+        self, task_id: str, progress: int, message: str = ""
+    ) -> bool:
+        with self._lock:
+            inst = self.instances.get(task_id)
+            if inst is None:
+                return False
+            # progress must be monotone; stale updates are dropped
+            # (reference: progress.clj progress-aggregator)
+            if progress < inst.progress:
+                return False
+            new_inst = inst.with_(
+                progress=progress, progress_message=message or inst.progress_message
+            )
+            self.instances[task_id] = new_inst
+            self._fan_out([self._emit("instance/progress",
+                                      {"task_id": task_id,
+                                       "progress": progress},
+                                      instance=new_inst)])
+            return True
+
+    def set_instance_output(
+        self, task_id: str, *, exit_code: Optional[int] = None,
+        sandbox_directory: Optional[str] = None,
+    ) -> None:
+        """Batched exit-code/sandbox publisher target (reference:
+        mesos/sandbox.clj)."""
+        with self._lock:
+            inst = self.instances.get(task_id)
+            if inst is None:
+                return
+            kw = {}
+            if exit_code is not None:
+                kw["exit_code"] = exit_code
+            if sandbox_directory is not None:
+                kw["sandbox_directory"] = sandbox_directory
+            if kw:
+                new_inst = inst.with_(**kw)
+                self.instances[task_id] = new_inst
+                self._fan_out([self._emit("instance/output",
+                                          {"task_id": task_id},
+                                          instance=new_inst)])
+
     # ------------------------------------------------------- share/quota/pool
 
     def set_pool(self, pool: Pool) -> None:
@@ -498,6 +635,109 @@ class JobStore:
             self.quotas.pop((user, pool), None)
             self._fan_out([self._emit("quota/retracted",
                                       {"user": user, "pool": pool})])
+
+    def get_quota(self, user: str, pool: str) -> Quota:
+        with self._lock:
+            own = self.quotas.get((user, pool))
+            if own is not None:
+                return own
+            default = self.quotas.get((DEFAULT_USER, pool))
+            if default is not None:
+                return Quota(user=user, pool=pool, resources=default.resources,
+                             count=default.count)
+        inf = float("inf")
+        return Quota(user=user, pool=pool,
+                     resources=Resources(mem=inf, cpus=inf, gpus=inf, disk=inf),
+                     count=2**31)
+
+    def update_dynamic_config(self, updates: dict[str, Any]) -> None:
+        """Runtime-mutable config writes (rebalancer params, incremental
+        configs) go through the event feed so they survive failover."""
+        with self._lock:
+            self.dynamic_config.update(updates)
+            self._fan_out([self._emit("config/updated",
+                                      {"updates": updates})])
+
+    # ------------------------------------------------------ capacity ledger
+
+    CAPACITY_DIMS = ("mem", "cpus", "gpus")
+    # loan amounts below this are float dust, not capacity: entries whose
+    # every dimension sits under it are dropped from the ledger
+    CAPACITY_EPSILON = 1e-6
+
+    def apply_capacity_moves(self, moves: Sequence[dict]) -> dict:
+        """Apply a capacity plan's loan/reclaim moves to the ledger (the
+        pool/capacity-delta txn op's handler target).  Each move is
+        {"kind": "loan"|"reclaim", "from": lender, "to": borrower,
+        "mem"/"cpus"/"gpus": amounts}; reclaims are clamped to what is
+        actually outstanding so a replayed or racing plan can never
+        drive the ledger negative.  Emits one pool/capacity event
+        carrying the full post-transaction ledger (replay = upsert)."""
+        with self._lock:
+            for move in moves:
+                kind = move.get("kind", "loan")
+                key = (move["from"], move["to"])
+                entry = self.capacity_ledger.get(
+                    key, {d: 0.0 for d in self.CAPACITY_DIMS})
+                for dim in self.CAPACITY_DIMS:
+                    amount = float(move.get(dim, 0.0))
+                    if kind == "reclaim":
+                        entry[dim] = max(entry[dim] - amount, 0.0)
+                    else:
+                        entry[dim] = entry[dim] + amount
+                if any(v > self.CAPACITY_EPSILON for v in entry.values()):
+                    self.capacity_ledger[key] = entry
+                else:
+                    self.capacity_ledger.pop(key, None)
+            ledger = self.encoded_capacity_ledger()
+            event = self._emit("pool/capacity",
+                               {"moves": [dict(m) for m in moves],
+                                "ledger": ledger})
+            self._fan_out([event])
+            return {"applied": len(moves), "ledger": ledger}
+
+    def encoded_capacity_ledger(self) -> list[dict]:
+        """JSON-able ledger rows (snapshot / event / REST payloads)."""
+        with self._lock:
+            return [
+                {"from": lender, "to": borrower, **amounts}
+                for (lender, borrower), amounts
+                in sorted(self.capacity_ledger.items())
+            ]
+
+    def set_capacity_ledger(self, entries: Sequence[dict]) -> None:
+        """Replace the ledger wholesale (journal replay / snapshot
+        restore — entries are the encoded post-transaction rows)."""
+        with self._lock:
+            self.capacity_ledger = {
+                (e["from"], e["to"]): {d: float(e.get(d, 0.0))
+                                       for d in self.CAPACITY_DIMS}
+                for e in entries
+            }
+
+    def net_capacity_adjustment(self, pool: str) -> dict[str, float]:
+        """Ledger-derived net elastic capacity for a pool: inbound loans
+        minus outbound (negative = the pool is a net lender).  This is
+        the declarative target clusters converge their elastic capacity
+        to (ComputeCluster.scale)."""
+        net = {d: 0.0 for d in self.CAPACITY_DIMS}
+        with self._lock:
+            for (lender, borrower), amounts in self.capacity_ledger.items():
+                if borrower == pool:
+                    for dim in self.CAPACITY_DIMS:
+                        net[dim] += amounts[dim]
+                if lender == pool:
+                    for dim in self.CAPACITY_DIMS:
+                        net[dim] -= amounts[dim]
+        return net
+
+    def outstanding_loans_from(self, pool: str) -> dict[str, dict[str, float]]:
+        """borrower -> amounts currently on loan FROM `pool` (the
+        reclaim-on-demand input)."""
+        with self._lock:
+            return {borrower: dict(amounts)
+                    for (lender, borrower), amounts
+                    in self.capacity_ledger.items() if lender == pool}
 
     def get_quota(self, user: str, pool: str) -> Quota:
         with self._lock:
@@ -572,3 +812,9 @@ class JobStore:
                 else:
                     total += sum(1 for u in ids if self.jobs[u].user == user)
             return total
+
+    # ------------------------------------------------------------- snapshots
+
+    def snapshot_events(self) -> list[Event]:
+        with self._lock:
+            return list(self._events)

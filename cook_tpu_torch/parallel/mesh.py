@@ -4,7 +4,7 @@ Port of `invalid_match_problem` from `cook_tpu/parallel/mesh.py` (:74),
 which the hierarchical matcher uses to pad its fine batch's block axis to
 a bucket (`ops/hierarchical._pad_block_axis`).  The reference's mesh
 collectives (`pool_sharded_match`, `pool_sharded_coarse`, the sharded dru
-and chunked solves) are ROADMAP Queue A item 9: on one card the batched
+and chunked solves) are ROADMAP Queue A item 10: on one card the batched
 single-device solve is the schedule.
 """
 from __future__ import annotations

@@ -43,8 +43,15 @@ at the end of each match cycle (`_dispatch_speculation`, serial and
 pipelined) and commits or drops it at the next cycle's start
 (`_speculation_commit`: a hit launches its pre-solved assignment, a drop
 solves fresh on the same device).
-Elastic capacity, incidents, the profile capturer, the overload
-admission controller and the job-lifecycle tracker are later slices.
+With `SchedulerConfig.elastic` enabled the scheduler owns the elastic
+capacity plane (`elastic/planner.CapacityPlanner`, on the scheduler's
+device, committing through the `txn=` pipeline or an in-memory one):
+`elastic_cycle` runs one planning interval over the ranked queues, the
+rebalance cycle passes `reclaim_for` as the victim search's reclaimer
+(loaned capacity comes home before anyone is preempted), and every
+cycle record carries the plan id in force (`elastic_plan`).
+Incidents, the profile capturer, the overload admission controller and
+the job-lifecycle tracker are later slices.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
@@ -68,6 +75,7 @@ from cook_tpu_torch.cluster.base import (
     wait_all_launches,
 )
 from cook_tpu_torch.device import resolve
+from cook_tpu_torch.elastic.planner import CapacityPlanner, ElasticParams
 from cook_tpu_torch.models.columnar import ColumnarJobIndex
 from cook_tpu_torch.models.entities import InstanceStatus, Job, Pool, Resources
 from cook_tpu_torch.models.reasons import REASONS_BY_CODE
@@ -187,6 +195,11 @@ class SchedulerConfig:
     # predicted duration that saturates the backfill term (fraction
     # clamps to 1 at/above this)
     backfill_norm_ms: float = 600_000.0
+    # elastic capacity plane (cook_tpu_torch/elastic/): pool-to-pool
+    # capacity loaning with durable ledger deltas and reclaim-before-
+    # preemption.  Disabled by default; enable via
+    # ElasticParams(enabled=True)
+    elastic: ElasticParams = field(default_factory=ElasticParams)
 
 
 class Scheduler:
@@ -200,6 +213,7 @@ class Scheduler:
         config: Optional[SchedulerConfig] = None,
         *,
         device: Optional[Union[str, torch.device]] = None,
+        txn=None,
     ):
         self.store = store
         self.clusters = list(clusters)
@@ -309,6 +323,18 @@ class Scheduler:
         # pool -> the last rank cycle's wall, credited to the next match
         # cycle's record
         self._last_rank_s: dict[str, float] = {}
+        # elastic capacity plane: capacity deltas commit through the txn
+        # pipeline (a journal-backed log when the caller passes one; a bare
+        # Scheduler gets an in-memory pipeline with the same op registry)
+        self.txn = txn
+        self.elastic = None
+        if self.config.elastic.enabled:
+            from cook_tpu_torch.txn import TransactionLog
+
+            self.txn = txn or TransactionLog(store)
+            self.elastic = CapacityPlanner(
+                store, self.clusters, self.txn, self.config.elastic,
+                telemetry=self.telemetry, device=self.device)
         store.add_watcher(self._on_event)
         for cluster in self.clusters:
             if hasattr(cluster, "status_callback"):
@@ -459,9 +485,12 @@ class Scheduler:
         if self.recorder is None:
             return NULL_CYCLE
         flight = self.recorder.begin(pool_name, self.store.clock())
-        # the pool's capacity at cycle start, so match outcomes correlate
-        # with capacity record to record
+        # the pool's capacity at cycle start + the capacity plan the cycle
+        # ran under, so elastic deltas correlate with match outcomes
+        # record to record
         flight.record.pool_capacity = self._pool_capacity_snapshot(pool_name)
+        if self.elastic is not None:
+            flight.record.elastic_plan = self.elastic.recorder.last_plan_id()
         return flight
 
     def _pool_capacity_snapshot(self, pool_name: str) -> dict:
@@ -836,6 +865,10 @@ class Scheduler:
             host_info=self.last_host_info.get(pool.name),
             device=self.device,
             telemetry=self.telemetry,
+            # reclaim-before-preemption: loaned-out capacity comes home
+            # (non-disruptively) before any victim search considers a kill
+            reclaimer=(self.elastic.reclaim_for
+                       if self.elastic is not None else None),
             resident=(self._rebalance_mirror(pool)
                       if params.resident else None),
         )
@@ -1002,6 +1035,24 @@ class Scheduler:
             admissions)
         self.last_gang_admissions = [a.to_json() for a in admissions]
         return admissions
+
+    def elastic_cycle(self):
+        """One capacity-plane planning interval (cook_tpu_torch/elastic/):
+        rank queues feed the demand tensors, the plan commits durable
+        pool-capacity deltas and converges cluster capacity.  Driven by
+        the simulator (the reference's service drives it from a trigger
+        loop); returns the PlanRecord (None when elastic is disabled or
+        single-pool)."""
+        if self.elastic is None:
+            return None
+        for pool in [p for p in self.store.pools.values()
+                     if p.schedules_jobs]:
+            if pool.name not in self.pool_queues:
+                self.rank_cycle(pool)
+        record = self.elastic.plan_cycle(self.pool_queues)
+        if record is not None:
+            self.metrics["elastic.last_plan"] = record.plan_id
+        return record
 
     def _transact_preemption(self, decision: Decision) -> None:
         """transact-preemption! + safe-kill-task (rebalancer.clj:482-533)."""

@@ -21,9 +21,9 @@ With `params.resident` the cycle-start victim tensors come from a
 caller-owned device-resident row mirror (`device_state.ResidentRows`,
 one row per running task keyed by task id): a task that survived since
 the last cycle ships zero bytes.  The classic path uploads them whole,
-under the same `rebalance-state` data-plane family.  The elastic
-`reclaimer` stays a parameter, None here; the scheduler passes its
-device `telemetry`.
+under the same `rebalance-state` data-plane family.  The scheduler
+passes its device `telemetry` and, with the elastic capacity plane on,
+the planner's `reclaim_for` as the `reclaimer`.
 """
 from __future__ import annotations
 
@@ -541,11 +541,11 @@ def rebalance_pool(
     """One pool's rebalance cycle: returns the preemption decisions
     (rebalancer.clj:434-479 `rebalance`).  The caller transacts + kills.
 
-    `reclaimer` is the elastic capacity plane's pre-preemption hook: when
-    given, it may return a refreshed spare map (loaned capacity
-    reclaimed), and the victim search runs against that (a later slice;
-    the port's scheduler passes None).  `telemetry` records one solve per
-    decision.
+    `reclaimer` is the elastic capacity plane's pre-preemption hook
+    (`elastic/planner.CapacityPlanner.reclaim_for`, which the scheduler
+    passes when the plane is on): when given, it may return a refreshed
+    spare map (loaned capacity reclaimed), and the victim search runs
+    against that.  `telemetry` records one solve per decision.
 
     `resident` is an optional `device_state.ResidentRows` mirror owned by
     the caller (it must OUTLIVE the cycle — warm reuse is the whole

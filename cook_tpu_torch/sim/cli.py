@@ -8,8 +8,10 @@ between two run traces — of either package, the formats are the same.
     python -m cook_tpu_torch.sim.cli run --trace trace.json --rebalance-every 1 ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --resident ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --speculate ...
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --elastic [--elastic-every N] ...
     python -m cook_tpu_torch.sim.cli synth --jobs 1000 --hosts 100 --out trace.json
     python -m cook_tpu_torch.sim.cli synth --completion-heavy --jobs 48 --out trace.json
+    python -m cook_tpu_torch.sim.cli synth --imbalanced --jobs 24 --out trace.json
     python -m cook_tpu_torch.sim.cli compare run1.csv run2.csv
 
 `run` solves on the CUDA card unless `--device cpu` is given; with no card
@@ -23,7 +25,10 @@ import json
 
 from cook_tpu_torch.scheduler.core import SchedulerConfig
 from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
-from cook_tpu_torch.sim.loadgen import completion_heavy_trace
+from cook_tpu_torch.sim.loadgen import (
+    completion_heavy_trace,
+    imbalanced_pool_trace,
+)
 from cook_tpu_torch.sim.simulator import (
     SimConfig,
     Simulator,
@@ -35,10 +40,10 @@ from cook_tpu_torch.utils.config import default_match_config
 
 def run_summary(result, jobs, hosts) -> dict:
     """The summary `run` prints: the reference's keys that the port can
-    fill, the device-telemetry health verdict, the speculation A/B numbers
-    and the data-plane summary (its rebuild fraction among them) included
-    (`cook_tpu/sim/cli.py` also reports incident and elastic numbers from
-    layers not ported yet)."""
+    fill, the device-telemetry health verdict, the committed elastic
+    plans, the speculation A/B numbers and the data-plane summary (its
+    rebuild fraction among them) included (`cook_tpu/sim/cli.py` also
+    reports incident numbers from a layer not ported yet)."""
     completed = sum(1 for r in result.rows if r["status"] == "success")
     p50 = (sorted(result.cycle_wall_s)[len(result.cycle_wall_s) // 2] * 1000
            if result.cycle_wall_s else 0.0)
@@ -56,6 +61,9 @@ def run_summary(result, jobs, hosts) -> dict:
         # or drifts from the CPU reference says so in its summary line
         "health": result.health.get("status", "unknown"),
         "health_reasons": result.health.get("reasons", []),
+        # capacity-plane summary: committed plans + queued-wait p50, the
+        # number the elastic A/B moves
+        "elastic_plans": sum(1 for p in result.elastic_plans if p["moves"]),
         "queued_wait_p50_ms": (sorted(waits)[len(waits) // 2]
                                if waits else None),
         # speculation A/B numbers (with --speculate; zeros otherwise): the
@@ -74,6 +82,7 @@ def sim_config(args) -> SimConfig:
     return SimConfig(
         cycle_ms=args.cycle_ms,
         rebalance_every=args.rebalance_every,
+        elastic_every=(args.elastic_every if args.elastic else 0),
         max_cycles=args.max_cycles,
         batched_match=args.batched,
         resident=args.resident,
@@ -132,6 +141,11 @@ def cmd_synth(args) -> int:
         # completion_heavy_trace, the reference's 4 hosts); pair with
         # `run --speculate`
         jobs, hosts = completion_heavy_trace(jobs=args.jobs, seed=args.seed)
+    elif args.imbalanced:
+        # the elastic capacity plane's two-pool starving/idle scenario
+        # (sim/loadgen.py imbalanced_pool_trace); pair with `run --elastic`
+        jobs, hosts = imbalanced_pool_trace(busy_jobs=args.jobs,
+                                            seed=args.seed)
     else:
         jobs, hosts = synth_trace(
             args.jobs, args.hosts, n_users=args.users, seed=args.seed,
@@ -212,6 +226,11 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--safe-dru-threshold", type=float, default=1.0)
     r.add_argument("--min-dru-diff", type=float, default=0.5)
     r.add_argument("--max-preemption", type=int, default=100)
+    r.add_argument("--elastic", action="store_true",
+                   help="enable the elastic capacity plane (pool "
+                        "loaning + reclaim, cook_tpu_torch/elastic/)")
+    r.add_argument("--elastic-every", type=int, default=1,
+                   help="cycles between capacity plans (with --elastic)")
     r.set_defaults(fn=cmd_run)
 
     s = sub.add_parser("synth", help="generate a synthetic trace")
@@ -224,6 +243,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--completion-heavy", action="store_true",
                    help="wave-drain speculation scenario (one job per "
                         "host per cycle); pair with `run --speculate`")
+    s.add_argument("--imbalanced", action="store_true",
+                   help="two-pool starving/idle elastic scenario instead "
+                        "of the skewed single-pool workload")
     s.add_argument("--out", default="trace.json")
     s.set_defaults(fn=cmd_synth)
 

@@ -1,8 +1,9 @@
 """Scenario traces for the simulator.
 
-Port of the three trace generators of `cook_tpu/sim/loadgen.py` that the
-rebalance and gang slices replay: `completion_heavy_trace`,
-`preemption_heavy_trace` and `gang_topology_trace` (:259), each returning
+Port of the four trace generators of `cook_tpu/sim/loadgen.py` that the
+port's slices replay: `imbalanced_pool_trace` (the elastic slice's),
+`completion_heavy_trace`, `preemption_heavy_trace` and
+`gang_topology_trace` (:259), each returning
 (jobs, hosts) as the port's `TraceJob` / `TraceHost` lists, equal to the
 reference's for the same arguments.  The HTTP load generator of that module drives a running
 service through the reference's client and is not ported.
@@ -12,6 +13,58 @@ from __future__ import annotations
 import numpy as np
 
 from cook_tpu_torch.sim.simulator import TraceHost, TraceJob
+
+
+def imbalanced_pool_trace(
+    *,
+    busy_jobs: int = 30,
+    busy_hosts: int = 2,
+    idle_hosts: int = 4,
+    host_mem: float = 64_000.0,
+    host_cpus: float = 32.0,
+    job_mem: float = 8_000.0,
+    job_cpus: float = 8.0,
+    runtime_ms: int = 60_000,
+    n_users: int = 3,
+    seed: int = 0,
+):
+    """The elastic capacity plane's acceptance scenario: two pools, one
+    starving while the other idles — exactly the static-partition
+    pathology pool loaning exists to fix.
+
+    Pool "busy" gets a burst of `busy_jobs` at t=0 against only
+    `busy_hosts` hosts; pool "idle" holds `idle_hosts` identical hosts
+    and no work.  Statically partitioned, busy's queue drains in waves
+    bounded by its own capacity while idle's fleet sits unused; with
+    the planner on (`SimConfig.elastic_every` / `sim.cli run
+    --elastic`), idle's capacity is loaned over and the p50 queued-job
+    wait drops (asserted in tests/test_elastic.py, and of the port in
+    tests/test_torch_elastic.py).  Returns (jobs,
+    hosts) TraceJob/TraceHost lists for sim.simulator.Simulator.
+    """
+    rng = np.random.default_rng(seed)
+    jobs = [
+        TraceJob(
+            uuid=f"busy-{i:05d}",
+            user=f"user{int(rng.integers(n_users))}",
+            submit_time_ms=0,
+            runtime_ms=runtime_ms,
+            mem=job_mem,
+            cpus=job_cpus,
+            pool="busy",
+        )
+        for i in range(busy_jobs)
+    ]
+    hosts = [
+        TraceHost(node_id=f"busy-h{i}", hostname=f"busy-h{i}",
+                  mem=host_mem, cpus=host_cpus, pool="busy")
+        for i in range(busy_hosts)
+    ] + [
+        TraceHost(node_id=f"idle-h{i}", hostname=f"idle-h{i}",
+                  mem=host_mem, cpus=host_cpus, pool="idle")
+        for i in range(idle_hosts)
+    ]
+    return jobs, hosts
 
 
 def completion_heavy_trace(

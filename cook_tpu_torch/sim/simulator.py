@@ -31,8 +31,11 @@ event fan-out, where the columnar index and the encode cache keep up.
 turns speculative match cycles on with the horizon pinned to one cycle
 (`SimResult.speculation_stats`: hit fraction and pre-launch p50, and a
 `speculation_commit` wall in `phase_wall_s` when a speculator runs).
-Elastic, fault schedules, incidents and metrics history are later
-slices.
+`SimConfig.elastic_every` turns the elastic capacity plane on and plans
+every that many cycles after the match (and rebalance) step, its wall in
+`phase_wall_s["elastic"]`; `SimResult.elastic_plans` holds the planner's
+decisions and `capacity_ledger` the final loan ledger.  Fault schedules,
+incidents and metrics history are later slices.
 """
 from __future__ import annotations
 
@@ -128,6 +131,9 @@ class SimConfig:
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     pools: tuple = (("default", "default"),)  # (name, dru_mode)
     batched_match: bool = False      # one device call for all pools
+    # cycles between elastic capacity plans (0 = off); setting this
+    # enables the scheduler's capacity plane (cook_tpu_torch/elastic/)
+    elastic_every: int = 0
     # device-resident match state (scheduler/device_state.py): keep the
     # encode tensors on the device across cycles with O(delta) updates —
     # sets the scheduler's MatchConfig.device_residency knob
@@ -168,9 +174,14 @@ class SimResult:
     # (process-ledger delta) in total and per family, plus the mean
     # rebuild_fraction / padding_waste off the cycle records
     data_plane: dict = field(default_factory=dict)
+    # elastic capacity-plane dump: the planner's decisions (the
+    # recorder's `records_json` schema) + the final loan ledger
+    elastic_plans: list[dict] = field(default_factory=list)
+    capacity_ledger: list[dict] = field(default_factory=list)
 
     def queued_wait_ms(self) -> list[int]:
-        """Per-started-task queued wait (start - submit)."""
+        """Per-started-task queued wait (start - submit): the metric the
+        elastic A/B compares (lower p50 with loaning enabled)."""
         return [r["start_ms"] - r["submit_ms"] for r in self.rows
                 if r["start_ms"] is not None]
 
@@ -322,6 +333,14 @@ class Simulator:
         self.config.pools = tuple(self.config.pools) + tuple(
             (name, "default") for name in extra
         )
+        if self.config.elastic_every > 0 \
+                and not self.config.scheduler.elastic.enabled:
+            # copies: the caller's configurations stay as they were given
+            sched = self.config.scheduler
+            self.config = dataclasses.replace(
+                self.config, scheduler=dataclasses.replace(
+                    sched, elastic=dataclasses.replace(
+                        sched.elastic, enabled=True)))
         if self.config.resident:
             # copies: the caller's configurations stay as they were given
             sched = self.config.scheduler
@@ -383,6 +402,8 @@ class Simulator:
                                         "solve": 0.0, "launch": 0.0}
         if cfg.rebalance_every:
             phase_wall["rebalance"] = 0.0
+        if cfg.elastic_every:
+            phase_wall["elastic"] = 0.0
         cycle_wall: list[float] = []
         pools = [self.store.pools[name] for name, _ in cfg.pools]
         cycle = 0
@@ -465,6 +486,14 @@ class Simulator:
                         t3 = time.perf_counter()
                         self.scheduler.rebalance_cycle(pool)
                         phase_wall["rebalance"] += time.perf_counter() - t3
+            # 3b. elastic capacity plan (after matching, so demand is the
+            # genuinely-unmatched queue; loans land in the NEXT cycle's
+            # offers — node-provisioning latency, one cycle coarse)
+            if (cfg.elastic_every and cycle % cfg.elastic_every == 0
+                    and self.scheduler.elastic is not None):
+                t3 = time.perf_counter()
+                self.scheduler.elastic_cycle()
+                phase_wall["elastic"] += time.perf_counter() - t3
             cycle_wall.append(time.perf_counter() - t_cycle)
             # 3c. in-run health watch
             if (cfg.health_every and cycle % cfg.health_every == 0
@@ -500,6 +529,10 @@ class Simulator:
                     if self.scheduler.telemetry is not None else {}),
             health_checks=health_checks,
             data_plane=_data_plane_summary(families0, records),
+            elastic_plans=(
+                self.scheduler.elastic.recorder.records_json(limit=10_000)
+                if self.scheduler.elastic is not None else []),
+            capacity_ledger=self.store.encoded_capacity_ledger(),
         )
 
     def _collect_rows(self) -> list[dict]:

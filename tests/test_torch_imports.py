@@ -115,9 +115,30 @@ PREDICTION_MODULES = ("cook_tpu_torch.scheduler.prediction",
                       "cook_tpu_torch.sim.cli")
 
 
+# the elastic slice's modules: the solve, the planner and its recorder,
+# and the commit pipeline it commits through (copies of jax-free
+# reference modules: txn, persistence, codec, contention, faults, tracing,
+# whose device trace is torch.profiler's), and what it extends (the
+# store's ledger, the mock cluster's scale)
+ELASTIC_MODULES = ("cook_tpu_torch.ops.elastic",
+                   "cook_tpu_torch.elastic",
+                   "cook_tpu_torch.elastic.planner",
+                   "cook_tpu_torch.elastic.recorder",
+                   "cook_tpu_torch.txn",
+                   "cook_tpu_torch.txn.log",
+                   "cook_tpu_torch.txn.ops",
+                   "cook_tpu_torch.txn.transaction",
+                   "cook_tpu_torch.models.persistence",
+                   "cook_tpu_torch.models.codec",
+                   "cook_tpu_torch.obs.contention",
+                   "cook_tpu_torch.faults",
+                   "cook_tpu_torch.utils.tracing")
+
+
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
                          + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES
-                         + RESIDENCY_MODULES + PREDICTION_MODULES)
+                         + RESIDENCY_MODULES + PREDICTION_MODULES
+                         + ELASTIC_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"

@@ -976,5 +976,5 @@ def test_chip_smoke_speculation_phases_on_cpu(tmp_path):
     assert all(kept.values())
     chip_smoke.speculation_pipelined_phase(
         device="cpu", n_pools=3,
-        pool_wave=dict(chip_smoke.SPEC_WAVE, jobs=60, hosts=10))
+        pool_wave=dict(chip_smoke.SPEC_WAVE, jobs=60, hosts=10), cycles=4)
     chip_smoke.speculation_agreement_phase(devices=("cpu", "cpu"))

@@ -17,8 +17,9 @@
 - The configuration: the match keys `device_residency` and `quantized`,
   the parity floor and the rebalancer's defaults.
 
-The elastic planner's cases of the reference file wait for the elastic
-slice (ROADMAP Queue A item 9).  Every input is exact in float32: all
+The elastic planner's cases of the reference file are in
+tests/test_torch_elastic.py, beside the rest of the elastic slice.
+Every input is exact in float32: all
 comparisons are exact."""
 from types import SimpleNamespace
 

@@ -505,7 +505,7 @@ def test_small_rebalance_slice_on_cpu():
 
     summary = rebalance_slice_phase(
         dict(REB_TRACE, hosts=200, hog_jobs=400, late_jobs=1600,
-             n_late_users=9), device="cpu")
+             n_late_users=9), device="cpu", cycles=6)
     assert sum(summary["victims"]) == summary["tasks_preempted"] > 0
     assert summary["padded_shape"] == (512, 256)
     assert summary["placements"]["late"] > 0
