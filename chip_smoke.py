@@ -75,7 +75,7 @@ and prints no result line):
                   and hierarchical, whose run traces must agree.
   9. gang slice — the same 100k x 10k trace with every tenth job a gang
                   member (gangs of 2, 4, 8, 16 in submit order, ~1,335
-                  gangs), 3 cycles on the flat route (chunked `best_node`,
+                  gangs), 2 cycles on the flat route (chunked `best_node`,
                   the one-block rule bound to 1024 hosts) and on the
                   hierarchical one (its coarse pass forced to `xla` by the
                   gangs, fine on `best_node_batched`): after every cycle
@@ -100,7 +100,7 @@ and prints no result line):
                   5): 8 pools, 100,000 jobs x 10,000 hosts in all (pool
                   `alpha` 30,000 x 3,000, seven of 10,000 x 1,000, the last
                   in DruMode.GPU; a tenth of the jobs ask for 1-3 gpus, a
-                  fifth of the hosts carry 8), 3 cycles on each of three
+                  fifth of the hosts carry 8), 2 cycles on each of three
                   routes at the default SchedulerConfig: serial (the
                   Simulator), batched (`SimConfig.batched_match`: flat
                   pools stacked into one `chunked_match_pools` solve on
@@ -122,8 +122,9 @@ and prints no result line):
  11b. multipool launches — every kept `best_node`, `coarse_pass` and
                   `best_node_batched` launch of the three routes against
                   its plain version, bit for bit.
- 11c. multipool exact — one cycle at chunk 0 on the seven flat pools (all
-                  jobs submitted at t 0): the batched `greedy_match_pools`
+ 11c. multipool exact — one cycle at chunk 0 on two of the flat pools
+                  (pool1 and the DruMode.GPU one, all jobs submitted at t
+                  0): the batched `greedy_match_pools`
                   against a serial `greedy_match` per pool, identical run
                   traces, both solve walls printed.
  11d. multipool agreement — 4 pools x 300 jobs x 30 hosts (one in
@@ -152,7 +153,7 @@ and prints no result line):
                   the sort's share.
  14. rebalance slice — the full-size rebalance path through the port's
                   Simulator: `preemption_heavy_trace` at 100,000 jobs x
-                  10,000 hosts, 4 cycles of rank -> exact greedy match ->
+                  10,000 hosts, 3 cycles of rank -> exact greedy match ->
                   rebalance on the card; capacity checked after every
                   match and rebalance; the padded axes checked; each
                   cycle's first and busiest search rerun on the CPU port,
@@ -189,18 +190,17 @@ submit step's wall.  Two phases follow the agreement phase (8):
                   devices, no verdict ever `device-degraded`, the final
                   verdict `ok` (at the slices' flat knobs: equal to the
                   CPU's, printed).
-  8b. cache neutrality — on the card, the flat replay with the encode
-                  cache on, off and on again: identical run traces.
   8c. resident default-config agreement — the small trace at the default
                   configuration with residency and `quantized` on, on the
                   card and on the CPU: run traces and cycle records (the
                   device_state stats among them) equal, and the run trace
                   equal to the card's replay with `quantized` alone.
-After the launches phase (5), `walls` replays the flat slice five more
-times (a profiled pair with the cache off and on, then the cache off, on
-and the recorder off, once each): run traces identical to the slice's,
-the walls per cycle, and host profiles (cProfile) of the profiled pair's
-last cycle.
+After the launches phase (5), `walls` replays the flat slice three more
+times (profiled with the cache on, then the cache off and the recorder
+off, once each): run traces identical to the slice's (which also holds
+the encode cache neutral and a run repeatable at the slice's shape), the
+walls per cycle beside the slice's own, and host profiles (cProfile) of
+the profiled run's last cycle.
 
 Speculation (scheduler/prediction.py), after the residency phases (7d):
 
@@ -213,14 +213,14 @@ Speculation (scheduler/prediction.py), after the residency phases (7d):
                   dispatch walls (and their greedy's enqueue), the hit
                   cycles' commit walls and bytes printed.
   S2. speculation on the kernels — the wave on the flat slice's `pallas`
-                  knobs and on `HIER_MATCH`, 4 cycles each, off and on:
+                  knobs and on `HIER_MATCH`, 3 cycles each, off and on:
                   identical traces, hits on both; the flat slice (its
                   trace and knobs, 3 cycles) speculating: run trace = the
                   classic slice's, hits and drops by reason printed.
                   Every `best_node`, `coarse_pass` and `best_node_batched`
                   launch of the speculative solves kept and held against
                   its plain version; every launch of these runs counted.
-  S3. pipelined speculation — 8 pools, each the wave at 12,500 x 1,250,
+  S3. pipelined speculation — 4 pools, each the wave at 12,500 x 1,250,
                   `match_cycle_pipelined` for 3 passes at the default
                   SchedulerConfig, off and on: identical placements, every
                   pool a hit on pass 3.
@@ -248,7 +248,7 @@ agreement (15) and before the report (16):
                   and warm), its host-clock wall, its kernel launches
                   (torch.profiler) and the bytes it reads.
  18. elastic multipool — the multi-pool slice (11a's trace and knobs) on
-                  the serial route for 3 cycles with `elastic_every=1`:
+                  the serial route for 2 cycles with `elastic_every=1`:
                   after every match, plan and reclaim no host over
                   capacity (the `elastic@pool` hosts too), the ledger
                   non-negative and equal to the running sum of the
@@ -271,6 +271,53 @@ agreement (15) and before the report (16):
                   card the A/B at 1,000 busy jobs on 10 hosts against
                   1,240 idle ones (its elastic run under 18's checks): the
                   p50 queued wait lower with elastic_every 1 than 0.
+
+The superblock layer and the default path's last hooks, the gang
+agreement (10) and the quality audit after the speculation kernels (S2)
+inside the slices' block, 22 and 24 after the elastic agreement (20):
+
+ 21. superblock slice — the hierarchical slice's trace and `HIER_MATCH`
+                  with superblocks of 4,096 hosts (3 superblocks of 4
+                  blocks of 1,024), 3 cycles: every solve and cycle record
+                  shows >= 2 superblocks and a super-coarse wall, no
+                  `coarse_pass` launch (both coarse levels are torch
+                  code), every `best_node_batched` launch held against its
+                  plain version; the per-level walls (super-coarse,
+                  coarse, fine, refine), placements and cycle p50 beside
+                  the classic hierarchical slice's.  On the first full
+                  window's problem (cycle 2) the exact greedy on the card
+                  against the superblock solve (the slice's knobs, and the
+                  reference's default fine backend) and the classic
+                  two-level one, printed; the reference's 0.95 packing
+                  floor held on the card where its tests hold it
+                  (tests/test_superblocks.py's problems and knobs).
+ 22. superblock at scale — `hierarchical_match` alone on a 1,048,576
+                  x 100,000 problem in bench.make_problem's shape family
+                  (R 4, no mask), once with superblocks of 16,384 hosts,
+                  then cold and warm with none (the classic
+                  `coarse_pass`; the warm assignment equal to the cold
+                  one): per-level walls, launches by kernel, placed,
+                  device memory peak; the busiest
+                  `best_node_batched` (the plain version run 8 blocks at a
+                  time) and `coarse_pass` launches held against their plain
+                  versions; an 8,192 x 1,024 superblock solve on the card
+                  and the CPU, identical.
+ 23. quality audit — the flat slice again with `quality_audit_every` 2:
+                  the audit replays cycle 2's solve through the plain exact
+                  greedy on CPU copies, on its thread, while cycle 3 runs;
+                  run trace = the slice's, the `match.quality_audit`
+                  gauge set and equal to the same audit recomputed on this
+                  thread; cycle walls with the audit on beside the slice's.
+ 24. faults, incidents, admission — a small scheduler on the card: an
+                  armed `device.solve` error raises out of `match_cycle`
+                  and out of the batched pass, and skips its pool with
+                  `solve-failed` on the pipelined one; a `device.solve`
+                  delay drives health ok -> degraded and captures exactly
+                  one incident bundle whose automatic `torch.profiler`
+                  capture holds CUDA kernel events, then recovers; under an
+                  overload signal the admission clamp shrinks the
+                  considerable window x0.95 a cycle to its floor, then
+                  resets.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -1416,17 +1463,29 @@ def _profile_last(target, name, cycles, prof):
 # them)
 CACHE_OFF = dict(use_encode_cache=False)
 RECORDER_OFF = dict(flight_recorder_capacity=0, device_telemetry=False)
-WALL_RUNS = (("cache off", CACHE_OFF, True), ("cache on", {}, True),
-             ("cache off", CACHE_OFF, False), ("cache on", {}, False),
+# (the unprofiled cache-on run is the slice itself)
+WALL_RUNS = (("cache on", {}, True), ("cache off", CACHE_OFF, False),
              ("recorder off", RECORDER_OFF, False))
 WALL_PHASES = ("rank", "encode", "solve", "launch")
 
 
-def walls_phase(trace, workdir, device="cuda"):
+def _wall_row(phase_wall_s, cycle_wall_s, encode_per_cycle):
+    """A walls-phase row: the phase walls, the cycle p50, every cycle's
+    wall and encode wall."""
+    return dict(
+        **{k: round(phase_wall_s.get(k, 0.0), 4) for k in WALL_PHASES},
+        cycle_p50_ms=round(1e3 * sorted(cycle_wall_s)[
+            len(cycle_wall_s) // 2], 2),
+        cycle_ms=[round(1e3 * w, 1) for w in cycle_wall_s],
+        encode_per_cycle=[round(e, 4) for e in encode_per_cycle])
+
+
+def walls_phase(trace, workdir, classic, device="cuda"):
     """Where the flat slice's walls go: the slice's replay again per
     WALL_RUNS, each run trace identical to the slice's (neither the cache
-    nor the recorder changes a decision).  Per run: the simulator's phase
-    walls, the cycle p50 and the encode wall per cycle.  The profiled
+    nor the recorder changes a decision), beside the slice's own walls
+    (`classic`: the unprofiled cache-on run).  Per run: the simulator's
+    phase walls, the cycle p50 and the encode wall per cycle.  The profiled
     runs print host profiles (cProfile) of the last cycle's
     `prepare_pool_problem` (cache off and on) and of the last
     `rank_cycle`, `finalize_pool_match` (the launch phase) and the flight
@@ -1449,7 +1508,8 @@ def walls_phase(trace, workdir, device="cuda"):
     # newline="": the CSV's own \r\n line ends, as to_csv() gives them
     with open(os.path.join(workdir, "run.csv"), newline="") as f:
         want = f.read()
-    walls = {}
+    walls = {"cache on": [_wall_row(classic["phase_wall_s"],
+                                    classic["walls"], classic["encode"])]}
     for label, changes, profile in WALL_RUNS:
         cfg = cli.sim_config(args)
         cfg.scheduler = dataclasses.replace(cfg.scheduler, **changes)
@@ -1474,14 +1534,9 @@ def walls_phase(trace, workdir, device="cuda"):
         if result.to_csv() != want:
             raise AssertionError(f"{label}: the run trace differs from "
                                  "the slice's")
-        row = {k: round(result.phase_wall_s.get(k, 0.0), 4)
-               for k in WALL_PHASES}
-        row["cycle_p50_ms"] = round(1e3 * sorted(
-            result.cycle_wall_s)[len(result.cycle_wall_s) // 2], 2)
-        row["cycle_ms"] = [round(1e3 * w, 1) for w in result.cycle_wall_s]
-        row["encode_per_cycle"] = [
-            round(r["phases"].get("tensor_build", 0.0), 4)
-            for r in result.cycle_records]
+        row = _wall_row(result.phase_wall_s, result.cycle_wall_s,
+                        [r["phases"].get("tensor_build", 0.0)
+                         for r in result.cycle_records])
         if not profile:
             walls.setdefault(label, []).append(row)
         print(f"walls {label}{' (profiled)' if profile else ''}: run "
@@ -1498,13 +1553,19 @@ def walls_phase(trace, workdir, device="cuda"):
 
 
 def hier_slice_phase(trace, resident=False, quantized=False,
-                     label="hier slice", device="cuda", match_args=None):
+                     label="hier slice", device="cuda", match_args=None,
+                     superblocks=False, solves=None):
     """The hierarchical path on the flat slice's trace: every solve goes
     coarse (one coarse_pass launch) -> scatter -> fine (best_node_batched)
     -> refine; with `resident`, the problems come from the device-resident
     mirror (SimConfig.resident), and with `quantized` the cost tensors are
-    bfloat16.  No host ends the run over its capacity (_slice_summary).
-    Returns ({kernel:
+    bfloat16.  With `superblocks` (match_args carrying
+    `hierarchical_superblock_nodes`) the coarse level is the two-level
+    superblock routing on the masked torch code (no coarse_pass launch),
+    every solve and record must show >= 2 superblocks and a
+    super-coarse wall, and the walls are summed per level.  No host ends
+    the run over its capacity (_slice_summary).  `solves`, if given,
+    receives each solve's (problem, params, stats).  Returns ({kernel:
     launches}, {kernel: kept calls}, the run's result, the simulator)."""
     from cook_tpu_torch.ops import best_block as bb
     from cook_tpu_torch.ops import best_node as bn
@@ -1524,12 +1585,12 @@ def hier_slice_phase(trace, resident=False, quantized=False,
         scheduler=SchedulerConfig(match=match)), device=device)
     probe = CycleProbe(sim)
     calls = {"coarse_pass": [], "best_node_batched": []}
-    solves = []
+    kept = [] if solves is None else solves
     solve = hierarchical.hierarchical_match
 
     def keep_stats(*args, **kwargs):
         out = solve(*args, **kwargs)
-        solves.append(out[1])
+        kept.append((args[0], kwargs["params"], out[1]))
         return out
 
     with kept_calls(hierarchical, "coarse_pass", calls["coarse_pass"]), \
@@ -1549,29 +1610,49 @@ def hier_slice_phase(trace, resident=False, quantized=False,
             hierarchical.hierarchical_match = solve
     _slice_summary(label, sim, hosts, result, wall, launches, device)
     report_cycles(label, result, probe)
-    last = {k: solves[-1][k] for k in (
-        "blocks", "block_pad", "nodes_per_block", "jobs_per_block",
-        "fine_shape", "coarse_shape", "spilled", "refine_rounds",
-        "refine_placed", "placed", "backend", "coarse_backend", "coarse_s",
-        "fine_s", "refine_s")}
-    print(f"{label}: {len(solves)} hierarchical solves; the last "
-          + json.dumps(last), flush=True)
-    walls = {k: sum(st[k] for st in solves)
-             for k in ("coarse_s", "fine_s", "refine_s", "total_s")}
+    stats = [st for _, _, st in kept]
+    keys = ["blocks", "block_pad", "nodes_per_block", "jobs_per_block",
+            "fine_shape", "coarse_shape", "spilled", "refine_rounds",
+            "refine_placed", "placed", "backend", "coarse_backend",
+            "coarse_s", "fine_s", "refine_s"]
+    levels = ["coarse_s", "fine_s", "refine_s", "total_s"]
+    if superblocks:
+        keys += ["superblocks", "superblock_pad", "superblock_blocks",
+                 "jobs_per_superblock", "superblock_spilled", "super_shape",
+                 "super_coarse_s"]
+        levels.insert(0, "super_coarse_s")
+    print(f"{label}: {len(stats)} hierarchical solves; the last "
+          + json.dumps({k: stats[-1][k] for k in keys}), flush=True)
+    walls = {k: sum(st[k] for st in stats) for k in levels}
     print(f"{label}: solve walls summed over the solves (s) "
           + json.dumps(walls), flush=True)
-    if len(solves) != result.cycles:
-        raise AssertionError(f"{len(solves)} hierarchical solves in "
+    if len(stats) != result.cycles:
+        raise AssertionError(f"{len(stats)} hierarchical solves in "
                              f"{result.cycles} cycles")
     # the coarse scoring runs inside coarse_pass: no best_block launch
     if launches["best_block"]:
         raise AssertionError(f"{launches['best_block']} best_block launches "
                              "on the hierarchical path")
-    for name, kept in calls.items():
+    if superblocks:
+        # both coarse levels are the masked torch code: no coarse_pass
+        if launches["coarse_pass"]:
+            raise AssertionError(f"{label}: {launches['coarse_pass']} "
+                                 "coarse_pass launches")
+        del calls["coarse_pass"]
+        records = [r for r in result.cycle_records if r["hierarchical"]]
+        if len(records) != result.cycles or any(
+                r["hier_superblocks"] < 2
+                or "super_coarse_solve" not in r["hier_phases"]
+                for r in records) or any(st["superblocks"] < 2
+                                         or st["super_coarse_s"] <= 0
+                                         for st in stats):
+            raise AssertionError(f"{label}: records without the "
+                                 "superblock layer")
+    for name, kept_calls_ in calls.items():
         if device == "cuda" and (launches[name] <= 0
-                                 or len(kept) != launches[name]):
-            raise AssertionError(f"kept {len(kept)} {name} calls but the "
-                                 f"kernel counted {launches[name]} "
+                                 or len(kept_calls_) != launches[name]):
+            raise AssertionError(f"kept {len(kept_calls_)} {name} calls but "
+                                 f"the kernel counted {launches[name]} "
                                  "launches")
     return launches, calls, result, sim
 
@@ -1728,7 +1809,9 @@ def _resident_view(result, totals):
                 for r in result.cycle_records],
         h2d=[{f: v["h2d_bytes"] for f, v in r["data_plane"].items()
               if v["h2d_bytes"]} for r in result.cycle_records],
-        submit_s=totals["submit_s"], encode_s=totals["encode_s"])
+        submit_s=totals["submit_s"], encode_s=totals["encode_s"],
+        walls=list(result.cycle_wall_s),
+        phase_wall_s=dict(result.phase_wall_s))
 
 
 def _encode_h2d(record) -> int:
@@ -2205,34 +2288,11 @@ def default_agreement_phase(workdir, devices=("cuda", "cpu")):
               flush=True)
 
 
-def cache_neutrality_phase(workdir, device="cuda"):
-    """On the card, the flat default-agreement replay with the encode
-    cache on, off and on again: three identical run traces (the cache
-    changes no decision, and a run with it is repeatable)."""
-    from cook_tpu_torch.sim.simulator import load_trace
-    from cook_tpu_torch.utils.config import default_match_config
-
-    phase("cache neutrality")
-    jobs, hosts = load_trace(os.path.join(workdir, "small.json"))
-    match = default_match_config(**DEFAULT_AGREEMENT["flat"][0])
-    csvs = []
-    for use in (True, False, True):
-        sim, result = default_replay(jobs, hosts, match, device,
-                                     use_encode_cache=use)
-        if use != (sim.scheduler.encode_cache is not None):
-            raise AssertionError("cache neutrality: the cache setting did "
-                                 "not reach the scheduler")
-        csvs.append(result.to_csv())
-    if len(set(csvs)) != 1:
-        raise AssertionError("cache neutrality: run traces differ with "
-                             "the encode cache on / off / on again")
-    print(f"cache neutrality: cache on, off, on again: identical run "
-          f"traces ({csvs[0].count(chr(10)) - 1} rows)", flush=True)
-
-
 # ----------------------------------------------------------------- gangs
 
-GANG_CYCLES = 3
+# 2 cycles: the first cycle holds the few jobs submitted at t 0, the
+# second the full window (3 before the superblock phases needed the time)
+GANG_CYCLES = 2
 GANG_REASONS = ("members-missing", "no-block-capacity", "transact-failed")
 
 
@@ -2662,7 +2722,10 @@ MP_POOLS = (("alpha", 30_000, 3_000, "default"),) + tuple(
 # the GPU column (bench.py:532-545): a tenth of the jobs ask for 1-3 gpus,
 # a fifth of the hosts carry 8, drawn from MP_GPU_SEED
 MP_GPU_SEED = 5
-MP_CYCLES = 3
+# 2 cycles: cycle 1 holds the few jobs submitted at t 0, cycle 2 the
+# full windows with alpha on the two-level path (3 before the superblock
+# phases needed the time)
+MP_CYCLES = 2
 # the slices' knobs (chunk 1024, tuned rounds / passes / kc, `pallas`,
 # 16,384 considerable jobs); the hierarchical threshold 2^25 lies between
 # the small pools' padded 16384 x 1024 (2^24) and alpha's 16384 x 4096
@@ -3159,23 +3222,32 @@ def device_update_phase(device="cuda", reps=20):
           flush=True)
 
 
+# the exact cycle's flat pools: the first and the DruMode.GPU one (it ran
+# all seven before the superblock phases needed the time; each pool keeps
+# its 10,000 x 1,000 shape)
+MP_EXACT_POOLS = 2
+
+
 def multipool_exact_phase(jobs, hosts, pools, device="cuda", big="alpha"):
-    """(d): one cycle at chunk 0 (the exact greedy) on the flat pools
-    (every pool but `big`), their jobs all submitted at t 0 so that the
-    cycle holds a full window: the batched pass (`greedy_match_pools`,
-    one step places a job row of every pool) against the serial route (a
-    `greedy_match` per pool).  Run traces identical; both solve walls
-    printed."""
+    """(d): one cycle at chunk 0 (the exact greedy) on MP_EXACT_POOLS of
+    the flat pools (pools but `big`), their jobs all submitted at t 0 so
+    that the cycle holds a full window: the batched pass
+    (`greedy_match_pools`, one step places a job row of every pool)
+    against the serial route (a `greedy_match` per pool).  Run traces
+    identical; both solve walls printed."""
     import dataclasses
 
     from cook_tpu_torch.sim import cli
     from cook_tpu_torch.utils.config import default_match_config
 
     phase("multipool exact")
-    flat_jobs = [dataclasses.replace(j, submit_time_ms=0) for j in jobs
-                 if j.pool != big]
-    flat_hosts = [h for h in hosts if h.pool != big]
     flat_pools = tuple(p for p in pools if p[0] != big)
+    flat_pools = (flat_pools[:MP_EXACT_POOLS - 1]
+                  + flat_pools[-1:])
+    names = {p[0] for p in flat_pools}
+    flat_jobs = [dataclasses.replace(j, submit_time_ms=0) for j in jobs
+                 if j.pool in names]
+    flat_hosts = [h for h in hosts if h.pool in names]
     cfg = default_match_config(**{**MP_MATCH, "chunk": 0})
     rows, walls = {}, {}
     for route in ("serial", "batched"):
@@ -3286,10 +3358,11 @@ REB_TRACE = dict(hosts=10_000, host_mem=65_536, host_cpus=32,
                  hog_jobs=20_000, late_jobs=80_000, n_late_users=49,
                  runtime_ms=600_000, late_arrival_ms=60_000, seed=0)
 REB_CYCLES = 6
-# the slice's depth: 4 cycles (decisions from cycle 3 on; it ran 6 before
-# the elastic phases needed the time); the victim search at the slice's
-# padded shapes is also held by the rebalance cases (13)
-REB_SLICE_CYCLES = 4
+# the slice's depth: 3 cycles (decisions from cycle 3 on; it ran 6, then
+# 4, before the elastic and superblock phases needed the time); the victim
+# search at the slice's padded shapes is also held by the rebalance cases
+# (13)
+REB_SLICE_CYCLES = 3
 # the rebalance agreement's flat `pallas` matcher (tests/test_torch_sim.py
 # CONFIGS["pallas"]): chunks of 16 fill a uniform fleet in one cycle
 REB_PALLAS = dict(max_jobs_considered=16384, chunk=16, backend="pallas",
@@ -3816,8 +3889,9 @@ def rebalance_agreement_phase():
 SPEC_WAVE = dict(jobs=100_000, hosts=10_000, runtime_ms=30_000,
                  host_mem=65_536.0, host_cpus=32.0, n_users=1)
 # 5 cycles (hits on cycles 3-5; it ran 6 before the elastic phases needed
-# the time): speculation at these shapes is also held by S2's kernel-knob
-# waves
+# the time): the pre-launch p50 then reads a hit cycle (at 4 or 3 cycles
+# it reads a fresh one, and the comparison is noise); speculation at these
+# shapes is also held by S2's kernel-knob waves
 SPEC_CYCLES = 5
 # the exact greedy (chunk 0) at the slices' window: the reference's own
 # A/B scenario (tests/test_prediction.py:411)
@@ -3825,11 +3899,15 @@ SPEC_EXACT = dict(max_jobs_considered=16_384, chunk=0)
 # the flat slice's kernel knobs, and the hierarchical slice's
 SPEC_PALLAS = dict(max_jobs_considered=16_384, chunk=1024, backend="pallas",
                    chunk_rounds=3, chunk_passes=3, chunk_kc=64)
-SPEC_KERNEL_CYCLES = 4
+# 3 cycles (a hit on cycle 3; it ran 4 before the superblock phases
+# needed the time)
+SPEC_KERNEL_CYCLES = 3
 # tests/test_prediction.py:422's bar
 SPEC_HIT_FRACTION = 0.2
-# the pipelined speculation rig: 8 pools, each the wave at 12,500 x 1,250
-SPEC_POOLS = 8
+# the pipelined speculation rig: 4 pools, each the wave at 12,500 x 1,250
+# (8 before the superblock phases needed the time; each pool's shape is
+# unchanged)
+SPEC_POOLS = 4
 SPEC_POOL_WAVE = dict(SPEC_WAVE, jobs=12_500, hosts=1_250)
 # 3 passes (pass 3 hits; it ran 4 before the elastic phases needed the
 # time): the pipelined pass's placements are also held against the
@@ -5045,6 +5123,554 @@ def elastic_agreement_phase(devices=("cuda", "cpu"), ab=EL_AB,
     return p50
 
 
+# ------------------------------------------------ the superblock slice
+
+# the superblock slice's matcher: HIER_MATCH with superblocks of 4096
+# hosts (4 blocks of 1024), which splits the 10,000 hosts into 3
+# superblocks (the node axis padded to 12,288)
+SB_SLICE_NODES = 4096
+SB_MATCH = dict(HIER_MATCH, hierarchical_superblock_nodes=SB_SLICE_NODES)
+# the reference's packing floor against the exact greedy
+# (tests/test_hierarchical.py HIER_EFF_TOLERANCE), held where its tests
+# hold it: tests/test_superblocks.py's problems and knobs (SB_PARAMS)
+HIER_EFF_FLOOR = 0.95
+SB_TEST_PARAMS = dict(nodes_per_block=32, superblock_nodes=64, chunk=64,
+                      kc=32)
+SB_TEST_WIDTHS = (320, 384, 448)
+
+
+def dense_problem(j, n, seed):
+    """tests/test_hierarchical.py's `dense_problem`, written here: seeded
+    demands of 512-4096 MB and 0.5-4 cpus (R 3), hosts of 64 GB / 32 cpus
+    with a uniform 0.2-1.0 fraction free."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    demands = np.stack([
+        rng.choice([512.0, 1024.0, 2048.0, 4096.0], j),
+        rng.choice([0.5, 1.0, 2.0, 4.0], j),
+        np.zeros(j)], axis=-1).astype(np.float32)
+    totals = np.stack([np.full(n, 65536.0), np.full(n, 32.0)],
+                      axis=-1).astype(np.float32)
+    frac = rng.uniform(0.2, 1.0, (n, 1)).astype(np.float32)
+    avail = np.concatenate([totals * frac, np.zeros((n, 1), np.float32)],
+                           axis=-1)
+    return demands, avail, totals
+
+
+def cpus_placed(demands, assignment) -> float:
+    """The cpus a schedule places (the reference tests' packing measure,
+    ops/cpu_reference.packing_quality)."""
+    placed = assignment >= 0
+    return float(demands[placed, 1].sum())
+
+
+def superblock_slice_phase(trace, classic_p50_ms):
+    """21. The superblock slice (see the docstring); returns the
+    best_node_batched launches and their kept calls."""
+    import dataclasses
+
+    import numpy as np
+
+    from cook_tpu_torch.ops import hierarchical
+    from cook_tpu_torch.ops.match import from_numpy, greedy_match
+
+    solves = []
+    launches, calls, result, _ = hier_slice_phase(
+        trace, label="superblock slice", match_args=SB_MATCH,
+        superblocks=True, solves=solves)
+    walls = [{k: round(st[k], 4) for k in (
+        "super_coarse_s", "coarse_s", "fine_s", "refine_s", "total_s")}
+        for _, _, st in solves]
+    walls_ms = sorted(result.cycle_wall_s)
+    p50 = walls_ms[len(walls_ms) // 2] * 1e3
+    print("superblock slice: per-solve level walls (s) " + json.dumps(walls)
+          + "; " + json.dumps(dict(
+              placed=n_placed(result.rows),
+              cycle_p50_ms=round(p50, 2),
+              classic_hier_cycle_p50_ms=round(classic_p50_ms, 2),
+              superblocks=[st["superblocks"] for _, _, st in solves],
+              superblock_spilled=[st["superblock_spilled"]
+                                  for _, _, st in solves])), flush=True)
+    # the first full window's problem (cycle 1 holds the few jobs
+    # submitted at t 0): the exact greedy on the card against the
+    # superblock solve with the slice's knobs (single-candidate fine
+    # passes on the kernel), with the reference's default fine backend
+    # (candidate lists), and the classic two-level solve
+    cycle = max(range(len(solves)),
+                key=lambda i: (int(solves[i][0].job_valid.sum()), -i))
+    problem, params, _ = solves[cycle]
+    n = int(problem.job_valid.sum())
+    demands = problem.demands[:n].float().cpu().numpy()
+    t0 = time.perf_counter()
+    exact = greedy_match(problem).assignment[:n].cpu().numpy()
+    greedy_s = time.perf_counter() - t0
+    ref_cpus = cpus_placed(demands, exact)
+    effs = {}
+    for name, knobs in (("superblock", {}),
+                        ("superblock, xla fine", {"fine_backend": "xla"}),
+                        ("classic", {"superblock_nodes": 0})):
+        res, _ = hierarchical.hierarchical_match(
+            problem, params=dataclasses.replace(params, **knobs))
+        asg = res.assignment[:n].cpu().numpy()
+        effs[name] = round(cpus_placed(demands, asg) / ref_cpus, 6)
+    print(f"superblock slice, cycle {cycle + 1} packing vs the exact greedy "
+          "on the card " + json.dumps(dict(
+              jobs=n, greedy_placed=int((exact >= 0).sum()),
+              greedy_s=round(greedy_s, 3), efficiency=effs)), flush=True)
+    del solves, problem
+    # the floor where the reference's tests hold it, on the card
+    floor = {}
+    for n in SB_TEST_WIDTHS:
+        demands, avail, totals = dense_problem(512, n, seed=n)
+        small = from_numpy(demands, np.ones(512, bool), avail, totals,
+                           np.ones(n, bool), device="cuda")
+        res, st = hierarchical.hierarchical_match(
+            small, params=hierarchical.HierParams(**SB_TEST_PARAMS))
+        exact = greedy_match(small).assignment.cpu().numpy()
+        floor[n] = round(cpus_placed(demands,
+                                     res.assignment.cpu().numpy())
+                         / cpus_placed(demands, exact), 6)
+        if st["superblocks"] != n // 64 or floor[n] < HIER_EFF_FLOOR:
+            raise AssertionError(f"superblock slice: the reference tests' "
+                                 f"problem at {n} hosts packs {floor[n]} "
+                                 f"({st['superblocks']} superblocks)")
+    print("superblock slice: tests/test_superblocks.py's problems on the "
+          "card, packing vs the exact greedy " + json.dumps(floor)
+          + f" (floor {HIER_EFF_FLOOR})", flush=True)
+    return launches["best_node_batched"], calls["best_node_batched"]
+
+
+# the superblock layer at the scale it exists for (docs/architecture.md
+# :136-172): 1M jobs x 100k hosts, superblocks of 16,384 hosts
+MEGA = dict(jobs=1 << 20, hosts=100_000, superblock_nodes=16_384, seed=0)
+# the card-vs-CPU solve: the slice knobs at 8,192 x 1,024, superblocks of
+# 256 hosts (blocks of 128: 4 superblocks)
+MID = dict(jobs=8_192, hosts=1_024, superblock_nodes=256, seed=1)
+
+
+def bench_problem(j, n, seed, exact_sums=False):
+    """bench.make_problem's shape family (bench.py:39-56), written here:
+    demands of 512-8192 MB and 0.5-4 cpus (no gpus, no disk: R 4), every
+    host 64 GB / 32 cpus with a uniform 0.2-1.0 fraction free.  With
+    `exact_sums` the free amounts round down to whole 512 MB and 0.5 cpu,
+    so block sums are exact whatever order a device adds in."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    demands = np.zeros((j, 4), np.float32)
+    demands[:, 0] = rng.choice([512, 1024, 2048, 4096, 8192], j)
+    demands[:, 1] = rng.choice([0.5, 1, 2, 4], j)
+    totals = np.stack([np.full(n, 65536.0), np.full(n, 32.0)],
+                      -1).astype(np.float32)
+    frac = rng.uniform(0.2, 1.0, (n, 1)).astype(np.float32)
+    avail = np.zeros((n, 4), np.float32)
+    avail[:, :2] = totals * frac
+    if exact_sums:
+        avail[:, 0] = np.floor(avail[:, 0] / 512.0) * 512.0
+        avail[:, 1] = np.floor(avail[:, 1] * 2.0) / 2.0
+    return demands, avail, totals
+
+
+def _mega_params(superblock_nodes):
+    import dataclasses
+
+    from cook_tpu_torch.scheduler.matcher import hier_params_from_config
+    from cook_tpu_torch.utils.config import default_match_config
+
+    return dataclasses.replace(
+        hier_params_from_config(default_match_config(**HIER_MATCH)),
+        superblock_nodes=superblock_nodes)
+
+
+def mega_solve(label, problem, params):
+    """One hierarchical_match alone, its kernel calls kept and counted,
+    the device memory peak read: (result, stats, {kernel: calls})."""
+    import torch
+
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+    from cook_tpu_torch.ops import hierarchical
+
+    calls = {"coarse_pass": [], "best_node_batched": []}
+    with kept_calls(hierarchical, "coarse_pass", calls["coarse_pass"]), \
+            kept_calls(hierarchical, "best_node_batched",
+                       calls["best_node_batched"]):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bnb.launches = cp.launches = 0
+        t0 = time.perf_counter()
+        result, stats = hierarchical.hierarchical_match(problem,
+                                                        params=params)
+        wall = time.perf_counter() - t0
+        launches = {"best_node_batched": bnb.launches,
+                    "coarse_pass": cp.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for name, kept in calls.items():
+        if len(kept) != launches[name]:
+            raise AssertionError(f"{label}: kept {len(kept)} {name} calls, "
+                                 f"counted {launches[name]}")
+    print(f"{label} " + json.dumps(dict(
+        wall_s=round(wall, 3),
+        **{k: round(stats[k], 4) for k in ("super_coarse_s", "coarse_s",
+                                           "fine_s", "refine_s")},
+        placed=stats["placed"], launches=launches,
+        device_peak_gb=round(peak / 2**30, 3),
+        superblocks=stats["superblocks"], blocks=stats["blocks"],
+        super_shape=stats["super_shape"],
+        coarse_shape=stats["coarse_shape"], fine_shape=stats["fine_shape"],
+        refine_rounds=stats["refine_rounds"],
+        superblock_spilled=stats["superblock_spilled"],
+        spilled=stats["spilled"])), flush=True)
+    return result, stats, calls
+
+
+def hold_batched_by_blocks(label, args, step=8):
+    """best_node_batched on one launch's arguments against its plain
+    version, bit for bit, the plain version run `step` blocks at a time
+    (its [B, S, N] score would not fit the card whole; the blocks are
+    independent problems)."""
+    import torch
+
+    from cook_tpu_torch.ops import best_node_batched as bnb
+
+    val, idx = bnb.best_node_batched(*args)
+    demands, avail, totals, valid, mask = args
+    for b0 in range(0, demands.shape[0], step):
+        sl = slice(b0, b0 + step)
+        want_val, want_idx = bnb.best_node_batched_reference(
+            demands[sl], avail[sl], totals[sl], valid[sl],
+            None if mask is None else mask[sl])
+        if not (torch.equal(idx[sl], want_idx) and torch.equal(
+                val[sl].view(torch.int32), want_val.view(torch.int32))):
+            raise AssertionError(f"{label}: best_node_batched blocks "
+                                 f"{b0}-{b0 + step} differ from the plain "
+                                 "version")
+
+
+def superblock_mega_phase(mega=MEGA, mid=MID):
+    """22. The superblock layer at 1M x 100k (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops import hierarchical
+    from cook_tpu_torch.ops.match import from_numpy
+
+    phase("superblock at scale")
+    t0 = time.perf_counter()
+    demands, avail, totals = bench_problem(mega["jobs"], mega["hosts"],
+                                           mega["seed"])
+    problem = from_numpy(demands, np.ones(mega["jobs"], bool), avail,
+                         totals, np.ones(mega["hosts"], bool),
+                         device="cuda")
+    print(f"superblock at scale: {mega['jobs']} jobs x {mega['hosts']} "
+          f"hosts built in {time.perf_counter() - t0:.2f} s", flush=True)
+    busiest = {}
+    for sbn in (mega["superblock_nodes"], 0):
+        label = f"superblock at scale, superblock_nodes {sbn}"
+        params = _mega_params(sbn)
+        result, stats, calls = mega_solve(f"{label} cold", problem, params)
+        cold = result.assignment.cpu().numpy()
+        for name, kept in calls.items():
+            if kept:
+                i = max(range(len(kept)),
+                        key=lambda k: (_unplaced(kept[k]), -k))
+                busiest[(sbn, name)] = kept[i]
+        del calls, result
+        if sbn:
+            if stats["superblocks"] < 2:
+                raise AssertionError(f"{label}: the layer stood down")
+            # one solve: nothing compiles in the port (on one H100 a warm
+            # superblock solve took 61.49 s against the cold 58.41 s)
+            continue
+        result, _, _ = mega_solve(f"{label} warm", problem, params)
+        if not np.array_equal(result.assignment.cpu().numpy(), cold):
+            raise AssertionError(f"{label}: the warm solve differs from "
+                                 "the cold one")
+        del result
+    # every solve's kernels on the card: the superblock path runs no
+    # coarse_pass, the classic one does
+    if (mega["superblock_nodes"], "coarse_pass") in busiest \
+            or (0, "coarse_pass") not in busiest:
+        raise AssertionError("superblock at scale: coarse_pass launches "
+                             f"{sorted(busiest)}")
+    for (sbn, name), args in busiest.items():
+        label = f"superblock at scale (superblock_nodes {sbn}) busiest {name}"
+        bound = {}
+        if name == "best_node_batched":
+            hold_batched_by_blocks(label, args)
+            bound = dict(zip(("bound_ms", "bound_by"),
+                             best_node_batched_bound(*args)))
+        else:
+            check_identical(name, label, args)
+        row = dict(ms=cuda_ms(lambda: getattr(_module(name), name)(*args),
+                              reps=5, cold=True),
+                   warm_ms=cuda_ms(lambda: getattr(_module(name),
+                                                   name)(*args), reps=5),
+                   live=_unplaced(args), **bound,
+                   shapes=[list(a.shape) for a in args
+                           if isinstance(a, torch.Tensor)])
+        print(f"{label}: identical to the plain version; "
+              + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                            for k, v in row.items()}), flush=True)
+    del busiest, problem
+    # the card-vs-CPU solve at 8,192 x 1,024 (exact-sum free capacity)
+    demands, avail, totals = bench_problem(mid["jobs"], mid["hosts"],
+                                           mid["seed"], exact_sums=True)
+    params = _mega_params(mid["superblock_nodes"])
+    out = {}
+    for device in ("cuda", "cpu"):
+        small = from_numpy(demands, np.ones(mid["jobs"], bool), avail,
+                           totals, np.ones(mid["hosts"], bool),
+                           device=device)
+        t0 = time.perf_counter()
+        result, stats = hierarchical.hierarchical_match(small, params=params)
+        out[device] = (result.assignment.cpu().numpy(),
+                       result.new_avail.cpu().numpy(), stats,
+                       time.perf_counter() - t0)
+    if not (np.array_equal(out["cuda"][0], out["cpu"][0])
+            and np.array_equal(out["cuda"][1], out["cpu"][1])):
+        raise AssertionError("superblock at scale: the 8,192 x 1,024 solve "
+                             "differs between the card and the CPU")
+    stats = out["cuda"][2]
+    print(f"superblock at scale: {mid['jobs']} x {mid['hosts']} card = CPU "
+          "(assignment, availability); " + json.dumps(dict(
+              superblocks=stats["superblocks"], placed=stats["placed"],
+              card_s=round(out["cuda"][3], 3),
+              cpu_s=round(out["cpu"][3], 3))), flush=True)
+
+
+def quality_audit_phase(trace, classic_csv, classic_walls):
+    """23. The quality audit on the flat slice (see the docstring)."""
+    import threading
+
+    from cook_tpu_torch.scheduler import matcher
+    from cook_tpu_torch.sim import cli
+    from cook_tpu_torch.sim.simulator import Simulator, load_trace
+    from cook_tpu_torch.utils.metrics import global_registry
+
+    phase("quality audit")
+    gauge = global_registry.gauge("match.quality_audit")
+    gauge.set(-1.0, labels={"pool": "default"})
+    audits = []
+    audit = matcher.audit_match_quality
+
+    def timed(problem, n, assignment, pool):
+        t0 = time.perf_counter()
+        ratio = audit(problem, n, assignment, pool)
+        audits.append((problem, n, assignment, ratio,
+                       time.perf_counter() - t0,
+                       threading.current_thread().name))
+        return ratio
+
+    args = cli.build_parser().parse_args(
+        ["run", "--trace", trace, "--out", os.devnull, "--device", "cuda",
+         *SLICE_ARGS])
+    config = cli.sim_config(args)
+    # the audit replays cycle 2's solve while cycles 2-3 run on
+    config.scheduler.match.quality_audit_every = 2
+    matcher.audit_match_quality = timed
+    try:
+        sim = Simulator(*load_trace(trace), config, device="cuda")
+        t0 = time.perf_counter()
+        result = sim.run()
+        wall = time.perf_counter() - t0
+        thread = matcher.last_audit_thread
+        thread.join(timeout=600)
+    finally:
+        matcher.audit_match_quality = audit
+    if thread.is_alive() or len(audits) != 1:
+        raise AssertionError(f"quality audit: {len(audits)} audits, "
+                             f"thread alive {thread.is_alive()}")
+    if result.to_csv() != classic_csv:
+        raise AssertionError("quality audit: the run trace differs from the "
+                             "flat slice's (the audit must only observe)")
+    problem, n, assignment, ratio, audit_s, thread_name = audits[0]
+    value = gauge.value(labels={"pool": "default"})
+    # the CPU port on the same problem and assignment, on this thread
+    again = audit(problem, n, assignment, "default-recheck")
+    if value != ratio or again != ratio or not 0.0 < ratio:
+        raise AssertionError(f"quality audit: gauge {value}, thread "
+                             f"{ratio}, recomputed {again}")
+    print("quality audit " + json.dumps(dict(
+        ratio=ratio, jobs=n, thread=thread_name,
+        audit_s=round(audit_s, 3), replay_s=round(wall, 2),
+        cycle_wall_ms_audit_on=[round(w * 1e3, 1)
+                                for w in result.cycle_wall_s],
+        cycle_wall_ms_audit_off=[round(w * 1e3, 1)
+                                 for w in classic_walls])), flush=True)
+
+
+def _fault_rig(device, pools=("default",), hosts_per_pool=4, jobs=6):
+    """A small scheduler on `device`: 4000 MB / 8 cpu hosts per pool, 200
+    MB / 1 cpu jobs (tests/test_faults.py's rig)."""
+    from cook_tpu_torch.cluster.mock import MockCluster, MockHost
+    from cook_tpu_torch.models.entities import Job, Pool, Resources
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
+    from cook_tpu_torch.scheduler.matcher import MatchConfig
+
+    clock = _Clock()
+    store = JobStore(clock=clock)
+    for name in pools:
+        store.set_pool(Pool(name=name))
+    cluster = MockCluster("mock", [
+        MockHost(node_id=f"{p}-h{i}", hostname=f"{p}-h{i}", mem=4000,
+                 cpus=8, pool=p)
+        for p in pools for i in range(hosts_per_pool)], clock=clock)
+    scheduler = Scheduler(store, [cluster], SchedulerConfig(
+        match=MatchConfig(chunk=0)), device=device)
+    store.submit_jobs([
+        Job(uuid=f"{p}-j{i}", user=f"u{i % 3}", pool=p, priority=50,
+            max_retries=5, command="true",
+            resources=Resources(mem=200, cpus=1))
+        for p in pools for i in range(jobs)])
+    return clock, store, cluster, scheduler
+
+
+def faults_phase(device="cuda"):
+    """24. Faults, incidents, admission (see the docstring)."""
+    from cook_tpu_torch import faults
+    from cook_tpu_torch.obs import profiling
+    from cook_tpu_torch.obs.telemetry import DeviceTelemetry
+    from cook_tpu_torch.scheduler import flight_recorder as codes
+
+    phase("faults, incidents, admission")
+    error = {"point": "device.solve", "times": 1}
+    # serial: the injected error raises out of match_cycle
+    clock, store, _, scheduler = _fault_rig(device)
+    pool = store.pools["default"]
+    scheduler.rank_cycle(pool)
+    with faults.injected(error):
+        try:
+            scheduler.match_cycle(pool)
+        except OSError:
+            pass
+        else:
+            raise AssertionError("faults: a device.solve error did not "
+                                 "surface from match_cycle")
+    if store.instances:
+        raise AssertionError("faults: a failed serial solve launched")
+    if len(scheduler.match_cycle(pool).matched) != 6:
+        raise AssertionError("faults: the next serial cycle did not place")
+    # batched: the shared solve raises out of match_cycle_all_pools
+    pools = ("p0", "p1", "p2")
+    clock, store, _, scheduler = _fault_rig(device, pools=pools,
+                                            hosts_per_pool=1, jobs=3)
+    with faults.injected(error):
+        try:
+            scheduler.match_cycle_all_pools()
+        except OSError:
+            pass
+        else:
+            raise AssertionError("faults: a device.solve error did not "
+                                 "surface from the batched pass")
+    # pipelined: the pool's jobs skip with solve-failed, the others place
+    clock, store, _, scheduler = _fault_rig(device, pools=pools,
+                                            hosts_per_pool=1, jobs=3)
+    for p in store.pools.values():
+        scheduler.rank_cycle(p)
+    with faults.injected(dict(error, match={"pool": "p1"})):
+        outcomes = scheduler.match_cycle_pipelined()
+    scheduler.drain_launches()
+    skipped = [scheduler.recorder.job_reason(f"p1-j{i}")[1]
+               for i in range(3)]
+    if outcomes["p1"].matched or skipped != [codes.SOLVE_FAILED] * 3 \
+            or len(outcomes["p0"].matched) != 3 \
+            or len(outcomes["p2"].matched) != 3:
+        raise AssertionError(f"faults: pipelined outcomes {skipped}")
+    print("faults: device.solve raised out of the serial and batched "
+          "passes; the pipelined pass skipped pool p1 with solve-failed "
+          "(3 jobs), p0 and p2 placed 3 each", flush=True)
+    # a delay fault drives health ok -> degraded: one incident bundle,
+    # with a torch.profiler capture holding CUDA kernel events
+    with tempfile.TemporaryDirectory(prefix="cook-profile-") as pdir:
+        clock, store, _, scheduler = _fault_rig(device, jobs=0)
+        scheduler.incidents.cooldown_s = 0.0
+        scheduler.telemetry = DeviceTelemetry(
+            latency_window=16, latency_recent=2, latency_min_samples=3,
+            latency_rel_floor=5.0, update_memory_gauges=False)
+        scheduler.telemetry.health_observer = scheduler.incidents.observe
+        scheduler.profiler = profiling.ProfileCapturer(
+            base_dir=pdir, default_duration_s=2.0, cooldown_s=0.0)
+        scheduler.incidents.profiler = scheduler.profiler
+        scheduler.incidents.auto_profile = True
+        seq = [0]
+
+        def cycle():
+            from cook_tpu_torch.models.entities import Job, Resources
+
+            store.submit_jobs([Job(
+                uuid=f"d{seq[0]}-{i}", user=f"u{i}", pool="default",
+                priority=50, max_retries=5, command="true",
+                resources=Resources(mem=100, cpus=0.5)) for i in range(2)])
+            seq[0] += 1
+            p = store.pools["default"]
+            scheduler.rank_cycle(p)
+            scheduler.match_cycle(p)
+            clock.now_ms += 1000
+
+        for _ in range(6):
+            cycle()
+        if scheduler.telemetry.health()["status"] != "ok":
+            raise AssertionError("faults: health not ok before the fault")
+        with faults.injected({"point": "device.solve", "mode": "delay",
+                              "delay_s": 0.25}):
+            for _ in range(4):
+                cycle()
+            verdict = scheduler.telemetry.health()
+        bundles = scheduler.incidents.bundles()
+        if verdict["status"] != "degraded" or len(bundles) != 1:
+            raise AssertionError(f"faults: verdict {verdict['reasons']}, "
+                                 f"{len(bundles)} bundles")
+        bundle = scheduler.incidents.get(bundles[0]["id"])
+        capture = bundle.get("profile") or {}
+        if not capture.get("started"):
+            raise AssertionError(f"faults: no profile capture {capture}")
+        while scheduler.profiler.status()["active"] is not None:
+            cycle()  # kernels on the card while the capture is open
+        path = os.path.join(capture["log_dir"], profiling.TRACE_FILE)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        if kernels < 1:
+            raise AssertionError("faults: the profile holds no CUDA kernel "
+                                 f"event ({len(events)} events)")
+        for _ in range(40):
+            cycle()
+            if scheduler.telemetry.health()["status"] == "ok":
+                break
+        summary = scheduler.incidents.bundles()
+        if len(summary) != 1 or summary[0]["recovered_time"] is None:
+            raise AssertionError(f"faults: after recovery {summary}")
+        print("faults: delay -> " + json.dumps(dict(
+            reasons=verdict["reasons"], bundles=len(summary),
+            evidence=sorted(bundle), profile_events=len(events),
+            cuda_kernel_events=kernels,
+            recovered=summary[0]["recovered_time"] is not None)),
+            flush=True)
+    # admission: x0.95 a cycle down to a tenth of the window, then reset
+    clock, store, _, scheduler = _fault_rig(device, jobs=2)
+    overloaded = {"v": True}
+    scheduler.admission.overload_fn = lambda: overloaded["v"]
+    caps = []
+    p = store.pools["default"]
+    for _ in range(50):
+        scheduler.rank_cycle(p)
+        scheduler.match_cycle(p)
+        caps.append(scheduler.admission.cap("default"))
+    overloaded["v"] = False
+    scheduler.match_cycle(p)
+    steps, cap = [], 1000
+    for _ in range(50):
+        cap = max(100, int(cap * 0.95))
+        steps.append(cap)
+    if caps != steps or scheduler.admission.cap("default") != 1000:
+        raise AssertionError(f"admission caps {caps[:5]}...{caps[-3:]}")
+    print("admission: caps " + json.dumps(caps[:4] + ["..."] + caps[-2:])
+          + ", reset to 1000 when the overload cleared", flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cook_tpu_torch")):
         print("chip_smoke.py: cook_tpu_torch/ not found beside the script",
@@ -5073,12 +5699,14 @@ def main() -> int:
                                                  _unplaced)
         errs["best_node"] = max(errs["best_node"], err)
         del calls
-        walls_phase(trace, workdir)
+        walls_phase(trace, workdir, classic)
         hier_launches, hier_calls, hier_result, _ = hier_slice_phase(
             trace)
         hier_csv = hier_result.to_csv()
         hier_placed = [r["job_uuid"] for r in hier_result.rows
                        if r["start_ms"] is not None]
+        hier_walls = sorted(hier_result.cycle_wall_s)
+        hier_p50_ms = hier_walls[len(hier_walls) // 2] * 1e3
         del hier_result
         for name in ("best_block", "best_node_batched", "coarse_pass"):
             launches[name] = hier_launches[name]
@@ -5128,13 +5756,14 @@ def main() -> int:
             errs[name] = max(errs[name], hold_launches(
                 name, kept, "speculative solves"))
         del spec_calls
+        # the quality audit on the flat slice (23)
+        quality_audit_phase(trace, classic["csv"], classic["walls"])
         del classic
         speculation_pipelined_phase()
         speculation_agreement_phase()
         agreement_phase(workdir)
         default_agreement_phase(workdir)
         resident_default_agreement_phase(workdir)
-        cache_neutrality_phase(workdir)
         gang_runs = gang_slice_phase(trace)
         gang_ops_phase(*gang_runs.pop("ops"))
         for label, (gang_launches, gang_calls, _) in gang_runs.items():
@@ -5145,6 +5774,13 @@ def main() -> int:
                   flush=True)
         del gang_runs, gang_calls
         gang_agreement_phase(workdir)
+        # the superblock slice (21)
+        sb_launches, sb_calls = superblock_slice_phase(trace, hier_p50_ms)
+        launches["best_node_batched"] += sb_launches
+        errs["best_node_batched"] = max(
+            errs["best_node_batched"], hold_launches(
+                "best_node_batched", sb_calls, "superblock slice"))
+        del sb_calls
     gang_admission_phase()
     mp_serial = []
     mp_launches, mp_calls, mp_trace = multipool_phase(serial_csv=mp_serial)
@@ -5186,6 +5822,10 @@ def main() -> int:
     elastic_residency_phase(el_queues, el_trace)
     del el_queues, el_trace
     elastic_agreement_phase()
+    # the superblock layer at 1M x 100k (22); faults, incidents and
+    # admission control (24)
+    superblock_mega_phase()
+    faults_phase()
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{

@@ -23,6 +23,7 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
+from cook_tpu_torch import faults
 from cook_tpu_torch.faults.breaker import BreakerParams, CircuitBreaker
 
 log = logging.getLogger(__name__)
@@ -192,8 +193,13 @@ def safe_pool_offers(cluster, pool: str) -> Optional[list]:
     circuit breaker: its window watches launch/kill RPC outcomes only
     (BreakerParams), and scans report no successes, so rare scan blips
     would accumulate one-sidedly until they opened the breaker on a
-    healthy cluster."""
+    healthy cluster.  The `cluster.offers` fault point sits in front of
+    the RPC."""
     try:
+        fault_schedule = faults.ACTIVE
+        if fault_schedule is not None:
+            fault_schedule.hit(faults.CLUSTER_OFFERS, cluster=cluster.name,
+                               pool=pool)
         return cluster.pending_offers(pool)
     except Exception:  # noqa: BLE001 — backend RPC boundary
         log.exception("pending_offers failed (cluster %s, pool %s); "
@@ -269,9 +275,14 @@ class ComputeCluster(abc.ABC):
         return self.breaker
 
     def run_launch(self, pool: str, specs: Sequence[TaskSpec]) -> None:
-        """THE backend launch entry: breaker accounting around
-        `launch_tasks`.  Callers hold the kill-lock's read side."""
+        """THE backend launch entry: the `cluster.launch` fault point and
+        breaker accounting around `launch_tasks`.  Callers hold the
+        kill-lock's read side."""
         try:
+            fault_schedule = faults.ACTIVE
+            if fault_schedule is not None:
+                fault_schedule.hit(faults.CLUSTER_LAUNCH, cluster=self.name,
+                                   pool=pool)
             self.launch_tasks(pool, specs)
         except Exception:
             self.breaker.note_failure(probe=True)
@@ -298,9 +309,14 @@ class ComputeCluster(abc.ABC):
     def safe_kill_task(self, task_id: str) -> None:
         """Kill that tolerates backend errors (reference safe-kill-task).
         Never gated by the circuit breaker — a sick cluster must still
-        honor kills — but outcomes feed its error window."""
+        honor kills — but outcomes feed its error window (the
+        `cluster.kill` fault point sits in front of the RPC)."""
         try:
             with self.kill_lock.write():
+                fault_schedule = faults.ACTIVE
+                if fault_schedule is not None:
+                    fault_schedule.hit(faults.CLUSTER_KILL,
+                                       cluster=self.name, task_id=task_id)
                 self.kill_task(task_id)
         except Exception:  # noqa: BLE001 — kill must never propagate
             self.breaker.note_failure()

@@ -1,11 +1,17 @@
 """Deterministic fault-injection plane: named points, scriptable schedules.
 
 A copy of `cook_tpu/faults/__init__.py` (jax-free), its imports the
-port's.  The port threads only `journal.fsync` through its code so far
-(models/persistence.JournalWriter); the other named points exist so
-schedules written for the reference parse here, and their call sites
-arrive with the slices that port those paths.  The per-cluster circuit
-breakers are `faults/breaker.py`.
+port's.  The port threads `journal.fsync` (models/persistence.
+JournalWriter), `cluster.offers` / `cluster.launch` / `cluster.kill`
+(cluster/base.py) and `device.solve` (scheduler/matcher.py) through its
+code; the control-plane points (`replication.*`, `leader.heartbeat`,
+`k8s.request`) exist so schedules written for the reference parse here,
+and their call sites arrive with the slices that port those layers.  A
+`device.solve` error is never re-solved on the CPU: the port has no
+fallback ladder, so it propagates out of the serial and batched passes
+and skips the pool with `solve-failed` on the pipelined one.  The
+per-cluster circuit breakers are `faults/breaker.py`, the overload
+reactions `faults/reactions.py`.
 
 The health verdict is the *detection* half of robustness (/debug/health
 names nine degradation reasons); this package closes the loop — a seeded,

@@ -1,8 +1,7 @@
 """Per-cluster circuit breakers: closed -> open -> half-open.
 
-Port of `cook_tpu/faults/breaker.py` without its metrics-registry gauges
-(the metrics layer is a later slice); the state machine that
-`cluster/base.py` and the matcher read is unchanged.
+A copy of `cook_tpu/faults/breaker.py` (jax-free), its imports the
+port's, its `breaker.*` series in the port's metrics registry.
 
 A cluster whose launch/kill RPCs are failing should stop receiving
 work BEFORE every matched job burns a mea-culpa retry against it: the
@@ -27,11 +26,17 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from cook_tpu_torch.utils.metrics import global_registry
+
 
 class BreakerState(enum.Enum):
     CLOSED = "closed"
     OPEN = "open"
     HALF_OPEN = "half-open"
+
+
+_STATE_VALUE = {BreakerState.CLOSED: 0.0, BreakerState.HALF_OPEN: 1.0,
+                BreakerState.OPEN: 2.0}
 
 
 @dataclass(frozen=True)
@@ -58,6 +63,17 @@ class CircuitBreaker:
             maxlen=self.params.window)  # True = error
         self._opened_at = 0.0
         self.opens = 0
+        self._labels = {"cluster": name}
+        self._state_gauge = global_registry.gauge(
+            "breaker.state",
+            "circuit-breaker state per cluster (0 closed, 1 half-open, "
+            "2 open)")
+        self._opens_counter = global_registry.counter(
+            "breaker.opens", "circuit-breaker open transitions per cluster")
+        self._outcome_counter = global_registry.counter(
+            "breaker.outcomes",
+            "launch/kill RPC outcomes observed per cluster")
+        self._state_gauge.set(0.0, self._labels)
 
     # ------------------------------------------------------------ feeding
 
@@ -67,6 +83,7 @@ class CircuitBreaker:
         kill endpoint works, not that launches do (the outage that
         opened the breaker was launch-path): it feeds the closed-state
         window but never closes a half-open breaker."""
+        self._outcome_counter.inc(1, {**self._labels, "outcome": "ok"})
         with self._lock:
             if self._state is BreakerState.HALF_OPEN:
                 if not probe:
@@ -86,6 +103,7 @@ class CircuitBreaker:
         it feeds the window without deciding the transition (else a
         cluster with a broken kill RPC but healthy launches re-trips on
         every ungated kill and starves forever)."""
+        self._outcome_counter.inc(1, {**self._labels, "outcome": "error"})
         with self._lock:
             if self._state is BreakerState.HALF_OPEN:
                 if probe:
@@ -105,10 +123,12 @@ class CircuitBreaker:
         """Caller holds self._lock."""
         self._opened_at = self.clock()
         self.opens += 1
+        self._opens_counter.inc(1, self._labels)
         self._set_state(BreakerState.OPEN)
 
     def _set_state(self, state: BreakerState) -> None:
         self._state = state
+        self._state_gauge.set(_STATE_VALUE[state], self._labels)
 
     # ------------------------------------------------------------- gating
 

@@ -1,7 +1,8 @@
 """DeviceTelemetry: the facade the scheduler owns.
 
-A copy of `cook_tpu/obs/telemetry.py` without the incident hook (no
-incident recorder yet).  The solve seconds it is given end in the device-
+A copy of `cook_tpu/obs/telemetry.py` (its incident hook,
+`health_observer`, the scheduler points at `obs/incident.
+IncidentRecorder.observe`).  The solve seconds it is given end in the device-
 to-host copy of the result (`ops/common.fetch_result`), never at an
 asynchronous launch, and the memory-gauge refresh reads host-side
 allocator counters (`obs/device_monitor.py`), so it adds no device sync.
@@ -37,13 +38,25 @@ class DeviceTelemetry:
     def __init__(self, *, storm_window: int = 32, storm_threshold: int = 4,
                  storm_warmup: Optional[int] = None,
                  quality_sample_every: int = 25,
-                 memory_stats_fn=None):
+                 latency_window: int = 64, latency_recent: int = 8,
+                 latency_min_samples: int = 12,
+                 latency_rel_floor: Optional[float] = None,
+                 memory_stats_fn=None,
+                 update_memory_gauges: bool = True):
         self.observatory = CompileObservatory(window=storm_window,
                                               storm_threshold=storm_threshold,
                                               warmup_solves=storm_warmup)
         self.quality = QualityMonitor(sample_every=quality_sample_every)
         self.health_monitor = HealthMonitor(self,
                                             memory_stats_fn=memory_stats_fn)
+        self._latency_args = dict(window=latency_window,
+                                  recent=latency_recent,
+                                  min_samples=latency_min_samples)
+        if latency_rel_floor is not None:
+            # widen the anomaly band's relative floor (tests / noisy
+            # hosts: a short `recent` window on millisecond solves can
+            # trip on scheduler jitter alone)
+            self._latency_args["rel_floor"] = latency_rel_floor
         self._latency: dict[str, RollingBaseline] = {}
         self._last_solve: dict[str, dict] = {}
         # pools currently degraded to the CPU reference solver
@@ -51,6 +64,11 @@ class DeviceTelemetry:
         # `device-degraded` health reason
         self._fallbacks: dict[str, dict] = {}
         self._lock = threading.Lock()
+        # incident hook (obs/incident.IncidentRecorder.observe): every
+        # health() verdict reports through it so ok->degraded transitions
+        # capture evidence bundles even when no REST probe is watching
+        self.health_observer = None
+        self._update_memory_gauges = update_memory_gauges
         self._fallback_gauge = global_registry.gauge(
             "obs.device_fallback_active",
             "1 while the pool's match solve is degraded to the CPU "
@@ -130,7 +148,7 @@ class DeviceTelemetry:
         with self._lock:
             baseline = self._latency.get(pool)
             if baseline is None:
-                baseline = RollingBaseline()
+                baseline = RollingBaseline(**self._latency_args)
                 self._latency[pool] = baseline
             # a first-seen shape is not a latency sample: the first run
             # of a new padded shape (on the card, the first launch pays
@@ -140,6 +158,8 @@ class DeviceTelemetry:
                 baseline.add(seconds)
 
     def _refresh_memory_gauges(self) -> None:
+        if not self._update_memory_gauges:
+            return
         if self._memory_stats_fn is not None:
             update_device_memory_gauges(self._memory_stats_fn)
         else:
@@ -202,5 +222,9 @@ class DeviceTelemetry:
                     for pool, b in self._latency.items()}
 
     def health(self) -> dict:
-        """The device-side verdict (obs/health.HealthMonitor)."""
-        return self.health_monitor.verdict()
+        """The device-side verdict (obs/health.HealthMonitor), reported to
+        `health_observer` (the incident recorder) when one is set."""
+        verdict = self.health_monitor.verdict()
+        if self.health_observer is not None:
+            self.health_observer(verdict)
+        return verdict

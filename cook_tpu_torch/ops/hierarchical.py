@@ -34,11 +34,25 @@ After every fine pass and refine round `ops/gang.gang_filter` strips any
 gang that did not land whole in one block on distinct hosts, and
 `release_assignments` returns its demand to the live availability.
 
-Not ported yet: the superblock layer (`superblock_nodes > 0`:
-`gather_super`, `_coarse_batched_solve`, `coarse_two_level`), which
-raises NotImplementedError.  The reference's data-plane families
-(`hier-coarse`, `hier-fine`) label the passes' fetches, and its compile
-observatory hears each pass's padded shape.
+Superblocks (`HierParams.superblock_nodes`, reference :33-57, :573-590,
+:758-853): blocks group into S contiguous superblocks of `sb_blocks`
+blocks (a power of two), and the coarse level splits in two: a
+super-coarse jobs x superblocks pass on the superblock aggregates (the
+masked `xla` chunked matcher), a host scatter into superblock job slots,
+then every superblock's jobs x blocks routing problem (`gather_super`)
+solved as ONE pool-batched exact solve with superblocks as the pool axis
+(`_coarse_batched_solve`: `chunked_match_pools`, kc 1, exact top-1).  Both
+coarse levels run the masked `xla` kernels, as in the reference (the
+`coarse_pass` kernel has no batched variant); the fine pass and the
+refine rounds are unchanged, their budget doubled.  The layer stands down
+below two superblocks.  Gangs keep the FINE block as their co-location
+domain.  The reference's mesh branch (`pool_sharded_coarse`) has no
+counterpart on one card.
+
+The reference's data-plane families (`hier-coarse`, `hier-fine`) label
+the passes' fetches, its compile observatory hears each pass's padded
+shape, and `_note_metrics` feeds the `hierarchical.*` counters and
+gauges.
 """
 from __future__ import annotations
 
@@ -65,6 +79,7 @@ from cook_tpu_torch.ops.match import (
     vmap_safe_backend,
 )
 from cook_tpu_torch.parallel.mesh import invalid_match_problem
+from cook_tpu_torch.utils.metrics import global_registry
 
 # tuned buckets for nodes-per-block: power-of-two block widths so the
 # (block-bucket, job-slot, node-slot) shape lattice stays bounded
@@ -82,7 +97,9 @@ class HierParams:
     jobs_per_block: int = 0       # 0 = auto (block_slack x J/B, bucketed)
     block_slack: float = 2.0      # per-block job-slot headroom factor
     refine_rounds: int = 2        # bounded re-offer rounds (0 disables)
-    # superblock (DCN-domain) layer; not ported yet — > 0 raises
+    # superblock (DCN-domain) layer: nodes per superblock, rounded up to
+    # a power-of-two number of blocks.  0 disables; the layer also stands
+    # down when the rounding yields < 2 superblocks
     superblock_nodes: int = 0
     # fine-solve chunked-matcher knobs (MatchConfig equivalents)
     chunk: int = 1024
@@ -236,6 +253,38 @@ def gather_fine(demands, job_valid, feasible, avail, totals, node_valid,
                         feasible=feas_f)
 
 
+def gather_super(demands, active, gate_demands, need_row, block_sum,
+                 block_max, block_tot, block_valid, block_count, block_any,
+                 job_idx, sb_blocks: int) -> MatchProblem:
+    """The batched per-superblock coarse problems: job rows gathered by
+    the super-coarse scatter's slot matrix `job_idx` [S, SS], BLOCK
+    aggregates sliced by contiguous superblocks (blocks play the node
+    role).  The feasibility gate is the flat coarse pass's, gathered per
+    (superblock, slot): the block's per-resource max single node must fit
+    the row's gate demand (member-wise max for gang leaders), gangs also
+    need >= k valid hosts in the block (`need_row` against
+    `block_count`), and the constraint mask must have a feasible node
+    there (`block_any` [J, B])."""
+    s = job_idx.shape[0]
+    r = demands.shape[-1]
+    safe = job_idx.clamp_min(0).long()
+    bm = block_max.reshape(s, sb_blocks, r)
+    gate = (demands if gate_demands is None else gate_demands)[safe]
+    feas = (bm[:, None, :, :] >= gate[:, :, None, :]).all(-1)
+    if need_row is not None:
+        bc = block_count.reshape(s, sb_blocks)
+        feas = feas & (bc[:, None, :] >= need_row[safe][:, :, None])
+    if block_any is not None:
+        lanes = torch.arange(s, device=job_idx.device)[:, None]
+        feas = feas & block_any.reshape(-1, s, sb_blocks)[safe, lanes, :]
+    return MatchProblem(demands=demands[safe],
+                        job_valid=(job_idx >= 0) & active[safe],
+                        avail=block_sum.reshape(s, sb_blocks, r),
+                        totals=block_tot.reshape(s, sb_blocks, 2),
+                        node_valid=block_valid.reshape(s, sb_blocks),
+                        feasible=feas)
+
+
 def _pad_block_axis(problems: MatchProblem, count: int,
                     n_res: int) -> MatchProblem:
     """Extend the fine batch with `count` all-invalid lanes
@@ -307,6 +356,55 @@ def _fine_solve(problems: MatchProblem, params: HierParams) -> MatchResult:
                                **backend_flags(backend))
 
 
+def _coarse_batched_solve(problems: MatchProblem,
+                          params: HierParams) -> MatchResult:
+    """Batched per-superblock coarse routing (jobs x blocks per lane) with
+    the flat coarse pass's exact single-candidate semantics (kc 1, exact
+    top-1): the reference's `jax.vmap(chunked_match)` is the pool-batched
+    matcher with superblocks as pools."""
+    chunk = _chunk_for(params.coarse_chunk, problems.demands.shape[1])
+    return chunked_match_pools(problems, chunk=chunk,
+                               rounds=params.coarse_rounds,
+                               passes=params.coarse_passes, kc=1,
+                               use_approx=False, **backend_flags("xla"))
+
+
+_metrics = None
+
+
+def _note_metrics(pool: str, backend: str, stats: dict) -> None:
+    """The reference's `hierarchical.*` series for one solve: solves per
+    pool and backend, the last solve's blocks, superblocks (0 = the layer
+    off or stood down) and spill, and the jobs refinement placed."""
+    global _metrics
+    if _metrics is None:
+        _metrics = {
+            "solves": global_registry.counter(
+                "hierarchical.solves",
+                "two-level hierarchical match solves per pool/backend"),
+            "blocks": global_registry.gauge(
+                "hierarchical.blocks",
+                "topology blocks of the pool's last hierarchical solve"),
+            "superblocks": global_registry.gauge(
+                "hierarchical.superblocks",
+                "DCN-domain superblocks of the pool's last hierarchical "
+                "solve (0 = superblock layer off/degenerate)"),
+            "spilled": global_registry.gauge(
+                "hierarchical.spilled",
+                "jobs the last coarse pass overflowed into refinement"),
+            "refine_placed": global_registry.counter(
+                "hierarchical.refine_placed",
+                "jobs placed by hierarchical refinement rounds per pool"),
+        }
+    labels = {"pool": pool or "-"}
+    _metrics["solves"].inc(labels={**labels, "backend": backend})
+    _metrics["blocks"].set(stats["blocks"], labels)
+    _metrics["superblocks"].set(stats.get("superblocks", 0), labels)
+    _metrics["spilled"].set(stats["spilled"], labels)
+    if stats.get("refine_placed"):
+        _metrics["refine_placed"].inc(stats["refine_placed"], labels)
+
+
 def hierarchical_match(
     problem: MatchProblem,
     *,
@@ -314,23 +412,21 @@ def hierarchical_match(
     gang_id: Optional[np.ndarray] = None,
     gang_need: Optional[np.ndarray] = None,
     observatory=None,
+    pool: str = "",
 ) -> tuple[MatchResult, dict]:
     """Solve one giant pool's match problem coarse-then-fine.
 
     Returns (MatchResult, stats): the assignment is in the ORIGINAL node
     index space (block * nodes_per_block + local), and `stats` carries the
-    reference's keys — phase walls (coarse_s / fine_s / refine_s, each
-    ending in the fetch that observes the device's result), block
-    geometry, per-block jobs/placed counts and spill/refine accounting.
-    `observatory` (obs.CompileObservatory) receives one `match_coarse`
-    and one `match_fine` solve per pass, keyed by their padded shapes, as
-    in the reference; its `mesh` and `pool` arguments have no counterpart
-    here."""
+    reference's keys — phase walls (super_coarse_s / coarse_s / fine_s /
+    refine_s, each ending in the fetch that observes the device's result),
+    block and superblock geometry, per-block jobs/placed counts and
+    spill/refine accounting.  `observatory` (obs.CompileObservatory)
+    receives one `match_coarse` and one `match_fine` solve per pass (and a
+    `match_super_coarse` one with superblocks), keyed by their padded
+    shapes, as in the reference; its `mesh` argument has no counterpart
+    here.  `pool` labels the `hierarchical.*` metrics."""
     params = params or HierParams()
-    if params.superblock_nodes > 0:
-        raise NotImplementedError(
-            "the superblock layer (superblock_nodes > 0) is not ported "
-            "yet (ROADMAP Queue A item 6)")
     t_start = time.perf_counter()
     dev = problem.demands.device
     orig_j = int(problem.demands.shape[0])
@@ -350,6 +446,22 @@ def hierarchical_match(
     npb = min(npb, bucket_size(n))
     b_real = -(-n // npb)
     n_pad = b_real * npb
+    # superblock geometry: blocks group into S contiguous superblocks of
+    # `sb_blocks` blocks (a power of two); the node axis then pads to a
+    # whole number of superblocks, so one reshape gives both levels'
+    # aggregates.  Fewer than 2 superblocks is the classic problem
+    sb_blocks = s_real = sbn = 0
+    if params.superblock_nodes > 0:
+        sb_blocks = bucket_size(max(2, -(-params.superblock_nodes // npb)),
+                                minimum=2)
+        sbn = sb_blocks * npb
+        s_real = -(-n // sbn)
+        if s_real < 2:
+            sb_blocks = s_real = sbn = 0
+        else:
+            n_pad = s_real * sbn
+            b_real = n_pad // npb
+    use_superblocks = s_real >= 2
 
     avail, totals, node_valid = problem.avail, problem.totals, \
         problem.node_valid
@@ -374,15 +486,28 @@ def hierarchical_match(
     else:
         slots = bucket_size(int(np.ceil(params.block_slack * j / b_real)))
     slots = min(slots, bucket_size(j))
+    s_pad = super_slots = 0
+    if use_superblocks:
+        # the superblock axis pads like the block axis, so the batched
+        # coarse solve is keyed by (s_pad, super_slots, sb_blocks)
+        s_pad = bucket_size(s_real, minimum=MIN_BLOCKS)
+        super_slots = bucket_size(
+            int(np.ceil(params.block_slack * j / s_real)))
+        super_slots = min(super_slots, bucket_size(j))
 
     with data_plane.family(data_plane.FAM_HIER_COARSE):
         job_valid_np = fetch_result(job_valid)
     out = np.full(j, -1, dtype=np.int32)
     block_pad_axis = b_pad - b_real
     coarse_backend = params.coarse_backend
+    if use_superblocks:
+        # both coarse levels run the masked xla kernels (the coarse_pass
+        # kernel has no batched variant)
+        coarse_backend = "xla"
     fine_backend_label = ("pallas-fine" if params.fine_backend == "pallas"
                           else vmap_safe_backend(params.backend))
-    coarse_s = fine_s = refine_s = 0.0
+    super_coarse_s = coarse_s = fine_s = refine_s = 0.0
+    superblock_spilled = 0
     refine_placed = 0
     avail_now = avail
 
@@ -406,6 +531,7 @@ def hierarchical_match(
 
     demands_coarse = demands
     gate_demands = need_row = None
+    members_np = None
     n_gangs = gang_slots = 0
     gangs_stripped_rows = 0
     if has_gangs:
@@ -439,10 +565,31 @@ def hierarchical_match(
         coarse_backend = "xla"
     if coarse_backend == "pallas" and dev.type == "cuda":
         check_fits(b_pad, n_res, coarse_chunk)
-    block_any = None
+    # the constraint mask has a feasible node in the block [J, b_real]
+    # (the two-level path slices it per superblock; the flat coarse pass
+    # reads it padded to b_pad) and in the superblock [J, s_pad]
+    block_any = block_any_pad = sup_any = None
     if coarse_backend == "xla" and feasible is not None:
-        block_any = torch.nn.functional.pad(
-            feasible.reshape(j, b_real, npb).any(-1), (0, block_pad_axis))
+        block_any = feasible.reshape(j, b_real, npb).any(-1)
+        block_any_pad = torch.nn.functional.pad(block_any,
+                                                (0, block_pad_axis))
+        if use_superblocks:
+            sup_any = torch.nn.functional.pad(
+                feasible.reshape(j, s_real, sbn).any(-1),
+                (0, s_pad - s_real))
+
+    def padded(block_sum, block_max, block_tot, block_valid, block_count,
+               count):
+        """Aggregates extended by `count` dead lanes (no capacity, no
+        valid node)."""
+        if not count:
+            return block_sum, block_max, block_tot, block_valid, block_count
+        pad = (0, 0, 0, count)
+        return (torch.nn.functional.pad(block_sum, pad),
+                torch.nn.functional.pad(block_max, pad, value=-1.0),
+                torch.nn.functional.pad(block_tot, pad, value=1.0),
+                torch.nn.functional.pad(block_valid, (0, count)),
+                torch.nn.functional.pad(block_count, (0, count)))
 
     def coarse_step(active_mask: np.ndarray) -> np.ndarray:
         """One coarse jobs x blocks assignment against the CURRENT block
@@ -454,16 +601,8 @@ def hierarchical_match(
             valid_cells=int(active_mask.sum()) * b_real,
             padded_cells=j * b_pad)
         block_sum, block_max, block_tot, block_valid, block_count = \
-            block_aggregates(avail_now, totals, node_valid, npb)
-        if block_pad_axis:
-            pad = (0, 0, 0, block_pad_axis)
-            block_sum = torch.nn.functional.pad(block_sum, pad)
-            block_max = torch.nn.functional.pad(block_max, pad, value=-1.0)
-            block_tot = torch.nn.functional.pad(block_tot, pad, value=1.0)
-            block_valid = torch.nn.functional.pad(block_valid,
-                                                  (0, block_pad_axis))
-            block_count = torch.nn.functional.pad(block_count,
-                                                  (0, block_pad_axis))
+            padded(*block_aggregates(avail_now, totals, node_valid, npb),
+                   block_pad_axis)
         if has_gangs:
             # gang members ride their leader's row through the coarse
             # solve: only the leader (aggregate demand) routes
@@ -477,7 +616,7 @@ def hierarchical_match(
         else:
             assignment = _coarse_xla(
                 demands_coarse, active, block_sum, block_max, block_tot,
-                block_valid, block_any, params,
+                block_valid, block_any_pad, params,
                 gate_demands=gate_demands, need_row=need_row,
                 block_count=block_count if has_gangs else None)
         if observatory is not None:
@@ -491,6 +630,82 @@ def hierarchical_match(
             res = res.copy()
             res[members_np] = res[leader_row_np[members_np]]
         return res
+
+    def coarse_two_level(active_mask: np.ndarray):
+        """Two-level coarse routing for superblock pools: a super-coarse
+        jobs x superblocks pass on the superblock aggregates, a host
+        scatter into superblock job slots, then every superblock's jobs x
+        blocks routing problem solved as ONE pool-batched problem (the
+        same dead-lane padding and single-candidate semantics as the flat
+        coarse pass).  Same contract as `coarse_step` — a global per-job
+        block assignment — plus the per-level walls."""
+        nonlocal superblock_spilled
+        eff = active_mask
+        if has_gangs:
+            # gang members ride their leader's row at BOTH coarse levels
+            eff = eff & ~members_np
+        # -- level 1a: jobs x superblocks on the superblock aggregates
+        t0 = time.perf_counter()
+        data_plane.note_padding(
+            "match_super_coarse", (j, s_pad),
+            valid_cells=int(eff.sum()) * s_real, padded_cells=j * s_pad)
+        sup_pad_axis = s_pad - s_real
+        sup_sum, sup_max, sup_tot, sup_valid, sup_count = padded(
+            *block_aggregates(avail_now, totals, node_valid, sbn),
+            sup_pad_axis)
+        active = put(eff, data_plane.FAM_HIER_COARSE)
+        sup_assignment = _coarse_xla(
+            demands_coarse, active, sup_sum, sup_max, sup_tot, sup_valid,
+            sup_any, params, gate_demands=gate_demands, need_row=need_row,
+            block_count=sup_count if has_gangs else None)
+        if observatory is not None:
+            observatory.observe_solve("match_super_coarse", (j, s_pad),
+                                      "xla")
+        with data_plane.family(data_plane.FAM_HIER_COARSE):
+            sup_np = fetch_result(sup_assignment)
+        w_super = time.perf_counter() - t0
+        # -- level 1b: per-superblock jobs x blocks, batched over the
+        # superblock axis with the fine batch's dead-lane padding
+        t0 = time.perf_counter()
+        sup_idx, sup_spill = scatter_to_blocks(sup_np, eff, s_real,
+                                               super_slots)
+        superblock_spilled += int(sup_spill.sum())
+        data_plane.note_padding(
+            "match_coarse", (s_pad, super_slots, sb_blocks),
+            valid_cells=int((sup_idx >= 0).sum()) * sb_blocks,
+            padded_cells=s_pad * super_slots * sb_blocks)
+        block_sum, block_max, block_tot, block_valid, block_count = \
+            block_aggregates(avail_now, totals, node_valid, npb)
+        problems = gather_super(
+            demands_coarse, active, gate_demands, need_row, block_sum,
+            block_max, block_tot, block_valid, block_count, block_any,
+            put(sup_idx, data_plane.FAM_HIER_COARSE), sb_blocks)
+        result = _coarse_batched_solve(
+            _pad_block_axis(problems, sup_pad_axis, n_res), params)
+        if observatory is not None:
+            observatory.observe_solve(
+                "match_coarse", (s_pad, super_slots, sb_blocks), "xla")
+        with data_plane.family(data_plane.FAM_HIER_COARSE):
+            local = fetch_result(result.assignment)[:s_real]
+        res = np.full(j, -1, dtype=np.int32)
+        sel = (sup_idx >= 0) & (local >= 0)
+        global_block = (np.arange(s_real, dtype=np.int32)[:, None]
+                        * sb_blocks + np.maximum(local, 0))
+        res[sup_idx[sel]] = global_block[sel]
+        if has_gangs:
+            res[members_np] = res[leader_row_np[members_np]]
+        return res, {"super_coarse": w_super,
+                     "coarse": time.perf_counter() - t0}
+
+    def route_jobs(active_mask: np.ndarray):
+        """Coarse routing: the two-level superblock path when the layer is
+        engaged, else the classic coarse pass; returns (per-job block,
+        {level: wall})."""
+        if use_superblocks:
+            return coarse_two_level(active_mask)
+        t0 = time.perf_counter()
+        res = coarse_step(active_mask)
+        return res, {"coarse": time.perf_counter() - t0}
 
     def fine_pass(job_idx: np.ndarray):
         """Scattered fine batch solve; returns (assignment [b_real, s]
@@ -526,10 +741,10 @@ def hierarchical_match(
     def enforce_gangs() -> int:
         """The group-sum constraint: `gang_filter` over the merged global
         assignment strips any gang that did not land whole inside one
-        block on distinct hosts, and `release_assignments` returns the
-        stripped demand to the live availability so refine rounds retry
-        the gang whole.  One host read (the stripped mask), and the new
-        assignment only when something was stripped.  Returns the rows
+        (fine) block on distinct hosts, and `release_assignments` returns
+        the stripped demand to the live availability so refine rounds
+        retry the gang whole.  One host read (the stripped mask), and the
+        new assignment only when something was stripped.  Returns the rows
         stripped (0 without gangs)."""
         nonlocal avail_now, gangs_stripped_rows
         if not has_gangs:
@@ -550,10 +765,10 @@ def hierarchical_match(
                 gangs_stripped_rows += count
         return count
 
-    # ---- round 0: coarse -> scatter -> fine
-    t0 = time.perf_counter()
-    coarse = coarse_step(job_valid_np)
-    coarse_s += time.perf_counter() - t0
+    # ---- round 0: (super-)coarse -> scatter -> fine
+    coarse, walls0 = route_jobs(job_valid_np)
+    super_coarse_s += walls0.get("super_coarse", 0.0)
+    coarse_s += walls0["coarse"]
     t0 = time.perf_counter()
     job_idx, spilled = scatter_to_blocks(coarse, job_valid_np, b_real, slots)
     fine_assign, avail_now = fine_pass(job_idx)
@@ -567,15 +782,19 @@ def hierarchical_match(
 
     # ---- bounded refinement: re-offer every leftover (coarse-unrouted,
     # slot-spilled, fine-unplaced or gang-stripped) against the UPDATED
-    # availabilities, at identical shapes
+    # availabilities, at identical shapes.  The superblock scatter is a
+    # second slot bottleneck, so its budget doubles; the early breaks make
+    # an unused budget free
     rounds_run = 0
-    for _ in range(max(0, params.refine_rounds)):
+    refine_budget = max(0, params.refine_rounds) * (2 if use_superblocks
+                                                    else 1)
+    for _ in range(refine_budget):
         leftover = job_valid_np & (out < 0)
         if not leftover.any():
             break
         rounds_run += 1
         t0 = time.perf_counter()
-        coarse = coarse_step(leftover)
+        coarse, _ = route_jobs(leftover)  # its walls fold into refine_s
         job_idx, _ = scatter_to_blocks(coarse, leftover, b_real, slots)
         fine_assign, avail_now = fine_pass(job_idx)
         placed = merge(job_idx, fine_assign)
@@ -592,15 +811,13 @@ def hierarchical_match(
         "block_pad": b_pad,
         "nodes_per_block": npb,
         "jobs_per_block": slots,
-        # the superblock layer is not ported: its keys keep their
-        # disengaged values
-        "superblocks": 0,
-        "superblock_pad": 0,
-        "superblock_nodes": 0,
-        "superblock_blocks": 0,
-        "jobs_per_superblock": 0,
-        "superblock_spilled": 0,
-        "super_coarse_s": 0.0,
+        "superblocks": s_real,
+        "superblock_pad": s_pad,
+        "superblock_nodes": sbn,
+        "superblock_blocks": sb_blocks,
+        "jobs_per_superblock": super_slots,
+        "superblock_spilled": superblock_spilled,
+        "super_coarse_s": super_coarse_s,
         "coarse_s": coarse_s,
         "fine_s": fine_s,
         "refine_s": refine_s,
@@ -608,8 +825,9 @@ def hierarchical_match(
         "refine_placed": refine_placed,
         "spilled": int(spilled.sum()),
         "placed": int((out >= 0).sum()),
-        "super_shape": None,
-        "coarse_shape": (j, b_pad),
+        "super_shape": (j, s_pad) if use_superblocks else None,
+        "coarse_shape": ((s_pad, super_slots, sb_blocks)
+                         if use_superblocks else (j, b_pad)),
         "fine_shape": (b_pad, slots, npb),
         "backend": fine_backend_label,
         "coarse_backend": coarse_backend,
@@ -622,5 +840,6 @@ def hierarchical_match(
             "placed": int((is_leader_np & (out >= 0)).sum()),
             "stripped_rows": gangs_stripped_rows,
         }
+    _note_metrics(pool, stats["backend"], stats)
     return MatchResult(assignment=torch.as_tensor(out[:orig_j], device=dev),
                        new_avail=avail_now[:n]), stats

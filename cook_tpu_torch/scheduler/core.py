@@ -50,8 +50,16 @@ device, committing through the `txn=` pipeline or an in-memory one):
 rebalance cycle passes `reclaim_for` as the victim search's reclaimer
 (loaned capacity comes home before anyone is preempted), and every
 cycle record carries the plan id in force (`elastic_plan`).
-Incidents, the profile capturer, the overload admission controller and
-the job-lifecycle tracker are later slices.
+The diagnosis and overload layers ride along as in the reference: a
+`obs/profiling.ProfileCapturer` (`torch.profiler`, `profile_dir`), an
+`obs/incident.IncidentRecorder` (`incident_capacity`,
+`incident_cooldown_s`, `incident_dir`, `auto_profile`) fed by every
+telemetry health verdict (`telemetry.health_observer`) and collecting the
+span-ring trace, the armed faults, the last cycle records and the
+fairness snapshot, and a `faults/reactions.AdmissionController` whose
+clamp shrinks each pool's considerable window while its overload signal
+holds (serial pass and multi-pool prologue; inert until a caller sets
+`overload_fn`).  The job-lifecycle tracker is a later slice.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
@@ -79,11 +87,17 @@ from cook_tpu_torch.elastic.planner import CapacityPlanner, ElasticParams
 from cook_tpu_torch.models.columnar import ColumnarJobIndex
 from cook_tpu_torch.models.entities import InstanceStatus, Job, Pool, Resources
 from cook_tpu_torch.models.reasons import REASONS_BY_CODE
+from cook_tpu_torch.faults.reactions import AdmissionController
 from cook_tpu_torch.models.store import Event, JobStore
 from cook_tpu_torch.obs import data_plane
 from cook_tpu_torch.obs.compile_observatory import shape_signature
 from cook_tpu_torch.obs.device_monitor import device_memory_stats
 from cook_tpu_torch.obs.fairness import FairnessObservatory
+from cook_tpu_torch.obs.incident import (
+    IncidentRecorder,
+    add_default_collectors,
+)
+from cook_tpu_torch.obs.profiling import ProfileCapturer
 from cook_tpu_torch.obs.telemetry import DeviceTelemetry
 from cook_tpu_torch.scheduler.device_state import (
     DeviceResidentState,
@@ -195,6 +209,18 @@ class SchedulerConfig:
     # predicted duration that saturates the backfill term (fraction
     # clamps to 1 at/above this)
     backfill_norm_ms: float = 600_000.0
+    # incident observatory (obs/incident.py): every ok->degraded health
+    # transition snapshots an evidence bundle (verdict, cycle records,
+    # span-ring chrome trace, armed faults, fairness) into a bounded
+    # ring; incident_dir persists bundles to disk
+    incident_capacity: int = 32
+    incident_cooldown_s: float = 30.0
+    incident_dir: str = ""
+    # automatic device-profile capture (obs/profiling.ProfileCapturer)
+    # riding the incident capture for latency-shaped reasons; opt-in:
+    # the profiler is process-global and a capture costs real overhead
+    auto_profile: bool = False
+    profile_dir: str = ""
     # elastic capacity plane (cook_tpu_torch/elastic/): pool-to-pool
     # capacity loaning with durable ledger deltas and reclaim-before-
     # preemption.  Disabled by default; enable via
@@ -320,6 +346,27 @@ class Scheduler:
                 "off: the QualityMonitor parity guard cannot run, so "
                 "bf16 packing drift will never demote to f32 — enable "
                 "device_telemetry or disable quantized")
+        # incident observatory + profile capture: the scheduler
+        # contributes cycle records, the span-ring chrome trace, the armed
+        # fault schedule and the fairness snapshot as bundle evidence
+        self.profiler = ProfileCapturer(
+            base_dir=self.config.profile_dir or None)
+        self.incidents = add_default_collectors(IncidentRecorder(
+            capacity=self.config.incident_capacity,
+            cooldown_s=self.config.incident_cooldown_s,
+            dir=self.config.incident_dir or None,
+            profiler=self.profiler,
+            auto_profile=self.config.auto_profile))
+        if self.recorder is not None:
+            self.incidents.add_collector(
+                "cycles", lambda: self.recorder.records_json(limit=50))
+        if self.telemetry is not None:
+            self.telemetry.health_observer = self.incidents.observe
+        self.incidents.add_collector("fairness", self.fairness.collector)
+        # overload admission control: while `overload_fn` reports
+        # overload, every pool's considerable window shrinks x0.95 a
+        # cycle toward a floor, restoring as it clears
+        self.admission = AdmissionController()
         # pool -> the last rank cycle's wall, credited to the next match
         # cycle's record
         self._last_rank_s: dict[str, float] = {}
@@ -468,6 +515,9 @@ class Scheduler:
                 "The job's resource demands exceed every host in the pool."
             )
         self.pool_queues[pool.name] = queue
+        global_registry.gauge(
+            "rank.queue_len", "ranked queue length per pool").set(
+            len(queue.jobs), {"pool": pool.name})
         # fairness trajectory sample: the rank cycle is the one moment
         # the per-user fair-share picture (queue DRU + running usage) is
         # coherent in one place
@@ -538,6 +588,8 @@ class Scheduler:
             PoolMatchState(
                 num_considerable=self.config.match.max_jobs_considered),
         )
+        self.admission.clamp(pool.name, state,
+                             self.config.match.max_jobs_considered)
         # the cycle's data-plane scope covers the speculation commit too:
         # a hit's only transfer is the speculative assignment's fetch (its
         # tensor build ran during the PREVIOUS cycle's drain, scope-less),
@@ -736,8 +788,7 @@ class Scheduler:
     def _begin_multi_pool_cycle(self):
         """Shared prologue of the batched and pipelined multi-pool
         passes: flight builders, rank-if-missing, rank/quarantine
-        credit, per-pool match state.  (The reference's overload
-        admission clamp is not ported: ROADMAP Queue A item 4.)"""
+        credit, per-pool match state and its admission clamp."""
         pools = [p for p in self.store.pools.values() if p.schedules_jobs]
         flights = {pool.name: self._begin_cycle(pool.name) for pool in pools}
         for pool in pools:
@@ -745,11 +796,13 @@ class Scheduler:
                 self.rank_cycle(pool)
             self._credit_rank_and_quarantine(
                 flights[pool.name], pool.name, self.pool_queues[pool.name])
-            self.pool_match_state.setdefault(
+            state = self.pool_match_state.setdefault(
                 pool.name,
                 PoolMatchState(
                     num_considerable=self.config.match.max_jobs_considered),
             )
+            self.admission.clamp(pool.name, state,
+                                 self.config.match.max_jobs_considered)
         return pools, flights
 
     def _finish_multi_pool_cycle(self, pools, outcomes, flights) -> None:
@@ -785,6 +838,12 @@ class Scheduler:
         # cache spare resources for the rebalancer (view-incubating-offers,
         # scheduler.clj:1537): offers minus what this cycle just placed
         self._cache_spare(pool)
+        global_registry.counter(
+            "match.matched", "jobs matched to hosts per pool").inc(
+            len(outcome.matched), {"pool": pool.name})
+        global_registry.gauge(
+            "match.offers", "offers seen by the last match cycle").set(
+            outcome.offers_total, {"pool": pool.name})
         if flight.record is not None:
             flight.record.head_matched = outcome.head_matched
         self._commit_cycle(flight)

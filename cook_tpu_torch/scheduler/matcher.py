@@ -48,11 +48,23 @@ the runtime predictor filling in undeclared runtimes) closes hosts that
 die before a job's estimated end; `prepare_pool_problem` bypasses the
 encode cache (and the resident mirror) while it is active.
 
-Left for later slices: the roofline-probe and exact-kernel quality-audit
-branches, and the reference's mesh branch of the pool-batched pass. The
-reference's device-fallback ladder (re-solving a failed device solve on
-the CPU) has no counterpart: here a solve error propagates, so a fault
-of the card or the kernel is never hidden.
+The exact-kernel quality audit (`MatchConfig.quality_audit_every`,
+`start_quality_audit`, `audit_match_quality`): every Nth chunked flat
+solve of a pool is replayed through the plain exact `greedy_match` on CPU
+copies of its tensors, on a daemon thread, single-flight, and the packing
+ratio set on the `match.quality_audit` gauge.  It only observes: nothing
+reads the gauge back into a decision.
+
+The `device.solve` fault point (`faults.DEVICE_SOLVE`) sits in front of
+every solve: `dispatch_pool_solve` (the serial and pipelined passes) and
+both branches of `match_pools_batched`.  The reference's device-fallback
+ladder (re-solving a failed device solve on the CPU) has no counterpart:
+here a solve error, injected or real, propagates out of the serial and
+batched passes (the pipelined pass skips the pool's jobs with
+`solve-failed`), so a fault of the card or the kernel is never hidden.
+Left for later slices: the roofline probe (XLA's cost analysis has no
+torch counterpart) and the reference's mesh branch of the pool-batched
+pass.
 
 Reference: `handle-fenzo-pool` / `handle-resource-offers!` / `launch-
 matched-tasks!` (Cook's scheduler.clj:617-1651) with the Fenzo solve
@@ -64,6 +76,7 @@ from __future__ import annotations
 
 import logging
 import math
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
@@ -71,12 +84,15 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from cook_tpu_torch import faults
 from cook_tpu_torch.cluster.base import (
+    ClusterState,
     ComputeCluster,
     Offer,
     TaskSpec,
     safe_pool_offers,
 )
+from cook_tpu_torch.faults.breaker import BreakerState
 from cook_tpu_torch.models.entities import (
     GroupPlacementType,
     InstanceStatus,
@@ -141,6 +157,12 @@ class MatchConfig:
     # kernel), or "bucketed" (class-shared candidate lists + exact
     # cleanup pass) — the reference's backend names
     backend: str = "xla"
+    # every Nth chunked solve of a pool is replayed through the exact
+    # greedy on the host and the packing ratio gauged
+    # (match.quality_audit): the runtime guard that an approximate config
+    # keeps packing parity on the live workload.  0 disables; irrelevant
+    # at chunk=0 (the exact kernel is in use)
+    quality_audit_every: int = 50
     # estimated-completion constraint (constraints.clj:385 +
     # estimated-completion-config): 0 multiplier or lifetime = disabled
     completion_multiplier: float = 0.0
@@ -160,8 +182,8 @@ class MatchConfig:
     hierarchical_nodes_per_block: int = 0
     hierarchical_jobs_per_block: int = 0
     hierarchical_refine_rounds: int = 2
-    # superblock (DCN-domain) layer: not ported yet, > 0 raises at solve
-    # time (config key `hier_superblock_nodes`)
+    # superblock (DCN-domain) layer: nodes per superblock (config key
+    # `hier_superblock_nodes`); 0 = the classic two-level path
     hierarchical_superblock_nodes: int = 0
     # coarse block-scoring backend: "xla" (masked chunked matcher) or
     # "pallas" (the coarse_pass kernel)
@@ -223,10 +245,12 @@ class MatchConfig:
 
 @dataclass
 class PoolMatchState:
-    """Mutable per-pool matcher state (head-of-queue backoff)."""
+    """Mutable per-pool matcher state (head-of-queue backoff, the quality
+    audit's solve count)."""
 
     num_considerable: int
     iterations_at_floor: int = 0
+    chunked_solves: int = 0  # drives the periodic quality audit
 
 
 @dataclass
@@ -490,7 +514,8 @@ class HierarchicalPending:
             params=hier_params_from_config(self.config),
             gang_id=self.prepared.gang_id,
             gang_need=self.prepared.gang_need,
-            observatory=observatory)
+            observatory=observatory,
+            pool=self.prepared.pool.name)
         self.prepared.hier_stats = stats
         # the two-level solve assembled this assignment on the host (its
         # passes' fetches are accounted inside it): no device fetch here
@@ -504,7 +529,12 @@ def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig,
     returned PendingResult's `fetch()` is the one completion observation.
     Pools at/over `hierarchical_threshold` route to the two-level matcher
     behind the same interface; otherwise `chunk` > 0 runs
-    `chunked_match`, else the exact `greedy_match`."""
+    `chunked_match`, else the exact `greedy_match`.  The `device.solve`
+    fault point sits first: an injected error raises here, as a kernel
+    raising at dispatch would."""
+    fault_schedule = faults.ACTIVE  # snapshot: a concurrent disarm must
+    if fault_schedule is not None:  # not None out the global mid-site
+        fault_schedule.hit(faults.DEVICE_SOLVE, pool=prepared.pool.name)
     if hierarchical_enabled(config, prepared.problem):
         return HierarchicalPending(prepared, config, telemetry)
     if config.chunk:
@@ -519,14 +549,15 @@ def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig,
 
 
 def record_solve_outcome(prepared: "PreparedPool", assignment: np.ndarray,
-                         config: MatchConfig, pool_name: str,
-                         solve_s: float, flight, telemetry, *,
-                         overlapped: bool = False) -> None:
+                         config: MatchConfig, state: PoolMatchState,
+                         pool_name: str, solve_s: float, flight, telemetry,
+                         *, overlapped: bool = False) -> None:
     """The post-solve protocol shared by the serial, pool-batched
     (hierarchical lanes) and pipelined paths (reference
-    `record_solve_outcome`, its telemetry, quality and flight parts):
-    compile and latency telemetry, quality sampling, and the cycle
-    record's solve identity and hierarchical accounting.  `solve_s` ends
+    `record_solve_outcome`, all but its roofline probe): compile and
+    latency telemetry, quality sampling, the cycle record's solve identity
+    and hierarchical accounting, and the periodic exact-kernel quality
+    audit of a chunked flat solve (`note_chunked_solve`).  `solve_s` ends
     in the device-to-host copy of the assignment.  `overlapped=True` for
     walls measured under overlap (the pipelined pass: they span neighbour
     pools' host work and must not feed any latency surface — see
@@ -546,6 +577,111 @@ def record_solve_outcome(prepared: "PreparedPool", assignment: np.ndarray,
     flight.note_solve(shape_signature(shape), backend, compiled)
     if hier is not None:
         flight.note_hierarchical(hier)
+        # no audit of a two-level solve: it would replay the FULL flat
+        # problem through the exact greedy, the solve the decomposition
+        # exists to avoid (the reference skips it too)
+        return
+    note_chunked_solve(prepared, assignment, config, state, pool_name)
+
+
+def note_chunked_solve(prepared: "PreparedPool", assignment: np.ndarray,
+                       config: MatchConfig, state: PoolMatchState,
+                       pool_name: str) -> None:
+    """Count a pool's chunked flat solve and start the quality audit on
+    every `quality_audit_every`-th."""
+    if not config.chunk:
+        return
+    state.chunked_solves += 1
+    if (config.quality_audit_every
+            and state.chunked_solves % config.quality_audit_every == 0):
+        start_quality_audit(prepared, assignment, pool_name)
+
+
+_audit_lock = threading.Lock()
+last_audit_thread: Optional[threading.Thread] = None  # tests join this
+
+
+def start_quality_audit(prepared: "PreparedPool", assignment: np.ndarray,
+                        pool_name: str) -> None:
+    """Run `audit_match_quality` on a daemon thread.
+
+    The exact replay is a Python loop of one step per considered job, so
+    it must not stall the cycle's launches.  Single-flight: while one
+    audit runs, due samples are skipped rather than queued.  The problem's
+    tensors are cloned on their device first, in stream order: a resident
+    mirror may rewrite its buffers in place next cycle, while the thread
+    still reads them."""
+    global last_audit_thread
+    if not _audit_lock.acquire(blocking=False):
+        return
+    try:
+        problem = prepared.problem
+        if problem.demands.device.type != "cpu":
+            problem = MatchProblem(*(None if t is None else t.clone()
+                                     for t in problem))
+        n_consider = len(prepared.considerable)
+
+        def run():
+            try:
+                audit_match_quality(problem, n_consider, assignment,
+                                    pool_name)
+            except Exception:  # noqa: BLE001 — an audit failure must
+                # never take the scheduler down; it only observes
+                log.exception("match quality audit failed (pool %s)",
+                              pool_name)
+            finally:
+                _audit_lock.release()
+
+        t = threading.Thread(target=run, name=f"match-audit-{pool_name}",
+                             daemon=True)
+        last_audit_thread = t
+        t.start()
+    except Exception:  # noqa: BLE001 — the thread never started, so its
+        # finally cannot release the lock: release it here
+        _audit_lock.release()
+        raise
+
+
+def audit_match_quality(problem: MatchProblem, n_consider: int,
+                        assignment: np.ndarray, pool_name: str) -> float:
+    """Replay a chunked solve's problem through the plain exact greedy on
+    CPU copies of its tensors and gauge the packing ratio (placed demand
+    weight, approximate / exact) on `match.quality_audit`.  Its transfers
+    are counted under the `fallback` family as the reference counts its
+    audit: the put of the whole problem onto the host, and the fetches of
+    the exact assignment and the demands.  Returns the ratio (1.0, and
+    the gauge left alone, when the exact greedy places nothing: a
+    degenerate problem is no evidence of parity)."""
+    host = MatchProblem(*(None if t is None else t.to("cpu")
+                          for t in problem))
+    data_plane.note_h2d(sum(t.numel() * t.element_size() for t in problem
+                            if t is not None),
+                        family=data_plane.FAM_FALLBACK)
+    exact = greedy_match(host).assignment[:n_consider].numpy()
+    data_plane.note_d2h(exact.nbytes, family=data_plane.FAM_FALLBACK)
+    demands = host.demands[:n_consider].float().numpy()
+    data_plane.note_d2h(demands.nbytes, family=data_plane.FAM_FALLBACK)
+    # weight = mem + cpus + gpus, each normalized by the problem's mean
+    # demand so no resource dominates
+    scale = np.maximum(demands.mean(axis=0), 1e-9)
+    weights = (demands[:, :3] / scale[:3]).sum(axis=-1)
+    approx_w = float(weights[assignment >= 0].sum())
+    exact_w = float(weights[exact >= 0].sum())
+    if exact_w <= 0:
+        log.info("match quality audit: pool %s exact kernel placed zero "
+                 "weight; skipping gauge update", pool_name)
+        return 1.0
+    ratio = approx_w / exact_w
+    global_registry.gauge(
+        "match.quality_audit",
+        "packing parity of the chunked solve vs the exact kernel",
+    ).set(ratio, labels={"pool": pool_name})
+    if ratio < 0.99:
+        log.warning(
+            "match quality audit: pool %s chunked solve placed %.4f of "
+            "the exact kernel's demand weight (< 0.99): the matcher "
+            "config underperforms on this workload", pool_name, ratio)
+    return ratio
 
 
 def record_considered(flight, queue, considerable, offers_count: int) -> None:
@@ -721,6 +857,10 @@ class PreparedPool:
     # finalize chokepoint enforces all-or-nothing on every path with them
     gang_id: Optional[np.ndarray] = None
     gang_need: Optional[np.ndarray] = None
+    # clusters withheld from this cycle because their circuit breaker is
+    # open (faults/breaker.py): offer-less pools report
+    # `cluster-circuit-open` instead of a misleading `no-offers`
+    circuit_open: list = field(default_factory=list)
 
     @property
     def solvable(self) -> bool:
@@ -776,6 +916,12 @@ def prepare_pool_problem(
     # offer RPC raising skips that cluster for this scan
     for cluster in clusters:
         if not cluster.accepts_work:
+            # classify by the non-mutating state read: a second
+            # allows_work() here could consume the open->half-open
+            # transition (and the probe slot) outside any launch flow
+            if cluster.state == ClusterState.RUNNING \
+                    and cluster.breaker.state is not BreakerState.CLOSED:
+                prepared.circuit_open.append(cluster.name)
             continue
         offers = safe_pool_offers(cluster, pool.name)
         if offers is None:
@@ -936,8 +1082,13 @@ def finalize_pool_match(
     if not prepared.solvable:
         outcome.unmatched = considerable
         outcome.head_matched = not considerable
-        code = (flight_codes.NO_OFFERS if not prepared.cluster_offers
-                else flight_codes.CONSTRAINTS_FILTERED)
+        if not prepared.cluster_offers:
+            # "no capacity" and "capacity behind an open breaker" are
+            # different stories for an operator
+            code = (flight_codes.CLUSTER_CIRCUIT_OPEN
+                    if prepared.circuit_open else flight_codes.NO_OFFERS)
+        else:
+            code = flight_codes.CONSTRAINTS_FILTERED
         for job in considerable:
             flight.note_skip(job.uuid, code)
         if prepared.gang_id is not None:
@@ -1428,8 +1579,8 @@ def match_pool(
             assignment = dispatch_pool_solve(prepared, config,
                                              telemetry).fetch()
         solve_s = time.perf_counter() - t1
-        record_solve_outcome(prepared, assignment, config, pool.name,
-                             solve_s, flight, telemetry)
+        record_solve_outcome(prepared, assignment, config, state,
+                             pool.name, solve_s, flight, telemetry)
     t2 = time.perf_counter()
     with data_plane.activate(flight.dp), flight.phase("launch"):
         outcome = finalize_pool_match(
@@ -1530,8 +1681,13 @@ def match_pools_batched(
     `greedy_match_pools`; the shared solve runs with no data-plane scope
     (its fetch lands in the ledger totals once, never per pool).  Each
     pool then finalizes (transactions and launches) in pool order, as in
-    the per-pool path.  The reference's mesh branch and its CPU-fallback
-    tier are not ported: a solve error propagates.
+    the per-pool path.  The `device.solve` fault point is hit once per
+    two-level pool before its solve and once per flat pool before the
+    shared solve (one injected error fails the whole batch, as a sick
+    card would), and each flat lane's chunked solve counts toward its
+    pool's quality audit.  The reference's mesh branch and its
+    CPU-fallback tier are not ported: a solve error, injected or real,
+    propagates.
 
     `outcome.phase_wall_s` per pool: its own encode and launch (and, for a
     two-level pool, its own solve and its split); the shared stack and
@@ -1568,22 +1724,30 @@ def match_pools_batched(
                                                               p.problem)]
     flat = [p for p in solvable if p not in hier_pools]
     assignments: dict[str, np.ndarray] = {}
+    fault_schedule = faults.ACTIVE  # snapshot (see dispatch_pool_solve)
     for p in hier_pools:
         name = p.pool.name
         flight = pool_flight(name)
         t_solve = time.perf_counter()
+        if fault_schedule is not None:
+            fault_schedule.hit(faults.DEVICE_SOLVE, pool=name)
         with data_plane.activate(flight.dp), \
                 flight.phase("solve", device=True):
             assignments[name] = HierarchicalPending(p, config,
                                                     telemetry).fetch()
         solve_s = time.perf_counter() - t_solve
-        record_solve_outcome(p, assignments[name], config, name, solve_s,
-                             flight, telemetry)
+        record_solve_outcome(p, assignments[name], config, states[name],
+                             name, solve_s, flight, telemetry)
         hier = p.hier_stats
         walls[name].update(solve=solve_s, coarse_solve=hier["coarse_s"],
                            fine_solve=hier["fine_s"],
                            refine=hier["refine_s"])
     if flat:
+        if fault_schedule is not None:
+            # rules match per participating pool; one injected error
+            # fails the SHARED solve
+            for p in flat:
+                fault_schedule.hit(faults.DEVICE_SOLVE, pool=p.pool.name)
         t_stack = time.perf_counter()
         stacked = stack_pool_problems([p.problem for p in flat])
         # the shared pad/stack is host work, not solve time: credit it as
@@ -1622,6 +1786,8 @@ def match_pools_batched(
             assignments[name] = stacked_assignment[i][: len(p.considerable)]
             if telemetry is not None:
                 telemetry.quality.observe_cycle(p, assignments[name], name)
+            note_chunked_solve(p, assignments[name], config, states[name],
+                               name)
         first = walls[flat[0].pool.name]
         first.update(encode=first["encode"] + stack_s, solve=solve_s)
 

@@ -267,8 +267,8 @@ def match_pools_pipelined(
                 outcomes[stage.pool.name] = outcome
                 return
             record_solve_outcome(stage.prepared, assignment, config,
-                                 stage.pool.name, solve_s, flight,
-                                 telemetry, overlapped=True)
+                                 stage.state, stage.pool.name, solve_s,
+                                 flight, telemetry, overlapped=True)
             hier = stage.prepared.hier_stats
             if hier is not None:
                 walls.update(coarse_solve=hier["coarse_s"],

@@ -9,6 +9,8 @@ between two run traces — of either package, the formats are the same.
     python -m cook_tpu_torch.sim.cli run --trace trace.json --resident ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --speculate ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --elastic [--elastic-every N] ...
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --faults faults.json ...
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --history-every 4 --history-out h.json ...
     python -m cook_tpu_torch.sim.cli synth --jobs 1000 --hosts 100 --out trace.json
     python -m cook_tpu_torch.sim.cli synth --completion-heavy --jobs 48 --out trace.json
     python -m cook_tpu_torch.sim.cli synth --imbalanced --jobs 24 --out trace.json
@@ -40,10 +42,9 @@ from cook_tpu_torch.utils.config import default_match_config
 
 def run_summary(result, jobs, hosts) -> dict:
     """The summary `run` prints: the reference's keys that the port can
-    fill, the device-telemetry health verdict, the committed elastic
-    plans, the speculation A/B numbers and the data-plane summary (its
-    rebuild fraction among them) included (`cook_tpu/sim/cli.py` also
-    reports incident numbers from a layer not ported yet)."""
+    fill, the device-telemetry health verdict, the incidents captured,
+    the committed elastic plans, the speculation A/B numbers and the
+    data-plane summary (its rebuild fraction among them) included."""
     completed = sum(1 for r in result.rows if r["status"] == "success")
     p50 = (sorted(result.cycle_wall_s)[len(result.cycle_wall_s) // 2] * 1000
            if result.cycle_wall_s else 0.0)
@@ -61,6 +62,8 @@ def run_summary(result, jobs, hosts) -> dict:
         # or drifts from the CPU reference says so in its summary line
         "health": result.health.get("status", "unknown"),
         "health_reasons": result.health.get("reasons", []),
+        # incident bundles captured mid-run (ok->degraded transitions)
+        "incidents": len(result.incidents),
         # capacity-plane summary: committed plans + queued-wait p50, the
         # number the elastic A/B moves
         "elastic_plans": sum(1 for p in result.elastic_plans if p["moves"]),
@@ -78,7 +81,12 @@ def run_summary(result, jobs, hosts) -> dict:
 
 def sim_config(args) -> SimConfig:
     """SimConfig from `run`'s arguments: chunk/backend default to the
-    tuned config (tuned_match.json) like the reference; flags override."""
+    tuned config (tuned_match.json) like the reference; flags override.
+    `--faults` names a fault-schedule JSON armed for the run."""
+    fault_schedule = None
+    if args.faults:
+        with open(args.faults) as f:
+            fault_schedule = json.load(f)
     return SimConfig(
         cycle_ms=args.cycle_ms,
         rebalance_every=args.rebalance_every,
@@ -87,6 +95,8 @@ def sim_config(args) -> SimConfig:
         batched_match=args.batched,
         resident=args.resident,
         speculate=args.speculate,
+        fault_schedule=fault_schedule,
+        history_every=args.history_every,
         scheduler=SchedulerConfig(
             match=default_match_config(
                 max_jobs_considered=args.considerable,
@@ -118,6 +128,10 @@ def replay(args, on_sim=None):
 
 def cmd_run(args) -> int:
     sim, hosts, result = replay(args)
+    if args.history_out and result.metrics_history:
+        # the run's metrics history (virtual-clock timestamps)
+        with open(args.history_out, "w") as f:
+            json.dump(result.metrics_history, f, indent=1)
     print(json.dumps(run_summary(result, sim.trace_jobs, hosts)))
     return 0
 
@@ -231,6 +245,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "loaning + reclaim, cook_tpu_torch/elastic/)")
     r.add_argument("--elastic-every", type=int, default=1,
                    help="cycles between capacity plans (with --elastic)")
+    r.add_argument("--faults", default="",
+                   help="fault-schedule JSON armed for the run "
+                        "(cook_tpu_torch.faults)")
+    r.add_argument("--history-every", type=int, default=0,
+                   help="cycles between metrics-history sample ticks on "
+                        "the virtual clock (0 = off); dump with "
+                        "--history-out")
+    r.add_argument("--history-out", default="",
+                   help="with --history-every: write the run's metrics "
+                        "history dump here")
     r.set_defaults(fn=cmd_run)
 
     s = sub.add_parser("synth", help="generate a synthetic trace")

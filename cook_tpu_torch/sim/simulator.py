@@ -34,8 +34,15 @@ turns speculative match cycles on with the horizon pinned to one cycle
 `SimConfig.elastic_every` turns the elastic capacity plane on and plans
 every that many cycles after the match (and rebalance) step, its wall in
 `phase_wall_s["elastic"]`; `SimResult.elastic_plans` holds the planner's
-decisions and `capacity_ledger` the final loan ledger.  Fault schedules,
-incidents and metrics history are later slices.
+decisions and `capacity_ledger` the final loan ledger.
+`SimConfig.fault_schedule` arms a fault schedule (the reference's
+`FaultSchedule.from_dict` shape) for the duration of `run()`, restoring
+any schedule armed around it; the in-run health verdicts feed the
+scheduler's incident recorder (its cooldown zeroed, so every
+ok->degraded transition of the virtual run is captured:
+`SimResult.incidents`); `SimConfig.history_every` samples an
+`obs/tsdb.MetricsHistory` on the virtual clock every that many cycles
+(`SimResult.metrics_history`: the raw and 10-minute dumps).
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from cook_tpu_torch import faults
 from cook_tpu_torch.cluster.mock import MockCluster, MockHost
 from cook_tpu_torch.models.entities import (
     DruMode,
@@ -62,9 +70,11 @@ from cook_tpu_torch.models.entities import (
 )
 from cook_tpu_torch.models.store import JobStore
 from cook_tpu_torch.obs import data_plane as _dp
+from cook_tpu_torch.obs.tsdb import HistoryConfig, MetricsHistory
 from cook_tpu_torch.scheduler.core import Scheduler, SchedulerConfig
 from cook_tpu_torch.scheduler.flight_recorder import FlightRecorder
 from cook_tpu_torch.scheduler.prediction import pre_launch_ms
+from cook_tpu_torch.utils.tracing import span
 
 
 @dataclass
@@ -143,8 +153,16 @@ class SimConfig:
     # sim cycle — a running task predicted to finish by the next cycle's
     # clock is assumed complete by the speculative solve
     speculate: bool = False
-    # cycles between in-run health evaluations (0 = end-of-run only)
+    # fault-injection schedule (faults.FaultSchedule.from_dict shape:
+    # {"seed": .., "rules": [{"point": .., "mode": .., ...}]}), armed for
+    # the duration of run()
+    fault_schedule: Optional[dict] = None
+    # cycles between in-run health evaluations (0 = end-of-run only); each
+    # verdict reports to the scheduler's incident recorder
     health_every: int = 4
+    # cycles between metrics-history sample ticks on the virtual clock
+    # (obs/tsdb.MetricsHistory; 0 = off)
+    history_every: int = 0
 
 
 @dataclass
@@ -167,8 +185,8 @@ class SimResult:
     # quality drift / latency regression?
     health: dict = field(default_factory=dict)
     # the in-run verdicts (every `health_every` cycles): {"cycle",
-    # "status", "reasons"} each — the reference feeds them to its incident
-    # recorder, which the port has not got
+    # "status", "reasons"} each; each also reached the incident recorder
+    # (`incidents`)
     health_checks: list[dict] = field(default_factory=list)
     # device data-plane summary: H2D/D2H byte deltas this run moved
     # (process-ledger delta) in total and per family, plus the mean
@@ -178,6 +196,11 @@ class SimResult:
     # recorder's `records_json` schema) + the final loan ledger
     elastic_plans: list[dict] = field(default_factory=list)
     capacity_ledger: list[dict] = field(default_factory=list)
+    # incident bundles captured during the run (full evidence)
+    incidents: list[dict] = field(default_factory=list)
+    # the metrics history sampled on the virtual clock (history_every >
+    # 0): {"raw": query dump, "10m": query dump}
+    metrics_history: dict = field(default_factory=dict)
 
     def queued_wait_ms(self) -> list[int]:
         """Per-started-task queued wait (start - submit): the metric the
@@ -378,6 +401,10 @@ class Simulator:
         self.scheduler = Scheduler(
             self.store, [self.cluster], self.config.scheduler, device=device
         )
+        # the capture cooldown is a real-time flood guard; a run compresses
+        # hours of virtual time into seconds, so the default would drop
+        # every incident after the first
+        self.scheduler.incidents.cooldown_s = 0.0
         if self.scheduler.recorder is not None:
             # the service default ring (512) would silently truncate the
             # offline dump: size it to hold every cycle of every pool this
@@ -389,6 +416,27 @@ class Simulator:
 
     def run(self) -> SimResult:
         cfg = self.config
+        prev = faults.ACTIVE  # restore, don't disarm: a caller may run
+        if cfg.fault_schedule:  # the simulator inside faults.injected()
+            faults.arm(faults.FaultSchedule.from_dict(cfg.fault_schedule))
+        try:
+            return self._run()
+        finally:
+            if cfg.fault_schedule:
+                if prev is not None:
+                    faults.arm(prev)
+                else:
+                    faults.disarm()
+
+    def _run(self) -> SimResult:
+        cfg = self.config
+        history = None
+        if cfg.history_every:
+            # points stamp in simulated seconds, so the dump lines up with
+            # the trace's timeline instead of the host clock
+            history = MetricsHistory(
+                config=HistoryConfig(sample_s=0),
+                clock=lambda: self.now_ms / 1000.0)
         families0 = _dp.LEDGER.family_totals()
         health_checks: list[dict] = []
         submitted = 0
@@ -458,9 +506,11 @@ class Simulator:
             if cfg.batched_match and len(pools) > 1:
                 t0 = time.perf_counter()
                 for pool in pools:
-                    self.scheduler.rank_cycle(pool)
+                    with span("sim.rank", pool=pool.name):
+                        self.scheduler.rank_cycle(pool)
                 t1 = time.perf_counter()
-                outcomes = self.scheduler.match_cycle_all_pools()
+                with span("sim.match_batched", pools=len(pools)):
+                    outcomes = self.scheduler.match_cycle_all_pools()
                 t2 = time.perf_counter()
                 phase_wall["rank"] += t1 - t0
                 phase_wall["match"] += t2 - t1
@@ -469,14 +519,17 @@ class Simulator:
                         phase_wall[name] = phase_wall.get(name, 0.0) + wall
                 if rebalance:
                     for pool in pools:
-                        self.scheduler.rebalance_cycle(pool)
+                        with span("sim.rebalance", pool=pool.name):
+                            self.scheduler.rebalance_cycle(pool)
                     phase_wall["rebalance"] += time.perf_counter() - t2
             else:
                 for pool in pools:
                     t0 = time.perf_counter()
-                    self.scheduler.rank_cycle(pool)
+                    with span("sim.rank", pool=pool.name):
+                        self.scheduler.rank_cycle(pool)
                     t1 = time.perf_counter()
-                    outcome = self.scheduler.match_cycle(pool)
+                    with span("sim.match", pool=pool.name):
+                        outcome = self.scheduler.match_cycle(pool)
                     t2 = time.perf_counter()
                     phase_wall["rank"] += t1 - t0
                     phase_wall["match"] += t2 - t1
@@ -484,7 +537,8 @@ class Simulator:
                         phase_wall[name] = phase_wall.get(name, 0.0) + wall
                     if rebalance:
                         t3 = time.perf_counter()
-                        self.scheduler.rebalance_cycle(pool)
+                        with span("sim.rebalance", pool=pool.name):
+                            self.scheduler.rebalance_cycle(pool)
                         phase_wall["rebalance"] += time.perf_counter() - t3
             # 3b. elastic capacity plan (after matching, so demand is the
             # genuinely-unmatched queue; loans land in the NEXT cycle's
@@ -492,7 +546,8 @@ class Simulator:
             if (cfg.elastic_every and cycle % cfg.elastic_every == 0
                     and self.scheduler.elastic is not None):
                 t3 = time.perf_counter()
-                self.scheduler.elastic_cycle()
+                with span("sim.elastic"):
+                    self.scheduler.elastic_cycle()
                 phase_wall["elastic"] += time.perf_counter() - t3
             cycle_wall.append(time.perf_counter() - t_cycle)
             # 3c. in-run health watch
@@ -502,6 +557,9 @@ class Simulator:
                 health_checks.append({"cycle": cycle,
                                       "status": verdict["status"],
                                       "reasons": verdict["reasons"]})
+            # 3d. metrics-history tick on the virtual clock
+            if history is not None and cycle % cfg.history_every == 0:
+                history.sample_once()
             # 4. advance virtual time
             self.now_ms += cfg.cycle_ms
             # stop when all work is done
@@ -533,6 +591,11 @@ class Simulator:
                 self.scheduler.elastic.recorder.records_json(limit=10_000)
                 if self.scheduler.elastic is not None else []),
             capacity_ledger=self.store.encoded_capacity_ledger(),
+            incidents=self.scheduler.incidents.dump(),
+            metrics_history=(
+                {"raw": history.query("*"),
+                 "10m": history.query("*", step="10m")}
+                if history is not None else {}),
         )
 
     def _collect_rows(self) -> list[dict]:

@@ -71,6 +71,9 @@ def default_match_config(**overrides) -> MatchConfig:
         chunk_passes=int(d.get("chunk_passes", 2)),
         chunk_kc=int(d.get("chunk_kc", 128)),
         backend=str(d.get("backend", "xla")),
+        # every Nth chunked solve replayed through the exact greedy
+        # (matcher.start_quality_audit); 0 = off
+        quality_audit_every=int(d.get("quality_audit_every", 50)),
         # estimated-completion constraint (matcher.estimated_end_times):
         # 0 multiplier or lifetime = off
         completion_multiplier=float(d.get("completion_multiplier", 0.0)),

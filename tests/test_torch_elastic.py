@@ -1068,9 +1068,10 @@ def test_chip_smoke_elastic_phases_on_cpu(capsys):
 
     rows = chip_smoke.elastic_solve_phase(device="cpu", shapes=((8, 512),))
     assert rows["elastic 8x512"]["moves"] > 0
+    # 3 cycles, as the card ran them before the script's depth went to 2
     launches, errs, queues, trace = chip_smoke.elastic_slice_phase(
         device="cpu", pools=SMALL_POOLS, match_overrides=SMALL_MATCH,
-        classic_placed=[0, 0, 0])
+        classic_placed=[0, 0, 0], cycles=3)
     assert launches == {"best_node": 0, "coarse_pass": 0,
                         "best_node_batched": 0}
     assert errs["elastic"] == 0.0

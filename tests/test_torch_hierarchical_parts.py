@@ -2,7 +2,7 @@
 against `cook_tpu`'s on the CPU: a ragged job axis with invalid jobs, the
 batched conflict round against `jax.vmap(conflict_round)`, block
 aggregates, the host scatter, the fine gather with its dead-lane padding,
-the geometry and config helpers, and the layers not ported yet, which
+the geometry and config helpers, and the unknown backends, which
 raise.  Inputs are exact-sum, as in tests/test_torch_hierarchical.py."""
 import dataclasses
 
@@ -100,12 +100,6 @@ def test_block_aggregates_and_fine_gather_match_reference():
 
 
 def test_unported_layers_raise():
-    demands, avail, totals, _ = exact_problem(16, 64)
-    problem = from_numpy(demands, np.ones(16, bool), avail, totals,
-                         np.ones(64, bool), device="cpu")
-    with pytest.raises(NotImplementedError, match="superblock"):
-        port.hierarchical_match(problem, params=port.HierParams(
-            superblock_nodes=128))
     for bad in (dict(coarse_backend="nope"), dict(fine_backend="nope"),
                 dict(backend="nope")):
         with pytest.raises(ValueError):

@@ -135,10 +135,26 @@ ELASTIC_MODULES = ("cook_tpu_torch.ops.elastic",
                    "cook_tpu_torch.utils.tracing")
 
 
+# the superblock slice's modules, new (copies of jax-free reference
+# modules: the incident recorder, the metrics history, the overload
+# reactions; the profile capturer on torch.profiler) and extended (the
+# superblock layer, the quality audit, the fault points, the scheduler's
+# wiring, the simulator's fault schedule and history)
+SUPERBLOCK_MODULES = ("cook_tpu_torch.obs.incident",
+                      "cook_tpu_torch.obs.profiling",
+                      "cook_tpu_torch.obs.tsdb",
+                      "cook_tpu_torch.faults.reactions",
+                      "cook_tpu_torch.ops.hierarchical",
+                      "cook_tpu_torch.scheduler.matcher",
+                      "cook_tpu_torch.scheduler.core",
+                      "cook_tpu_torch.cluster.base",
+                      "cook_tpu_torch.sim.simulator")
+
+
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
                          + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES
                          + RESIDENCY_MODULES + PREDICTION_MODULES
-                         + ELASTIC_MODULES)
+                         + ELASTIC_MODULES + SUPERBLOCK_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"

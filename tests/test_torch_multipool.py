@@ -510,8 +510,10 @@ def test_chip_smoke_multipool_phases_on_cpu(capsys):
     cycle and the agreement replay."""
     import chip_smoke
 
+    # 3 cycles, as the card ran them before the script's depth went to 2
     launches, calls, trace = chip_smoke.multipool_phase(
-        device="cpu", pools=SMALL_POOLS, match_overrides=SMALL_MATCH)
+        device="cpu", pools=SMALL_POOLS, match_overrides=SMALL_MATCH,
+        cycles=3)
     # the wrappers count launches on the card only; every call is kept
     assert launches == {"best_node": 0, "coarse_pass": 0,
                         "best_node_batched": 0}
