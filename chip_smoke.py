@@ -195,12 +195,10 @@ submit step's wall.  Two phases follow the agreement phase (8):
                   card and on the CPU: run traces and cycle records (the
                   device_state stats among them) equal, and the run trace
                   equal to the card's replay with `quantized` alone.
-After the launches phase (5), `walls` replays the flat slice three more
-times (profiled with the cache on, then the cache off and the recorder
-off, once each): run traces identical to the slice's (which also holds
-the encode cache neutral and a run repeatable at the slice's shape), the
-walls per cycle beside the slice's own, and host profiles (cProfile) of
-the profiled run's last cycle.
+After the launches phase (5), `walls` replays the flat slice twice more
+(the cache off, then the recorder off): run traces identical to the
+slice's (which also holds the encode cache neutral and a run repeatable
+at the slice's shape), the walls per cycle beside the slice's own.
 
 Speculation (scheduler/prediction.py), after the residency phases (7d):
 
@@ -293,8 +291,9 @@ inside the slices' block, 22 and 24 after the elastic agreement (20):
                   (tests/test_superblocks.py's problems and knobs).
  22. superblock at scale — `hierarchical_match` alone on a 1,048,576
                   x 100,000 problem in bench.make_problem's shape family
-                  (R 4, no mask), once with superblocks of 16,384 hosts,
-                  then cold and warm with none (the classic
+                  (R 4, no mask), once with superblocks of 16,384 hosts
+                  (one refine round, which the layer doubles), then cold
+                  and warm with none (the classic
                   `coarse_pass`; the warm assignment equal to the cold
                   one): per-level walls, launches by kernel, placed,
                   device memory peak; the busiest
@@ -318,6 +317,33 @@ inside the slices' block, 22 and 24 after the elastic agreement (20):
                   overload signal the admission clamp shrinks the
                   considerable window x0.95 a cycle to its floor, then
                   resets.
+ 25. service    — the scheduler service on the card (`components.py`,
+                  the REST layer on the standard library), the flat
+                  slice's fleet and knobs: (a) in this process,
+                  `read_config` of a mock cluster of 10,000 hosts (64 GB /
+                  32 cpus, as `sim.cli synth --hosts 10000` makes them),
+                  one pool, `max_jobs_considered 16384, chunk 1024,
+                  backend "pallas"`, a journal in a temporary data_dir,
+                  0.5 s rank and match intervals; `build_process` and
+                  `start_leader_duties(block=False)`, counts reset just
+                  before; 20,000 jobs of the synth trace's shapes POSTed
+                  to /jobs over urllib in 20 batches of 1,000, one user
+                  each; 3 match cycles with a window after the last submit
+                  (/debug/cycles); then GET /jobs/{uuid} for 200 of them,
+                  /queue, /running, /unscheduled_jobs?job=, /usage,
+                  /metrics, /debug, /debug/device and /debug/cycles, each
+                  with its expected status; the loops stopped, the counts
+                  read: `best_node` launched and every kept launch
+                  identical to its plain version, no host over-committed,
+                  the sampled /jobs statuses equal to the store's, no
+                  `solve-failed` skip.  Prints the submit wall per batch,
+                  per-route request latency p50 / p99 on the host clock,
+                  the match cycle walls, placements and launches.  (b)
+                  `python3 -m cook_tpu_torch --config ...` as a subprocess
+                  on the same fleet and a free port: /debug healthy and
+                  leader, 1,000 jobs submitted, one running, SIGTERM and a
+                  clean exit; a second process on the same data_dir reads
+                  back every acknowledged job.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -327,6 +353,7 @@ import contextlib
 import importlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1417,55 +1444,15 @@ def slice_phase(trace, workdir):
     return launches, calls, _resident_view(result, totals)
 
 
-PROFILE_TOP = 10
-
-
-def _profile_rows(prof):
-    """A cProfile's top PROFILE_TOP entries by cumulative time."""
-    import io
-    import pstats
-
-    out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("cumulative").print_stats(
-        PROFILE_TOP)
-    return [line.strip().replace(ROOT + os.sep, "")
-            for line in out.getvalue().splitlines()
-            if "(" in line and ":" in line]
-
-
-def _profile_last(target, name, cycles, prof):
-    """Swap `target.name` for a wrapper that runs its `cycles`-th call
-    (the replay's last cycle) under `prof`; returns the original."""
-    original = getattr(target, name)
-    seen = []
-
-    def profiled(*a, **kw):
-        seen.append(None)
-        if len(seen) < cycles:
-            return original(*a, **kw)
-        prof.enable()
-        try:
-            return original(*a, **kw)
-        finally:
-            prof.disable()
-
-    setattr(target, name, profiled)
-    return original
-
-
 # the walls phase's replays of the flat slice: (label, SchedulerConfig
-# changes, profiled).  A profiled pair first (cache off, then on: the
-# last cycle's host profiles), then unprofiled runs for the walls: the
-# cache off and on and the defaults with the flight recorder and the
-# telemetry off (the data-plane accounting runs in the record's scope, so
-# it goes too), once each (once: the multi-pool and speculation phases
-# need the time; the profiled pair's walls show the host noise beside
-# them)
+# changes): the cache off, and the defaults with the flight recorder and
+# the telemetry off (the data-plane accounting runs in the record's
+# scope, so it goes too), once each.  The cache-on run is the slice
+# itself.  (Until the service phase needed the time, a cProfile'd cache-on
+# replay printed the last cycle's host profiles here too.)
 CACHE_OFF = dict(use_encode_cache=False)
 RECORDER_OFF = dict(flight_recorder_capacity=0, device_telemetry=False)
-# (the unprofiled cache-on run is the slice itself)
-WALL_RUNS = (("cache on", {}, True), ("cache off", CACHE_OFF, False),
-             ("recorder off", RECORDER_OFF, False))
+WALL_RUNS = (("cache off", CACHE_OFF), ("recorder off", RECORDER_OFF))
 WALL_PHASES = ("rank", "encode", "solve", "launch")
 
 
@@ -1484,20 +1471,10 @@ def walls_phase(trace, workdir, classic, device="cuda"):
     """Where the flat slice's walls go: the slice's replay again per
     WALL_RUNS, each run trace identical to the slice's (neither the cache
     nor the recorder changes a decision), beside the slice's own walls
-    (`classic`: the unprofiled cache-on run).  Per run: the simulator's
-    phase walls, the cycle p50 and the encode wall per cycle.  The profiled
-    runs print host profiles (cProfile) of the last cycle's
-    `prepare_pool_problem` (cache off and on) and of the last
-    `rank_cycle`, `finalize_pool_match` (the launch phase) and the flight
-    recorder's `commit` (in the cycle wall, outside the phases; cache
-    on);
-    their walls carry the profiler's overhead, and the summary leaves
-    them out.  Outside the slice's own run, so the profiler touches no
-    wall reported for the main path."""
-    import cProfile
+    (`classic`: the cache-on run).  Per run: the simulator's phase walls,
+    the cycle p50 and the encode wall per cycle."""
     import dataclasses
 
-    from cook_tpu_torch.scheduler import matcher
     from cook_tpu_torch.sim import cli
     from cook_tpu_torch.sim.simulator import Simulator, load_trace
 
@@ -1508,48 +1485,23 @@ def walls_phase(trace, workdir, classic, device="cuda"):
     # newline="": the CSV's own \r\n line ends, as to_csv() gives them
     with open(os.path.join(workdir, "run.csv"), newline="") as f:
         want = f.read()
-    walls = {"cache on": [_wall_row(classic["phase_wall_s"],
-                                    classic["walls"], classic["encode"])]}
-    for label, changes, profile in WALL_RUNS:
+    walls = {"cache on": _wall_row(classic["phase_wall_s"],
+                                   classic["walls"], classic["encode"])}
+    for label, changes in WALL_RUNS:
         cfg = cli.sim_config(args)
         cfg.scheduler = dataclasses.replace(cfg.scheduler, **changes)
-        sim = Simulator(jobs, hosts, cfg, device=args.device)
-        targets = []
-        if profile:
-            targets.append((matcher, "prepare_pool_problem"))
-            if label == "cache on":
-                targets += [(sim.scheduler, "rank_cycle"),
-                            (matcher, "finalize_pool_match"),
-                            (sim.scheduler.recorder, "commit")]
-        profs = []
-        for target, name in targets:
-            prof = cProfile.Profile()
-            profs.append((target, name, prof, _profile_last(
-                target, name, cfg.max_cycles, prof)))
-        try:
-            result = sim.run()
-        finally:
-            for target, name, _, original in profs:
-                setattr(target, name, original)
+        result = Simulator(jobs, hosts, cfg, device=args.device).run()
         if result.to_csv() != want:
             raise AssertionError(f"{label}: the run trace differs from "
                                  "the slice's")
-        row = _wall_row(result.phase_wall_s, result.cycle_wall_s,
-                        [r["phases"].get("tensor_build", 0.0)
-                         for r in result.cycle_records])
-        if not profile:
-            walls.setdefault(label, []).append(row)
-        print(f"walls {label}{' (profiled)' if profile else ''}: run "
-              "trace = the slice's; " + json.dumps(row), flush=True)
-        for _, name, prof, _ in profs:
-            print(f"  {label}: the last cycle's {name} under cProfile "
-                  f"(cumulative s, top {PROFILE_TOP}):", flush=True)
-            for line in _profile_rows(prof):
-                print(f"  {label} {name} | {line}", flush=True)
-    print("walls summary (unprofiled runs) " + json.dumps({
-        label: {k: [r[k] for r in rows]
-                for k in (*WALL_PHASES, "cycle_p50_ms")}
-        for label, rows in walls.items()}), flush=True)
+        walls[label] = _wall_row(result.phase_wall_s, result.cycle_wall_s,
+                                 [r["phases"].get("tensor_build", 0.0)
+                                  for r in result.cycle_records])
+        print(f"walls {label}: run trace = the slice's; "
+              + json.dumps(walls[label]), flush=True)
+    print("walls summary " + json.dumps({
+        label: {k: row[k] for k in (*WALL_PHASES, "cycle_p50_ms")}
+        for label, row in walls.items()}), flush=True)
 
 
 def hier_slice_phase(trace, resident=False, quantized=False,
@@ -5243,7 +5195,8 @@ def superblock_slice_phase(trace, classic_p50_ms):
 
 # the superblock layer at the scale it exists for (docs/architecture.md
 # :136-172): 1M jobs x 100k hosts, superblocks of 16,384 hosts
-MEGA = dict(jobs=1 << 20, hosts=100_000, superblock_nodes=16_384, seed=0)
+MEGA = dict(jobs=1 << 20, hosts=100_000, superblock_nodes=16_384, seed=0,
+            refine_rounds=1)
 # the card-vs-CPU solve: the slice knobs at 8,192 x 1,024, superblocks of
 # 256 hosts (blocks of 128: 4 superblocks)
 MID = dict(jobs=8_192, hosts=1_024, superblock_nodes=256, seed=1)
@@ -5272,15 +5225,18 @@ def bench_problem(j, n, seed, exact_sums=False):
     return demands, avail, totals
 
 
-def _mega_params(superblock_nodes):
+def _mega_params(superblock_nodes, refine_rounds=None):
     import dataclasses
 
     from cook_tpu_torch.scheduler.matcher import hier_params_from_config
     from cook_tpu_torch.utils.config import default_match_config
 
-    return dataclasses.replace(
+    params = dataclasses.replace(
         hier_params_from_config(default_match_config(**HIER_MATCH)),
         superblock_nodes=superblock_nodes)
+    if refine_rounds is not None:
+        params = dataclasses.replace(params, refine_rounds=refine_rounds)
+    return params
 
 
 def mega_solve(label, problem, params):
@@ -5368,7 +5324,10 @@ def superblock_mega_phase(mega=MEGA, mid=MID):
     busiest = {}
     for sbn in (mega["superblock_nodes"], 0):
         label = f"superblock at scale, superblock_nodes {sbn}"
-        params = _mega_params(sbn)
+        # the superblock solve at one refine round (the layer doubles it
+        # to two): each round re-runs both coarse levels over the 1M rows,
+        # 28-48 s of a 35-58 s solve at the default's four
+        params = _mega_params(sbn, mega["refine_rounds"] if sbn else None)
         result, stats, calls = mega_solve(f"{label} cold", problem, params)
         cold = result.assignment.cpu().numpy()
         for name, kept in calls.items():
@@ -5671,6 +5630,351 @@ def faults_phase(device="cuda"):
           + ", reset to 1000 when the overload cleared", flush=True)
 
 
+# the service phase (25): the flat slice's fleet and knobs behind the REST
+# service; SERVICE_JOBS submitted in SERVICE_BATCHES POSTs, one user each
+SERVICE_HOSTS = 10_000
+SERVICE_JOBS = 20_000
+SERVICE_BATCHES = 20
+SERVICE_MATCH = dict(max_jobs_considered=16_384, chunk=1024,
+                     backend="pallas")
+# match cycles with a considerable window that must run after the last
+# submit, and the wall the phase gives them
+SERVICE_CYCLES = 3
+SERVICE_DEADLINE_S = 240.0
+# jobs read back one by one, and jobs submitted to the subprocess
+SERVICE_SAMPLE = 200
+SERVICE_RESTART_JOBS = 1_000
+# every request's timeout: a hung handler fails the phase
+HTTP_TIMEOUT_S = 60.0
+
+
+def http(method, url, body=None, user="alice", timeout=HTTP_TIMEOUT_S):
+    """One request on the standard library: (status, parsed body, wall s).
+    The reference's clients use `requests`; the card's machine has none."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "X-Cook-Requesting-User": user, "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    wall = time.perf_counter() - t0
+    try:
+        return status, json.loads(raw), wall
+    except ValueError:
+        return status, raw.decode(), wall
+
+
+class RouteClock:
+    """Host-clock request latency per route template."""
+
+    def __init__(self):
+        self.walls: dict[str, list] = {}
+
+    def call(self, route, method, url, want, **kw):
+        status, body, wall = http(method, url, **kw)
+        self.walls.setdefault(route, []).append(wall)
+        if status != want:
+            raise AssertionError(f"service: {method} {url} answered "
+                                 f"{status}, not {want}: {str(body)[:300]}")
+        return body
+
+    def summary(self):
+        out = {}
+        for route, walls in self.walls.items():
+            walls = sorted(walls)
+            out[route] = dict(
+                n=len(walls),
+                p50_ms=round(1e3 * walls[len(walls) // 2], 3),
+                p99_ms=round(1e3 * walls[min(len(walls) - 1,
+                                             int(0.99 * len(walls)))], 3))
+        return out
+
+
+def service_fleet(n_hosts=SERVICE_HOSTS, n_jobs=SERVICE_JOBS):
+    """The mock cluster's hosts and the jobs' shapes, as `sim.cli synth
+    --hosts 10000` makes them (64 GB / 32 cpu hosts)."""
+    from cook_tpu_torch.sim.simulator import synth_trace
+
+    jobs, hosts = synth_trace(n_jobs, n_hosts, n_users=SERVICE_BATCHES,
+                              seed=0)
+    return ([{"node_id": h.node_id, "hostname": h.hostname, "mem": h.mem,
+              "cpus": h.cpus} for h in hosts],
+            [{"command": f"work {j.uuid}", "mem": j.mem, "cpus": j.cpus,
+              "priority": j.priority} for j in jobs])
+
+
+def service_config(port, data_dir, hosts, device="cuda"):
+    """The node's config: the fleet in one mock cluster whose tasks run
+    far past the phase (no host frees up mid-check), one pool, the flat
+    slice's matcher, a journal in `data_dir`, short loop intervals; the
+    platform "" (the card) unless `device` is "cpu"."""
+    return {"port": port, "pools": [{"name": "default"}],
+            "platform": "" if device == "cuda" else device,
+            "match": dict(SERVICE_MATCH), "data_dir": data_dir,
+            "rank_interval_s": 0.5, "match_interval_s": 0.5,
+            "clusters": [{"kind": "mock", "name": "fleet",
+                          "default_runtime_ms": 3_600_000,
+                          "hosts": hosts}]}
+
+
+def check_cluster_capacity(cluster):
+    """No host of a mock cluster runs more than it holds."""
+    used = {}
+    for rt in list(cluster.running.values()):
+        u = used.setdefault(rt.spec.node_id, [0.0, 0.0, 0.0])
+        u[0] += rt.spec.mem
+        u[1] += rt.spec.cpus
+        u[2] += rt.spec.gpus
+    for node_id, (mem, cpus, gpus) in used.items():
+        h = cluster.hosts[node_id]
+        if mem > h.mem or cpus > h.cpus or gpus > h.gpus:
+            raise AssertionError(
+                f"service: host {node_id} over-committed: ({mem}, {cpus}, "
+                f"{gpus}) > ({h.mem}, {h.cpus}, {h.gpus})")
+    return len(used)
+
+
+def service_inprocess(hosts, specs, workdir, device="cuda"):
+    """(a) The node in this process: `build_process` + the leader loops;
+    the backlog over REST; the reads; the checks.  Returns (best_node
+    launches, the kept best_node calls of the matcher)."""
+    from cook_tpu_torch.components import (build_process, shutdown,
+                                           start_leader_duties)
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+    from cook_tpu_torch.rest.server import free_port
+    from cook_tpu_torch.utils.config import read_config
+
+    port = free_port()
+    cfg = os.path.join(workdir, "service.json")
+    with open(cfg, "w") as f:
+        json.dump(service_config(port, os.path.join(workdir, "data-a"),
+                                 hosts, device), f)
+    settings = read_config(cfg)
+    url = f"http://127.0.0.1:{port}"
+    clock = RouteClock()
+    calls = []
+    process = None
+    try:
+        with kept_calls(match, "best_node", calls):
+            _reset_launches()
+            process = build_process(settings)
+            if process.scheduler.device.type != device:
+                raise AssertionError(f"service: the scheduler runs on "
+                                     f"{process.scheduler.device}")
+            start_leader_duties(process, block=False)
+            debug = clock.call("/debug", "GET", f"{url}/debug", 200)
+            if debug != {"healthy": True, "leader": True}:
+                raise AssertionError(f"service: /debug says {debug}")
+            acked, batch_walls = [], []
+            per = len(specs) // SERVICE_BATCHES
+            for b in range(SERVICE_BATCHES):
+                t0 = time.perf_counter()
+                body = clock.call("/jobs", "POST", f"{url}/jobs", 201,
+                                  body={"jobs": specs[b * per:(b + 1) * per]},
+                                  user=f"user{b}")
+                batch_walls.append(round(time.perf_counter() - t0, 4))
+                acked += body["jobs"]
+            print(f"service submit: {len(acked)} jobs in {SERVICE_BATCHES} "
+                  f"POSTs of {per}, wall per batch (s) {batch_walls}",
+                  flush=True)
+            recorder = process.scheduler.recorder
+            last = max([r["cycle"] for r in recorder.records_json(limit=1)]
+                       or [0])
+            deadline = time.monotonic() + SERVICE_DEADLINE_S
+            while True:
+                body = clock.call("/debug/cycles", "GET",
+                                  f"{url}/debug/cycles?since={last}&limit=50",
+                                  200)
+                full = [r for r in body["cycles"] if r["considered"] > 0]
+                if len(full) >= SERVICE_CYCLES:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"service: {len(full)} match cycles with a window "
+                        f"in {SERVICE_DEADLINE_S} s")
+                time.sleep(0.5)
+            # the reads while the loops run
+            sample = acked[::len(acked) // SERVICE_SAMPLE][:SERVICE_SAMPLE]
+            for uuid in sample:
+                clock.call("/jobs/{uuid}", "GET", f"{url}/jobs/{uuid}", 200)
+            clock.call("/queue", "GET", f"{url}/queue", 200)
+            running = clock.call("/running", "GET", f"{url}/running", 200)
+            for uuid in sample[:20]:
+                clock.call("/unscheduled_jobs", "GET",
+                           f"{url}/unscheduled_jobs?job={uuid}", 200)
+            for b in range(0, SERVICE_BATCHES, 5):
+                clock.call("/usage", "GET", f"{url}/usage?user=user{b}", 200)
+            metrics = clock.call("/metrics", "GET", f"{url}/metrics", 200)
+            clock.call("/debug", "GET", f"{url}/debug", 200)
+            device = clock.call("/debug/device", "GET", f"{url}/debug/device",
+                                200, user="admin")
+            cycles = clock.call("/debug/cycles", "GET",
+                                f"{url}/debug/cycles?since={last}&limit=50",
+                                200)["cycles"]
+            # stop the loops (and the cycle in flight) but not the server
+            for loop in process.loops:
+                loop.stop()
+            for loop in process.loops:
+                loop.join(60)
+            launches = bn.launches
+        if "cook_jobs_submitted" not in metrics or not running:
+            raise AssertionError("service: /metrics or /running empty")
+        if "device_state" not in device:
+            raise AssertionError("service: /debug/device lacks device_state")
+        # what the REST layer says equals the store, loops at rest
+        store = process.store
+        for uuid in sample:
+            got = http("GET", f"{url}/jobs/{uuid}")[1]["status"]
+            if got != store.jobs[uuid].state.value:
+                raise AssertionError(f"service: /jobs/{uuid} says {got}, "
+                                     f"the store {store.jobs[uuid].state}")
+        skipped = [s for r in recorder.records_json(limit=10_000)
+                   for s in r["skipped"] if s["code"] == "solve-failed"]
+        if skipped:
+            raise AssertionError(f"service: {len(skipped)} solve-failed "
+                                 "skips")
+        busy = check_cluster_capacity(process.clusters[0])
+        placed = sum(1 for j in store.jobs.values()
+                     if j.state.value != "waiting")
+    finally:
+        if process is not None:
+            shutdown(process)
+    walls = [round(r["total_s"], 4) for r in cycles
+             if r["considered"] > 0]
+    print("service " + json.dumps(dict(
+        placed=placed, busy_hosts=busy, best_node_launches=launches,
+        cycles_after_submit=len(walls), cycle_walls_s=walls,
+        considered=[r["considered"] for r in cycles if r["considered"]],
+        matched=[r["matched_count"] for r in cycles if r["considered"]],
+        backends=sorted({r["backend"] for r in cycles if r["considered"]}),
+        capacity="ok")), flush=True)
+    print("service request latency (host clock) "
+          + json.dumps(clock.summary()), flush=True)
+    return launches, calls
+
+
+def _service_process(cfg, log):
+    """`python3 -m cook_tpu_torch --config cfg` from the checkout's root."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    with open(log, "ab") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "cook_tpu_torch", "--config", cfg],
+            cwd=ROOT, env=env, stdout=out, stderr=out)
+
+
+def _healthy(url, proc, deadline_s=120.0):
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"service process exited {proc.returncode} "
+                                 "while booting")
+        try:
+            status, body, _ = http("GET", f"{url}/debug", timeout=5)
+            if status == 200:
+                return body
+        except OSError:
+            pass
+        time.sleep(0.25)
+    raise AssertionError("service process: /debug never answered")
+
+
+def _terminate(proc, label):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=90)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise AssertionError(f"{label}: no exit within 90 s of SIGTERM")
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc} after SIGTERM")
+
+
+def service_restart(hosts, specs, workdir, device="cuda"):
+    """(b) `python -m cook_tpu_torch` as a subprocess on the same fleet:
+    boot, SERVICE_RESTART_JOBS submitted, one running, SIGTERM; then a
+    second process on the same data_dir reads back every acked job."""
+    from cook_tpu_torch.rest.server import free_port
+
+    port = free_port()
+    cfg = os.path.join(workdir, "service-main.json")
+    with open(cfg, "w") as f:
+        json.dump(service_config(port, os.path.join(workdir, "data-b"),
+                                 hosts, device), f)
+    url = f"http://127.0.0.1:{port}"
+    log = os.path.join(workdir, "service-main.log")
+    walls = {}
+    t0 = time.perf_counter()
+    proc = _service_process(cfg, log)
+    try:
+        if _healthy(url, proc) != {"healthy": True, "leader": True}:
+            raise AssertionError("service process: not the leader")
+        walls["boot_s"] = time.perf_counter() - t0
+        status, body, wall = http("POST", f"{url}/jobs", body={
+            "jobs": specs[:SERVICE_RESTART_JOBS]})
+        if status != 201:
+            raise AssertionError(f"service process: submit {status}")
+        acked = body["jobs"]
+        walls["submit_s"] = wall
+        deadline = time.monotonic() + 120
+        while not any(http("GET", f"{url}/jobs/{u}")[1]["status"]
+                      == "running" for u in acked[:8]):
+            if time.monotonic() > deadline:
+                raise AssertionError("service process: nothing running")
+            time.sleep(0.25)
+        walls["first_running_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        _terminate(proc, "service process")
+        walls["sigterm_exit_s"] = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    t0 = time.perf_counter()
+    proc = _service_process(cfg, log)
+    try:
+        _healthy(url, proc)
+        walls["reboot_s"] = time.perf_counter() - t0
+        states = {}
+        for uuid in acked:
+            status, body, _ = http("GET", f"{url}/jobs/{uuid}")
+            if status != 200:
+                raise AssertionError(f"service restart: acked job {uuid} "
+                                     f"reads {status} after the restart")
+            states[body["status"]] = states.get(body["status"], 0) + 1
+        _terminate(proc, "restarted service process")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    print("service restart " + json.dumps(dict(
+        acked=len(acked), read_back=sum(states.values()), states=states,
+        **{k: round(v, 3) for k, v in walls.items()})), flush=True)
+
+
+def service_phase():
+    """25. The service (see the docstring)."""
+    phase("service")
+    hosts, specs = service_fleet()
+    with tempfile.TemporaryDirectory(prefix="cook-service-") as workdir:
+        launches, calls = service_inprocess(hosts, specs, workdir)
+        # best_node counts only launches on CUDA tensors
+        if launches <= 0 or len(calls) != launches:
+            raise AssertionError(f"service: kept {len(calls)} best_node "
+                                 f"calls, counted {launches} launches")
+        max_err = hold_launches("best_node", calls, "service")
+        del calls
+        service_restart(hosts, specs, workdir)
+    return launches, max_err
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cook_tpu_torch")):
         print("chip_smoke.py: cook_tpu_torch/ not found beside the script",
@@ -5826,6 +6130,11 @@ def main() -> int:
     # admission control (24)
     superblock_mega_phase()
     faults_phase()
+    # the service (25): `python -m cook_tpu_torch`'s path, counts reset
+    # inside just before the node starts and read once its loops stop
+    n, err = service_phase()
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], err)
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{

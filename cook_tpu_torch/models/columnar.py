@@ -61,6 +61,9 @@ class ColumnarJobIndex:
         self.inst_start: np.ndarray = np.empty(0, np.int64)
         self.rebuild()
         store.add_watcher(self._on_event)
+        # a wholesale state replacement (persistence.restore_into): rebuild
+        # from scratch
+        store.add_resync_listener(self.rebuild)
 
     # ------------------------------------------------------------ storage
 

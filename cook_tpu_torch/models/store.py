@@ -10,10 +10,11 @@ event's journal line (`Event.to_json`), the transaction table
 (`record_txn` / `note_txn`), the runtime-mutable config
 (`update_dynamic_config`), the capacity ledger (`apply_capacity_moves`
 and its queries), `reset_seq`, `snapshot_events`, `recovered_stats` and
-the resync listeners.  The store lock is a plain `threading.RLock` (the
-reference wraps it in its contention observatory's profiled lock, which
-`obs/contention.py` holds for the REST slice's `/debug/contention`);
-shard handoff arrives with the sharded control plane.
+the resync listeners.  The store lock is the contention observatory's
+profiled lock (`obs/contention.profiled_store_lock`), as in the
+reference: every `with store._lock:` reports its wait and hold per call
+site to `/debug/contention`.  Shard handoff arrives with the sharded
+control plane.
 
 Plays the role Datomic plays in the reference (`cook.datomic`,
 `cook/datomic.clj`): serialized transactions,
@@ -28,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
-import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Optional, Sequence
 
@@ -46,6 +46,7 @@ from cook_tpu_torch.models.entities import (
     Share,
 )
 from cook_tpu_torch.models.reasons import Reason, get_reason
+from cook_tpu_torch.obs.contention import profiled_store_lock
 
 
 @dataclass(frozen=True)
@@ -86,7 +87,9 @@ class JobStore:
 
     def __init__(self, *, mea_culpa_limit: int = 5,
                  clock: Callable[[], int] = None):
-        self._lock = threading.RLock()
+        # every `with store._lock:` in the tree reports its wait/hold to
+        # the contention observatory, labeled by calling function
+        self._lock = profiled_store_lock("store")
         self._seq = itertools.count(1)
         self._last_seq = 0
         self._events: list[Event] = []

@@ -221,10 +221,15 @@ class DeviceTelemetry:
             return {pool: (b.snapshot() or {"n": len(b)})
                     for pool, b in self._latency.items()}
 
-    def health(self) -> dict:
+    def health(self, observe: bool = True) -> dict:
         """The device-side verdict (obs/health.HealthMonitor), reported to
-        `health_observer` (the incident recorder) when one is set."""
+        `health_observer` (the incident recorder) when one is set.
+        `observe=False` is for callers that MERGE this verdict with other
+        degradation sources before reporting (rest/api.health_verdict) —
+        observing both the partial and the merged verdict would read a
+        contention-only degradation as an ok->degraded flap on every
+        probe."""
         verdict = self.health_monitor.verdict()
-        if self.health_observer is not None:
+        if observe and self.health_observer is not None:
             self.health_observer(verdict)
         return verdict

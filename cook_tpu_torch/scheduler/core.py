@@ -59,7 +59,15 @@ span-ring trace, the armed faults, the last cycle records and the
 fairness snapshot, and a `faults/reactions.AdmissionController` whose
 clamp shrinks each pool's considerable window while its overload signal
 holds (serial pass and multi-pool prologue; inert until a caller sets
-`overload_fn`).  The job-lifecycle tracker is a later slice.
+`overload_fn`).
+The host-side duties of a leader come with it, as in the reference: a
+`plugins.PluginRegistry` (submission plugins are the REST layer's; here its
+launch filters join the considerable-job filter and its completion
+handlers see every finished instance), the effect gate `active` (a hot
+standby's scheduler only maintains indexes), `add_cluster` for clusters
+created over REST, the `monitor.JobLifecycleTracker` feeding the job-
+latency histograms, and the task-lifecycle monitors `kill_lingering_tasks`,
+`kill_stragglers`, `kill_cancelled_tasks` and `reconcile`.
 
 The scheduler's device is resolved once, here, through `device.resolve`:
 CUDA unless the caller passes `device="cpu"`.
@@ -67,6 +75,7 @@ CUDA unless the caller passes `device="cpu"`.
 from __future__ import annotations
 
 import functools
+import statistics
 import itertools
 import logging
 import time
@@ -128,10 +137,12 @@ from cook_tpu_torch.scheduler.matcher import (
     solve_backend,
     topology_block_width,
 )
+from cook_tpu_torch.scheduler.monitor import JobLifecycleTracker
 from cook_tpu_torch.scheduler.pipeline import (
     PipelineParams,
     match_pools_pipelined,
 )
+from cook_tpu_torch.scheduler.plugins import PluginRegistry
 from cook_tpu_torch.scheduler.prediction import (
     CycleSpeculator,
     QuantileRuntimePredictor,
@@ -238,6 +249,7 @@ class Scheduler:
         clusters: Sequence[ComputeCluster],
         config: Optional[SchedulerConfig] = None,
         *,
+        plugins=None,
         device: Optional[Union[str, torch.device]] = None,
         txn=None,
     ):
@@ -245,6 +257,8 @@ class Scheduler:
         self.clusters = list(clusters)
         self.config = config or SchedulerConfig()
         self.device = resolve(device)
+        self.plugins = plugins or PluginRegistry()
+        self._launch_filter_cache: dict = {}
         self.launch_rate_limiter = None
         if self.config.user_launch_rate_per_minute > 0:
             self.launch_rate_limiter = TokenBucketRateLimiter(
@@ -255,6 +269,12 @@ class Scheduler:
                 clock=store.clock,
             )
         self._task_seq = itertools.count()
+        # effect gate: on a hot standby the store's event feed carries
+        # REPLICATED transactions — the leader already executed their side
+        # effects (kill fan-out, completion plugins), so a passive
+        # scheduler only maintains indexes.  components.start_leader_duties
+        # flips this at promotion.
+        self.active = True
         self.pool_queues: dict[str, RankedQueue] = {}
         self.pool_match_state: dict[str, PoolMatchState] = {}
         self.last_unmatched_offers: dict[str, dict[str, Resources]] = {}
@@ -293,7 +313,8 @@ class Scheduler:
         self.device_state = None
         if self.config.match.device_residency or self.config.match.quantized:
             self.device_state = DeviceResidentState(
-                encode_cache=self.encode_cache, device=self.device)
+                encode_cache=self.encode_cache, device=self.device,
+                parity_floor=self.config.match.quantization_parity_floor)
         # runtime prediction + speculative cycles (prediction.py): the
         # predictor feeds from instance completions (gang admission's
         # drain ETAs read it too); the speculator pre-dispatches cycle
@@ -382,6 +403,11 @@ class Scheduler:
             self.elastic = CapacityPlanner(
                 store, self.clusters, self.txn, self.config.elastic,
                 telemetry=self.telemetry, device=self.device)
+        # effect-gated like _on_event: a standby applying replicated
+        # events must not observe apply-time latencies into the SLO
+        # histograms
+        self.lifecycle = JobLifecycleTracker(store,
+                                             enabled=lambda: self.active)
         store.add_watcher(self._on_event)
         for cluster in self.clusters:
             if hasattr(cluster, "status_callback"):
@@ -394,6 +420,15 @@ class Scheduler:
             if c.name == name:
                 return c
         return None
+
+    def add_cluster(self, cluster: ComputeCluster) -> None:
+        """Attach a dynamically-created compute cluster (reference: dynamic
+        cluster config insertion, compute_cluster.clj:450-530)."""
+        if self.cluster_by_name(cluster.name) is not None:
+            raise ValueError(f"cluster {cluster.name} already exists")
+        if hasattr(cluster, "status_callback"):
+            cluster.status_callback = self.handle_status_update
+        self.clusters.append(cluster)
 
     def _make_task_id(self, job: Job) -> str:
         return f"task-{job.uuid[:8]}-{next(self._task_seq)}"
@@ -409,14 +444,18 @@ class Scheduler:
 
     def _on_event(self, event: Event) -> None:
         """Store event feed consumer: kill-on-complete fan-out
-        (monitor-tx-report-queue, scheduler.clj:378) and wasted-work
-        accounting.  Completion plugins are a later slice."""
+        (monitor-tx-report-queue, scheduler.clj:378), instance-completion
+        plugin dispatch (plugins/definitions.clj:44) and wasted-work
+        accounting."""
+        if not self.active:
+            return
         if event.kind == "instance/status" and event.data["status"] in (
             "success", "failed"
         ):
             job = self.store.jobs.get(event.data["job"])
             inst = self.store.instances.get(event.data["task_id"])
             if job is not None and inst is not None:
+                self.plugins.on_completion(job, inst)
                 self._note_wasted_work(job, inst)
         if event.kind != "job/state" or event.data.get("state") != "completed":
             return
@@ -1130,25 +1169,118 @@ class Scheduler:
         self.placement_failures[job.uuid] = reason
 
     def _make_launch_filter(self):
-        """Considerable-job filter for one cycle: the per-user launch
-        rate limit (pending-jobs->considerable-jobs, scheduler.clj:729),
-        or None when it is off.  The rate budget is snapshotted at cycle
-        start and debited as jobs are selected, so one cycle can't select
-        more launches than the bucket holds.  (The reference also runs the
-        JobLaunchFilter plugins here; the port has no plugins.)"""
-        if self.launch_rate_limiter is None:
+        """Considerable-job filters: per-user launch rate limit
+        (pending-jobs->considerable-jobs, scheduler.clj:729) + the
+        JobLaunchFilter plugins with TTL cache (plugins/launch.clj).
+        Returns a per-cycle closure, or None when neither is on: the rate
+        budget is snapshotted at cycle start and debited as jobs are
+        selected, so one cycle can't select more launches than the bucket
+        holds."""
+        if self.launch_rate_limiter is None and not self.plugins.launch_filters:
             return None
         budget: dict = {}
 
         def launch_filter(job: Job) -> bool:
-            key = (job.user, job.pool)
-            remaining = budget.get(key)
-            if remaining is None:
-                remaining = self.launch_rate_limiter.tokens_available(key)
-            if remaining < 1.0:
-                budget[key] = remaining
-                return False
-            budget[key] = remaining - 1.0
-            return True
+            if self.launch_rate_limiter is not None:
+                key = (job.user, job.pool)
+                remaining = budget.get(key)
+                if remaining is None:
+                    remaining = self.launch_rate_limiter.tokens_available(
+                        key)
+                if remaining < 1.0:
+                    budget[key] = remaining
+                    return False
+                budget[key] = remaining - 1.0
+            if not self.plugins.launch_filters:
+                return True
+            return self.plugins.check_launch(
+                job, self.store.clock(), self._launch_filter_cache
+            )
 
         return launch_filter
+
+    # ------------------------------------------------------------ monitors
+
+    def kill_lingering_tasks(self, now_ms: int) -> list[str]:
+        """Max-runtime enforcement (lingering-task-killer,
+        scheduler.clj:1941-1974)."""
+        killed = []
+        for pool_name in list(self.store.pools):
+            for inst in self.store.running_instances(pool_name):
+                job = self.store.jobs[inst.job_uuid]
+                if job.max_runtime_ms and inst.start_time_ms + job.max_runtime_ms <= now_ms:
+                    self.store.update_instance_state(
+                        inst.task_id, InstanceStatus.FAILED,
+                        "max-runtime-exceeded",
+                    )
+                    cluster = self.cluster_by_name(inst.compute_cluster)
+                    if cluster is not None:
+                        cluster.safe_kill_task(inst.task_id)
+                    killed.append(inst.task_id)
+        return killed
+
+    def kill_stragglers(self, now_ms: int) -> list[str]:
+        """Group straggler handling (straggler-handler, scheduler.clj:1976;
+        docs/groups.md quantile-deviation): if a group's running task has
+        run longer than `multiplier` x the `quantile` runtime of its
+        completed siblings, kill it mea-culpa."""
+        killed = []
+        for group in self.store.groups.values():
+            sh = group.straggler_handling
+            if sh.type != "quantile-deviation":
+                continue
+            completed_ms = []
+            running: list = []
+            for member in group.job_uuids:
+                for inst in self.store.job_instances(member):
+                    if inst.status == InstanceStatus.SUCCESS:
+                        completed_ms.append(inst.end_time_ms - inst.start_time_ms)
+                    elif inst.status == InstanceStatus.RUNNING:
+                        running.append(inst)
+            if len(completed_ms) < 2:
+                continue
+            quantiles = statistics.quantiles(completed_ms, n=100)
+            threshold = quantiles[int(sh.quantile * 100) - 1] * sh.multiplier
+            for inst in running:
+                if now_ms - inst.start_time_ms > threshold:
+                    self.store.update_instance_state(
+                        inst.task_id, InstanceStatus.FAILED, "straggler"
+                    )
+                    cluster = self.cluster_by_name(inst.compute_cluster)
+                    if cluster is not None:
+                        cluster.safe_kill_task(inst.task_id)
+                    killed.append(inst.task_id)
+        return killed
+
+    def kill_cancelled_tasks(self) -> list[str]:
+        """cancelled-task-killer (scheduler.clj:2000)."""
+        killed = []
+        for inst in list(self.store.instances.values()):
+            if inst.cancelled and not inst.status.terminal:
+                self.store.update_instance_state(
+                    inst.task_id, InstanceStatus.FAILED, "killed-by-user"
+                )
+                cluster = self.cluster_by_name(inst.compute_cluster)
+                if cluster is not None:
+                    cluster.safe_kill_task(inst.task_id)
+                killed.append(inst.task_id)
+        return killed
+
+    def reconcile(self) -> list[str]:
+        """Resync store vs backends (reconcile-tasks, scheduler.clj:1828):
+        store-live tasks unknown to their backend are failed mea-culpa."""
+        fixed = []
+        backend_known: set[str] = set()
+        for cluster in self.clusters:
+            running = getattr(cluster, "running", None)
+            if running is not None:
+                backend_known.update(running.keys())
+        for inst in list(self.store.instances.values()):
+            if inst.status.terminal:
+                continue
+            if inst.task_id not in backend_known:
+                self.store.update_instance_state(
+                    inst.task_id, InstanceStatus.FAILED, "task-unknown"
+                )
+                fixed.append(inst.task_id)
+        return fixed

@@ -41,7 +41,8 @@ and half the delta traffic; feasibility stays bool (already minimal).
 The kernels cast them back to float32 at their boundary, as the
 reference's Pallas calls do.  The QualityMonitor parity guard rides the
 shadow-solve samples: a pool whose packing-efficiency ratio drops below
-`QUANTIZATION_PARITY_FLOOR` is demoted to f32 (the mirror rebuilds at
+`parity_floor` (`MatchConfig.quantization_parity_floor`, default
+`QUANTIZATION_PARITY_FLOOR`) is demoted to f32 (the mirror rebuilds at
 the wider dtype) and stays demoted for the process lifetime.
 
 **DRU columns.**  The rank cycle's task columns ride the same store via
@@ -87,9 +88,10 @@ log = logging.getLogger(__name__)
 # pool; the bound only matters when pools churn
 MAX_RESIDENT_ARRAYS = 256
 
-# the quantization parity guard's floor: a quantized pool whose
-# packing-efficiency ratio (quality monitor sample) falls under it is
-# demoted to float32 (the reference's MatchConfig default)
+# the quantization parity guard's default floor (MatchConfig.
+# quantization_parity_floor, config key `quantization_parity_floor`): a
+# quantized pool whose packing-efficiency ratio (quality monitor sample)
+# falls under it is demoted to float32 (the reference's default)
 QUANTIZATION_PARITY_FLOOR = 0.98
 
 
@@ -228,10 +230,12 @@ class DeviceResidentState:
     """
 
     def __init__(self, encode_cache=None, observatory=None, *,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 parity_floor: float = QUANTIZATION_PARITY_FLOOR):
         self.encode_cache = encode_cache
         self.observatory = observatory
         self.device = resolve(device)
+        self.parity_floor = parity_floor
         self._lock = threading.RLock()
         self._mirrors: dict[str, _Mirror] = {}
         # resident-state epoch: bumped on cache epoch bumps and explicit
@@ -328,13 +332,13 @@ class DeviceResidentState:
         with self._lock:
             if pool not in self._quant_armed or pool in self._demoted:
                 return
-            if ratio >= QUANTIZATION_PARITY_FLOOR:
+            if ratio >= self.parity_floor:
                 return
             self._demoted.add(pool)
         self._demotion_counter.inc(1, {"pool": pool})
         log.warning("pool %s: quantized cost tensors broke the parity "
                     "floor (%.4f < %.2f); demoting to f32", pool, ratio,
-                    QUANTIZATION_PARITY_FLOOR)
+                    self.parity_floor)
 
     def demoted_pools(self) -> list[str]:
         with self._lock:

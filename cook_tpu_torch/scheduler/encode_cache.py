@@ -261,6 +261,9 @@ class EncodeCache:
             "encode cache, by result")
         if store is not None:
             store.add_watcher(self._on_event)
+            # a wholesale state replacement (persistence.restore_into)
+            # invalidates every cached row at once
+            store.add_resync_listener(self.clear)
 
     # ------------------------------------------------------ subscribers
 

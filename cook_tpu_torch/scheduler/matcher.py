@@ -133,6 +133,7 @@ from cook_tpu_torch.scheduler.constraints import (
     feasibility_mask,
     validate_group_assignments,
 )
+from cook_tpu_torch.scheduler.device_state import QUANTIZATION_PARITY_FLOOR
 from cook_tpu_torch.scheduler import flight_recorder as flight_codes
 from cook_tpu_torch.scheduler.flight_recorder import NULL_CYCLE
 from cook_tpu_torch.scheduler.ranking import QuotaWalk, RankedQueue
@@ -204,10 +205,10 @@ class MatchConfig:
     device_residency: bool = False
     # quantized cost tensors: demands/avail/totals cross (and stay
     # resident) as bfloat16 — half the bytes; feasibility is already
-    # bool.  Guarded by the QualityMonitor parity floor
-    # (device_state.QUANTIZATION_PARITY_FLOOR): a pool whose packing
-    # efficiency drifts under it demotes to f32
+    # bool.  Guarded by the QualityMonitor parity floor below: a pool
+    # whose packing efficiency drifts under it demotes to f32
     quantized: bool = False
+    quantization_parity_floor: float = QUANTIZATION_PARITY_FLOOR
     # gang scheduling (ops/gang.py + scheduler/gang.py): jobs submitted
     # with gang_size=k place all-or-nothing — k distinct hosts inside ONE
     # topology block on the hierarchical path, whole-pool all-or-nothing

@@ -1,9 +1,9 @@
 """Token-bucket rate limiters.
 
 A copy of `cook_tpu/scheduler/ratelimit.py`'s `TokenBucketRateLimiter`
-with the methods the scheduler calls (its submission-path `allowed` /
-`try_spend`, its `enforce=False` mode and the `UnlimitedRateLimiter` have
-no caller here).
+with the methods the scheduler and the REST layer call (its `allowed` and
+its `enforce=False` mode have no caller here), and `UnlimitedRateLimiter`,
+the submission path's limiter when no rate is configured.
 Reference: Cook's `cook.rate-limit` (rate_limit/generic.clj,
 token_bucket_filter.clj): a lazily-refilled token bucket per key, used for
 (a) global job-submission rate, (b) per-user per-pool launch rate
@@ -62,3 +62,17 @@ class TokenBucketRateLimiter:
         work up front (the scheduler's per-cycle launch budget)."""
         with self._lock:
             return self._refill(key).tokens
+
+    def try_spend(self, key: Hashable, amount: float = 1.0) -> bool:
+        """allowed? + spend! in one step (submission path)."""
+        with self._lock:
+            bucket = self._refill(key)
+            if bucket.tokens < 1.0:
+                return False
+            bucket.tokens -= amount
+            return True
+
+
+class UnlimitedRateLimiter:
+    def try_spend(self, key: Hashable, amount: float = 1.0) -> bool:
+        return True

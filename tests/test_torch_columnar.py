@@ -23,12 +23,16 @@ import torch
 
 from cook_tpu.models import columnar as ref_columnar
 from cook_tpu.models import entities as ref_ent
+from cook_tpu.models import persistence as ref_persistence
 from cook_tpu.models import store as ref_store
+from cook_tpu.scheduler import encode_cache as ref_encode_cache
 from cook_tpu.scheduler import ranking as ref_ranking
 from cook_tpu.scheduler import ranking_columnar as ref_rc
 from cook_tpu_torch.models import columnar as port_columnar
 from cook_tpu_torch.models import entities as port_ent
+from cook_tpu_torch.models import persistence as port_persistence
 from cook_tpu_torch.models import store as port_store
+from cook_tpu_torch.scheduler import encode_cache as port_encode_cache
 from cook_tpu_torch.scheduler import ranking as port_ranking
 from cook_tpu_torch.scheduler import ranking_columnar as port_rc
 from tests.conftest import FakeClock
@@ -272,3 +276,31 @@ def test_pending_tie_break_row_follows_job_seq():
     rows = {uuid: index._rows[uuid] for uuid in store.jobs}
     assert sorted(rows, key=rows.get) == sorted(store.job_seq,
                                                 key=store.job_seq.get)
+
+
+@pytest.mark.parametrize("P", [REF, PORT], ids=["ref", "port"])
+def test_restore_into_rebuilds_the_index_and_clears_the_cache(P):
+    """A wholesale state replacement (`persistence.restore_into`, a
+    standby's snapshot bootstrap) fans out to the store's resync
+    listeners: the columnar index rebuilds (the restored jobs rank) and
+    the encode cache drops every row (its epoch bumps).  The port's index
+    and cache registered no listener before the service slice, so a
+    restored store ranked from stale columns."""
+    persistence, encode_cache = ((ref_persistence, ref_encode_cache)
+                                 if P is REF else
+                                 (port_persistence, port_encode_cache))
+    rng = np.random.default_rng(7)
+    src = P.store.JobStore(clock=FakeClock())
+    src.set_pool(P.ent.Pool(name="default"))
+    src.submit_jobs([_job(P, f"j{i}", USERS[i % 5], rng) for i in range(12)])
+    state = persistence.snapshot_state(src)
+    dst = P.store.JobStore(clock=FakeClock())
+    dst.set_pool(P.ent.Pool(name="default"))
+    index = P.columnar.ColumnarJobIndex(dst)
+    cache = encode_cache.EncodeCache(dst)
+    epoch = cache.epoch
+    assert index.consistent_with_store()
+    persistence.restore_into(dst, state)
+    assert index.consistent_with_store()
+    assert sorted(index._rows) == sorted(f"j{i}" for i in range(12))
+    assert cache.epoch == epoch + 1

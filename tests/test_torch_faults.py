@@ -574,9 +574,9 @@ def test_elastic_reconcile_survives_a_flapping_offers_rpc():
 # the history series whose values are host-clock walls (never equal across
 # two runs) and the history's own bookkeeping
 WALL_CLOCK = ("seconds", "duration", "span.", "history.")
-# the series only the reference carries: the job-lifecycle tracker and the
-# profiled store lock are later slices of the port
-REF_ONLY = ("job.latency.", "store.lock.")
+# the series only the reference carries: none since the port has the
+# job-lifecycle tracker and the profiled store lock (the service slice)
+REF_ONLY = ()
 FAULT_SCHEDULE = {"seed": 1, "rules": [
     {"point": "cluster.launch", "mode": "error", "times": 2},
     {"point": "cluster.offers", "mode": "error", "times": 1}]}

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of `cook_tpu_torch`, and not
-`chip_smoke.py`, imports JAX or anything of the `cook_tpu` reference, and
-its entry points refuse to run without a card unless asked for the CPU."""
+`chip_smoke.py`, imports JAX or anything of the `cook_tpu` reference, nor
+aiohttp or requests (the card's machine has neither: the service runs on
+the standard library), and its entry points refuse to run without a card
+unless asked for the CPU."""
 import ast
 import os
 import subprocess
@@ -20,6 +22,15 @@ PORT = os.path.join(REPO, "cook_tpu_torch")
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top.startswith("jax") or top == "cook_tpu"
+
+
+# HTTP libraries the reference serves and calls with, absent on the card's
+# machine
+HTTP_LIBS = ("aiohttp", "requests")
+
+
+def _http_lib(name: str) -> bool:
+    return name.split(".")[0] in HTTP_LIBS
 
 
 def test_importing_every_port_module_loads_no_jax_or_reference():
@@ -151,6 +162,66 @@ SUPERBLOCK_MODULES = ("cook_tpu_torch.obs.incident",
                       "cook_tpu_torch.sim.simulator")
 
 
+# the service slice's modules: the REST layer on the standard library, the
+# process wiring and its entry point, and the copies of jax-free reference
+# modules they need (config, plugins, monitors, leader election, auth)
+SERVICE_MODULES = ("cook_tpu_torch.__main__",
+                   "cook_tpu_torch.components",
+                   "cook_tpu_torch.rest",
+                   "cook_tpu_torch.rest.api",
+                   "cook_tpu_torch.rest.auth",
+                   "cook_tpu_torch.rest.http",
+                   "cook_tpu_torch.rest.server",
+                   "cook_tpu_torch.control.leader",
+                   "cook_tpu_torch.shard.router",
+                   "cook_tpu_torch.utils.config",
+                   "cook_tpu_torch.utils.logging",
+                   "cook_tpu_torch.utils.incremental",
+                   "cook_tpu_torch.scheduler.plugins",
+                   "cook_tpu_torch.scheduler.queue_limit",
+                   "cook_tpu_torch.scheduler.optimizer",
+                   "cook_tpu_torch.scheduler.monitor",
+                   "cook_tpu_torch.scheduler.progress",
+                   "cook_tpu_torch.scheduler.heartbeat",
+                   "cook_tpu_torch.scheduler.sandbox")
+
+
+@pytest.mark.parametrize("module", SERVICE_MODULES)
+def test_service_module_loads_no_jax_reference_or_http_library(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0].startswith('jax')\n"
+        "             or m.split('.')[0] in ('cook_tpu', 'aiohttp',\n"
+        "                                    'requests'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_importing_every_port_module_loads_no_http_library():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import cook_tpu_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    cook_tpu_torch.__path__, 'cook_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('aiohttp', 'requests'))\n"
+        "assert 'cook_tpu_torch.rest.api' in names, names\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
                          + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES
                          + RESIDENCY_MODULES + PREDICTION_MODULES
@@ -192,6 +263,21 @@ def test_no_import_statement_names_jax_or_reference(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+@pytest.mark.parametrize("path", _source_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_statement_names_an_http_library(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        assert not any(_http_lib(n) for n in names), (path, names)
 
 
 def test_entry_points_raise_without_a_card_unless_given_cpu(monkeypatch):
