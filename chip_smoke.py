@@ -326,8 +326,12 @@ inside the slices' block, 22 and 24 after the elastic agreement (20):
                   backend "pallas"`, a journal in a temporary data_dir,
                   0.5 s rank and match intervals; `build_process` and
                   `start_leader_duties(block=False)`, counts reset just
-                  before; 20,000 jobs of the synth trace's shapes POSTed
-                  to /jobs over urllib in 20 batches of 1,000, one user
+                  before, load shedding off (on a slower host the
+                  submits beside the match loop can pass the 1 s
+                  commit-ack SLO, and the node would answer the heavy
+                  reads 429 for the SLO's 300 s fast window); 20,000 jobs
+                  of the synth trace's shapes POSTed to /jobs over
+                  http.client in 20 batches of 1,000, one user
                   each; 3 match cycles with a window after the last submit
                   (/debug/cycles); then GET /jobs/{uuid} for 200 of them,
                   /queue, /running, /unscheduled_jobs?job=, /usage,
@@ -344,6 +348,43 @@ inside the slices' block, 22 and 24 after the elastic agreement (20):
                   leader, 1,000 jobs submitted, one running, SIGTERM and a
                   clean exit; a second process on the same data_dir reads
                   back every acknowledged job.
+ 26. failover   — the replicated control plane on phase 25's fleet and
+                  knobs: `python3 -m cook_tpu_torch.control.lease_server`
+                  and leader A (`python3 -m cook_tpu_torch`, TTL 3 s,
+                  `replication_sync_ack` with one durable ack, its own
+                  data_dir) as subprocesses; standby B in this process
+                  (`build_process`, `start_leader_duties` on a thread, a
+                  data_dir of its own), so that its launches are counted
+                  and kept, built while A boots.  One admin write to A (a
+                  share for a user who submits nothing) wakes B's first
+                  long-poll and must come back replicated; once A leads
+                  and B's follower has synced, 10,000 jobs of the synth trace's shapes POSTed to A in 10
+                  batches of 1,000 (one user each), every 201 replicated;
+                  B's staleness sampled meanwhile; a match cycle with
+                  placements on A; a GET /jobs/{uuid} on B served with
+                  X-Cook-Staleness-Ms.  Counts reset, A SIGKILLed: B leads
+                  within 2 x TTL + 5 s and runs 3 match cycles with a
+                  window.  Fails unless every acked job reads back from B
+                  through GET /jobs?uuid=... in batches of 500 (200 of
+                  them through /jobs/{uuid} too, each saying what its
+                  batch said), B holds no job A never acked, B
+                  launched `best_node` and every kept launch is identical
+                  to its plain version, no host of B's mock cluster is
+                  over-committed, no job skips `solve-failed`, and B's
+                  columnar index is consistent with its store.  Prints the
+                  submit wall per batch with its sync-ack wait, B's lag
+                  (staleness p50 / max), SIGKILL to promotion, B's cycle
+                  walls, placements and launches, beside the card.
+
+Order and processes: 1-7 (with the walls replays) run in this process,
+which times the kernel rows.  Then three worker processes run the rest
+at once, each its own part (PARTS), each resetting and reading the
+counts around the paths it drives: `speculation` S1-S4, 12 and 11;
+`multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` 8-8c, 9-10, 21,
+13-15, 22 and 24.  Their output is printed once all three have ended
+(their phase lines count from this process's start, so they overlap),
+and their launches and errors join this process's.  25 and 26 run last,
+in this process, with nothing beside them.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -357,6 +398,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -559,6 +601,8 @@ def gang_mix(jobs, every=GANG_EVERY, sizes=GANG_SIZES):
 
 
 _T0 = time.perf_counter()
+# the wall clock at _T0, from which each part's phase lines count
+_EPOCH = time.time()
 
 
 def phase(name):
@@ -5401,8 +5445,6 @@ def superblock_mega_phase(mega=MEGA, mid=MID):
 
 def quality_audit_phase(trace, classic_csv, classic_walls):
     """23. The quality audit on the flat slice (see the docstring)."""
-    import threading
-
     from cook_tpu_torch.scheduler import matcher
     from cook_tpu_torch.sim import cli
     from cook_tpu_torch.sim.simulator import Simulator, load_trace
@@ -5649,25 +5691,32 @@ HTTP_TIMEOUT_S = 60.0
 
 
 def http(method, url, body=None, user="alice", timeout=HTTP_TIMEOUT_S):
-    """One request on the standard library: (status, parsed body, wall s).
-    The reference's clients use `requests`; the card's machine has none."""
-    import urllib.error
-    import urllib.request
+    """One request on the standard library that follows no redirect (a
+    standby's 307 to its leader is an answer): (status, parsed body, wall
+    s, headers).  The reference's clients use `requests`; the card's
+    machine has none."""
+    from http.client import HTTPConnection
+    from urllib.parse import urlsplit
 
+    parts = urlsplit(url)
+    path = parts.path + (f"?{parts.query}" if parts.query else "")
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url, data=data, method=method, headers={
-        "X-Cook-Requesting-User": user, "Content-Type": "application/json"})
+    conn = HTTPConnection(parts.hostname, parts.port, timeout=timeout)
     t0 = time.perf_counter()
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            status, raw = resp.status, resp.read()
-    except urllib.error.HTTPError as e:
-        status, raw = e.code, e.read()
+        conn.request(method, path, body=data, headers={
+            "X-Cook-Requesting-User": user,
+            "Content-Type": "application/json"})
+        resp = conn.getresponse()
+        status, raw = resp.status, resp.read()
+        headers = dict(resp.getheaders())
+    finally:
+        conn.close()
     wall = time.perf_counter() - t0
     try:
-        return status, json.loads(raw), wall
+        return status, json.loads(raw), wall, headers
     except ValueError:
-        return status, raw.decode(), wall
+        return status, raw.decode(), wall, headers
 
 
 class RouteClock:
@@ -5677,7 +5726,7 @@ class RouteClock:
         self.walls: dict[str, list] = {}
 
     def call(self, route, method, url, want, **kw):
-        status, body, wall = http(method, url, **kw)
+        status, body, wall, _ = http(method, url, **kw)
         self.walls.setdefault(route, []).append(wall)
         if status != want:
             raise AssertionError(f"service: {method} {url} answered "
@@ -5754,8 +5803,15 @@ def service_inprocess(hosts, specs, workdir, device="cuda"):
     port = free_port()
     cfg = os.path.join(workdir, "service.json")
     with open(cfg, "w") as f:
-        json.dump(service_config(port, os.path.join(workdir, "data-a"),
-                                 hosts, device), f)
+        # no load shedding: on a slower host some of the 1,000-job submits
+        # beside the running match loop pass the 1 s commit-ack SLO, and
+        # the node then answers the heavy reads below 429 (as designed;
+        # the CPU tests hold the shedder) until the burn leaves the SLO's
+        # 300 s fast window, so a retry after Retry-After serves nothing
+        # within the phase
+        json.dump(dict(service_config(port, os.path.join(workdir, "data-a"),
+                                      hosts, device), load_shedding=False),
+                  f)
     settings = read_config(cfg)
     url = f"http://127.0.0.1:{port}"
     clock = RouteClock()
@@ -5876,7 +5932,7 @@ def _healthy(url, proc, deadline_s=120.0):
             raise AssertionError(f"service process exited {proc.returncode} "
                                  "while booting")
         try:
-            status, body, _ = http("GET", f"{url}/debug", timeout=5)
+            status, body, *_ = http("GET", f"{url}/debug", timeout=5)
             if status == 200:
                 return body
         except OSError:
@@ -5917,7 +5973,7 @@ def service_restart(hosts, specs, workdir, device="cuda"):
         if _healthy(url, proc) != {"healthy": True, "leader": True}:
             raise AssertionError("service process: not the leader")
         walls["boot_s"] = time.perf_counter() - t0
-        status, body, wall = http("POST", f"{url}/jobs", body={
+        status, body, wall, _ = http("POST", f"{url}/jobs", body={
             "jobs": specs[:SERVICE_RESTART_JOBS]})
         if status != 201:
             raise AssertionError(f"service process: submit {status}")
@@ -5944,7 +6000,7 @@ def service_restart(hosts, specs, workdir, device="cuda"):
         walls["reboot_s"] = time.perf_counter() - t0
         states = {}
         for uuid in acked:
-            status, body, _ = http("GET", f"{url}/jobs/{uuid}")
+            status, body, *_ = http("GET", f"{url}/jobs/{uuid}")
             if status != 200:
                 raise AssertionError(f"service restart: acked job {uuid} "
                                      f"reads {status} after the restart")
@@ -5975,18 +6031,549 @@ def service_phase():
     return launches, max_err
 
 
+# the failover phase (26): phase 25's fleet and knobs behind a lease
+# service, a sync-acking leader A (a subprocess) and a standby B (this
+# process, so that its launches are counted and kept)
+FAILOVER_JOBS = 10_000
+FAILOVER_BATCHES = 10
+FAILOVER_TTL_S = 3.0
+FAILOVER_CYCLES = 3
+# a sync-ack submit commits either way; the phase fails on any 201 that
+# says "replicated": false, so the bound is generous
+FAILOVER_ACK_TIMEOUT_S = 30.0
+# every acked job is read back from B through GET /jobs?uuid=... this
+# many at a time, and SERVICE_SAMPLE of them through GET /jobs/{uuid}
+FAILOVER_READ_BATCH = 500
+
+
+def _hop_wall(headers, key):
+    """One phase wall of a response's X-Cook-Hop-Walls (`k=v;...`)."""
+    for part in (headers.get("X-Cook-Hop-Walls") or "").split(";"):
+        name, _, value = part.partition("=")
+        if name == key:
+            return float(value)
+    return 0.0
+
+
+def read_back(url, uuids, batch=FAILOVER_READ_BATCH, sample=SERVICE_SAMPLE):
+    """Every uuid through GET /jobs?uuid=... `batch` at a time, and every
+    len(uuids) // sample-th through GET /jobs/{uuid}, which must say what
+    the batch said.  Fails on any answer but 200."""
+    from urllib.parse import urlencode
+
+    states = {}
+    for i in range(0, len(uuids), batch):
+        chunk = uuids[i:i + batch]
+        status, body, *_ = http(
+            "GET", f"{url}/jobs?" + urlencode([("uuid", u) for u in chunk]))
+        if status != 200 or [j["uuid"] for j in body] != chunk:
+            raise AssertionError(f"failover: GET /jobs of acked jobs "
+                                 f"{i}-{i + len(chunk)} answered {status} "
+                                 f"{str(body)[:300]}")
+        states.update((j["uuid"], j["status"]) for j in body)
+    for uuid in uuids[::max(1, len(uuids) // sample)]:
+        status, body, *_ = http("GET", f"{url}/jobs/{uuid}")
+        if status != 200 or body["status"] != states[uuid]:
+            raise AssertionError(f"failover: GET /jobs/{uuid} answered "
+                                 f"{status} {str(body)[:300]}, the batch "
+                                 f"{states[uuid]}")
+
+
+def failover_config(port, data_dir, hosts, lease_url, device="cuda",
+                    **extra):
+    """Phase 25's node config on the lease service at `lease_url`."""
+    conf = service_config(port, data_dir, hosts, device)
+    conf.update(leader_endpoint=lease_url, leader_ttl_s=FAILOVER_TTL_S,
+                **extra)
+    return conf
+
+
+def _lease_service(log):
+    """`python3 -m cook_tpu_torch.control.lease_server` on a free port:
+    (process, url)."""
+    from cook_tpu_torch.rest.server import free_port
+
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    with open(log, "ab") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cook_tpu_torch.control.lease_server",
+             "--host", "127.0.0.1", "--port", str(port)],
+            cwd=ROOT, env=env, stdout=out, stderr=out)
+    url = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 60
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"lease service exited {proc.returncode}")
+        try:
+            if http("GET", f"{url}/healthz", timeout=5)[0] == 200:
+                return proc, url
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError("lease service: /healthz never answered")
+        time.sleep(0.1)
+
+
+def _until(what, deadline_s, probe, every_s=0.1):
+    """Poll `probe()` until it returns a true value, which is returned."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        try:
+            got = probe()
+        except OSError:
+            got = None
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"failover: {what} not within "
+                                 f"{deadline_s} s")
+        time.sleep(every_s)
+
+
+def failover_run(hosts, specs, workdir, device="cuda"):
+    """26. A lease service and leader A as subprocesses, standby B in this
+    process; the backlog to A with sync acks; SIGKILL A; B promotes and
+    schedules.  Returns (B's best_node launches, the kept calls)."""
+    from cook_tpu_torch.components import (build_process, shutdown,
+                                           start_leader_duties)
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+    from cook_tpu_torch.rest.server import free_port
+    from cook_tpu_torch.utils.config import read_config
+
+    procs, calls = [], []
+    standby = thread = None
+    logs = {name: os.path.join(workdir, f"failover-{name}.log")
+            for name in ("lease", "a")}
+    try:
+        lease_proc, lease_url = _lease_service(logs["lease"])
+        procs.append(lease_proc)
+        configs, urls = {}, {}
+        for name, extra in (
+                ("a", dict(replication_sync_ack=True,
+                           replication_min_acks=1,
+                           replication_ack_timeout_s=FAILOVER_ACK_TIMEOUT_S)),
+                ("b", {})):
+            port = free_port()
+            configs[name] = os.path.join(workdir, f"failover-{name}.json")
+            with open(configs[name], "w") as f:
+                json.dump(failover_config(
+                    port, os.path.join(workdir, f"failover-data-{name}"),
+                    hosts, lease_url, device, **extra), f)
+            urls[name] = f"http://127.0.0.1:{port}"
+        a_url, b_url = urls["a"], urls["b"]
+        t0 = time.perf_counter()
+        leader = _service_process(configs["a"], logs["a"])
+        procs.append(leader)
+        with kept_calls(match, "best_node", calls):
+            # B's node is built while A boots; B bids for the lease only
+            # once its duties start, after A leads
+            standby = build_process(read_config(configs["b"]))
+            _healthy(a_url, leader)
+            _until("A leading", 120, lambda: http(
+                "GET", f"{a_url}/debug", timeout=5)[1]["leader"])
+            boot_s = time.perf_counter() - t0
+            # 1. B stands by and its follower has proved the leader's head.
+            # One write to A first, an admin share for a user who submits
+            # nothing: it wakes the follower's first long-poll (on an idle
+            # leader that poll parks its whole 8 s), and its 201 waits for
+            # B's durable ack
+            probe = {}
+            writer = threading.Thread(target=lambda: probe.update(
+                answer=http("POST", f"{a_url}/share", user="admin", body={
+                    "user": "failover-probe", "pool": "default",
+                    "share": {"mem": 1.0, "cpus": 1.0}})), daemon=True)
+            writer.start()
+            t0 = time.perf_counter()
+            thread = threading.Thread(
+                target=start_leader_duties, args=(standby,),
+                kwargs={"block": False, "on_loss": lambda: None},
+                daemon=True, name="failover-standby")
+            thread.start()
+            _until("B's first sync", 60, lambda: http(
+                "GET", f"{b_url}/debug/replica", user="admin", timeout=5
+            )[1]["shards"].get("0", {}).get("staleness_ms") is not None)
+            synced_s = time.perf_counter() - t0
+            writer.join(FAILOVER_ACK_TIMEOUT_S + HTTP_TIMEOUT_S)
+            status, body = probe.get("answer", (None, None))[:2]
+            if status != 201 or body.get("replicated") is False:
+                raise AssertionError(f"failover: the first write to A "
+                                     f"answered {status} {str(body)[:300]}")
+            if http("GET", f"{b_url}/debug")[1]["leader"]:
+                raise AssertionError("failover: B leads beside A")
+            # 2. the backlog to A, B's staleness sampled meanwhile
+            lag, sampling = [], threading.Event()
+
+            def sample():
+                while not sampling.wait(0.05):
+                    lag.append(standby.follower.staleness_ms())
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            acked, walls, ack_walls = [], [], []
+            per = len(specs) // FAILOVER_BATCHES
+            try:
+                for b in range(FAILOVER_BATCHES):
+                    status, body, wall, headers = http(
+                        "POST", f"{a_url}/jobs",
+                        body={"jobs": specs[b * per:(b + 1) * per]},
+                        user=f"user{b}")
+                    if status != 201 or body.get("replicated") is False:
+                        raise AssertionError(
+                            f"failover: batch {b} answered {status} "
+                            f"{str(body)[:300]}")
+                    acked += body["jobs"]
+                    walls.append(round(wall, 4))
+                    ack_walls.append(round(_hop_wall(
+                        headers, "replication_ack"), 4))
+            finally:
+                sampling.set()
+                sampler.join(timeout=10)
+            # 3. A has placed in a match cycle
+            _until("a cycle with placements on A", SERVICE_DEADLINE_S,
+                   lambda: any(r["matched_count"] > 0 for r in http(
+                       "GET", f"{a_url}/debug/cycles?limit=50",
+                       timeout=10)[1]["cycles"]), every_s=0.5)
+            # 4. a replica read on B, stamped with its staleness
+            status, body, _, headers = http(
+                "GET", f"{b_url}/jobs/{acked[len(acked) // 2]}")
+            if status != 200 or "X-Cook-Staleness-Ms" not in headers:
+                raise AssertionError(f"failover: replica read on B "
+                                     f"answered {status} {headers}")
+            read_staleness = headers["X-Cook-Staleness-Ms"]
+            # 5. counts reset, then A dies without releasing its lease
+            _reset_launches()
+            calls.clear()
+            t_kill = time.monotonic()
+            leader.send_signal(signal.SIGKILL)
+            leader.wait(timeout=30)
+            # 6. B promotes within its lease bound
+            bound_s = 2 * FAILOVER_TTL_S + 5
+            _until("B's promotion", bound_s, lambda: http(
+                "GET", f"{b_url}/debug", timeout=5)[1]["leader"],
+                every_s=0.05)
+            promote_s = time.monotonic() - t_kill
+            thread.join(timeout=60)
+            # 7. B's match cycles with a window
+
+            def full_cycles():
+                body = http("GET", f"{b_url}/debug/cycles?limit=50",
+                            timeout=10)[1]
+                full = [r for r in body["cycles"] if r["considered"] > 0]
+                return full if len(full) >= FAILOVER_CYCLES else None
+
+            cycles = _until(f"{FAILOVER_CYCLES} cycles on B",
+                            SERVICE_DEADLINE_S, full_cycles, every_s=0.5)
+            for loop in standby.loops:
+                loop.stop()
+            for loop in standby.loops:
+                loop.join(60)
+            launches = bn.launches
+        # every acked job reads back from B, and B holds nothing else
+        t0 = time.perf_counter()
+        read_back(b_url, acked)
+        read_s = time.perf_counter() - t0
+        store = standby.store
+        extra = set(store.jobs) - set(acked)
+        if extra:
+            raise AssertionError(f"failover: B holds {len(extra)} jobs A "
+                                 "never acked")
+        if not standby.scheduler.columnar.consistent_with_store():
+            raise AssertionError("failover: B's columnar index is not "
+                                 "consistent with its store")
+        skipped = [s for r in standby.scheduler.recorder.records_json(
+                   limit=10_000) for s in r["skipped"]
+                   if s["code"] == "solve-failed"]
+        if skipped:
+            raise AssertionError(f"failover: {len(skipped)} solve-failed "
+                                 "skips on B")
+        busy = check_cluster_capacity(standby.clusters[0])
+        placed = sum(1 for j in store.jobs.values()
+                     if j.state.value != "waiting")
+    except BaseException:
+        for name, log in logs.items():
+            if os.path.exists(log):
+                with open(log, errors="replace") as f:
+                    print(f"failover {name} log tail:\n{f.read()[-3000:]}",
+                          file=sys.stderr, flush=True)
+        raise
+    finally:
+        if standby is not None:
+            shutdown(standby)
+        if thread is not None:
+            thread.join(timeout=60)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    lag = sorted(x for x in lag if x != float("inf"))
+    print(f"failover submit: {len(acked)} jobs in {FAILOVER_BATCHES} "
+          f"sync-acked POSTs of {per}, wall per batch (s) {walls}, of "
+          f"which the sync-ack wait (s) {ack_walls}", flush=True)
+    print("failover " + json.dumps(dict(
+        leader_boot_s=round(boot_s, 3), standby_first_sync_s=round(
+            synced_s, 3),
+        lag_ms=dict(n=len(lag),
+                    p50=round(lag[len(lag) // 2], 3) if lag else None,
+                    max=round(lag[-1], 3) if lag else None),
+        replica_read_staleness_ms=read_staleness,
+        sigkill_to_promotion_s=round(promote_s, 3), bound_s=bound_s,
+        standby_cycle_walls_s=[round(r["total_s"], 4)
+                               for r in cycles[:FAILOVER_CYCLES]],
+        considered=[r["considered"] for r in cycles],
+        matched=[r["matched_count"] for r in cycles],
+        placed=placed, busy_hosts=busy, best_node_launches=launches,
+        read_back=len(acked), read_back_s=round(read_s, 3),
+        capacity="ok")), flush=True)
+    return launches, calls
+
+
+def failover_phase(card):
+    """26. Failover (see the docstring)."""
+    phase("failover")
+    hosts, specs = service_fleet(n_jobs=FAILOVER_JOBS)
+    with tempfile.TemporaryDirectory(prefix="cook-failover-") as workdir:
+        launches, calls = failover_run(hosts, specs, workdir)
+    if launches <= 0 or len(calls) != launches:
+        raise AssertionError(f"failover: kept {len(calls)} best_node "
+                             f"calls, counted {launches} launches")
+    max_err = hold_launches("best_node", calls, "failover")
+    print(f"failover on {card}", flush=True)
+    return launches, max_err
+
+
+# The phases after the kernel rows run in worker processes, all at once:
+# each part below is `python3 chip_smoke.py --part NAME SHARED EPOCH`,
+# given the flat slice's trace and what the later phases compare with in
+# the JSON file SHARED.  A part resets and reads its own counts around
+# each path it drives and writes them, with its worst error per kernel,
+# to SHARED's directory; its output is printed here once every part has
+# ended.  The kernel rows (5, 7) are timed before any part starts, and
+# the service (25) and failover (26) run after every part has ended, so
+# that nothing else shares the card or the host with their walls.
+PARTS = ("speculation", "multipool", "agreement")
+# the parts must end this long after the script started, or all are
+# stopped and the script fails with what they printed
+PARTS_DEADLINE_S = 960.0
+
+
+class Tally:
+    """A part's launches (summed) and worst errors (max) per kernel."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(KERNELS, 0)
+        self.errs = dict.fromkeys(KERNELS, 0.0)
+
+    def add(self, name, launches=0, err=0.0):
+        self.launches[name] += launches
+        self.errs[name] = max(self.errs[name], err)
+
+    def merge(self, other):
+        for name in KERNELS:
+            self.add(name, other["launches"][name], other["errs"][name])
+
+    def json(self):
+        return {"launches": self.launches, "errs": self.errs}
+
+
+def part_speculation(shared, workdir, tally):
+    """S1-S4, the paged coarse pass (12) and the gang admission (11)."""
+    speculation_wave_phase()
+    spec_launches, spec_calls = speculation_kernels_phase(
+        shared["trace"], shared["classic"]["csv"])
+    for name, kept in spec_calls.items():
+        tally.add(name, spec_launches[name],
+                  hold_launches(name, kept, "speculative solves"))
+    del spec_calls
+    speculation_pipelined_phase()
+    speculation_agreement_phase()
+    paged_rows, err = paged_coarse_phase()
+    tally.add("coarse_pass", err=err)
+    print("coarse_pass paged " + json.dumps(paged_rows), flush=True)
+    gang_admission_phase()
+
+
+def part_multipool(shared, workdir, tally):
+    """11a-11f, the elastic plane (17-20), residency (7a-7d) and the
+    quality audit (23)."""
+    mp_serial = []
+    mp_launches, mp_calls, mp_trace = multipool_phase(serial_csv=mp_serial)
+    for name, err in multipool_launches_phase(mp_calls).items():
+        tally.add(name, mp_launches[name], err)
+    del mp_calls
+    multipool_exact_phase(*mp_trace)
+    mp_classic_placed = placements_by_cycle(mp_serial[0], MP_CYCLES)
+    mp_launches, mp_calls = resident_multipool_phase(*mp_trace,
+                                                     mp_serial[0])
+    for name, kept in mp_calls.items():
+        tally.add(name, mp_launches[name], hold_launches(
+            name, kept, "resident multipool"))
+    del mp_trace, mp_calls, mp_serial
+    n, res_calls = resident_streams_phase()
+    tally.add("best_node", n, hold_launches(
+        "best_node", res_calls, "resident streams"))
+    del res_calls
+    multipool_agreement_phase()
+    # the elastic capacity plane: the solve alone, the multi-pool slice
+    # planning every cycle, the resident plan mirror, the agreement replays
+    elastic_solve_phase()
+    el_launches, el_errs, el_queues, el_trace = elastic_slice_phase(
+        classic_placed=mp_classic_placed)
+    for name in MP_KERNELS:
+        tally.add(name, el_launches[name], el_errs[name])
+    elastic_residency_phase(el_queues, el_trace)
+    del el_queues, el_trace
+    elastic_agreement_phase()
+    # device residency: (a) the flat slice resident, (c) quantized
+    # and the hierarchical slice resident, (b) the unchanged-pool rig
+    trace, classic = shared["trace"], shared["classic"]
+    for label, run in (
+            ("resident slice",
+             lambda: resident_slice_phase(trace, workdir, classic)),
+            ("quantized slice",
+             lambda: quantized_slice_phase(trace, classic)),
+            ("unchanged-pool rig", unchanged_pool_phase)):
+        n, res_calls = run()
+        tally.add("best_node", n, hold_launches("best_node", res_calls,
+                                                label))
+        del res_calls
+    for label, run in (
+            ("resident hier slice", resident_hier_phase),
+            ("quantized hier slice", quantized_hier_phase)):
+        res_launches, res_calls = run(trace, shared["hier_csv"],
+                                      shared["hier_placed"])
+        for name, kept in res_calls.items():
+            tally.add(name, res_launches[name],
+                      hold_launches(name, kept, label))
+        del res_calls
+    # the quality audit on the flat slice (23)
+    quality_audit_phase(trace, classic["csv"], classic["walls"])
+
+
+def part_agreement(shared, workdir, tally):
+    """8-8c, the gang slice and agreement (9-10), the superblock slice
+    (21), the rebalance phases (13-15), the superblock layer at 1M x 100k
+    (22) and faults, incidents and admission (24)."""
+    agreement_phase(workdir)
+    default_agreement_phase(workdir)
+    resident_default_agreement_phase(workdir)
+    gang_runs = gang_slice_phase(shared["trace"])
+    gang_ops_phase(*gang_runs.pop("ops"))
+    for label, (gang_launches, gang_calls, _) in gang_runs.items():
+        err = gang_launches_phase(label, gang_calls)
+        for name in gang_calls:
+            tally.add(name, err=err)
+        print(f"gang {label} launches: " + json.dumps(gang_launches),
+              flush=True)
+    del gang_runs
+    gang_agreement_phase(workdir)
+    # the superblock slice (21)
+    sb_launches, sb_calls = superblock_slice_phase(shared["trace"],
+                                                   shared["hier_p50_ms"])
+    tally.add("best_node_batched", sb_launches, hold_launches(
+        "best_node_batched", sb_calls, "superblock slice"))
+    del sb_calls
+    rebalance_case_phase()
+    rebalance_slice_phase()
+    reb_launches = rebalance_agreement_phase()
+    print(f"best_node launches inside the flat rebalance replay: "
+          f"{reb_launches}", flush=True)
+    superblock_mega_phase()
+    faults_phase()
+
+
+def part_main(name, shared_path, epoch) -> int:
+    """One part in a worker process: its phases, then its tally."""
+    global _T0
+    import torch
+
+    _T0 = time.perf_counter() - (time.time() - float(epoch))
+    sys.path.insert(0, ROOT)
+    _torch_setup(torch)
+    # half the cores each: the parts' CPU replays seldom coincide
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // 2))
+    with open(shared_path) as f:
+        shared = json.load(f)
+    tally = Tally()
+    with tempfile.TemporaryDirectory(prefix=f"cook-part-{name}-") as workdir:
+        globals()[f"part_{name}"](shared, workdir, tally)
+    print(f"part {name}: device memory peak "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
+    with open(os.path.join(os.path.dirname(shared_path),
+                           f"part-{name}.json"), "w") as f:
+        json.dump(tally.json(), f)
+    return 0
+
+
+def run_parts(shared, workdir):
+    """Every part at once, each in its own process; their tallies merged
+    once all have ended.  Raises if one fails or the deadline passes (the
+    others are then stopped)."""
+    phase("parts: " + ", ".join(PARTS))
+    shared_path = os.path.join(workdir, "shared.json")
+    with open(shared_path, "w") as f:
+        json.dump(shared, f)
+    procs = {}
+    try:
+        for name in PARTS:
+            out = open(os.path.join(workdir, f"part-{name}.out"), "w+")
+            err = open(os.path.join(workdir, f"part-{name}.err"), "w+")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--part", name,
+                 shared_path, repr(_EPOCH)],
+                stdout=out, stderr=err, cwd=ROOT), out, err)
+        deadline = _T0 + PARTS_DEADLINE_S
+        for name, (proc, _, _) in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                print(f"part {name} still running at "
+                      f"{PARTS_DEADLINE_S:.0f} s: every part stopped",
+                      file=sys.stderr, flush=True)
+                break
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for name, (proc, out, err) in procs.items():
+            print(f"== part {name} (exit {proc.returncode})", flush=True)
+            for stream, dest in ((out, sys.stdout), (err, sys.stderr)):
+                stream.seek(0)
+                dest.write(stream.read())
+                stream.close()
+                dest.flush()
+    failed = [name for name, (proc, _, _) in procs.items()
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"part(s) {', '.join(failed)} failed")
+    tally = Tally()
+    for name in PARTS:
+        with open(os.path.join(workdir, f"part-{name}.json")) as f:
+            tally.merge(json.load(f))
+    return tally
+
+
+def _torch_setup(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "cook_tpu_torch")):
         print("chip_smoke.py: cook_tpu_torch/ not found beside the script",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--part"]:
+        return part_main(*sys.argv[2:5])
     sys.path.insert(0, ROOT)
     import torch
 
     from cook_tpu_torch.sim import cli
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _torch_setup(torch)
     card = device_phase()
     build_phase()
     errs = kernel_phase()
@@ -6006,12 +6593,13 @@ def main() -> int:
         walls_phase(trace, workdir, classic)
         hier_launches, hier_calls, hier_result, _ = hier_slice_phase(
             trace)
-        hier_csv = hier_result.to_csv()
-        hier_placed = [r["job_uuid"] for r in hier_result.rows
-                       if r["start_ms"] is not None]
         hier_walls = sorted(hier_result.cycle_wall_s)
-        hier_p50_ms = hier_walls[len(hier_walls) // 2] * 1e3
-        del hier_result
+        shared = dict(
+            trace=trace, classic=classic, hier_csv=hier_result.to_csv(),
+            hier_placed=[r["job_uuid"] for r in hier_result.rows
+                         if r["start_ms"] is not None],
+            hier_p50_ms=hier_walls[len(hier_walls) // 2] * 1e3)
+        del hier_result, classic
         for name in ("best_block", "best_node_batched", "coarse_pass"):
             launches[name] = hier_launches[name]
         rows["best_node_batched"], err, _ = launch_phase(
@@ -6027,112 +6615,20 @@ def main() -> int:
               f"its dispatch: {plain_wall:.4f} ms (median of 5)", flush=True)
         rows["best_block"], err = block_step_phase(busiest)
         errs["best_block"] = max(errs["best_block"], err)
-        del busiest
-        # device residency: (a) the flat slice resident, (c) quantized
-        # and the hierarchical slice resident, (b) the unchanged-pool rig
-        for label, run in (
-                ("resident slice",
-                 lambda: resident_slice_phase(trace, workdir, classic)),
-                ("quantized slice",
-                 lambda: quantized_slice_phase(trace, classic)),
-                ("unchanged-pool rig", unchanged_pool_phase)):
-            n, res_calls = run()
-            launches["best_node"] += n
-            errs["best_node"] = max(errs["best_node"], hold_launches(
-                "best_node", res_calls, label))
-            del res_calls
-        for label, run in (
-                ("resident hier slice", resident_hier_phase),
-                ("quantized hier slice", quantized_hier_phase)):
-            res_launches, res_calls = run(trace, hier_csv, hier_placed)
-            for name, kept in res_calls.items():
-                launches[name] += res_launches[name]
-                errs[name] = max(errs[name], hold_launches(
-                    name, kept, label))
-            del res_calls
-        # speculation: the wave on the exact greedy, on the kernels (and
-        # the flat slice speculating, against the classic slice's trace)
-        speculation_wave_phase()
-        spec_launches, spec_calls = speculation_kernels_phase(
-            trace, classic["csv"])
-        for name, kept in spec_calls.items():
-            launches[name] += spec_launches[name]
-            errs[name] = max(errs[name], hold_launches(
-                name, kept, "speculative solves"))
-        del spec_calls
-        # the quality audit on the flat slice (23)
-        quality_audit_phase(trace, classic["csv"], classic["walls"])
-        del classic
-        speculation_pipelined_phase()
-        speculation_agreement_phase()
-        agreement_phase(workdir)
-        default_agreement_phase(workdir)
-        resident_default_agreement_phase(workdir)
-        gang_runs = gang_slice_phase(trace)
-        gang_ops_phase(*gang_runs.pop("ops"))
-        for label, (gang_launches, gang_calls, _) in gang_runs.items():
-            err = gang_launches_phase(label, gang_calls)
-            for name in gang_calls:
-                errs[name] = max(errs[name], err)
-            print(f"gang {label} launches: " + json.dumps(gang_launches),
-                  flush=True)
-        del gang_runs, gang_calls
-        gang_agreement_phase(workdir)
-        # the superblock slice (21)
-        sb_launches, sb_calls = superblock_slice_phase(trace, hier_p50_ms)
-        launches["best_node_batched"] += sb_launches
-        errs["best_node_batched"] = max(
-            errs["best_node_batched"], hold_launches(
-                "best_node_batched", sb_calls, "superblock slice"))
-        del sb_calls
-    gang_admission_phase()
-    mp_serial = []
-    mp_launches, mp_calls, mp_trace = multipool_phase(serial_csv=mp_serial)
-    for name, err in multipool_launches_phase(mp_calls).items():
-        errs[name] = max(errs[name], err)
-        launches[name] += mp_launches[name]
-    del mp_calls
-    multipool_exact_phase(*mp_trace)
-    mp_classic_placed = placements_by_cycle(mp_serial[0], MP_CYCLES)
-    mp_launches, mp_calls = resident_multipool_phase(*mp_trace,
-                                                     mp_serial[0])
-    for name, kept in mp_calls.items():
-        launches[name] += mp_launches[name]
-        errs[name] = max(errs[name], hold_launches(
-            name, kept, "resident multipool"))
-    del mp_trace, mp_calls, mp_serial
-    n, res_calls = resident_streams_phase()
-    launches["best_node"] += n
-    errs["best_node"] = max(errs["best_node"], hold_launches(
-        "best_node", res_calls, "resident streams"))
-    del res_calls
-    multipool_agreement_phase()
-    paged_rows, err = paged_coarse_phase()
-    errs["coarse_pass"] = max(errs["coarse_pass"], err)
-    print("coarse_pass paged " + json.dumps(paged_rows), flush=True)
-    rebalance_case_phase()
-    rebalance_slice_phase()
-    reb_launches = rebalance_agreement_phase()
-    print(f"best_node launches inside the flat rebalance replay: "
-          f"{reb_launches}", flush=True)
-    # the elastic capacity plane: the solve alone, the multi-pool slice
-    # planning every cycle, the resident plan mirror, the agreement replays
-    elastic_solve_phase()
-    el_launches, el_errs, el_queues, el_trace = elastic_slice_phase(
-        classic_placed=mp_classic_placed)
-    for name in MP_KERNELS:
-        launches[name] += el_launches[name]
-        errs[name] = max(errs[name], el_errs[name])
-    elastic_residency_phase(el_queues, el_trace)
-    del el_queues, el_trace
-    elastic_agreement_phase()
-    # the superblock layer at 1M x 100k (22); faults, incidents and
-    # admission control (24)
-    superblock_mega_phase()
-    faults_phase()
+        del busiest, hier_calls
+        torch.cuda.empty_cache()
+        tally = run_parts(shared, workdir)
+    for name in KERNELS:
+        launches[name] += tally.launches[name]
+        errs[name] = max(errs[name], tally.errs[name])
     # the service (25): `python -m cook_tpu_torch`'s path, counts reset
     # inside just before the node starts and read once its loops stop
     n, err = service_phase()
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], err)
+    # failover (26): B's counts reset just before A's SIGKILL and read once
+    # B's loops stop
+    n, err = failover_phase(card)
     launches["best_node"] += n
     errs["best_node"] = max(errs["best_node"], err)
     # the card's name and power limit again, beside the numbers above

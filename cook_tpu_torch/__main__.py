@@ -7,6 +7,10 @@ leadership the scheduling loops, the match cycle on the card's kernels.
 it and without a card the process refuses to start.  SIGTERM stops the
 node as Ctrl-C does: the loops and the server shut down, and every
 acknowledged submission is already on disk in `data_dir`'s journal.
+With `leader_endpoint` (a `python -m cook_tpu_torch.control.lease_server`)
+or `leader_lease_path` in the config the node runs as leader or hot
+standby, whichever the lease decides: a standby tails the leader's
+journal into its own `data_dir` and takes over when the lease lapses.
 The reference's `--mp` multi-process mode waits for the port's `mp/`.
 """
 from __future__ import annotations

@@ -6,22 +6,29 @@ mesos.clj:89-110, and the leadership wiring, mesos.clj:153-328): the REST
 server runs on every node; the scheduling loops run only on the leader;
 losing leadership fail-fast exits.
 
-The single-process branches are ported: `build_process` (journal and
+The unsharded branches are ported: `build_process` (journal and
 snapshot recovery through `models/persistence`, one `txn` commit pipeline
 for REST mutations and the elastic plane, the elastic parameters, the
-metrics history, the incident directory), `start_leader_duties` (the
-in-memory elector; the rank, match, rebalance, elastic, snapshot, mock-
-advance, health-watch, heartbeat, monitor, progress, sandbox, lingering,
+replication and replica-read knobs, the metrics history, the incident
+directory), `start_leader_duties` (the elector the config names — the
+lease service's `HttpLeaseElector`, a `FileLeaseElector`, or the
+in-memory one; while standing by, a `control/replication.JournalFollower`
+tailing the leader into this node's store and journal; the promotion
+invariants; the rank, match, rebalance, elastic, snapshot, mock-advance,
+health-watch, heartbeat, monitor, progress, sandbox, lingering,
 straggler, cancelled and optimizer loops) and `shutdown`, which also
 joins the loops' threads.  The scheduler runs on the device that
 `Settings.platform` names: the card by default, where `build_process`
 raises through `device.resolve` when there is none.
 
-What waits for the control-plane slice raises a clear error when
-configured: `shards > 1` (the sharded store), hot standbys
-(`leader_lease_path`, `leader_endpoint`: their journal follower is
-`control/replication.py`), `replication_sync_ack`, the fleet observatory
-(`peers`), and the `k8s` / `k8s-http` cluster kinds.
+A standby's scheduler is passive: replicated events reach its columnar
+index and caches through the store's watchers on the follower's thread,
+all host-side bookkeeping — none touches the card — and the first match
+cycle after promotion runs on an index checked against the store.
+
+What waits raises a clear error when configured: `shards > 1` (the
+sharded store), the fleet observatory (`peers`), and the `k8s` /
+`k8s-http` cluster kinds.
 """
 from __future__ import annotations
 
@@ -36,7 +43,12 @@ from typing import Callable, Optional
 
 from cook_tpu_torch.cluster.base import ComputeCluster
 from cook_tpu_torch.cluster.mock import MockCluster, MockHost
-from cook_tpu_torch.control.leader import InMemoryElector, LeaderSelector
+from cook_tpu_torch.control.leader import (
+    FileLeaseElector,
+    HttpLeaseElector,
+    InMemoryElector,
+    LeaderSelector,
+)
 from cook_tpu_torch.models.entities import DruMode, Pool
 from cook_tpu_torch.models.store import JobStore
 from cook_tpu_torch.rest.api import ApiConfig, CookApi
@@ -105,7 +117,7 @@ def _mock_factory(conf: dict, clock) -> ComputeCluster:
 
 
 def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it waits for the "
+    return ValueError(f"{what} is not ported yet: it waits for a later "
                       "control-plane slice of the port")
 
 
@@ -162,8 +174,13 @@ class CookProcess:
     heartbeats: object = None
     sandbox_publisher: object = None
     journal: object = None
+    follower: object = None  # standby-side journal replication
     # durable multi-resolution metrics history (obs/tsdb.py)
     history: object = None
+    # set by shutdown under `duties_lock`: a standby promoting on another
+    # thread starts no loop once it is set
+    stopping: bool = False
+    duties_lock: threading.Lock = field(default_factory=threading.Lock)
 
     def is_leader(self) -> bool:
         return self.selector is not None and self.selector.is_leader
@@ -172,13 +189,6 @@ class CookProcess:
 def _check_ported(settings: Settings) -> None:
     if settings.shards > 1:
         raise _not_ported(f"shards={settings.shards} (the sharded store)")
-    if settings.leader_endpoint or settings.leader_lease_path:
-        raise _not_ported(
-            "a hot-standby election (leader_endpoint / leader_lease_path: "
-            "a standby tails the leader's journal with "
-            "control/replication.py)")
-    if settings.replication_sync_ack:
-        raise _not_ported("replication_sync_ack (standby acks)")
     if settings.peers:
         raise _not_ported("the fleet observatory (peers)")
     for conf in settings.clusters:
@@ -307,8 +317,15 @@ def build_process(
         authenticator=(authenticator_from_config(settings.auth)
                        if settings.auth else None),
         executor_token=settings.executor_token,
+        replication_sync_ack=settings.replication_sync_ack,
+        replication_min_acks=settings.replication_min_acks,
+        replication_ack_timeout_s=settings.replication_ack_timeout_s,
+        replication_ack_liveness_s=settings.replication_ack_liveness_s,
         load_shedding=settings.load_shedding,
         fault_injection=settings.fault_injection,
+        replica_reads=settings.replica_reads,
+        replica_staleness_ceiling_ms=settings.replica_staleness_ceiling_ms,
+        replica_refuse_after_s=settings.replica_refuse_after_s,
         max_gang_size=int(settings.api.get("max_gang_size", 64)),
     ), plugins=plugins, txn=txn, history=history)
     # close the overload loop: the contention observatory's shed signal
@@ -333,16 +350,81 @@ def start_leader_duties(process: CookProcess,
     """Acquire leadership, then start the scheduling loops
     (mesos.clj takeLeadership)."""
     settings = process.settings
-    elector = InMemoryElector("cook", process.member_id)
+    advertised = settings.advertised_url \
+        or f"http://127.0.0.1:{settings.port}"
+    if settings.leader_endpoint:
+        # networked election (the ZK-session analog): no shared
+        # filesystem between schedulers, only the lease service address
+        elector = HttpLeaseElector(
+            settings.leader_endpoint, settings.leader_group,
+            process.member_id, advertised_url=advertised,
+            ttl_s=settings.leader_ttl_s)
+    elif settings.leader_lease_path:
+        elector = FileLeaseElector(
+            settings.leader_lease_path, process.member_id,
+            advertised_url=advertised, ttl_s=settings.leader_ttl_s)
+    else:
+        elector = InMemoryElector("cook", process.member_id)
     process.selector = LeaderSelector(elector, on_loss=on_loss)
-    # keep the scheduler passive until leadership is held
+    # while standing by, surface the current leader for REST proxying and
+    # keep the scheduler passive: replicated events maintain its indexes
+    # but must not re-execute the leader's side effects
     process.api.leader = False
     process.scheduler.active = False
+    if hasattr(elector, "current_leader_url"):
+        process.api.leader_url = elector.current_leader_url()
+
+        # tail the leader's journal so promotion works from OUR copy of
+        # the state (the Datomic-replication role, control/replication.py)
+        from cook_tpu_torch.control.replication import JournalFollower
+
+        def set_leader_url(url: str) -> None:
+            if not process.selector.is_leader:
+                process.api.leader_url = url if url != advertised else ""
+
+        process.follower = JournalFollower(
+            process.store,
+            leader_url_fn=elector.current_leader_url,
+            self_url=advertised,
+            data_dir=settings.data_dir,
+            journal=process.journal,
+            as_user=settings.replication_user,
+            member_id=process.member_id,
+            on_leader_url=set_leader_url,
+        ).start()
+        # replica-served reads: heavy GETs on this standby answer from
+        # the replayed journal with the follower's staleness bound
+        process.api.staleness_fn = process.follower.staleness_view
     process.selector.wait_for_leadership()
     if not process.selector.is_leader:
         return  # stopped while standing by (shutdown during wait)
-    # promotion invariant: the columnar rank index tracked the store via
-    # the event fan-out; verify, and rebuild if anything drifted
+    if process.follower is not None:
+        # full join (stop waits out any in-flight fetch): a late response
+        # from a deposed leader must not clobber the state we now own
+        process.follower.stop()
+    # under the lock, so that a shutdown racing this promotion (a standby
+    # promoting on its own thread) either stops every loop it starts or
+    # finds `stopping` set before any starts
+    with process.duties_lock:
+        if process.stopping:
+            return
+        _take_leadership(process)
+    if block:
+        try:
+            while process.selector.is_leader:
+                time.sleep(1.0)
+        except KeyboardInterrupt:
+            pass
+
+
+def _take_leadership(process: CookProcess) -> None:
+    """The promotion invariants, in order, then the leader's loops
+    (mesos.clj takeLeadership)."""
+    settings = process.settings
+    # promotion invariant: the columnar rank index tracked the leader via
+    # the replicated-event fan-out; verify, and rebuild if anything
+    # drifted — a promoted standby must schedule from its replicated
+    # state immediately (no REST write in between)
     columnar = getattr(process.scheduler, "columnar", None)
     if columnar is not None and not columnar.consistent_with_store():
         log.warning("columnar index inconsistent at promotion; rebuilding")
@@ -356,6 +438,8 @@ def start_leader_duties(process: CookProcess,
     process.scheduler.active = True
     process.api.leader = True
     process.api.leader_url = ""
+    # the leader's reads are authoritative — no staleness stamping
+    process.api.staleness_fn = None
     log_info("leadership acquired", component="leader",
              member=process.member_id)
     journal = process.journal
@@ -528,19 +612,15 @@ def start_leader_duties(process: CookProcess,
             TriggerLoop("optimizer", settings.optimizer_interval_s,
                         run_optimizer).start()
         )
-    if block:
-        try:
-            while process.selector.is_leader:
-                time.sleep(1.0)
-        except KeyboardInterrupt:
-            pass
 
 
 def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
     """Stop the loops (waiting up to `join_s` for each one's current run
     to end, so no cycle outlives its process's teardown), the history
-    sampler, the election and the REST server, then close the journal
-    (its unsynced tail fsynced)."""
+    sampler, a standby's journal follower, the election and the REST
+    server, then close the journal (its unsynced tail fsynced)."""
+    with process.duties_lock:
+        process.stopping = True
     for loop in process.loops:
         loop.stop()
     deadline = time.monotonic() + join_s
@@ -548,6 +628,8 @@ def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
         loop.join(max(0.0, deadline - time.monotonic()))
     if process.history is not None:
         process.history.stop()
+    if process.follower is not None:
+        process.follower.stop()
     if process.selector is not None:
         process.selector.stop()
     if process.server is not None:

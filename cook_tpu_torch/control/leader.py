@@ -17,10 +17,9 @@ Implementations:
     goes stale.
   * HttpLeaseElector — the production path (the ZK-session analog):
     leases held by an external lease service
-    (the reference's `cook_tpu/control/lease_server.py`, whose port waits
-    for the control-plane slice) over plain HTTP, so two schedulers on
-    different machines with NO shared filesystem elect exactly one
-    leader.  Server-side TTLs + fencing epochs; network partitions from
+    (cook_tpu_torch.control.lease_server) over plain HTTP, so two
+    schedulers on different machines with NO shared filesystem elect
+    exactly one leader.  Server-side TTLs + fencing epochs; network partitions from
     the lease service dethrone the leader after one TTL (fail-fast,
     mesos.clj:296-313).
 """
@@ -154,7 +153,7 @@ class FileLeaseElector(LeaderElector):
 
 
 class HttpLeaseElector(LeaderElector):
-    """Lease-service-backed elector (the lease service's HTTP protocol).
+    """Lease-service-backed elector (cook_tpu_torch.control.lease_server).
 
     Loss semantics mirror a ZK session: a heartbeat the service answers
     with ok=false (someone else holds the lease, or our fencing epoch is

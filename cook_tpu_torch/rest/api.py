@@ -12,14 +12,16 @@ of aiohttp, which the card's machine does not have:
   /compute-clusters, /incremental-config, /pool-move, /debug and
   /debug/{health, contention, faults, elastic, device, predictions,
   cycles, spans, trace, incidents, history, fairness, profile},
-  /jobs/:uuid/timeline, /swagger-docs, /swagger-ui.
+  /jobs/:uuid/timeline, /swagger-docs, /swagger-ui, /shutdown-leader,
+  /replication/{journal, snapshot, ack}, /debug/replica.
 
 The handlers are the reference's, as plain functions: aiohttp's
 `async def` / `await` become calls, `web.Request` the shim's `Request`,
-`web.json_response` its `json_response`.  What waits for the control-plane
-slice answers 404 (no route): /replication/{journal, snapshot, ack},
-/debug/replica, /debug/fleet and /shutdown-leader, and with them the
-replica-read middleware and sync-ack replication.
+`web.json_response` its `json_response`.  The replication half is the
+unsharded one: the leader's committed-event feed with long-poll, the
+snapshot bootstrap, durable acks and sync-ack commits, and a standby's
+replica-read gate.  /debug/fleet (the fleet observatory) waits and
+answers 404, and a `?shard=` other than 0 answers 400.
 
 Concurrency.  aiohttp runs every handler on one event loop, so the
 reference's API-level state (the shedder, the rate limiters, the queue
@@ -34,6 +36,23 @@ the request body and writing the response happen outside it, as they do
 off the loop in aiohttp.  The scheduler's loops never take it: they share
 the store, and its own lock, with the handlers.
 
+Parked waits.  The reference parks a replication long-poll (up to
+`REPLICATION_MAX_WAIT_S`) and a sync-ack commit's wait for standby acks
+on its event loop, which serves other requests meanwhile — among them
+the standby's POST /replication/ack that ends the wait.  The port parks
+both on `_repl_cond` with the loop lock released (`_repl_wait`), so they
+hold no other request back; the snapshot and event encodes run with it
+released too.  A waiter reads the wakeup counter `_repl_gen`, tests its
+predicate (the journal window, or the ack registries) under the loop
+lock, and parks until the counter moves or its deadline passes.
+
+Lock order.  Loop lock -> store lock (a handler reading or committing);
+store lock -> `_repl_cond` (the store watcher `_on_store_event`, which
+runs on the committing thread under the store lock and only bumps the
+counter); loop lock -> `_repl_cond` (an ack).  `_repl_cond` is a leaf:
+nothing is acquired while it is held, and no thread waits on it while
+holding the loop lock or the store lock.
+
 Auth mirrors the reference's pluggable schemes: the requesting user comes
 from HTTP basic auth or the X-Cook-Requesting-User dev header, with
 X-Cook-Impersonate honored for configured admins.
@@ -44,7 +63,9 @@ import dataclasses
 import json
 import re
 import statistics
+import threading
 import time
+import uuid as uuid_mod
 from dataclasses import dataclass
 from typing import Optional
 
@@ -134,6 +155,23 @@ class ApiConfig:
     # heartbeat/progress posts; when set, those endpoints are only
     # auth-exempt for callers carrying it
     executor_token: str = ""
+    # sync-ack replication (the reference's durable-on-ack semantics,
+    # datomic.clj:79 transact-with-retries: a write survives leader death
+    # the moment the REST call returns).  When enabled, EVERY mutating
+    # endpoint (all committed through cook_tpu_torch.txn) blocks until
+    # >= replication_min_acks standbys have ACKed a sequence number
+    # covering the commit, or the timeout lapses — a timeout still
+    # commits (the write is applied and journaled locally) but the
+    # response carries "replicated": false (JSON bodies) or
+    # X-Cook-Replicated: false (204s) so callers know the durability
+    # bound was not met.
+    replication_sync_ack: bool = False
+    replication_min_acks: int = 1
+    replication_ack_timeout_s: float = 5.0
+    # acks older than this stop counting toward min_acks (and are
+    # pruned): a decommissioned standby's last ack must not satisfy the
+    # durability bound forever.  <= 0 disables liveness qualification.
+    replication_ack_liveness_s: float = 30.0
     # thresholds for the control-plane contention health checks
     # (store-lock-saturation, fsync-stall, replication-lag,
     # commit-ack-slo-burn, job-starvation); None = defaults
@@ -148,6 +186,16 @@ class ApiConfig:
     # by default and admin-only when on; never enable in production
     # outside a chaos drill
     fault_injection: bool = False
+    # replica-served reads (shard/replica.py): a non-leader with a
+    # journal follower serves heavy read endpoints from its replayed
+    # state, advertising bounded staleness (X-Cook-Staleness-Ms +
+    # staleness_ms in JSON-object bodies).  Above the freshness ceiling
+    # the read falls back to the leader (307); a replica that stopped
+    # applying for replica_refuse_after_s refuses reads (503) instead of
+    # serving stale forever.
+    replica_reads: bool = True
+    replica_staleness_ceiling_ms: float = 5000.0
+    replica_refuse_after_s: float = 30.0
 
 
 class CookApi:
@@ -188,12 +236,42 @@ class CookApi:
             self.authenticator = dev_default_authenticator()
         self.leader = True
         self.leader_url = ""  # set on standbys for leader proxying
+        # replication feed identity: event sequence numbers are only
+        # comparable within one leader history, so every process stamps
+        # its feed with a fresh incarnation; followers force a snapshot
+        # bootstrap when it changes (a deposed leader may hold committed
+        # events the new leader never saw — silent divergence otherwise)
+        self.incarnation = uuid_mod.uuid4().hex[:12]
+        # follower -> highest event seq it has confirmed applied AND
+        # journaled locally (POST /replication/ack with durable=true);
+        # read by sync-ack commits.  Acks from followers without local
+        # durability (no journal/data_dir) are tracked in
+        # replication_ack_meta only — they must not satisfy min_acks,
+        # or "replicated: true" would not mean what it says.
+        self.replication_acks: dict[str, int] = {}
+        # shard -> follower -> highest durable acked seq ON THAT SHARD
+        # (the reference's sharded layout; unsharded acks land under
+        # shard 0, so the same await path serves both)
+        self.replication_shard_acks: dict[int, dict[str, int]] = {}
+        # (follower, shard) -> {seq, durable, time(monotonic), ...} for
+        # every ack seen; liveness pruning keys off `time`
+        self.replication_ack_meta: dict[str, dict] = {}
+        # replica-served reads (shard/replica.py): a standby's wiring
+        # (components.py) points this at its journal follower's
+        # staleness_view; None = no replica-read surface on this node
+        self.staleness_fn = None
+        # long-poll / sync-ack wakeups (module docstring, "Lock order"):
+        # a generation counter bumped under its own condition by every
+        # commit (the store watcher) and every ack; waiters park on the
+        # condition with the loop lock released
+        self._repl_cond = threading.Condition()
+        self._repl_gen = 0
+        self._repl_closed = False
+        store.add_watcher(self._on_store_event)
         # control-plane contention observatory (obs/contention.py):
         # per-route REST telemetry (fed by the outermost middleware),
-        # store-lock / journal / commit-ack attribution — served at
-        # GET /debug/contention and folded into /debug/health.  No
-        # follower acks here: replication waits for the control-plane
-        # slice, so its view is always empty
+        # store-lock / journal / replication / commit-ack attribution —
+        # served at GET /debug/contention and folded into /debug/health
         self.endpoints = EndpointTelemetry()
         self.contention = ContentionObservatory(
             store,
@@ -201,9 +279,17 @@ class CookApi:
             endpoints=self.endpoints,
             journal_fn=lambda: getattr(
                 getattr(self.txn, "journal", None), "telemetry", None),
-            replication_meta_fn=dict,
+            # a copy: the health-watch loop reads it off the loop lock
+            replication_meta_fn=lambda: dict(self.replication_ack_meta),
             starvation_fn=self._starvation_view,
         )
+        self._replica_refusals = global_registry.counter(
+            "shard.replica_reads_refused",
+            "replica reads refused because the replica stopped applying")
+        self._replica_fallbacks = global_registry.counter(
+            "shard.replica_reads_fallback",
+            "replica reads redirected to the leader over the staleness "
+            "ceiling")
         # overload reaction: heavy reads shed while the SLO burns
         # (faults/reactions.py; also the scheduler's admission-scaleback
         # signal — components.py wires overload_fn to this)
@@ -259,7 +345,8 @@ class CookApi:
         # endpoint telemetry sits OUTSIDE auth so rejected requests are
         # measured too; middlewares apply in list order
         app = WebApplication(middlewares=[self._endpoint_middleware,
-                                          self._auth_middleware],
+                                          self._auth_middleware,
+                                          self._replica_middleware],
                              loop=self.loop)
         r = app.router
         for path in ("/rawscheduler", "/jobs"):
@@ -301,7 +388,12 @@ class CookApi:
         r.add_delete("/compute-clusters/{name}", self.delete_compute_cluster)
         r.add_get("/incremental-config", self.get_incremental_config)
         r.add_post("/incremental-config", self.post_incremental_config)
+        r.add_post("/shutdown-leader", self.post_shutdown_leader)
+        r.add_get("/replication/journal", self.get_replication_journal)
+        r.add_get("/replication/snapshot", self.get_replication_snapshot)
+        r.add_post("/replication/ack", self.post_replication_ack)
         r.add_get("/debug", self.get_debug)
+        r.add_get("/debug/replica", self.get_debug_replica)
         r.add_get("/debug/health", self.get_debug_health)
         r.add_get("/debug/contention", self.get_debug_contention)
         r.add_get("/debug/faults", self.get_debug_faults)
@@ -826,6 +918,106 @@ class CookApi:
         self._apply_cors(request, response)
         return response
 
+    # ------------------------------------------------------ replica reads
+    # Heavy read endpoints a non-leader replica serves from its replayed
+    # journal, each response advertising bounded staleness
+    # (shard/replica.py has the full contract).
+    REPLICA_READ_ROUTES = frozenset((
+        "/jobs", "/jobs/{uuid}", "/rawscheduler", "/list", "/running",
+        "/unscheduled_jobs", "/stats/instances", "/instances",
+        "/instances/{uuid}", "/group", "/usage",
+    ))
+
+    def _replica_evaluation(self) -> Optional[dict]:
+        """The per-shard staleness decision, or None when this node is
+        the leader / has no follower wired."""
+        if self.leader or not self.config.replica_reads \
+                or self.staleness_fn is None:
+            return None
+        from cook_tpu_torch.shard.replica import evaluate_staleness
+
+        return evaluate_staleness(
+            self.staleness_fn(),
+            ceiling_ms=self.config.replica_staleness_ceiling_ms,
+            refuse_after_s=self.config.replica_refuse_after_s)
+
+    def _replica_middleware(self, request: Request, handler):
+        """Replica-read gate + staleness stamping.  Leader (or
+        follower-less) nodes pass straight through.  On a replica:
+        refusal (stopped applying) and leader fallback (over the
+        freshness ceiling) short-circuit heavy reads; served reads —
+        including /debug/* — carry X-Cook-Staleness-Ms (worst shard) and
+        X-Cook-Shard-Staleness (per-shard split), and JSON-object bodies
+        gain a staleness_ms field."""
+        verdict = self._replica_evaluation()
+        if verdict is None or request.method != "GET":
+            return handler(request)
+        route = request.route or ""
+        gated = route in self.REPLICA_READ_ROUTES
+        if gated and verdict["action"] == "refuse":
+            self._replica_refusals.inc()
+            return _err(503, "replica stopped applying the leader's "
+                             "journal; refusing stale reads "
+                             "(X-Cook-Staleness-Ms unbounded)")
+        if gated and verdict["action"] == "fallback":
+            if self.leader_url:
+                self._replica_fallbacks.inc()
+                raise HTTPTemporaryRedirect(
+                    f"{self.leader_url}{request.path_qs}")
+            if verdict["staleness_ms"] == float("inf"):
+                # never-synced AND no leader to redirect to: nothing
+                # safe to serve
+                self._replica_refusals.inc()
+                return _err(503, "replica has not caught up with any "
+                                 "leader yet and no leader is known")
+        response = handler(request)
+        if gated or route.startswith("/debug"):
+            self._stamp_staleness(response, verdict)
+        return response
+
+    @staticmethod
+    def _stamp_staleness(response, verdict: dict) -> None:
+        worst = verdict["staleness_ms"]
+        worst_txt = "inf" if worst == float("inf") else str(int(worst))
+        response.headers["X-Cook-Staleness-Ms"] = worst_txt
+        response.headers["X-Cook-Shard-Staleness"] = json.dumps({
+            str(shard): ("inf" if ms == float("inf") else int(ms))
+            for shard, ms in verdict["shards"].items()})
+        if response.content_type == "application/json" and response.body:
+            try:
+                payload = json.loads(response.body)
+            except ValueError:
+                return
+            if isinstance(payload, dict):
+                payload["staleness_ms"] = (
+                    None if worst == float("inf") else worst)
+                response.body = json.dumps(payload).encode()
+
+    def get_debug_replica(self, request: Request) -> Response:
+        """Replica-read surface: whether this node serves replica reads,
+        the per-shard staleness/stall view, and the decision the gate
+        would take right now (serve / fallback / refuse)."""
+        verdict = self._replica_evaluation()
+        view = self.staleness_fn() if self.staleness_fn is not None else {}
+
+        def clean(row):
+            return {k: (None if v == float("inf") else v)
+                    for k, v in row.items()}
+        return json_response({
+            "leader": self.leader,
+            "replica_reads": self.config.replica_reads,
+            "ceiling_ms": self.config.replica_staleness_ceiling_ms,
+            "refuse_after_s": self.config.replica_refuse_after_s,
+            "shards": {str(s): clean(row)
+                       for s, row in sorted(view.items())},
+            "decision": (None if verdict is None else {
+                "action": verdict["action"],
+                "staleness_ms": (None if verdict["staleness_ms"]
+                                 == float("inf")
+                                 else verdict["staleness_ms"]),
+            }),
+        })
+
     def _auth_exempt(self, request: Request) -> bool:
         path = request.path
         if path in ("/debug", "/debug/health"):
@@ -886,9 +1078,12 @@ class CookApi:
     def _commit(self, request: Request, op: str, payload: dict,
                 *, txn_suffix: str = "") -> TxnOutcome:
         """Commit one mutation through the transaction pipeline (journaled
-        and fsynced before the call returns when a journal is wired).
-        Clients may pass X-Cook-Txn-Id: a retried request with the same
-        id is answered from the transaction table, not re-applied."""
+        and fsynced before the call returns when a journal is wired) and,
+        in sync-ack mode, await the replication durability bound (the
+        datomic.clj:79 durable-on-ack semantics, for EVERY mutation
+        type).  Clients may pass X-Cook-Txn-Id: a retried request with
+        the same id is answered from the transaction table, not
+        re-applied — on this leader or a promoted standby."""
         from cook_tpu_torch.utils import tracing
 
         txn_id = request.headers.get("X-Cook-Txn-Id") or None
@@ -896,9 +1091,18 @@ class CookApi:
             txn_id = f"{txn_id}:{txn_suffix}"
         t0 = time.perf_counter()
         outcome = self._run_commit(op, payload, txn_id)
-        if outcome.phase_walls:
+        outcome.replicated = True
+        walls = dict(outcome.phase_walls or {})
+        if self.config.replication_sync_ack and not outcome.duplicate:
+            t_repl = time.perf_counter()
+            outcome.replicated = self._await_replication_outcome(outcome)
+            walls["replication_ack"] = time.perf_counter() - t_repl
+            if not outcome.replicated:
+                self._note_ack_timeout()
+        if walls:
             # picked up by _endpoint_middleware into X-Cook-Hop-Walls
-            request["phase_walls"] = dict(outcome.phase_walls)
+            outcome.phase_walls = walls
+            request["phase_walls"] = walls
         # the server-side commit span, parented under the caller's span
         # when the request carried X-Cook-Parent-Span
         tracing.record_span(
@@ -906,6 +1110,15 @@ class CookApi:
             parent=request.headers.get(PARENT_SPAN_HEADER),
             txn_id=outcome.txn_id, op=op)
         return outcome
+
+    @staticmethod
+    def _no_content(outcome: TxnOutcome) -> Response:
+        """204 for a committed mutation; an unmet replication bound is
+        flagged in a header (a 204 carries no body to say it in)."""
+        response = Response(status=204)
+        if outcome.replicated is False:
+            response.headers["X-Cook-Replicated"] = "false"
+        return response
 
     # ------------------------------------------------------------------ jobs
 
@@ -941,8 +1154,9 @@ class CookApi:
         except TransactionVetoed as e:
             return _err(400, str(e))
         if not outcome.duplicate:
-            # submit -> commit-ack SLO: apply + journal fsync, as the
-            # submitting client experiences it.  Idempotent replays answer from the txn table in ~0s and
+            # submit -> commit-ack SLO: apply + journal fsync + (sync-ack
+            # mode) replication wait, as the submitting client experiences
+            # it.  Idempotent replays answer from the txn table in ~0s and
             # would flood the histogram with samples no durable commit saw.
             from cook_tpu_torch.scheduler.monitor import observe_commit_ack
 
@@ -955,6 +1169,10 @@ class CookApi:
                 "jobs_submitted", "jobs accepted via POST /jobs").inc(
                 len(jobs))
         body = dict(outcome.result or {"jobs": [j.uuid for j in jobs]})
+        if outcome.replicated is False:
+            # durable-on-ack (datomic.clj:79): the commit stands, but the
+            # standby durability bound was not met — say so
+            body["replicated"] = False
         return json_response(body, status=201)
 
     def parse_submission(
@@ -1287,7 +1505,7 @@ class CookApi:
             global_registry.counter(
                 "jobs_killed", "jobs killed via DELETE /jobs").inc(
                 len(uuids))
-        return Response(status=204)
+        return self._no_content(outcome)
 
     # ------------------------------------------------------------- instances
 
@@ -1321,10 +1539,11 @@ class CookApi:
             job = self.store.jobs[inst.job_uuid]
             if job.user != user and user not in self.config.admins:
                 return _err(403, f"not authorized to cancel {uuid}")
-        self._commit(request, "instance/cancel", {"task_ids": uuids})
+        outcome = self._commit(request, "instance/cancel",
+                               {"task_ids": uuids})
         if self.scheduler is not None:
             self.scheduler.kill_cancelled_tasks()
-        return Response(status=204)
+        return self._no_content(outcome)
 
     # ---------------------------------------------------------------- groups
 
@@ -1364,8 +1583,8 @@ class CookApi:
         for uuid in uuids:
             if uuid not in self.store.groups:
                 return _err(404, f"unknown group {uuid}")
-        self._commit(request, "group/kill", {"groups": uuids})
-        return Response(status=204)
+        outcome = self._commit(request, "group/kill", {"groups": uuids})
+        return self._no_content(outcome)
 
     # ------------------------------------------------------------ share/quota
 
@@ -1386,7 +1605,7 @@ class CookApi:
         res = body.get("share", {})
         if not user:
             return _err(400, "user required")
-        self._commit(request, "share/set", {"share": Share(
+        outcome = self._commit(request, "share/set", {"share": Share(
             user=user, pool=pool,
             resources=Resources(
                 mem=float(res.get("mem", 0)),
@@ -1395,16 +1614,19 @@ class CookApi:
             ),
             reason=body.get("reason", ""),
         )})
-        return json_response(_res_json(self.store.get_share(user, pool)),
-                             status=201)
+        body_out = _res_json(self.store.get_share(user, pool))
+        if outcome.replicated is False:
+            body_out["replicated"] = False
+        return json_response(body_out, status=201)
 
     def delete_share(self, request: Request) -> Response:
         if request["user"] not in self.config.admins:
             return _err(403, "only admins may modify shares")
         user = request.query.get("user")
         pool = request.query.get("pool", self.config.default_pool)
-        self._commit(request, "share/retract", {"user": user, "pool": pool})
-        return Response(status=204)
+        outcome = self._commit(request, "share/retract",
+                               {"user": user, "pool": pool})
+        return self._no_content(outcome)
 
     def get_quota(self, request: Request) -> Response:
         user = request.query.get("user")
@@ -1426,7 +1648,7 @@ class CookApi:
         if not user:
             return _err(400, "user required")
         inf = float("inf")
-        self._commit(request, "quota/set", {"quota": Quota(
+        outcome = self._commit(request, "quota/set", {"quota": Quota(
             user=user, pool=pool,
             resources=Resources(
                 mem=float(res.get("mem", inf)),
@@ -1436,15 +1658,19 @@ class CookApi:
             count=int(res.get("count", 2**31)),
             reason=body.get("reason", ""),
         )})
-        return json_response({"user": user, "pool": pool}, status=201)
+        body_out = {"user": user, "pool": pool}
+        if outcome.replicated is False:
+            body_out["replicated"] = False
+        return json_response(body_out, status=201)
 
     def delete_quota(self, request: Request) -> Response:
         if request["user"] not in self.config.admins:
             return _err(403, "only admins may modify quotas")
         user = request.query.get("user")
         pool = request.query.get("pool", self.config.default_pool)
-        self._commit(request, "quota/retract", {"user": user, "pool": pool})
-        return Response(status=204)
+        outcome = self._commit(request, "quota/retract",
+                               {"user": user, "pool": pool})
+        return self._no_content(outcome)
 
     def get_usage(self, request: Request) -> Response:
         user = request.query.get("user")
@@ -1490,6 +1716,8 @@ class CookApi:
         if retries is None and increment is None:
             return _err(400, "retries or increment required")
         txn_id = request.headers.get("X-Cook-Txn-Id") or None
+        last_seqs: dict[int, int] = {}
+        fresh = 0
         for uuid in uuids:
             if uuid not in self.store.jobs:
                 return _err(404, f"unknown job {uuid}")
@@ -1499,7 +1727,7 @@ class CookApi:
                 # batches dedupe jobwise.  An absolute `retries` wins
                 # over `increment` when both are present (the original
                 # precedence).
-                self._run_commit(
+                outcome = self._run_commit(
                     "job/retry",
                     {"uuid": uuid,
                      "retries": int(retries if retries is not None
@@ -1508,7 +1736,38 @@ class CookApi:
                     txn_id=f"{txn_id}:{uuid}" if txn_id else None)
             except (TransactionVetoed, ValueError) as e:
                 return _err(400, str(e))
-        return json_response({"jobs": uuids}, status=201)
+            fresh += self._merge_batch_seqs(last_seqs, outcome)
+        body_out = {"jobs": uuids}
+        if not self._batch_replicated(last_seqs, fresh):
+            body_out["replicated"] = False
+        return json_response(body_out, status=201)
+
+    @staticmethod
+    def _merge_batch_seqs(last_seqs: dict[int, int],
+                          outcome: TxnOutcome) -> int:
+        """Fold one per-item commit of a batch into the batch's highest
+        seq per shard; 1 when it was a fresh commit, 0 for an idempotent
+        replay (duplicates met their bound when first acked: merging
+        their seqs would make the batch wait on replication that already
+        happened)."""
+        if outcome.duplicate:
+            return 0
+        for shard, seq in (outcome.shard_seqs or {0: outcome.seq}).items():
+            last_seqs[shard] = max(last_seqs.get(shard, 0), seq)
+        return 1
+
+    def _batch_replicated(self, last_seqs: dict[int, int],
+                          fresh: int) -> bool:
+        """The sync-ack wait of a batch of per-item commits: one wait per
+        touched shard covers the whole batch (acks are cumulative
+        sequence numbers per shard)."""
+        if not self.config.replication_sync_ack or not fresh:
+            return True
+        for shard, seq in sorted(last_seqs.items()):
+            if not self._await_replication(seq, shard):
+                self._note_ack_timeout()
+                return False
+        return True
 
     # ------------------------------------------------------------- pool move
 
@@ -1530,14 +1789,19 @@ class CookApi:
                 return _err(404, f"unknown job {uuid}")
         txn_id = request.headers.get("X-Cook-Txn-Id") or None
         moved, skipped = [], []
+        last_seqs: dict[int, int] = {}
+        fresh = 0
         for uuid in uuids:
             outcome = self._run_commit(
                 "job/pool-move", {"uuid": uuid, "pool": pool},
                 f"{txn_id}:{uuid}" if txn_id else None)
             result = outcome.result or {}
             (moved if result.get("moved") else skipped).append(uuid)
-        return json_response({"moved": moved, "skipped": skipped,
-                              "pool": pool}, status=201)
+            fresh += self._merge_batch_seqs(last_seqs, outcome)
+        body_out = {"moved": moved, "skipped": skipped, "pool": pool}
+        if not self._batch_replicated(last_seqs, fresh):
+            body_out["replicated"] = False
+        return json_response(body_out, status=201)
 
     # ------------------------------------------------------------- queue etc
 
@@ -1897,6 +2161,265 @@ class CookApi:
         body = request.json()
         self._commit(request, "config/update", {"updates": body})
         return json_response(self.store.dynamic_config, status=201)
+
+    def post_shutdown_leader(self, request: Request) -> Response:
+        if request["user"] not in self.config.admins:
+            return _err(403, "admin required")
+        self.leader = False
+        return json_response({"shutdown": "requested"}, status=202)
+
+    # ------------------------------------------------------- replication
+    # The Datomic tx-report role (datomic.clj:49): standbys tail the
+    # leader's committed-event feed so failover works from the STANDBY's
+    # own copy of the state — the leader's disk is not a single point of
+    # durability.  Consumed by control/replication.py JournalFollower.
+
+    REPLICATION_BATCH = 2000
+    REPLICATION_MAX_WAIT_S = 25.0
+
+    # --- wakeup plumbing (module docstring, "Lock order").  Commits
+    # happen on arbitrary writer threads under the store lock; long-poll
+    # and sync-ack waiters are request threads.  The store watcher and
+    # every ack only bump a generation counter under `_repl_cond` and
+    # notify it; a waiter reads the counter BEFORE testing its predicate
+    # (under the loop lock), then parks until the counter moves, so a
+    # wakeup between the test and the park is never lost.
+
+    def _on_store_event(self, _event) -> None:
+        """Store watcher: runs on the committing thread, under the store
+        lock.  It may only bump and notify — taking the loop lock here
+        would deadlock against a handler that holds the loop lock and
+        waits for the store lock."""
+        self._repl_wake_all()
+
+    def _repl_wake_all(self) -> None:
+        with self._repl_cond:
+            self._repl_gen += 1
+            self._repl_cond.notify_all()
+
+    def _repl_wait(self, gen: int, timeout_s: float) -> None:
+        """Park until the wakeup counter moves past `gen` (a commit, an
+        ack, or the server closing) or `timeout_s` lapses, with the loop
+        lock released so other requests — among them the ack that ends a
+        sync-ack wait — are served meanwhile."""
+        with self.loop.released(), self._repl_cond:
+            self._repl_cond.wait_for(
+                lambda: self._repl_gen != gen or self._repl_closed,
+                max(0.0, timeout_s))
+
+    def close_replication_waits(self) -> None:
+        """Answer every parked long-poll and sync-ack wait now, and park
+        no new one: the server is stopping (rest/server.py), and its
+        handler threads must end before it closes."""
+        with self._repl_cond:
+            self._repl_closed = True
+            self._repl_cond.notify_all()
+
+    def _replication_store(self, shard: Optional[int]):
+        """The store whose feed a follower asked for: the whole
+        (unsharded) store for shard None or 0.  None = bad shard index
+        (the sharded store's port waits)."""
+        return self.store if shard in (None, 0) else None
+
+    def _journal_slice(self, after_seq: int, store=None):
+        """Copy the event batch under the store lock; encode nothing
+        there (events are immutable — serialization happens outside so
+        standby polls never stall leader writes)."""
+        store = store if store is not None else self.store
+        with store._lock:
+            last_seq = store.last_seq()
+            window = store._events
+            oldest = window[0].seq if window else None
+            # follower ahead of us: it replicated from a leader history
+            # we never saw (e.g. we are a deposed leader's standby that
+            # outlived it) — only a snapshot bootstrap can converge it
+            if after_seq > last_seq:
+                return None, last_seq, False
+            # gap: events in (after_seq, oldest) have been trimmed from
+            # the window (or predate this process — e.g. a leader that
+            # itself recovered from disk); the follower must re-bootstrap
+            # from a full snapshot
+            if after_seq < last_seq and (oldest is None
+                                         or after_seq + 1 < oldest):
+                return None, last_seq, False
+            events = [e for e in window if e.seq > after_seq]
+            batch = events[:self.REPLICATION_BATCH]
+            return batch, last_seq, len(events) > len(batch)
+
+    def get_replication_journal(self, request: Request) -> Response:
+        """Committed-event feed for standbys (the Datomic tx-report role,
+        datomic.clj:49).  `wait_s` long-polls: when the follower is caught
+        up, the request parks until the next commit instead of returning
+        empty — replication becomes push-like and write stalls don't scale
+        with standby count."""
+        if request["user"] not in self.config.admins:
+            return _err(403, "admin required")
+        try:
+            after_seq = int(request.query.get("after_seq", "0"))
+            wait_s = float(request.query.get("wait_s", "0"))
+            shard = (int(request.query.get("shard"))
+                     if request.query.get("shard") is not None else None)
+        except ValueError:
+            return _err(400, "after_seq/wait_s/shard must be numeric")
+        wait_s = min(wait_s, self.REPLICATION_MAX_WAIT_S)
+        target = self._replication_store(shard)
+        if target is None:
+            return _err(400, f"unknown shard {shard}")
+        deadline = time.monotonic() + wait_s
+        while True:
+            gen = self._repl_gen
+            batch, last_seq, more = self._journal_slice(after_seq, target)
+            if batch is None:
+                return json_response({
+                    "snapshot_required": True, "last_seq": last_seq,
+                    "incarnation": self.incarnation})
+            if batch or self._repl_closed \
+                    or time.monotonic() >= deadline:
+                break
+            self._repl_wait(gen, deadline - time.monotonic())
+        # the encode runs with the loop lock released, as the reference
+        # runs it in an executor
+        with self.loop.released():
+            encoded = [json.loads(e.to_json()) for e in batch]
+        return json_response({
+            "events": encoded,
+            "last_seq": last_seq,
+            "more": more,
+            "incarnation": self.incarnation,
+        })
+
+    def get_replication_snapshot(self, request: Request) -> Response:
+        if request["user"] not in self.config.admins:
+            return _err(403, "admin required")
+        from cook_tpu_torch.models import persistence
+
+        try:
+            shard = (int(request.query.get("shard"))
+                     if request.query.get("shard") is not None else None)
+        except ValueError:
+            return _err(400, "shard must be an integer")
+        target = self._replication_store(shard)
+        if target is None:
+            return _err(400, f"unknown shard {shard}")
+        # snapshot_state copies entity references under the store lock
+        # and encodes outside it; the loop lock is released for both, so
+        # a large snapshot holds no other request back
+        with self.loop.released():
+            state = persistence.snapshot_state(target)
+        state["incarnation"] = self.incarnation
+        return json_response(state)
+
+    def post_replication_ack(self, request: Request) -> Response:
+        """Followers confirm the highest seq they have applied; only acks
+        flagged `durable` (applied AND journaled on the follower's own
+        disk) count toward the sync-ack bound — a memory-only follower
+        confirming a write does not make it survive two machine losses.
+        Absent flag defaults to durable for wire compatibility."""
+        if request["user"] not in self.config.admins:
+            return _err(403, "admin required")
+        body = request.json()
+        follower = str(body.get("follower", ""))
+        try:
+            seq = int(body.get("seq"))
+        except (TypeError, ValueError):
+            return _err(400, "seq must be an integer")
+        if not follower:
+            return _err(400, "follower required")
+        durable = bool(body.get("durable", True))
+        try:
+            # sharded feeds ack per shard (sequence numbers are only
+            # comparable within one shard's history); unsharded acks are
+            # shard 0
+            shard = int(body.get("shard", 0))
+        except (TypeError, ValueError):
+            return _err(400, "shard must be an integer")
+        # correlation: the follower reports the txn id of the newest
+        # txn/committed event its ack covers, so the ack is attributable
+        # to the mutation it makes durable (and the span ring links it)
+        last_txn_id = str(body.get("last_txn_id", "") or "")
+        meta_key = follower if shard == 0 else f"{follower}[s{shard}]"
+        self.replication_ack_meta[meta_key] = {
+            "seq": seq, "durable": durable, "time": time.monotonic(),
+            "last_txn_id": last_txn_id, "shard": shard,
+            "follower": follower,
+            # the follower's own REST URL (control/replication.py sends
+            # it): the reference's fleet observatory polls it as a peer
+            "url": str(body.get("url", "") or "")}
+        global_registry.counter(
+            "replication.acks",
+            "replication acks received, split durable vs memory-only").inc(
+            1, {"durable": str(durable).lower()})
+        if durable:
+            acks = self.replication_shard_acks.setdefault(shard, {})
+            acks[follower] = max(acks.get(follower, 0), seq)
+            if shard == 0:
+                prev = self.replication_acks.get(follower, 0)
+                self.replication_acks[follower] = max(prev, seq)
+        if last_txn_id:
+            from cook_tpu_torch.utils import tracing
+
+            tracing.record_event("replication.ack", txn_id=last_txn_id,
+                                 follower=follower, durable=durable)
+        self._repl_wake_all()
+        return json_response({"ok": True, "counted": durable})
+
+    def _prune_stale_acks(self) -> None:
+        """Drop ack entries whose follower has gone quiet for longer than
+        the liveness window: a decommissioned standby's last ack (possibly
+        a high seq from a diverged history) must not satisfy the
+        durability bound forever."""
+        ttl = self.config.replication_ack_liveness_s
+        if ttl <= 0:
+            return
+        now = time.monotonic()
+        for meta_key, meta in list(self.replication_ack_meta.items()):
+            if now - meta["time"] > ttl:
+                del self.replication_ack_meta[meta_key]
+                follower = meta.get("follower", meta_key)
+                shard = meta.get("shard", 0)
+                self.replication_shard_acks.get(shard, {}).pop(
+                    follower, None)
+                if shard == 0:
+                    self.replication_acks.pop(follower, None)
+
+    def _await_replication(self, seq: int, shard: int = 0) -> bool:
+        """Block until >= replication_min_acks LIVE, durable followers
+        confirm `seq` ON `shard`, or the configured timeout lapses.
+        True = durability bound met.  The acks are read under the loop
+        lock (post_replication_ack writes them under it); the wait parks
+        with it released."""
+        deadline = time.monotonic() + self.config.replication_ack_timeout_s
+        need = self.config.replication_min_acks
+        while True:
+            gen = self._repl_gen
+            self._prune_stale_acks()
+            acks = self.replication_shard_acks.get(shard, {})
+            if shard == 0 and not acks:
+                acks = self.replication_acks
+            acked = sum(1 for s in acks.values() if s >= seq)
+            if acked >= need:
+                return True
+            remaining = deadline - time.monotonic()
+            if remaining <= 0 or self._repl_closed:
+                return False
+            self._repl_wait(gen, remaining)
+
+    def _await_replication_outcome(self, outcome: TxnOutcome) -> bool:
+        """Sync-ack wait for one commit: every shard the transaction
+        touched must meet the durability bound (a cross-shard commit is
+        durable only when BOTH segments are replicated)."""
+        if outcome.shard_seqs:
+            for shard, seq in sorted(outcome.shard_seqs.items()):
+                if not self._await_replication(seq, shard):
+                    return False
+            return True
+        return self._await_replication(outcome.seq)
+
+    @staticmethod
+    def _note_ack_timeout() -> None:
+        global_registry.counter(
+            "replication_ack_timeouts",
+            "sync-ack replication bounds missed").inc()
 
 
 def _res_json(res: Resources) -> dict:

@@ -1,4 +1,5 @@
-"""Sharded control plane.  Only `router.MisroutedKey` is ported so far
-(the REST layer answers it with 421); the partitioned store, journal
-segments and replicas of the reference's `cook_tpu/shard/` wait for the
-control-plane slice."""
+"""Sharded control plane.  Ported so far: `router.MisroutedKey` (the REST
+layer answers it with 421) and `replica.evaluate_staleness` (a standby's
+replica-read gate); the partitioned store, journal segments and
+`ShardedJournalFollower` of the reference's `cook_tpu/shard/` wait for the
+sharded-store slice."""

@@ -3,8 +3,8 @@
 the single-process cases of tests/test_components.py on both packages
 (`P` over `ref` / `port`: the electors and the selector, the reaction
 wiring, a whole node booted from config and driven over HTTP), journal
-recovery across a restart, what waits for the control-plane slice
-refusing to start, the device a config names, and `python -m
+recovery across a restart, what waits for a later control-plane slice
+refusing to start and what waited booting, the device a config names, and `python -m
 cook_tpu_torch` itself: booted on the CPU, stopped with SIGTERM, and
 restarted on the same data_dir with every acknowledged job readable."""
 import json
@@ -248,18 +248,74 @@ def test_journal_recovery_across_a_restart(P, tmp_path):
 
 @pytest.mark.parametrize("conf", [
     {"shards": 2},
-    {"leader_lease_path": "/nonexistent/lease"},
-    {"leader_endpoint": "http://127.0.0.1:1"},
-    {"replication_sync_ack": True},
     {"peers": ("http://127.0.0.1:1",)},
     {"clusters": [{"kind": "k8s", "name": "k"}]},
     {"clusters": [{"kind": "k8s-http", "name": "k", "url": "http://x"}]},
-], ids=["shards", "file-lease", "lease-service", "sync-ack", "fleet", "k8s",
-        "k8s-http"])
+], ids=["shards", "fleet", "k8s", "k8s-http"])
 def test_what_waits_refuses_to_start(conf):
     with pytest.raises(ValueError, match="not ported yet"):
         port_components.build_process(
             settings(PORT, **conf), start_rest=False)
+
+
+@pytest.mark.parametrize("case", ["file-lease", "lease-service",
+                                  "sync-ack"])
+def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
+    """The election and replication configs that waited for the
+    control-plane slice boot now: a file lease or the lease service elect
+    the first node, a second one on the lease service stands by with a
+    journal follower, a sync-ack leader with no standby commits and says
+    "replicated": false; every node stops with no thread left behind."""
+    from cook_tpu_torch.control.lease_server import LeaseServer
+
+    lease = LeaseServer().start() if case == "lease-service" else None
+    conf = {"file-lease": {"leader_lease_path": str(tmp_path / "lease")},
+            "lease-service": {"leader_endpoint": lease and lease.url},
+            "sync-ack": {"replication_sync_ack": True,
+                         "replication_ack_timeout_s": 0.2}}[case]
+    nodes, threads = [], []
+    try:
+        for i in range(2 if lease else 1):
+            s = _mock_settings(PORT, port=port_server.free_port(),
+                               data_dir=str(tmp_path / f"n{i}"), **conf)
+            nodes.append(port_components.build_process(s))
+            t = threading.Thread(
+                target=port_components.start_leader_duties,
+                args=(nodes[-1],), kwargs={"block": False,
+                                           "on_loss": lambda: None},
+                daemon=True)
+            t.start()
+            threads.append(t)
+            if i == 0:
+                t.join(timeout=TIMEOUT_S)
+                assert nodes[0].is_leader()
+        url = f"http://127.0.0.1:{nodes[0].settings.port}"
+        r = requests.post(f"{url}/jobs", json={"jobs": [
+            {"command": "x", "mem": 100, "cpus": 1}]}, headers=H,
+            timeout=TIMEOUT_S)
+        assert r.status_code == 201
+        assert r.json().get("replicated") is (
+            False if case == "sync-ack" else None)
+        if lease:
+            standby = nodes[1]
+            uuid = r.json()["jobs"][0]
+            deadline = time.monotonic() + TIMEOUT_S
+            while uuid not in standby.store.jobs:
+                assert time.monotonic() < deadline, "no replication"
+                time.sleep(0.05)
+            assert not standby.is_leader() and threads[1].is_alive()
+    finally:
+        for p in nodes:
+            port_components.shutdown(p)
+        for t in threads:
+            t.join(timeout=TIMEOUT_S)
+        if lease:
+            lease.stop()
+    assert not any(t.is_alive() for t in threads)
+    for p in nodes:
+        assert p.follower is None or not p.follower._thread.is_alive()
+        assert not p.loops or not any(
+            loop._thread.is_alive() for loop in p.loops)
 
 
 def test_no_card_and_no_cpu_platform_raises(monkeypatch):
@@ -409,3 +465,24 @@ def test_chip_smoke_service_phase_on_cpu(monkeypatch):
         assert launches == 0 and calls
         assert all(a.device.type == "cpu" for a in calls[0][:3])
         chip_smoke.service_restart(hosts, specs, workdir, device="cpu")
+
+
+def test_chip_smoke_failover_phase_on_cpu():
+    """chip_smoke.py's failover phase (26) at a CPU test's size: a lease
+    service and leader A (`python -m cook_tpu_torch`, sync acks) as
+    subprocesses, standby B in process; 2,000 jobs in 10 sync-acked
+    POSTs, each on B's disk before its 201; a replica read on B; A
+    SIGKILLed, B promoted within 2 x TTL + 5 s and running 3 full-window
+    cycles; every acked job read back from B, no other job there, B's
+    index consistent, no host over-committed.  On the CPU the matcher's
+    `best_node` calls run the plain version and count no launch."""
+    import tempfile
+
+    import chip_smoke
+
+    hosts, specs = chip_smoke.service_fleet(n_hosts=200, n_jobs=2000)
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, calls = chip_smoke.failover_run(hosts, specs, workdir,
+                                                  device="cpu")
+    assert launches == 0 and calls
+    assert all(a.device.type == "cpu" for a in calls[0][:3])

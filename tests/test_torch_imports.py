@@ -164,7 +164,9 @@ SUPERBLOCK_MODULES = ("cook_tpu_torch.obs.incident",
 
 # the service slice's modules: the REST layer on the standard library, the
 # process wiring and its entry point, and the copies of jax-free reference
-# modules they need (config, plugins, monitors, leader election, auth)
+# modules they need (config, plugins, monitors, leader election, auth);
+# then the control plane's: the lease service, journal replication, its
+# retry policy and the replica-read rule
 SERVICE_MODULES = ("cook_tpu_torch.__main__",
                    "cook_tpu_torch.components",
                    "cook_tpu_torch.rest",
@@ -183,7 +185,11 @@ SERVICE_MODULES = ("cook_tpu_torch.__main__",
                    "cook_tpu_torch.scheduler.monitor",
                    "cook_tpu_torch.scheduler.progress",
                    "cook_tpu_torch.scheduler.heartbeat",
-                   "cook_tpu_torch.scheduler.sandbox")
+                   "cook_tpu_torch.scheduler.sandbox",
+                   "cook_tpu_torch.control.lease_server",
+                   "cook_tpu_torch.control.replication",
+                   "cook_tpu_torch.utils.retry",
+                   "cook_tpu_torch.shard.replica")
 
 
 @pytest.mark.parametrize("module", SERVICE_MODULES)
