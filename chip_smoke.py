@@ -375,6 +375,42 @@ inside the slices' block, 22 and 24 after the elastic agreement (20):
                   submit wall per batch with its sync-ack wait, B's lag
                   (staleness p50 / max), SIGKILL to promotion, B's cycle
                   walls, placements and launches, beside the card.
+ 27. sharded failover — phase 26 on the sharded store (`shard/`): the
+                  same fleet split host by host into two pools of 5,000,
+                  named by `ShardRouter(2).pools_for_distinct_shards()`
+                  so that each shard owns one; leader A (a subprocess)
+                  and standby B (this process) both with `"shards": 2`
+                  and data_dirs of their own, A with sync acks (one
+                  durable ack) and no load shedding (its jobs are read
+                  back over GET /jobs after the bulk submits).  One admin
+                  POST of a job in each pool wakes both shard followers'
+                  first long-polls and must come back replicated; 10,000
+                  jobs in 10 POSTs of 1,000 (one user each): the
+                  even-numbered POSTs each to one pool, the odd-numbered
+                  ones half in each (cross-shard commits), every 201
+                  replicated; then up to 100 waiting jobs of each pool
+                  from the last POST moved to the other pool over POST
+                  /pool-move (each move a cross-shard commit), each 201
+                  replicated; B's per-shard staleness sampled
+                  throughout; a match cycle with placements on A in each
+                  pool; a GET /jobs/{uuid} on B whose
+                  X-Cook-Shard-Staleness names both shards.  Counts
+                  reset, A SIGKILLed: B leads within 2 x TTL + 5 s and
+                  runs 3 match cycles with a window in each pool.  Fails
+                  unless every acked job reads back from B in its
+                  acknowledged pool (a moved job in its new one) and lies
+                  on exactly one of B's shards, the one that owns its
+                  pool; B holds no job A never acked; B launched
+                  `best_node` in both pools and every kept launch is
+                  identical to its plain version; no host is
+                  over-committed, no job skips `solve-failed`, B's
+                  columnar index is consistent with its store; and once B
+                  stops, its data_dir recovers through `recover_sharded`
+                  to B's per-shard state.  Prints the submit wall per
+                  POST with each shard's sync-ack wait (from
+                  X-Cook-Hop-Walls), the moves, per-shard staleness p50 /
+                  max, SIGKILL to promotion, B's cycle walls per pool,
+                  placements and launches per pool, beside the card.
 
 Order and processes: 1-7 (with the walls replays) run in this process,
 which times the kernel rows.  Then three worker processes run the rest
@@ -383,8 +419,8 @@ counts around the paths it drives: `speculation` S1-S4, 12 and 11;
 `multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` 8-8c, 9-10, 21,
 13-15, 22 and 24.  Their output is printed once all three have ended
 (their phase lines count from this process's start, so they overlap),
-and their launches and errors join this process's.  25 and 26 run last,
-in this process, with nothing beside them.
+and their launches and errors join this process's.  25, 26 and 27 run
+last, in this process, with nothing beside them.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -6055,13 +6091,12 @@ def _hop_wall(headers, key):
     return 0.0
 
 
-def read_back(url, uuids, batch=FAILOVER_READ_BATCH, sample=SERVICE_SAMPLE):
-    """Every uuid through GET /jobs?uuid=... `batch` at a time, and every
-    len(uuids) // sample-th through GET /jobs/{uuid}, which must say what
-    the batch said.  Fails on any answer but 200."""
+def jobs_of(url, uuids, batch=FAILOVER_READ_BATCH):
+    """uuid -> job, every uuid through GET /jobs?uuid=... `batch` at a
+    time.  Fails on any answer but 200."""
     from urllib.parse import urlencode
 
-    states = {}
+    jobs = {}
     for i in range(0, len(uuids), batch):
         chunk = uuids[i:i + batch]
         status, body, *_ = http(
@@ -6070,13 +6105,23 @@ def read_back(url, uuids, batch=FAILOVER_READ_BATCH, sample=SERVICE_SAMPLE):
             raise AssertionError(f"failover: GET /jobs of acked jobs "
                                  f"{i}-{i + len(chunk)} answered {status} "
                                  f"{str(body)[:300]}")
-        states.update((j["uuid"], j["status"]) for j in body)
+        jobs.update((j["uuid"], j) for j in body)
+    return jobs
+
+
+def read_back(url, uuids, batch=FAILOVER_READ_BATCH, sample=SERVICE_SAMPLE):
+    """Every uuid through GET /jobs?uuid=... `batch` at a time, and every
+    len(uuids) // sample-th through GET /jobs/{uuid}, which must say what
+    the batch said (the node's loops at rest).  Fails on any answer but
+    200.  Returns uuid -> the batch's job."""
+    jobs = jobs_of(url, uuids, batch)
     for uuid in uuids[::max(1, len(uuids) // sample)]:
         status, body, *_ = http("GET", f"{url}/jobs/{uuid}")
-        if status != 200 or body["status"] != states[uuid]:
+        if status != 200 or body["status"] != jobs[uuid]["status"]:
             raise AssertionError(f"failover: GET /jobs/{uuid} answered "
                                  f"{status} {str(body)[:300]}, the batch "
-                                 f"{states[uuid]}")
+                                 f"{jobs[uuid]['status']}")
+    return jobs
 
 
 def failover_config(port, data_dir, hosts, lease_url, device="cuda",
@@ -6343,6 +6388,400 @@ def failover_phase(card):
     return launches, max_err
 
 
+# the sharded failover phase (27): phase 26 on a 2-shard store, its fleet
+# split into two pools that `ShardRouter(2)` puts on different shards
+SHARDED_SHARDS = 2
+# waiting jobs moved to the other pool (each move a cross-shard commit)
+SHARDED_MOVES = 200
+# A's match loop interval (phase 25's is 0.5 s): B's windows are the
+# backlog A leaves at the SIGKILL, and A's cycles must not drain both
+# pools during the submits (at the CPU test's 100 hosts a pool they take
+# ~0.1 s each)
+SHARDED_LEADER_MATCH_INTERVAL_S = 4.0
+
+
+def sharded_pools():
+    """One pool per shard, named as the router finds them."""
+    from cook_tpu_torch.shard import ShardRouter
+
+    return ShardRouter(SHARDED_SHARDS).pools_for_distinct_shards()
+
+
+def sharded_batches(specs, pools, n_batches=FAILOVER_BATCHES):
+    """The POSTs: the even-numbered ones each to one pool (alternately),
+    the odd-numbered ones half in each pool, so each of those is a
+    cross-shard commit."""
+    per = len(specs) // n_batches
+    batches = []
+    for b in range(n_batches):
+        chunk = specs[b * per:(b + 1) * per]
+        if b % 2 == 0:
+            batches.append([dict(spec, pool=pools[(b // 2) % len(pools)])
+                            for spec in chunk])
+        else:
+            batches.append([dict(spec, pool=pools[i * len(pools) // per])
+                            for i, spec in enumerate(chunk)])
+    return batches
+
+
+def sharded_config(port, data_dir, hosts, lease_url, pools, device="cuda",
+                   **extra):
+    """Phase 26's node config with `shards` 2 and the fleet split between
+    the pools, host by host."""
+    conf = failover_config(
+        port, data_dir, [dict(h, pool=pools[i % len(pools)])
+                         for i, h in enumerate(hosts)],
+        lease_url, device, shards=len(pools), **extra)
+    conf["pools"] = [{"name": pool} for pool in pools]
+    return conf
+
+
+@contextlib.contextmanager
+def calls_per_pool(calls, per_pool):
+    """While the block runs, count in `per_pool` the calls kept in
+    `calls` that each pool's `match_pool` made (the match loop runs one
+    pool at a time)."""
+    from cook_tpu_torch.scheduler import core
+
+    match_pool = core.match_pool
+
+    def counted(store, pool, *args, **kw):
+        before = len(calls)
+        try:
+            return match_pool(store, pool, *args, **kw)
+        finally:
+            per_pool[pool.name] = (per_pool.get(pool.name, 0)
+                                   + len(calls) - before)
+
+    core.match_pool = counted
+    try:
+        yield per_pool
+    finally:
+        core.match_pool = match_pool
+
+
+def _shard_states(store):
+    """Per-shard `snapshot_state`, through JSON."""
+    from cook_tpu_torch.models import persistence
+
+    return [json.loads(json.dumps(persistence.snapshot_state(shard)))
+            for shard in store.shards]
+
+
+def _pool_cycles(url, pools, n):
+    """The node's match cycles with a window, per pool, once every pool
+    has `n` (else None)."""
+    body = http("GET", f"{url}/debug/cycles?limit=100", timeout=10)[1]
+    full = {pool: [r for r in body["cycles"]
+                   if r["pool"] == pool and r["considered"] > 0]
+            for pool in pools}
+    return full if all(len(c) >= n for c in full.values()) else None
+
+
+def sharded_failover_run(hosts, specs, workdir, device="cuda"):
+    """27. Phase 26 on two shards: a lease service and leader A
+    (`python -m cook_tpu_torch`, `shards` 2, sync acks) as subprocesses,
+    standby B (`shards` 2) in this process; cross-shard submits and pool
+    moves to A; SIGKILL A; B promotes and schedules both pools.  Returns
+    B's best_node launches, the kept calls' arguments and their count per
+    pool."""
+    from cook_tpu_torch.components import (build_process, shutdown,
+                                           start_leader_duties)
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+    from cook_tpu_torch.rest.server import free_port
+    from cook_tpu_torch.shard import journal as shard_journal
+    from cook_tpu_torch.utils.config import read_config
+
+    pools = sharded_pools()
+    procs, calls, per_pool = [], [], {}
+    standby = thread = None
+    logs = {name: os.path.join(workdir, f"sharded-{name}.log")
+            for name in ("lease", "a")}
+    try:
+        lease_proc, lease_url = _lease_service(logs["lease"])
+        procs.append(lease_proc)
+        configs, urls, dirs = {}, {}, {}
+        for name, extra in (
+                # no load shedding on A: its waiting jobs are read over
+                # GET /jobs after the bulk submits, which it would shed
+                # (phase 25's reason)
+                ("a", dict(replication_sync_ack=True,
+                           replication_min_acks=1,
+                           replication_ack_timeout_s=FAILOVER_ACK_TIMEOUT_S,
+                           load_shedding=False,
+                           match_interval_s=(
+                               SHARDED_LEADER_MATCH_INTERVAL_S))),
+                ("b", {})):
+            port = free_port()
+            configs[name] = os.path.join(workdir, f"sharded-{name}.json")
+            dirs[name] = os.path.join(workdir, f"sharded-data-{name}")
+            with open(configs[name], "w") as f:
+                json.dump(sharded_config(port, dirs[name], hosts, lease_url,
+                                         pools, device, **extra), f)
+            urls[name] = f"http://127.0.0.1:{port}"
+        a_url, b_url = urls["a"], urls["b"]
+        t0 = time.perf_counter()
+        leader = _service_process(configs["a"], logs["a"])
+        procs.append(leader)
+        with kept_calls(match, "best_node", calls), \
+                calls_per_pool(calls, per_pool):
+            standby = build_process(read_config(configs["b"]))
+            router = standby.store.router
+            if [router.shard_for_pool(p) for p in pools] != [0, 1]:
+                raise AssertionError(f"sharded: pools {pools} do not lie "
+                                     "on shards 0 and 1")
+            _healthy(a_url, leader)
+            _until("A leading", 120, lambda: http(
+                "GET", f"{a_url}/debug", timeout=5)[1]["leader"])
+            boot_s = time.perf_counter() - t0
+            # 1. one admin write to A that touches both shards (a job in
+            # each pool) wakes each shard follower's first long-poll, and
+            # its 201 waits for B's durable ack on both shards
+            probe_jobs = [dict(specs[0], pool=pool) for pool in pools]
+            probe = {}
+            writer = threading.Thread(target=lambda: probe.update(
+                answer=http("POST", f"{a_url}/jobs", user="admin",
+                            body={"jobs": probe_jobs})), daemon=True)
+            writer.start()
+            t0 = time.perf_counter()
+            thread = threading.Thread(
+                target=start_leader_duties, args=(standby,),
+                kwargs={"block": False, "on_loss": lambda: None},
+                daemon=True, name="sharded-standby")
+            thread.start()
+            def synced():
+                shards = http("GET", f"{b_url}/debug/replica", user="admin",
+                              timeout=5)[1]["shards"]
+                return len(shards) == SHARDED_SHARDS and all(
+                    row.get("staleness_ms") is not None
+                    for row in shards.values())
+
+            _until("B's first sync on both shards", 60, synced)
+            synced_s = time.perf_counter() - t0
+            writer.join(FAILOVER_ACK_TIMEOUT_S + HTTP_TIMEOUT_S)
+            status, body = probe.get("answer", (None, None))[:2]
+            if status != 201 or body.get("replicated") is False:
+                raise AssertionError(f"sharded: the first write to A "
+                                     f"answered {status} {str(body)[:300]}")
+            acked = {u: pools[i] for i, u in enumerate(body["jobs"])}
+            if http("GET", f"{b_url}/debug")[1]["leader"]:
+                raise AssertionError("sharded: B leads beside A")
+            # 2. the backlog to A, B's per-shard staleness sampled
+            # meanwhile (and through the moves and the first cycles)
+            lag = {i: [] for i in range(SHARDED_SHARDS)}
+            sampling = threading.Event()
+
+            def sample():
+                while not sampling.wait(0.05):
+                    for i, row in standby.follower.staleness_view().items():
+                        lag[i].append(row["staleness_ms"])
+
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            walls, ack_walls = [], {i: [] for i in range(SHARDED_SHARDS)}
+            try:
+                for b, batch in enumerate(sharded_batches(specs, pools)):
+                    status, body, wall, headers = http(
+                        "POST", f"{a_url}/jobs", body={"jobs": batch},
+                        user=f"user{b}")
+                    if status != 201 or body.get("replicated") is False:
+                        raise AssertionError(
+                            f"sharded: batch {b} answered {status} "
+                            f"{str(body)[:300]}")
+                    acked.update(zip(body["jobs"],
+                                     [spec["pool"] for spec in batch]))
+                    walls.append(round(wall, 4))
+                    for i in range(SHARDED_SHARDS):
+                        ack_walls[i].append(round(_hop_wall(
+                            headers, f"replication_ack_s{i}"), 4))
+                # 3. waiting jobs of the last POST (half in each pool)
+                # moved to the other pool: each move is a cross-shard
+                # commit, and each POST's 201 waits for B's ack on both
+                # shards
+                recent = list(acked)[-len(batch):]
+                waiting = [j["uuid"] for j in jobs_of(a_url, recent)
+                           .values() if j["status"] == "waiting"]
+                # to the other pool: pools[1] for a pools[0] job, and
+                # the other way round
+                to_pool = {}
+                for src, dst in zip(pools, pools[::-1]):
+                    to_pool.update((u, dst) for u in [
+                        u for u in waiting if acked[u] == src][
+                            -SHARDED_MOVES // len(pools):])
+                moves = {}
+                for pool in pools:
+                    mine = [u for u, dst in to_pool.items() if dst == pool]
+                    if not mine:
+                        continue
+                    status, body, wall, _ = http(
+                        "POST", f"{a_url}/pool-move", user="admin",
+                        body={"jobs": mine, "pool": pool})
+                    if status != 201 or body.get("replicated") is False:
+                        raise AssertionError(
+                            f"sharded: pool-move to {pool} answered "
+                            f"{status} {str(body)[:300]}")
+                    moves[pool] = dict(asked=len(mine),
+                                       moved=len(body["moved"]),
+                                       skipped=len(body["skipped"]),
+                                       wall_s=round(wall, 4))
+                    acked.update((u, pool) for u in body["moved"])
+                if not any(m["moved"] for m in moves.values()):
+                    raise AssertionError(f"sharded: no job moved {moves}")
+                # 4. A has placed in a match cycle in each pool
+                _until("a cycle with placements on A in each pool",
+                       SERVICE_DEADLINE_S, lambda: all(
+                           any(r["pool"] == pool and r["matched_count"] > 0
+                               for r in http("GET",
+                                             f"{a_url}/debug/cycles?limit=100",
+                                             timeout=10)[1]["cycles"])
+                           for pool in pools), every_s=0.5)
+            finally:
+                sampling.set()
+                sampler.join(timeout=10)
+            # 5. a replica read on B, stamped with both shards' staleness
+            read_uuid = next(u for u, p in acked.items() if p == pools[1])
+            status, body, _, headers = http("GET",
+                                            f"{b_url}/jobs/{read_uuid}")
+            per_shard = json.loads(headers.get("X-Cook-Shard-Staleness",
+                                               "{}"))
+            if status != 200 or set(per_shard) != {"0", "1"}:
+                raise AssertionError(f"sharded: replica read on B answered "
+                                     f"{status} {headers}")
+            # 6. counts reset, then A dies without releasing its lease
+            _reset_launches()
+            calls.clear()
+            per_pool.clear()
+            t_kill = time.monotonic()
+            leader.send_signal(signal.SIGKILL)
+            leader.wait(timeout=30)
+            # 7. B promotes within its lease bound, then cycles each pool
+            bound_s = 2 * FAILOVER_TTL_S + 5
+            _until("B's promotion", bound_s, lambda: http(
+                "GET", f"{b_url}/debug", timeout=5)[1]["leader"],
+                every_s=0.05)
+            promote_s = time.monotonic() - t_kill
+            thread.join(timeout=60)
+            cycles = _until(f"{FAILOVER_CYCLES} cycles on B in each pool",
+                            SERVICE_DEADLINE_S,
+                            lambda: _pool_cycles(b_url, pools,
+                                                 FAILOVER_CYCLES),
+                            every_s=0.5)
+            for loop in standby.loops:
+                loop.stop()
+            for loop in standby.loops:
+                loop.join(60)
+            launches = bn.launches
+        if device == "cuda" and not all(per_pool.get(pool)
+                                        for pool in pools):
+            raise AssertionError(f"sharded: B's best_node launches per "
+                                 f"pool {per_pool}")
+        # every acked job reads back from B in its acknowledged pool, on
+        # the one shard that owns that pool, and B holds nothing else
+        t0 = time.perf_counter()
+        jobs = read_back(b_url, list(acked))
+        read_s = time.perf_counter() - t0
+        wrong = {u: j["pool"] for u, j in jobs.items()
+                 if j["pool"] != acked[u]}
+        if wrong:
+            raise AssertionError(f"sharded: {len(wrong)} jobs read back in "
+                                 f"another pool than acked: "
+                                 f"{list(wrong.items())[:5]}")
+        store = standby.store
+        for uuid, pool in acked.items():
+            owners = [i for i, shard in enumerate(store.shards)
+                      if uuid in shard.jobs]
+            if owners != [router.shard_for_pool(pool)]:
+                raise AssertionError(f"sharded: job {uuid} of {pool} lies "
+                                     f"on shards {owners}")
+        extra = set(store.jobs) - set(acked)
+        if extra:
+            raise AssertionError(f"sharded: B holds {len(extra)} jobs A "
+                                 "never acked")
+        if not standby.scheduler.columnar.consistent_with_store():
+            raise AssertionError("sharded: B's columnar index is not "
+                                 "consistent with its store")
+        skipped = [s for r in standby.scheduler.recorder.records_json(
+                   limit=10_000) for s in r["skipped"]
+                   if s["code"] == "solve-failed"]
+        if skipped:
+            raise AssertionError(f"sharded: {len(skipped)} solve-failed "
+                                 "skips on B")
+        busy = check_cluster_capacity(standby.clusters[0])
+        placed = {pool: sum(1 for u, p in acked.items()
+                            if p == pool and jobs[u]["status"] != "waiting")
+                  for pool in pools}
+    except BaseException:
+        for name, log in logs.items():
+            if os.path.exists(log):
+                with open(log, errors="replace") as f:
+                    print(f"sharded {name} log tail:\n{f.read()[-3000:]}",
+                          file=sys.stderr, flush=True)
+        raise
+    finally:
+        if standby is not None:
+            shutdown(standby)
+        if thread is not None:
+            thread.join(timeout=60)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    # B's data_dir, B stopped, recovers shard for shard to B's state
+    t0 = time.perf_counter()
+    recovered = shard_journal.recover_sharded(dirs["b"], SHARDED_SHARDS)
+    if _shard_states(recovered) != _shard_states(standby.store):
+        raise AssertionError("sharded: B's data_dir does not recover to "
+                             "B's per-shard state")
+    recover_s = time.perf_counter() - t0
+
+    def spread(samples):
+        xs = sorted(x for x in samples if x != float("inf"))
+        return dict(n=len(xs), p50=round(xs[len(xs) // 2], 3) if xs else None,
+                    max=round(xs[-1], 3) if xs else None)
+
+    print(f"sharded failover submit: {len(walls)} sync-acked POSTs of "
+          f"{len(specs) // FAILOVER_BATCHES} (odd-numbered ones across both "
+          f"shards), wall per POST (s) {walls}, of which the sync-ack wait "
+          "per shard (s, shard 1's counted from shard 0's ack) "
+          + json.dumps({f"s{i}": w for i, w in ack_walls.items()}),
+          flush=True)
+    print("sharded failover " + json.dumps(dict(
+        pools={pool: router.shard_for_pool(pool) for pool in pools},
+        leader_boot_s=round(boot_s, 3),
+        standby_first_sync_s=round(synced_s, 3),
+        lag_ms={f"s{i}": spread(v) for i, v in lag.items()},
+        pool_moves=moves,
+        replica_read_shard_staleness_ms=per_shard,
+        sigkill_to_promotion_s=round(promote_s, 3), bound_s=bound_s,
+        standby_cycle_walls_s={
+            pool: [round(r["total_s"], 4) for r in c[:FAILOVER_CYCLES]]
+            for pool, c in cycles.items()},
+        considered={pool: [r["considered"] for r in c]
+                    for pool, c in cycles.items()},
+        matched={pool: [r["matched_count"] for r in c]
+                 for pool, c in cycles.items()},
+        placed=placed, busy_hosts=busy, best_node_launches=launches,
+        launches_per_pool=per_pool, read_back=len(acked),
+        read_back_s=round(read_s, 3), recover_s=round(recover_s, 3),
+        capacity="ok")), flush=True)
+    return launches, calls, per_pool
+
+
+def sharded_failover_phase(card):
+    """27. Sharded failover (see the docstring)."""
+    phase("sharded failover")
+    hosts, specs = service_fleet(n_jobs=FAILOVER_JOBS)
+    with tempfile.TemporaryDirectory(prefix="cook-sharded-") as workdir:
+        launches, calls, _ = sharded_failover_run(hosts, specs, workdir)
+    if launches <= 0 or len(calls) != launches:
+        raise AssertionError(f"sharded: kept {len(calls)} best_node calls, "
+                             f"counted {launches} launches")
+    max_err = hold_launches("best_node", calls, "sharded failover")
+    print(f"sharded failover on {card}", flush=True)
+    return launches, max_err
+
+
 # The phases after the kernel rows run in worker processes, all at once:
 # each part below is `python3 chip_smoke.py --part NAME SHARED EPOCH`,
 # given the flat slice's trace and what the later phases compare with in
@@ -6350,8 +6789,9 @@ def failover_phase(card):
 # each path it drives and writes them, with its worst error per kernel,
 # to SHARED's directory; its output is printed here once every part has
 # ended.  The kernel rows (5, 7) are timed before any part starts, and
-# the service (25) and failover (26) run after every part has ended, so
-# that nothing else shares the card or the host with their walls.
+# the service (25) and the failovers (26, 27) run after every part has
+# ended, so that nothing else shares the card or the host with their
+# walls.
 PARTS = ("speculation", "multipool", "agreement")
 # the parts must end this long after the script started, or all are
 # stopped and the script fails with what they printed
@@ -6629,6 +7069,11 @@ def main() -> int:
     # failover (26): B's counts reset just before A's SIGKILL and read once
     # B's loops stop
     n, err = failover_phase(card)
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], err)
+    # sharded failover (27): B's counts reset just before A's SIGKILL and
+    # read once B's loops stop
+    n, err = sharded_failover_phase(card)
     launches["best_node"] += n
     errs["best_node"] = max(errs["best_node"], err)
     # the card's name and power limit again, beside the numbers above

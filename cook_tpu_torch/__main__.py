@@ -11,6 +11,9 @@ With `leader_endpoint` (a `python -m cook_tpu_torch.control.lease_server`)
 or `leader_lease_path` in the config the node runs as leader or hot
 standby, whichever the lease decides: a standby tails the leader's
 journal into its own `data_dir` and takes over when the lease lapses.
+With `"shards": N` (N > 1) the store, its commit pipeline and its
+journal are split into N shards (`shard/`), and a standby tails each
+shard's segment on its own feed.
 The reference's `--mp` multi-process mode waits for the port's `mp/`.
 """
 from __future__ import annotations

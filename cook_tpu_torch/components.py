@@ -6,29 +6,31 @@ mesos.clj:89-110, and the leadership wiring, mesos.clj:153-328): the REST
 server runs on every node; the scheduling loops run only on the leader;
 losing leadership fail-fast exits.
 
-The unsharded branches are ported: `build_process` (journal and
-snapshot recovery through `models/persistence`, one `txn` commit pipeline
-for REST mutations and the elastic plane, the elastic parameters, the
-replication and replica-read knobs, the metrics history, the incident
-directory), `start_leader_duties` (the elector the config names — the
-lease service's `HttpLeaseElector`, a `FileLeaseElector`, or the
-in-memory one; while standing by, a `control/replication.JournalFollower`
-tailing the leader into this node's store and journal; the promotion
-invariants; the rank, match, rebalance, elastic, snapshot, mock-advance,
-health-watch, heartbeat, monitor, progress, sandbox, lingering,
-straggler, cancelled and optimizer loops) and `shutdown`, which also
-joins the loops' threads.  The scheduler runs on the device that
-`Settings.platform` names: the card by default, where `build_process`
-raises through `device.resolve` when there is none.
+Ported: `build_process` (journal and snapshot recovery through
+`models/persistence`, one `txn` commit pipeline for REST mutations and
+the elastic plane, the elastic parameters, the replication and
+replica-read knobs, the metrics history, the incident directory; with
+`shards > 1` the sharded store of `shard/`: a single-journal data_dir
+migrated once, `recover_sharded`, one journal segment per shard and the
+sharded commit pipeline), `start_leader_duties` (the elector the config
+names — the lease service's `HttpLeaseElector`, a `FileLeaseElector`, or
+the in-memory one; while standing by, a `control/replication.
+JournalFollower` — one per shard, `shard/replica.ShardedJournalFollower`,
+on a sharded store — tailing the leader into this node's store and
+journal; the promotion invariants; the rank, match, rebalance, elastic,
+snapshot, mock-advance, health-watch, heartbeat, monitor, progress,
+sandbox, lingering, straggler, cancelled and optimizer loops) and
+`shutdown`, which also joins the loops' threads.  The scheduler runs on
+the device that `Settings.platform` names: the card by default, where
+`build_process` raises through `device.resolve` when there is none.
 
 A standby's scheduler is passive: replicated events reach its columnar
 index and caches through the store's watchers on the follower's thread,
 all host-side bookkeeping — none touches the card — and the first match
 cycle after promotion runs on an index checked against the store.
 
-What waits raises a clear error when configured: `shards > 1` (the
-sharded store), the fleet observatory (`peers`), and the `k8s` /
-`k8s-http` cluster kinds.
+What waits raises a clear error when configured: the fleet observatory
+(`peers`) and the `k8s` / `k8s-http` cluster kinds.
 """
 from __future__ import annotations
 
@@ -174,6 +176,9 @@ class CookProcess:
     heartbeats: object = None
     sandbox_publisher: object = None
     journal: object = None
+    # sharded layout: one JournalWriter per shard segment (journal stays
+    # None); unsharded: [journal]
+    journals: list = field(default_factory=list)
     follower: object = None  # standby-side journal replication
     # durable multi-resolution metrics history (obs/tsdb.py)
     history: object = None
@@ -187,8 +192,6 @@ class CookProcess:
 
 
 def _check_ported(settings: Settings) -> None:
-    if settings.shards > 1:
-        raise _not_ported(f"shards={settings.shards} (the sharded store)")
     if settings.peers:
         raise _not_ported("the fleet observatory (peers)")
     for conf in settings.clusters:
@@ -205,6 +208,7 @@ def build_process(
 ) -> CookProcess:
     _check_ported(settings)
     device = device_for_platform(settings.platform)
+    sharded = settings.shards > 1
     store = None
     if settings.data_dir:
         # failover recovery: load the last snapshot, then replay the
@@ -218,23 +222,55 @@ def build_process(
         from cook_tpu_torch.models import persistence
 
         os.makedirs(settings.data_dir, exist_ok=True)
-        store = persistence.recover(settings.data_dir, clock=clock)
+        if sharded:
+            from cook_tpu_torch.shard import journal as shard_journal
+
+            if shard_journal.has_single_journal_layout(settings.data_dir):
+                # exactly-once layout conversion (manifest-stamped)
+                outcome = shard_journal.migrate_single_journal(
+                    settings.data_dir, settings.shards, clock=clock)
+                log_info("migrated data_dir to per-shard journal "
+                         "segments", component="startup", **{
+                             k: v for k, v in outcome.items()
+                             if k != "per_shard_jobs"})
+            store = shard_journal.recover_sharded(
+                settings.data_dir, settings.shards, clock=clock)
+        else:
+            store = persistence.recover(settings.data_dir, clock=clock)
         if store is not None:
             store.mea_culpa_limit = settings.mea_culpa_failure_limit
             log_info("recovered store from snapshot+journal",
                      component="startup", jobs=len(store.jobs),
                      **store.recovered_stats)
     if store is None:
-        store = JobStore(mea_culpa_limit=settings.mea_culpa_failure_limit,
-                         clock=clock)
+        if sharded:
+            from cook_tpu_torch.shard import ShardedStore
+
+            store = ShardedStore(
+                settings.shards,
+                mea_culpa_limit=settings.mea_culpa_failure_limit,
+                clock=clock)
+        else:
+            store = JobStore(
+                mea_culpa_limit=settings.mea_culpa_failure_limit,
+                clock=clock)
     journal = None
+    journals = []
     if settings.data_dir:
         from cook_tpu_torch.models import persistence
 
-        journal = persistence.attach_journal(
-            store, os.path.join(settings.data_dir, "journal.jsonl"),
-            fsync_policy=settings.journal_fsync_policy,
-        )
+        if sharded:
+            from cook_tpu_torch.shard import journal as shard_journal
+
+            journals = shard_journal.attach_shard_journals(
+                store, settings.data_dir,
+                fsync_policy=settings.journal_fsync_policy)
+        else:
+            journal = persistence.attach_journal(
+                store, os.path.join(settings.data_dir, "journal.jsonl"),
+                fsync_policy=settings.journal_fsync_policy,
+            )
+            journals = [journal]
     from cook_tpu_torch.utils.logging import attach_passport
 
     attach_passport(store)
@@ -256,8 +292,16 @@ def build_process(
 
     # ONE commit pipeline for the process: REST mutations and the
     # elastic capacity plane's pool/capacity-delta commits share the
-    # journal-backed log (durable-on-ack for both)
-    txn = TransactionLog(store, journal=journal)
+    # journal-backed log (durable-on-ack for both).  Sharded deployments
+    # get the partitioned pipeline — per-shard locks, segments,
+    # idempotency — behind the same commit() seam
+    if sharded:
+        from cook_tpu_torch.shard import ShardedTransactionLog
+
+        txn = ShardedTransactionLog(
+            store, journals=journals if journals else None)
+    else:
+        txn = TransactionLog(store, journal=journal)
     from cook_tpu_torch.elastic import ElasticParams
 
     elastic_conf = settings.elastic
@@ -337,7 +381,7 @@ def build_process(
     api.queue_limits.limits.per_user_per_pool = settings.queue_limit_per_user
     process = CookProcess(settings=settings, store=store, clusters=clusters,
                           scheduler=scheduler, api=api, journal=journal,
-                          history=history,
+                          journals=journals, history=history,
                           member_id=str(uuid_mod.uuid4())[:8])
     if start_rest:
         process.server = ServerThread(api, port=settings.port).start()
@@ -382,16 +426,32 @@ def start_leader_duties(process: CookProcess,
             if not process.selector.is_leader:
                 process.api.leader_url = url if url != advertised else ""
 
-        process.follower = JournalFollower(
-            process.store,
-            leader_url_fn=elector.current_leader_url,
-            self_url=advertised,
-            data_dir=settings.data_dir,
-            journal=process.journal,
-            as_user=settings.replication_user,
-            member_id=process.member_id,
-            on_leader_url=set_leader_url,
-        ).start()
+        if settings.shards > 1:
+            # one follower per shard segment (shard/replica.py), each
+            # parking its own long-poll on the leader's `?shard=i` feed
+            from cook_tpu_torch.shard.replica import ShardedJournalFollower
+
+            process.follower = ShardedJournalFollower(
+                process.store,
+                leader_url_fn=elector.current_leader_url,
+                self_url=advertised,
+                data_dir=settings.data_dir,
+                journals=process.journals or None,
+                as_user=settings.replication_user,
+                member_id=process.member_id,
+                on_leader_url=set_leader_url,
+            ).start()
+        else:
+            process.follower = JournalFollower(
+                process.store,
+                leader_url_fn=elector.current_leader_url,
+                self_url=advertised,
+                data_dir=settings.data_dir,
+                journal=process.journal,
+                as_user=settings.replication_user,
+                member_id=process.member_id,
+                on_leader_url=set_leader_url,
+            ).start()
         # replica-served reads: heavy GETs on this standby answer from
         # the replayed journal with the follower's staleness bound
         process.api.staleness_fn = process.follower.staleness_view
@@ -399,8 +459,9 @@ def start_leader_duties(process: CookProcess,
     if not process.selector.is_leader:
         return  # stopped while standing by (shutdown during wait)
     if process.follower is not None:
-        # full join (stop waits out any in-flight fetch): a late response
-        # from a deposed leader must not clobber the state we now own
+        # full join (stop waits out any in-flight fetch; on a sharded
+        # store, every shard follower's): a late response from a deposed
+        # leader must not clobber the state we now own
         process.follower.stop()
     # under the lock, so that a shutdown racing this promotion (a standby
     # promoting on its own thread) either stops every loop it starts or
@@ -422,9 +483,10 @@ def _take_leadership(process: CookProcess) -> None:
     (mesos.clj takeLeadership)."""
     settings = process.settings
     # promotion invariant: the columnar rank index tracked the leader via
-    # the replicated-event fan-out; verify, and rebuild if anything
-    # drifted — a promoted standby must schedule from its replicated
-    # state immediately (no REST write in between)
+    # the replicated-event fan-out (every shard follower's); verify it
+    # over the merged view, and rebuild if anything drifted — a promoted
+    # standby must schedule from its replicated state immediately (no
+    # REST write in between)
     columnar = getattr(process.scheduler, "columnar", None)
     if columnar is not None and not columnar.consistent_with_store():
         log.warning("columnar index inconsistent at promotion; rebuilding")
@@ -442,9 +504,10 @@ def _take_leadership(process: CookProcess) -> None:
     process.api.staleness_fn = None
     log_info("leadership acquired", component="leader",
              member=process.member_id)
-    journal = process.journal
-    if journal is not None and getattr(journal, "fsync_policy", "") \
-            == "fail-stop":
+    fail_stop_journals = [
+        j for j in (process.journals or [process.journal])
+        if j is not None and getattr(j, "fsync_policy", "") == "fail-stop"]
+    if fail_stop_journals:
         # reaction (e), docs/resilience.md: under the fail-stop policy a
         # journal fsync FAILURE demotes this leader (fail-fast,
         # mesos.clj:296-313); the failing commit itself already surfaced
@@ -467,7 +530,10 @@ def _take_leadership(process: CookProcess) -> None:
             threading.Thread(target=_demote, daemon=True,
                              name="fsync-fail-stop").start()
 
-        journal.on_fsync_error = _fsync_fail_stop
+        # sharded: ANY segment's disk failing demotes — a leader that
+        # can only persist some shards' commits is not a leader
+        for fs_journal in fail_stop_journals:
+            fs_journal.on_fsync_error = _fsync_fail_stop
     process.selector.start_heartbeat_thread()
 
     scheduler = process.scheduler
@@ -564,6 +630,14 @@ def _take_leadership(process: CookProcess) -> None:
         snap_path = os.path.join(settings.data_dir, "snapshot.json")
 
         def snapshot_and_rotate():
+            if settings.shards > 1:
+                from cook_tpu_torch.shard import journal as shard_journal
+
+                # every shard's snapshot, then every segment rotates
+                shard_journal.snapshot_sharded(store, settings.data_dir)
+                for segment in process.journals:
+                    segment.rotate()
+                return
             persistence.snapshot(store, snap_path)
             if process.journal is not None:
                 process.journal.rotate()
@@ -618,7 +692,8 @@ def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
     """Stop the loops (waiting up to `join_s` for each one's current run
     to end, so no cycle outlives its process's teardown), the history
     sampler, a standby's journal follower, the election and the REST
-    server, then close the journal (its unsynced tail fsynced)."""
+    server, then close the journal, or every shard's segment (its
+    unsynced tail fsynced)."""
     with process.duties_lock:
         process.stopping = True
     for loop in process.loops:
@@ -634,5 +709,5 @@ def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
         process.selector.stop()
     if process.server is not None:
         process.server.stop()
-    if process.journal is not None:
-        process.journal.close()
+    for journal in process.journals:
+        journal.close()

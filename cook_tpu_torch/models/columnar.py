@@ -1,9 +1,12 @@
 """Columnar job/instance index: O(delta) host-side state for the cycles.
 
-A copy of `cook_tpu/models/columnar.py` with its imports rewritten.  The
-port's store has no snapshot restore, so nothing calls `rebuild` after
-construction but tests and anti-entropy (the reference also registers it
-as the store's resync listener).
+A copy of `cook_tpu/models/columnar.py` with its imports rewritten, but
+for its lock order: `rebuild` and `consistent_with_store` hold the store
+still (every shard lock, ascending) BEFORE they take the index lock, as
+a committing thread does (its shard lock, then the index lock in
+`_on_event`).  The reference takes the index lock first and then each
+shard's lock through the merged views, which deadlocks a sharded standby
+whose shard followers resync while another applies live events.
 
 At north-star scale (100k pending jobs) rebuilding numpy arrays from Python
 job objects each rank cycle is a Python walk over every job.  This index
@@ -19,6 +22,7 @@ doubling; job rows are never deleted (jobs are, at most, COMPLETED).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -59,7 +63,7 @@ class ColumnarJobIndex:
         self._inst_tids: list[str] = []
         self.inst_job_row: np.ndarray = np.empty(0, np.int64)
         self.inst_start: np.ndarray = np.empty(0, np.int64)
-        self.rebuild()
+        self._rebuild()
         store.add_watcher(self._on_event)
         # a wholesale state replacement (persistence.restore_into): rebuild
         # from scratch
@@ -164,8 +168,30 @@ class ColumnarJobIndex:
 
     # ------------------------------------------------------------ rebuild
 
+    @contextlib.contextmanager
+    def _store_held(self):
+        """Every lock of the store, a sharded store's in ascending shard
+        id (shard/txn.py's order): with them held no commit is between
+        its store change and its `_on_event`, so a full read of the store
+        is a cut of its event streams."""
+        taken = []
+        try:
+            for shard in getattr(self.store, "shards", None) or [self.store]:
+                shard._lock.acquire()
+                taken.append(shard._lock)
+            yield
+        finally:
+            for lock in reversed(taken):
+                lock.release()
+
     def rebuild(self) -> None:
-        """Full resync from the store (startup / invariant recovery)."""
+        """Full resync from the store (invariant recovery, promotion, the
+        store's resync listener)."""
+        with self._store_held():
+            self._rebuild()
+
+    def _rebuild(self) -> None:
+        # at construction, as in the reference, the store is read unheld
         with self._lock:
             self._rows.clear()
             self._n = 0
@@ -204,8 +230,8 @@ class ColumnarJobIndex:
             return pending, inst_sel
 
     def consistent_with_store(self) -> bool:
-        """Invariant check used by tests and anti-entropy."""
-        with self._lock:
+        """Invariant check used by tests, anti-entropy and promotion."""
+        with self._store_held(), self._lock:
             for uuid, job in self.store.jobs.items():
                 row = self._rows.get(uuid)
                 if row is None or self.state[row] != _STATE_CODE[job.state]:

@@ -103,7 +103,10 @@ def restore_into(store: JobStore, state: dict) -> None:
     entries predate the resync point, and a promoted standby serving
     `/replication/journal` must never mix pre-resync events with
     post-resync sequence numbering.  Watcher-derived state (columnar
-    index, scheduler caches) is rebuilt via the store's resync listeners."""
+    index, scheduler caches) is rebuilt via the store's resync listeners,
+    called once the store lock is released: a listener on a sharded
+    store reads every shard, and taking the others' locks while holding
+    this one would break the ascending shard order (shard/txn.py)."""
     with store._lock:
         store.jobs.clear()
         store.job_seq.clear()
@@ -120,7 +123,7 @@ def restore_into(store: JobStore, state: dict) -> None:
         store._pool_running.clear()
         store._events.clear()
         _populate(store, state)
-        store._notify_resync()
+    store._notify_resync()
 
 
 def _populate(store: JobStore, state: dict) -> None:

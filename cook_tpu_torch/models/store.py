@@ -13,8 +13,10 @@ and its queries), `reset_seq`, `snapshot_events`, `recovered_stats` and
 the resync listeners.  The store lock is the contention observatory's
 profiled lock (`obs/contention.profiled_store_lock`), as in the
 reference: every `with store._lock:` reports its wait and hold per call
-site to `/debug/contention`.  Shard handoff arrives with the sharded
-control plane.
+site to `/debug/contention`.  A shard of the sharded store (`shard/`)
+is a JobStore built with `lock_name="store-s{i}"` and `shard_id=i`, and
+a cross-shard pool move is its shard handoff (`shard_out_job` on the
+source, `shard_in_job` on the destination).
 
 Plays the role Datomic plays in the reference (`cook.datomic`,
 `cook/datomic.clj`): serialized transactions,
@@ -86,10 +88,16 @@ class JobStore:
     them out to watchers (the tx-report-queue analog)."""
 
     def __init__(self, *, mea_culpa_limit: int = 5,
-                 clock: Callable[[], int] = None):
+                 clock: Callable[[], int] = None,
+                 lock_name: str = "store", shard_id: Optional[int] = None):
         # every `with store._lock:` in the tree reports its wait/hold to
-        # the contention observatory, labeled by calling function
-        self._lock = profiled_store_lock("store")
+        # the contention observatory, labeled by calling function.  A
+        # sharded store (shard/) builds one JobStore per shard with
+        # lock_name "store-s{i}", so each shard's lock is attributed on
+        # its own at /debug/contention
+        self._lock = profiled_store_lock(lock_name)
+        # which shard of a ShardedStore this store is (None = unsharded)
+        self.shard_id = shard_id
         self._seq = itertools.count(1)
         self._last_seq = 0
         self._events: list[Event] = []
@@ -541,6 +549,61 @@ class JobStore:
                            job=job)
             ])
             return True
+
+    # ---------------------------------------------------- shard handoff
+    # Cross-shard pool move (shard/): the source shard forgets the job
+    # (and its instance history), the destination shard adopts it.  Each
+    # half emits into ITS OWN journal segment, so per-shard replay
+    # reconstructs per-shard state exactly; the transaction layer orders
+    # the two applies and acknowledges once.
+
+    def shard_out_job(self, job_uuid: str):
+        """Remove a job (and its instance records) from THIS shard.
+        Returns (job, instances) as they stood, or (None, []) when the
+        job is not here.  The emitted `job/shard-out` event carries the
+        instance ids so journal replay removes the same set."""
+        with self._lock:
+            job = self.jobs.pop(job_uuid, None)
+            if job is None:
+                return None, []
+            self.job_seq.pop(job_uuid, None)
+            self._user_jobs.get(job.user, set()).discard(job_uuid)
+            self._pool_pending.get(job.pool, set()).discard(job_uuid)
+            self._pool_running.get(job.pool, set()).discard(job_uuid)
+            instances = [self.instances.pop(tid)
+                         for tid in job.instance_ids
+                         if tid in self.instances]
+            self._fan_out([self._emit(
+                "job/shard-out",
+                {"uuid": job_uuid, "pool": job.pool,
+                 "instances": [i.task_id for i in instances]})])
+            return job, instances
+
+    def shard_in_job(self, job: Job, instances: Sequence[Instance] = (),
+                     *, from_pool: str = "") -> None:
+        """Adopt a job (post-move entity, pool already rewritten) and its
+        instance history onto THIS shard.  Emits upsert events — an
+        `instance/shard-in` per instance, then a `job/pool-moved`
+        carrying the job — so replay and replication are pure upserts
+        and downstream consumers (columnar index) see the same
+        `job/pool-moved` a same-shard move produces."""
+        with self._lock:
+            self.jobs[job.uuid] = job
+            self.job_seq.setdefault(job.uuid, len(self.job_seq))
+            self._index_job(job, None)
+            events = []
+            for inst in instances:
+                self.instances[inst.task_id] = inst
+                events.append(self._emit(
+                    "instance/shard-in",
+                    {"task_id": inst.task_id, "job": job.uuid},
+                    instance=inst))
+            events.append(self._emit(
+                "job/pool-moved",
+                {"uuid": job.uuid, "from": from_pool, "to": job.pool,
+                 "cross_shard": True},
+                job=job))
+            self._fan_out(events)
 
     def update_instance_progress(
         self, task_id: str, progress: int, message: str = ""

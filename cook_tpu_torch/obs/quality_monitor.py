@@ -7,8 +7,9 @@ problem tensors are detached from the cycle's data-plane scope and tagged
 every recorded sample: the quantization parity guard
 (scheduler/device_state.py) rides them.
 
-The reference's periodic exact-kernel audit (not ported) guards one
-cycle's parity; this monitor guards the TREND.  Every
+The periodic exact-kernel audit (`scheduler/matcher.py`
+`start_quality_audit`) guards one cycle's parity; this monitor guards
+the TREND.  Every
 `sample_every`-th solvable cycle per pool it shadow-solves the SAME
 problem with the reference-faithful numpy greedy
 (`ops/cpu_reference.np_greedy_match` — identical decision semantics to

@@ -17,11 +17,12 @@ of aiohttp, which the card's machine does not have:
 
 The handlers are the reference's, as plain functions: aiohttp's
 `async def` / `await` become calls, `web.Request` the shim's `Request`,
-`web.json_response` its `json_response`.  The replication half is the
-unsharded one: the leader's committed-event feed with long-poll, the
-snapshot bootstrap, durable acks and sync-ack commits, and a standby's
-replica-read gate.  /debug/fleet (the fleet observatory) waits and
-answers 404, and a `?shard=` other than 0 answers 400.
+`web.json_response` its `json_response`.  The replication half serves
+both layouts: the leader's committed-event feed with long-poll and the
+snapshot bootstrap (shard i's with `?shard=i` on a sharded store), durable
+acks per shard, sync-ack commits that wait once per shard they touched,
+and a standby's replica-read gate with the per-shard staleness split.
+/debug/fleet (the fleet observatory) waits and answers 404.
 
 Concurrency.  aiohttp runs every handler on one event loop, so the
 reference's API-level state (the shedder, the rate limiters, the queue
@@ -46,12 +47,15 @@ released too.  A waiter reads the wakeup counter `_repl_gen`, tests its
 predicate (the journal window, or the ack registries) under the loop
 lock, and parks until the counter moves or its deadline passes.
 
-Lock order.  Loop lock -> store lock (a handler reading or committing);
-store lock -> `_repl_cond` (the store watcher `_on_store_event`, which
-runs on the committing thread under the store lock and only bumps the
-counter); loop lock -> `_repl_cond` (an ack).  `_repl_cond` is a leaf:
-nothing is acquired while it is held, and no thread waits on it while
-holding the loop lock or the store lock.
+Lock order.  Loop lock -> store lock (a handler reading; on a sharded
+store, one shard lock at a time); store lock -> `_repl_cond` (the store
+watcher `_on_store_event`, which runs on the committing thread under the
+store lock, or its shard's, and only bumps the counter); loop lock ->
+`_repl_cond` (an ack).  A commit runs with the loop lock released, and a
+cross-shard commit takes its shard locks in ascending shard id
+(`shard/txn.py`).  `_repl_cond` is a leaf: nothing is acquired while it
+is held, and no thread waits on it while holding the loop lock or the
+store lock.
 
 Auth mirrors the reference's pluggable schemes: the requesting user comes
 from HTTP basic auth or the X-Cook-Requesting-User dev header, with
@@ -283,6 +287,12 @@ class CookApi:
             replication_meta_fn=lambda: dict(self.replication_ack_meta),
             starvation_fn=self._starvation_view,
         )
+        if hasattr(self.txn, "shard_view"):
+            # sharded pipeline (shard/txn.ShardedTransactionLog):
+            # per-shard lock/journal/commit attribution rides the same
+            # /debug/contention surface
+            self.contention.shards_fn = (
+                lambda: self.txn.shard_view(self.contention.params))
         self._replica_refusals = global_registry.counter(
             "shard.replica_reads_refused",
             "replica reads refused because the replica stopped applying")
@@ -1095,7 +1105,8 @@ class CookApi:
         walls = dict(outcome.phase_walls or {})
         if self.config.replication_sync_ack and not outcome.duplicate:
             t_repl = time.perf_counter()
-            outcome.replicated = self._await_replication_outcome(outcome)
+            outcome.replicated = self._await_replication_outcome(
+                outcome, walls)
             walls["replication_ack"] = time.perf_counter() - t_repl
             if not outcome.replicated:
                 self._note_ack_timeout()
@@ -2216,10 +2227,17 @@ class CookApi:
             self._repl_cond.notify_all()
 
     def _replication_store(self, shard: Optional[int]):
-        """The store whose feed a follower asked for: the whole
-        (unsharded) store for shard None or 0.  None = bad shard index
-        (the sharded store's port waits)."""
-        return self.store if shard in (None, 0) else None
+        """The store whose feed a follower asked for: shard i of a
+        sharded store, or the whole (unsharded) store.  None = bad
+        shard index."""
+        shards = getattr(self.store, "shards", None)
+        if shards is None:
+            return self.store if shard in (None, 0) else None
+        if shard is None:
+            shard = 0
+        if not 0 <= shard < len(shards):
+            return None
+        return shards[shard]
 
     def _journal_slice(self, after_seq: int, store=None):
         """Copy the event batch under the store lock; encode nothing
@@ -2404,13 +2422,22 @@ class CookApi:
                 return False
             self._repl_wait(gen, remaining)
 
-    def _await_replication_outcome(self, outcome: TxnOutcome) -> bool:
+    def _await_replication_outcome(self, outcome: TxnOutcome,
+                                   walls: Optional[dict] = None) -> bool:
         """Sync-ack wait for one commit: every shard the transaction
         touched must meet the durability bound (a cross-shard commit is
-        durable only when BOTH segments are replicated)."""
+        durable only when BOTH segments are replicated).  The shards are
+        awaited in ascending order; with `walls` given, a sharded commit
+        records each shard's wait as `replication_ack_s{i}` (shard i's
+        wall counts from when the shards before it were acked)."""
         if outcome.shard_seqs:
             for shard, seq in sorted(outcome.shard_seqs.items()):
-                if not self._await_replication(seq, shard):
+                t0 = time.perf_counter()
+                met = self._await_replication(seq, shard)
+                if walls is not None:
+                    walls[f"replication_ack_s{shard}"] = \
+                        time.perf_counter() - t0
+                if not met:
                     return False
             return True
         return self._await_replication(outcome.seq)

@@ -10,7 +10,8 @@ one process (the reference runs jetty in-process, components.clj:260-294).
 
 `InprocessControlPlane` is the reference's full write path in one process
 (store + journal with real fsyncs + transaction pipeline + API, no
-scheduler); its sharded layout waits for the port's `shard/` package.
+scheduler), unsharded or over N shards (`shards=N`: a `ShardedStore`,
+one journal segment per shard, the sharded commit pipeline).
 """
 from __future__ import annotations
 
@@ -110,7 +111,7 @@ class InprocessControlPlane:
 
     def __init__(self, *, data_dir: Optional[str] = None,
                  pools: tuple = ("default",), config=None, clock=None,
-                 journal_kw: Optional[dict] = None,
+                 journal_kw: Optional[dict] = None, shards: int = 1,
                  history_sample_s: float = 0.5):
         import tempfile
         import time as _time
@@ -125,13 +126,29 @@ class InprocessControlPlane:
         self._own_dir = data_dir is None
         self.data_dir = data_dir or tempfile.mkdtemp(prefix="cook-cp-")
         clock = clock or (lambda: int(_time.time() * 1000))
-        self.store = JobStore(clock=clock)
-        # journal_kw: JournalWriter knobs (fsync_policy,
-        # degraded_retry_s, ...)
-        self.journal = persistence.attach_journal(
-            self.store, f"{self.data_dir}/journal.jsonl",
-            **(journal_kw or {}))
-        self.txn = TransactionLog(self.store, journal=self.journal)
+        self.shards = shards
+        if shards > 1:
+            # sharded control plane (shard/): N store shards, N journal
+            # segments, the sharded commit pipeline
+            from cook_tpu_torch.shard import (ShardedStore,
+                                              ShardedTransactionLog)
+            from cook_tpu_torch.shard import journal as shard_journal
+
+            self.store = ShardedStore(shards, clock=clock)
+            self.journals = shard_journal.attach_shard_journals(
+                self.store, self.data_dir, **(journal_kw or {}))
+            self.journal = None
+            self.txn = ShardedTransactionLog(self.store,
+                                             journals=self.journals)
+        else:
+            self.store = JobStore(clock=clock)
+            # journal_kw: JournalWriter knobs (fsync_policy,
+            # degraded_retry_s, ...)
+            self.journal = persistence.attach_journal(
+                self.store, f"{self.data_dir}/journal.jsonl",
+                **(journal_kw or {}))
+            self.journals = [self.journal]
+            self.txn = TransactionLog(self.store, journal=self.journal)
         for pool in pools:
             self.store.set_pool(Pool(name=pool))
         # fast-sampled, memory-only metrics history
@@ -155,6 +172,7 @@ class InprocessControlPlane:
 
         self.history.stop()
         self.server.stop()
-        self.journal.close()
+        for journal in self.journals:
+            journal.close()
         if self._own_dir:
             shutil.rmtree(self.data_dir, ignore_errors=True)

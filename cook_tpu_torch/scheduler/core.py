@@ -517,6 +517,23 @@ class Scheduler:
     def _backfill_active(self) -> bool:
         return self.config.backfill_weight > 0 and self.predictor is not None
 
+    def _pool_store(self, pool: Pool):
+        """The store a per-pool cycle should read: a sharded store
+        exposes `store_for_pool`, pinning the cycle to the pool's own
+        shard — one snapshot, no facade fan-out and no cross-shard lock
+        traffic mid-cycle.  Plain JobStores return themselves."""
+        pinned = getattr(self.store, "store_for_pool", None)
+        if pinned is None:
+            return self.store
+        from cook_tpu_torch.shard.router import MisroutedKey
+
+        try:
+            return pinned(pool.name)
+        except MisroutedKey:
+            # a pool this process does not serve: the facade raises the
+            # precise error at the access site
+            return self.store
+
     def rank_cycle(self, pool: Pool) -> RankedQueue:
         """Rank the pool's pending jobs, through the columnar index when
         it is on (and no backfill term is active), quarantining jobs no
@@ -532,7 +549,8 @@ class Scheduler:
                      if self.config.match.device_residency else None)
         if self.columnar is not None and not self._backfill_active:
             queue = rank_pool_columnar(
-                self.store, self.columnar, pool, device=self.device,
+                self._pool_store(pool), self.columnar, pool,
+                device=self.device,
                 capacity_limits=((max_mem, max_cpus, max_gpus)
                                  if limits_active else None),
                 device_state=dru_state)
@@ -542,7 +560,7 @@ class Scheduler:
             filt = (offensive_job_filter(max_mem, max_cpus, max_gpus)
                     if limits_active else None)
             queue = rank_pool(
-                self.store, pool, device=self.device,
+                self._pool_store(pool), pool, device=self.device,
                 offensive_job_filter=filt,
                 predictor=(self.predictor if self._backfill_active
                            else None),
@@ -560,7 +578,8 @@ class Scheduler:
         # fairness trajectory sample: the rank cycle is the one moment
         # the per-user fair-share picture (queue DRU + running usage) is
         # coherent in one place
-        self.fairness.observe_rank(pool.name, queue, self.store)
+        self.fairness.observe_rank(pool.name, queue,
+                                   self._pool_store(pool))
         # stash the duration so the NEXT match cycle's record can claim
         # its rank phase (the simulator ranks as a separate step)
         self._last_rank_s[pool.name] = time.perf_counter() - t_rank
@@ -641,7 +660,7 @@ class Scheduler:
         if outcome is None:
             with data_plane.activate(flight.dp):
                 outcome = match_pool(
-                    self.store,
+                    self._pool_store(pool),
                     pool,
                     queue,
                     self.clusters,

@@ -193,7 +193,7 @@ class MatchConfig:
     # has no mesh, so nothing in the port reads it: the field exists only
     # so that a configuration loads here as it loads in the reference.  It
     # goes (or gains a meaning) when the port's mesh is built (ROADMAP
-    # Queue A item 9)
+    # Queue A, A10)
     hierarchical_use_mesh: bool = True
     # fine-solve backend: "xla" (a chunked solve per block) or "pallas"
     # (the best_node_batched kernel)

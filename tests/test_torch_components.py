@@ -3,10 +3,13 @@
 the single-process cases of tests/test_components.py on both packages
 (`P` over `ref` / `port`: the electors and the selector, the reaction
 wiring, a whole node booted from config and driven over HTTP), journal
-recovery across a restart, what waits for a later control-plane slice
-refusing to start and what waited booting, the device a config names, and `python -m
+recovery across a restart, a 2-shard leader's fail-stop demotion when
+either journal segment fails its fsync, what waits for a later
+control-plane slice refusing to start and what waited booting (a 2-shard
+leader among them), the device a config names, `python -m
 cook_tpu_torch` itself: booted on the CPU, stopped with SIGTERM, and
-restarted on the same data_dir with every acknowledged job readable."""
+restarted on the same data_dir with every acknowledged job readable, and
+`chip_smoke.py`'s service and failover phases at a CPU test's size."""
 import json
 import os
 import signal
@@ -21,11 +24,15 @@ import requests
 import torch
 
 from cook_tpu import components as ref_components
+from cook_tpu import faults as ref_faults
 from cook_tpu.control import leader as ref_leader
+from cook_tpu.models import entities as ref_ent
 from cook_tpu.rest import server as ref_server
 from cook_tpu.utils import config as ref_config
 from cook_tpu_torch import components as port_components
+from cook_tpu_torch import faults as port_faults
 from cook_tpu_torch.control import leader as port_leader
+from cook_tpu_torch.models import entities as port_ent
 from cook_tpu_torch.rest import server as port_server
 from cook_tpu_torch.utils import config as port_config
 
@@ -34,10 +41,12 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = SimpleNamespace(name="ref", components=ref_components,
                       leader=ref_leader, server=ref_server,
-                      config=ref_config, platform={})
+                      config=ref_config, faults=ref_faults, ent=ref_ent,
+                      platform={})
 PORT = SimpleNamespace(name="port", components=port_components,
                        leader=port_leader, server=port_server,
-                       config=port_config, platform={"platform": "cpu"})
+                       config=port_config, faults=port_faults,
+                       ent=port_ent, platform={"platform": "cpu"})
 PKGS = pytest.mark.parametrize("P", [REF, PORT], ids=["ref", "port"])
 H = {"X-Cook-Requesting-User": "u1"}
 TIMEOUT_S = 30
@@ -247,11 +256,10 @@ def test_journal_recovery_across_a_restart(P, tmp_path):
 
 
 @pytest.mark.parametrize("conf", [
-    {"shards": 2},
     {"peers": ("http://127.0.0.1:1",)},
     {"clusters": [{"kind": "k8s", "name": "k"}]},
     {"clusters": [{"kind": "k8s-http", "name": "k", "url": "http://x"}]},
-], ids=["shards", "fleet", "k8s", "k8s-http"])
+], ids=["fleet", "k8s", "k8s-http"])
 def test_what_waits_refuses_to_start(conf):
     with pytest.raises(ValueError, match="not ported yet"):
         port_components.build_process(
@@ -259,20 +267,23 @@ def test_what_waits_refuses_to_start(conf):
 
 
 @pytest.mark.parametrize("case", ["file-lease", "lease-service",
-                                  "sync-ack"])
+                                  "sync-ack", "shards-2"])
 def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
-    """The election and replication configs that waited for the
-    control-plane slice boot now: a file lease or the lease service elect
-    the first node, a second one on the lease service stands by with a
-    journal follower, a sync-ack leader with no standby commits and says
-    "replicated": false; every node stops with no thread left behind."""
+    """The election, replication and sharding configs that waited for
+    the control-plane slices boot now: a file lease or the lease service
+    elect the first node, a second one on the lease service stands by
+    with a journal follower, a sync-ack leader with no standby commits
+    and says "replicated": false, a 2-shard leader commits to both
+    shards' journal segments and snapshots them; every node stops with no
+    thread left behind."""
     from cook_tpu_torch.control.lease_server import LeaseServer
 
     lease = LeaseServer().start() if case == "lease-service" else None
     conf = {"file-lease": {"leader_lease_path": str(tmp_path / "lease")},
             "lease-service": {"leader_endpoint": lease and lease.url},
             "sync-ack": {"replication_sync_ack": True,
-                         "replication_ack_timeout_s": 0.2}}[case]
+                         "replication_ack_timeout_s": 0.2},
+            "shards-2": {"shards": 2}}[case]
     nodes, threads = [], []
     try:
         for i in range(2 if lease else 1):
@@ -304,6 +315,18 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
                 assert time.monotonic() < deadline, "no replication"
                 time.sleep(0.05)
             assert not standby.is_leader() and threads[1].is_alive()
+        if case == "shards-2":
+            from cook_tpu_torch.shard import journal as shard_journal
+
+            leader = nodes[0]
+            uuid = r.json()["jobs"][0]
+            assert [len(s.jobs) for s in leader.store.shards] == [1, 0]
+            {loop.name: loop for loop in leader.loops}["snapshot"].fire()
+            for i in range(2):
+                assert os.path.exists(os.path.join(shard_journal.shard_dir(
+                    leader.settings.data_dir, i), "snapshot.json"))
+            assert shard_journal.read_manifest(
+                leader.settings.data_dir)["shards"] == 2
     finally:
         for p in nodes:
             port_components.shutdown(p)
@@ -313,9 +336,64 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
             lease.stop()
     assert not any(t.is_alive() for t in threads)
     for p in nodes:
-        assert p.follower is None or not p.follower._thread.is_alive()
+        followers = getattr(p.follower, "followers", [p.follower])
+        assert not any(f is not None and f._thread.is_alive()
+                       for f in followers)
         assert not p.loops or not any(
             loop._thread.is_alive() for loop in p.loops)
+    if case == "shards-2":
+        from cook_tpu_torch.shard import journal as shard_journal
+
+        recovered = shard_journal.recover_sharded(
+            nodes[0].settings.data_dir, 2)
+        assert set(recovered.jobs) == set(nodes[0].store.jobs) == {uuid}
+
+
+@PKGS
+@pytest.mark.parametrize("segment", [0, 1])
+def test_fsync_failure_of_any_segment_demotes_a_sharded_leader(
+        P, segment, tmp_path):
+    """Under the fail-stop policy a 2-shard leader whose journal segment
+    of either shard fails its fsync reports that commit undurable and
+    demotes itself; the other shard's commits before it stood."""
+    from cook_tpu_torch.shard import ShardRouter
+    from cook_tpu_torch.shard import journal as shard_journal
+
+    pools = ShardRouter(2).pools_for_distinct_shards()
+    data = str(tmp_path / "data")
+    s = settings(P, shards=2, pools=[{"name": p} for p in pools],
+                 data_dir=data, journal_fsync_policy="fail-stop",
+                 rank_interval_s=3600, match_interval_s=3600,
+                 clusters=[{"kind": "mock", "name": "m1", "hosts": [
+                     {"node_id": "h0", "mem": 4000, "cpus": 8}]}])
+    p = P.components.build_process(s, start_rest=False)
+    txn = p.api.txn
+    try:
+        P.components.start_leader_duties(p, block=False,
+                                         on_loss=lambda: None)
+        assert p.is_leader()
+        other = pools[1 - segment]
+        txn.commit("share/set", {"share": _share(P, other)})
+        P.faults.arm(P.faults.FaultSchedule([P.faults.FaultRule(
+            point=P.faults.JOURNAL_FSYNC, mode="error",
+            match={"path": os.path.join(
+                shard_journal.shard_dir(data, segment), "journal.jsonl")})]))
+        with pytest.raises(OSError):
+            txn.commit("share/set", {"share": _share(P, pools[segment])})
+        deadline = time.monotonic() + TIMEOUT_S
+        while p.is_leader():
+            assert time.monotonic() < deadline, "no fail-stop demotion"
+            time.sleep(0.02)
+        assert p.api.leader is False and p.scheduler.active is False
+        assert ("u", other) in p.store.shards[1 - segment].shares
+    finally:
+        P.faults.disarm()
+        P.components.shutdown(p)
+
+
+def _share(P, pool):
+    return P.ent.Share(user="u", pool=pool,
+                       resources=P.ent.Resources(mem=1.0, cpus=1.0))
 
 
 def test_no_card_and_no_cpu_platform_raises(monkeypatch):
@@ -485,4 +563,32 @@ def test_chip_smoke_failover_phase_on_cpu():
         launches, calls = chip_smoke.failover_run(hosts, specs, workdir,
                                                   device="cpu")
     assert launches == 0 and calls
+    assert all(a.device.type == "cpu" for a in calls[0][:3])
+
+
+def test_chip_smoke_sharded_failover_phase_on_cpu():
+    """chip_smoke.py's sharded failover phase (27) at a CPU test's size: a
+    lease service and a 2-shard leader A (`python -m cook_tpu_torch`, sync
+    acks) as subprocesses, a 2-shard standby B in process; the fleet of
+    200 hosts split into one pool per shard; 2,000 jobs in 10 sync-acked
+    POSTs (the odd-numbered ones across both shards), waiting jobs moved
+    to the other pool, each 201 on both of B's segments; a replica read
+    on B naming both shards; A SIGKILLed, B promoted within 2 x TTL + 5 s
+    and running 3 cycles with a window in each pool; every acked job read
+    back from B in its acknowledged pool, on the shard that owns it, no
+    other job there, B's index consistent, no host over-committed, and
+    B's data_dir recovering to B's per-shard state.  On the CPU the
+    matcher's `best_node` calls run the plain version and count no
+    launch."""
+    import tempfile
+
+    import chip_smoke
+
+    hosts, specs = chip_smoke.service_fleet(n_hosts=200, n_jobs=2000)
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, calls, per_pool = chip_smoke.sharded_failover_run(
+            hosts, specs, workdir, device="cpu")
+    assert launches == 0 and calls
+    assert set(per_pool) == set(chip_smoke.sharded_pools())
+    assert all(per_pool.values()) and sum(per_pool.values()) == len(calls)
     assert all(a.device.type == "cpu" for a in calls[0][:3])

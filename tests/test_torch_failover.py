@@ -6,7 +6,11 @@ two scheduler processes with separate data directories, nothing shared but
 TCP; the leader is SIGKILLed and its data dir deleted; the standby takes
 the lease after the TTL and serves, schedules and accepts writes), each on
 both packages (`P` over `ref` / `port`): the port's through `python -m
-cook_tpu_torch.control.lease_server` and `python -m cook_tpu_torch`."""
+cook_tpu_torch.control.lease_server` and `python -m cook_tpu_torch`; and
+the same SIGKILL over two shards (`"shards": 2`, sync acks): cross-shard
+writes acknowledged on both of the standby's segments, the standby
+promoted, every acked job read back in its pool and recovered on the
+shard that owns it."""
 import json
 import os
 import shutil
@@ -232,6 +236,128 @@ def test_sigkill_leader_promotes_standby_no_shared_fs(P, tmp_path):
              "uuid": "f0000000-0000-0000-0000-0000000000ab"}]},
             headers=H, timeout=TIMEOUT_S)
         assert r.status_code == 201, r.text
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGKILL)
+        for p in procs:
+            p.wait(timeout=TIMEOUT_S)
+
+
+def _sharded_config(tmp_path, P, name, port, data_dir, lease_url, pools,
+                    **extra):
+    config = {
+        "port": port,
+        "data_dir": data_dir,
+        "leader_endpoint": lease_url,
+        "leader_ttl_s": 2.0,
+        "rank_interval_s": 0.5,
+        "match_interval_s": 0.5,
+        "platform": "cpu",
+        "shards": 2,
+        "pools": [{"name": pool} for pool in pools],
+        "clusters": [{"kind": "mock", "name": "m1", "hosts": [
+            {"node_id": f"h{i}", "mem": 4000, "cpus": 8,
+             "pool": pools[i % 2]} for i in range(4)]}],
+        **extra,
+    }
+    path = tmp_path / f"{P.name}-{name}.json"
+    path.write_text(json.dumps(config))
+    return str(path)
+
+
+@PKGS
+def test_sigkill_sharded_leader_promotes_standby(P, tmp_path):
+    """Two shards, nothing shared but TCP: leader A (sync acks, one
+    durable ack) takes a submit spanning both shards' pools and a
+    cross-shard pool move, each 201 saying it reached standby B's
+    segment of every shard it touched; A is SIGKILLed and its disk
+    burned; B promotes, reads back every acked job in its acknowledged
+    pool (the moved one in its new pool), schedules, and once stopped its
+    data_dir recovers with each job on the shard that owns its pool."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = []
+
+    def spawn(*argv):
+        p = subprocess.Popen([sys.executable, *argv], cwd=REPO, env=env,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL)
+        procs.append(p)
+        return p
+
+    shard_mod = __import__(f"{P.pkg}.shard.journal", fromlist=["journal"])
+    router = __import__(f"{P.pkg}.shard", fromlist=["shard"]).ShardRouter(2)
+    pools = router.pools_for_distinct_shards()
+    lease_port = P.server.free_port()
+    spawn("-m", f"{P.pkg}.control.lease_server", "--host", "127.0.0.1",
+          "--port", str(lease_port))
+    lease_url = f"http://127.0.0.1:{lease_port}"
+    ports = [P.server.free_port(), P.server.free_port()]
+    dirs = [str(tmp_path / "node1"), str(tmp_path / "node2")]
+    urls = [f"http://127.0.0.1:{port}" for port in ports]
+    try:
+        _wait(lambda: requests.get(f"{lease_url}/healthz",
+                                   timeout=1).ok, 30, "lease server up")
+        nodes = []
+        for i in (0, 1):
+            # A runs no match cycle in the test (its jobs stay waiting,
+            # so that one can move); B schedules once it leads
+            cfg = _sharded_config(
+                tmp_path, P, f"node{i}", ports[i], dirs[i], lease_url, pools,
+                replication_sync_ack=True, replication_min_acks=1,
+                replication_ack_timeout_s=20.0,
+                **({"match_interval_s": 3600.0} if i == 0 else {}))
+            nodes.append(spawn("-m", P.pkg, "--config", cfg))
+            if i == 0:
+                _wait(lambda: requests.get(f"{urls[0]}/debug", timeout=1
+                                           ).json()["leader"], 90,
+                      "node0 leads")
+        leader, standby = urls
+        _wait(lambda: requests.get(f"{standby}/debug", timeout=1).ok, 90,
+              "standby REST up")
+        acked = {}
+        r = requests.post(f"{leader}/jobs", json={"jobs": [
+            {"command": "sleep 600", "mem": 100, "cpus": 1,
+             "uuid": f"f0000000-0000-0000-0000-0000000001{i:02d}",
+             "pool": pools[i % 2]} for i in range(6)]},
+            headers=H, timeout=TIMEOUT_S)
+        assert r.status_code == 201, r.text
+        assert r.json().get("replicated") is not False
+        for i, uuid in enumerate(r.json()["jobs"]):
+            acked[uuid] = pools[i % 2]
+        moved = next(u for u, p in acked.items() if p == pools[0])
+        r = requests.post(f"{leader}/pool-move", json={
+            "jobs": [moved], "pool": pools[1]},
+            headers={"X-Cook-Requesting-User": "admin"}, timeout=TIMEOUT_S)
+        assert r.status_code == 201 and r.json()["moved"] == [moved], r.text
+        assert r.json().get("replicated") is not False
+        acked[moved] = pools[1]
+        nodes[0].send_signal(signal.SIGKILL)
+        nodes[0].wait(timeout=10)
+        shutil.rmtree(dirs[0])
+        _wait(lambda: requests.get(f"{standby}/debug",
+                                   timeout=1).json()["leader"], 30,
+              "standby promoted")
+        r = requests.get(f"{standby}/jobs", params=[
+            ("uuid", u) for u in acked], headers=H, timeout=TIMEOUT_S)
+        assert r.status_code == 200, r.text
+        assert {j["uuid"]: j["pool"] for j in r.json()} == acked
+        _wait(lambda: all(
+            j["status"] == "running" for j in requests.get(
+                f"{standby}/jobs", params=[("uuid", u) for u in acked],
+                headers=H, timeout=2).json()), 30,
+            "the new leader schedules both pools' jobs")
+        nodes[1].send_signal(signal.SIGTERM)
+        # the port's node shuts down on SIGTERM; the reference's installs
+        # no handler and dies of the signal
+        assert nodes[1].wait(timeout=TIMEOUT_S) == (
+            0 if P is PORT else -signal.SIGTERM)
+        recovered = shard_mod.recover_sharded(dirs[1], 2)
+        assert set(recovered.jobs) == set(acked)
+        for uuid, pool in acked.items():
+            owner = recovered.shards[router.shard_for_pool(pool)]
+            assert owner.jobs[uuid].pool == pool
+            assert sum(uuid in s.jobs for s in recovered.shards) == 1
     finally:
         for p in procs:
             if p.poll() is None:

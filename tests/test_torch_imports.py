@@ -192,7 +192,15 @@ SERVICE_MODULES = ("cook_tpu_torch.__main__",
                    "cook_tpu_torch.shard.replica")
 
 
-@pytest.mark.parametrize("module", SERVICE_MODULES)
+# the sharded store's modules (the router, the partitioned store, its
+# commit pipeline and journal segments), which the service imports
+SHARD_MODULES = ("cook_tpu_torch.shard",
+                 "cook_tpu_torch.shard.store",
+                 "cook_tpu_torch.shard.txn",
+                 "cook_tpu_torch.shard.journal")
+
+
+@pytest.mark.parametrize("module", SERVICE_MODULES + SHARD_MODULES)
 def test_service_module_loads_no_jax_reference_or_http_library(module):
     code = (
         "import importlib, sys\n"

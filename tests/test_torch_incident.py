@@ -11,6 +11,7 @@ assertions and their outputs compared.  The real `torch.profiler`
 capture is held here on the CPU (a trace file, no nesting); its CUDA
 kernel events are `chip_smoke.py`'s to show on the card."""
 import json
+import math
 import os
 import threading
 import time
@@ -276,9 +277,53 @@ def test_concurrent_observers_capture_once():
 # ------------------------------------------------ end-to-end drill (no REST)
 
 
+# the compute part of every drill solve, on the rig's clock
+DRILL_SOLVE_S = 0.010
+
+
+class _RigSolveClock:
+    """The solve latencies the drill's telemetry observes, on the rig's
+    own clock: each solve takes DRILL_SOLVE_S plus what the armed
+    `device.solve` delay slept, and that sleep advances this clock, not
+    the host's.  On the host's clock a sub-millisecond solve reads ten
+    times slower when the host is loaded (0.6, 0.6, 6.6, 7.0 ms beside
+    six busy test workers), which the drill's 5x relative floor reads as
+    a regression before any fault is armed.
+
+    The latency the matcher measured on the host's clock is still held
+    to what load cannot break: it is finite and not negative, and a
+    delay is charged to the solve it delayed, its `hit` on the host's
+    clock lying between the previous solve's record and this one's."""
+
+    def __init__(self):
+        self.slept = 0.0
+        self.hits: list[float] = []
+        self.recorded_at = time.monotonic()
+        self.delayed = 0
+
+    def sleep(self, seconds: float) -> None:
+        self.slept += seconds
+        self.hits.append(time.monotonic())
+
+    def timed(self, record_match_solve):
+        def record(pool, shape, backend, seconds, overlapped=False):
+            now = time.monotonic()
+            assert math.isfinite(seconds) and seconds >= 0.0, seconds
+            assert all(self.recorded_at <= hit <= now
+                       for hit in self.hits), (self.recorded_at,
+                                               self.hits, now)
+            self.delayed += bool(self.hits)
+            self.hits, self.recorded_at = [], now
+            seconds, self.slept = DRILL_SOLVE_S + self.slept, 0.0
+            return record_match_solve(pool, shape, backend, seconds,
+                                      overlapped=overlapped)
+        return record
+
+
 def _drill_rig(P):
     """tests/test_incident.py:221 without the REST layer: tight latency
-    windows, an injected profiler, auto profile on."""
+    windows, an injected profiler, auto profile on; solve latencies on
+    the rig's clock (`_RigSolveClock`)."""
     clock = FakeClock()
     store = P.store.JobStore(clock=clock)
     store.set_pool(P.ent.Pool(name="default"))
@@ -292,13 +337,16 @@ def _drill_rig(P):
         latency_window=16, latency_recent=2, latency_min_samples=3,
         latency_rel_floor=5.0, update_memory_gauges=False)
     scheduler.telemetry.health_observer = scheduler.incidents.observe
+    solve_clock = _RigSolveClock()
+    scheduler.telemetry.record_match_solve = solve_clock.timed(
+        scheduler.telemetry.record_match_solve)
     fake = FakeProfiler()
     scheduler.profiler = P.profiling.ProfileCapturer(
         base_dir="unused", start_fn=fake.start, stop_fn=fake.stop,
         default_duration_s=0.01, cooldown_s=0.0)
     scheduler.incidents.profiler = scheduler.profiler
     scheduler.incidents.auto_profile = True
-    return clock, store, scheduler, fake
+    return clock, store, scheduler, fake, solve_clock
 
 
 def _cycle(P, scheduler, store, clock, n_jobs=2):
@@ -323,15 +371,17 @@ def _drill(P) -> dict:
     captured with the cycle records, the span-ring trace, the armed
     faults, the fairness snapshot and an auto profile; health recovers
     and the bundle is stamped."""
-    clock, store, scheduler, fake = _drill_rig(P)
+    clock, store, scheduler, fake, solve_clock = _drill_rig(P)
     try:
         for _ in range(6):  # warm the latency baseline
             _cycle(P, scheduler, store, clock)
         assert scheduler.telemetry.health()["status"] == "ok"
         P.faults.arm(P.faults.FaultSchedule([P.faults.FaultRule(
-            point=P.faults.DEVICE_SOLVE, mode="delay", delay_s=0.25)]))
+            point=P.faults.DEVICE_SOLVE, mode="delay", delay_s=0.25)],
+            sleep=solve_clock.sleep))
         for _ in range(4):
             _cycle(P, scheduler, store, clock)
+        assert solve_clock.delayed == 4  # each delayed solve was recorded
         health = scheduler.telemetry.health()
         assert health["status"] == "degraded"
         assert "solve-latency-regression" in health["reasons"]

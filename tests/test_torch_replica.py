@@ -1,9 +1,11 @@
 """The replication wire format and the REST layer's parked waits, on the
-CPU: the unsharded replica-read cases of tests/test_replica_reads.py
-(serve, refuse, fall back) on both packages (`P` over `ref` / `port`), a
-follower of one package tailing a leader of the other, and a long-poll
-and a sync-ack submit parked at once while a third request is served (the
-port parks them with its loop lock released, `rest/api.py`)."""
+CPU: the replica-read cases of tests/test_replica_reads.py (serve,
+refuse, fall back), unsharded and on its 2-shard rig (with the per-shard
+staleness split), on both packages (`P` over `ref` / `port`), a follower
+of one package tailing a leader of the other, and long-polls and a
+sync-ack submit parked at once while a third request is served (the port
+parks them with its loop lock released, `rest/api.py`), on one store and
+on two shards."""
 import http.client
 import json
 import threading
@@ -21,21 +23,30 @@ from cook_tpu.models import persistence as ref_persist
 from cook_tpu.models import store as ref_store
 from cook_tpu.rest import api as ref_api
 from cook_tpu.rest import server as ref_server
+from cook_tpu.shard import ShardedStore as RefShardedStore
+from cook_tpu.shard import replica as ref_shard_replica
 from cook_tpu_torch import faults as port_faults
 from cook_tpu_torch.control import replication as port_replication
 from cook_tpu_torch.models import persistence as port_persist
 from cook_tpu_torch.models import store as port_store
 from cook_tpu_torch.rest import api as port_api
 from cook_tpu_torch.rest import server as port_server
+from cook_tpu_torch.shard import ShardedStore as PortShardedStore
+from cook_tpu_torch.shard import replica as port_shard_replica
+from cook_tpu_torch.shard import router as port_shard_router
 
 torch.set_num_threads(1)
 
 REF = SimpleNamespace(name="ref", faults=ref_faults,
                       replication=ref_replication, persist=ref_persist,
-                      store=ref_store, api=ref_api, server=ref_server)
+                      store=ref_store, api=ref_api, server=ref_server,
+                      ShardedStore=RefShardedStore,
+                      shard_replica=ref_shard_replica)
 PORT = SimpleNamespace(name="port", faults=port_faults,
                        replication=port_replication, persist=port_persist,
-                       store=port_store, api=port_api, server=port_server)
+                       store=port_store, api=port_api, server=port_server,
+                       ShardedStore=PortShardedStore,
+                       shard_replica=port_shard_replica)
 PKGS = pytest.mark.parametrize("P", [REF, PORT], ids=["ref", "port"])
 ADMIN = {"X-Cook-Requesting-User": "admin"}
 TIMEOUT_S = 15
@@ -61,8 +72,11 @@ def submit(url, jobs, timeout=TIMEOUT_S):
     return r.json()
 
 
-def job(uuid):
-    return {"uuid": uuid, "command": "true", "mem": 64, "cpus": 0.5}
+def job(uuid, pool=None):
+    spec = {"uuid": uuid, "command": "true", "mem": 64, "cpus": 0.5}
+    if pool is not None:
+        spec["pool"] = pool
+    return spec
 
 
 def wait_until(pred, timeout_s=TIMEOUT_S, what="condition"):
@@ -163,6 +177,138 @@ def test_staleness_over_ceiling_falls_back_to_leader(rig):
     assert status == 200 and "X-Cook-Staleness-Ms" in headers
 
 
+# ------------------------------------------- replica reads, two shards
+
+
+N_SHARDS = 2
+
+
+@pytest.fixture
+def srig(request):
+    """tests/test_replica_reads.py's rig: a 2-shard leader (store, one
+    journal segment per shard, the sharded pipeline, API) and a replica
+    whose sharded follower tails each shard's feed into a second sharded
+    store behind a non-leader API."""
+    P = request.param
+    leader = P.server.InprocessControlPlane(
+        shards=N_SHARDS, pools=("pool0", "pool1")).start()
+    store2 = P.ShardedStore(N_SHARDS)
+    follower = P.shard_replica.ShardedJournalFollower(
+        store2, leader_url_fn=lambda: leader.url,
+        self_url="http://replica", member_id="replica",
+        poll_s=0.05, timeout_s=2.0, long_poll_s=0.1).start()
+    api2 = P.api.CookApi(store2, None, P.api.ApiConfig())
+    api2.leader = False
+    api2.leader_url = leader.url
+    api2.staleness_fn = follower.staleness_view
+    replica = P.server.ServerThread(api2).start()
+    try:
+        yield SimpleNamespace(P=P, leader=leader, replica=replica, api2=api2,
+                              follower=follower, store2=store2)
+    finally:
+        P.faults.disarm()
+        follower.stop()
+        replica.stop()
+        leader.stop()
+
+
+SRIGS = pytest.mark.parametrize("srig", [REF, PORT], ids=["ref", "port"],
+                                indirect=True)
+
+
+def shard_staleness(headers) -> dict:
+    return json.loads(headers["X-Cook-Shard-Staleness"])
+
+
+def every_shard_proved_fresh(srig) -> bool:
+    """Each shard follower has had a fetch answered: `pool0` and `pool1`
+    lie on one shard, and the other's first freshness proof can come
+    after its jobs have synced on a loaded host."""
+    return all(row["staleness_ms"] != float("inf")
+               for row in srig.follower.staleness_view().values())
+
+
+@SRIGS
+def test_sharded_replica_serves_with_staleness_headers_and_field(srig):
+    submit(srig.leader.url, [job("r-0", "pool0")])
+    submit(srig.leader.url, [job("r-1", "pool1")])
+    wait_until(lambda: "r-0" in srig.store2.jobs
+               and "r-1" in srig.store2.jobs
+               and every_shard_proved_fresh(srig), what="replica sync")
+    status, headers, body = raw_get(srig.replica.url, "/jobs/r-1")
+    assert status == 200
+    staleness = headers["X-Cook-Staleness-Ms"]
+    assert staleness != "inf" and int(staleness) < 60_000
+    assert set(shard_staleness(headers)) == {"0", "1"}
+    payload = json.loads(body)
+    assert payload["uuid"] == "r-1"
+    assert "staleness_ms" in payload
+    # /debug/* is stamped too (served, never redirected)
+    status, headers, _ = raw_get(srig.replica.url, "/debug/contention")
+    assert status == 200 and "X-Cook-Staleness-Ms" in headers
+    status, _, body = raw_get(srig.replica.url, "/debug/replica")
+    view = json.loads(body)
+    assert set(view["shards"]) == {"0", "1"}
+    for i, shard in enumerate(srig.store2.shards):
+        assert view["shards"][str(i)]["applied_seq"] == shard.last_seq()
+    # the leader never stamps staleness: its reads are authoritative
+    status, headers, _ = raw_get(srig.leader.url, "/jobs/r-1")
+    assert status == 200 and "X-Cook-Staleness-Ms" not in headers
+
+
+@SRIGS
+def test_staleness_is_monotone_per_shard_while_behind(srig):
+    faults = srig.P.faults
+    submit(srig.leader.url, [job("m-0", "pool0")])
+    wait_until(lambda: "m-0" in srig.store2.jobs, what="replica sync")
+    # cut replication: the replica's freshness proof stops refreshing
+    faults.arm(faults.FaultSchedule([faults.FaultRule(
+        point=faults.REPLICATION_FETCH, mode="error")]))
+    submit(srig.leader.url, [job("m-1", "pool0")])
+    time.sleep(0.2)
+    _, headers_a, _ = raw_get(srig.replica.url, "/jobs/m-0")
+    time.sleep(0.3)
+    _, headers_b, _ = raw_get(srig.replica.url, "/jobs/m-0")
+    a, b = shard_staleness(headers_a), shard_staleness(headers_b)
+    for shard in a:
+        assert b[shard] >= a[shard], (a, b)
+    assert int(headers_b["X-Cook-Staleness-Ms"]) > \
+        int(headers_a["X-Cook-Staleness-Ms"])
+
+
+@SRIGS
+def test_sharded_replica_that_stops_applying_refuses_reads(srig):
+    faults = srig.P.faults
+    submit(srig.leader.url, [job("s-0", "pool0")])
+    wait_until(lambda: "s-0" in srig.store2.jobs, what="replica sync")
+    faults.arm(faults.FaultSchedule([faults.FaultRule(
+        point=faults.REPLICATION_FETCH, mode="error")]))
+    srig.api2.config.replica_refuse_after_s = 0.05
+    time.sleep(0.3)  # several failed polls: stalled_s passes the bound
+    status, _, body = raw_get(srig.replica.url, "/jobs/s-0")
+    assert status == 503
+    assert b"stopped applying" in body
+    status, _, body = raw_get(srig.replica.url, "/debug/replica")
+    assert json.loads(body)["decision"]["action"] == "refuse"
+
+
+@SRIGS
+def test_sharded_staleness_over_ceiling_falls_back_to_leader(srig):
+    submit(srig.leader.url, [job("f-0", "pool1")])
+    wait_until(lambda: "f-0" in srig.store2.jobs
+               and every_shard_proved_fresh(srig), what="replica sync")
+    # ceiling below any possible staleness: every gated read redirects
+    srig.api2.config.replica_staleness_ceiling_ms = -1.0
+    status, headers, _ = raw_get(srig.replica.url, "/jobs/f-0")
+    assert status == 307
+    assert headers["Location"].startswith(srig.leader.url)
+    assert headers["Location"].endswith("/jobs/f-0")
+    # back under the ceiling: served locally again
+    srig.api2.config.replica_staleness_ceiling_ms = 60_000.0
+    status, headers, _ = raw_get(srig.replica.url, "/jobs/f-0")
+    assert status == 200 and "X-Cook-Staleness-Ms" in headers
+
+
 @PKGS
 def test_idle_leader_staleness_climbs_through_the_long_poll(P):
     """A caught-up follower proves freshness only when a fetch returns,
@@ -249,6 +395,80 @@ def test_parked_long_poll_and_sync_ack_leave_the_api_serving(P):
         assert not poll.is_alive()
         assert any(e["kind"] == "job/created"
                    for e in out["poll"]["events"])
+    finally:
+        cp.stop()
+
+
+@PKGS
+def test_parked_shard_long_polls_and_cross_shard_sync_ack(P):
+    """On a 2-shard leader: a long-poll parked at each shard's head and a
+    cross-shard sync-ack submit waiting for both shards' acks, all at
+    once, while a third request is answered.  The submit's 201 waits
+    until each shard it touched is acked at that shard's own seq (an ack
+    on one shard does not end it), and every shard's next commit ends
+    that shard's long-poll."""
+    pools = port_shard_router.ShardRouter(2).pools_for_distinct_shards()
+    cp = P.server.InprocessControlPlane(
+        shards=2, pools=tuple(pools), config=P.api.ApiConfig(
+            replication_sync_ack=True, replication_ack_timeout_s=8.0)
+    ).start()
+    router = cp.store.router
+    assert [router.shard_for_pool(p) for p in pools] == [0, 1]
+    out = {}
+    try:
+        def submit_x():
+            out["x"] = requests.post(f"{cp.url}/jobs", json={"jobs": [
+                job("x-0", pools[0]), job("x-1", pools[1])]}, headers=ADMIN,
+                timeout=TIMEOUT_S)
+
+        s = threading.Thread(target=submit_x, daemon=True)
+        s.start()
+        wait_until(lambda: all(
+            any(t["op"] == "jobs/submit"
+                for t in list(shard.txn_results.values()))
+            for shard in cp.store.shards), what="the cross-shard commit")
+        heads = cp.store.last_seqs()
+
+        def long_poll(i):
+            out[f"poll{i}"] = requests.get(
+                f"{cp.url}/replication/journal?after_seq={heads[i]}"
+                f"&wait_s=8&shard={i}", headers=ADMIN,
+                timeout=TIMEOUT_S).json()
+
+        polls = [threading.Thread(target=long_poll, args=(i,), daemon=True)
+                 for i in range(2)]
+        for t in polls:
+            t.start()
+        time.sleep(0.3)
+        t0 = time.monotonic()
+        r = requests.get(f"{cp.url}/debug", timeout=TIMEOUT_S)
+        assert r.status_code == 200 and time.monotonic() - t0 < 2.0
+        assert s.is_alive() and all(t.is_alive() for t in polls)
+        # shard 0 acked: the submit still waits for shard 1
+        r = requests.post(f"{cp.url}/replication/ack", json={
+            "follower": "f", "seq": heads[0], "durable": True, "shard": 0},
+            headers=ADMIN, timeout=TIMEOUT_S)
+        assert r.json() == {"ok": True, "counted": True}
+        time.sleep(0.3)
+        assert s.is_alive(), "the submit returned with one shard acked"
+        requests.post(f"{cp.url}/replication/ack", json={
+            "follower": "f", "seq": heads[1], "durable": True, "shard": 1},
+            headers=ADMIN, timeout=TIMEOUT_S)
+        s.join(timeout=TIMEOUT_S)
+        assert not s.is_alive() and out["x"].status_code == 201
+        assert "replicated" not in out["x"].json()
+        assert all(t.is_alive() for t in polls)
+        for i in range(2):
+            requests.post(f"{cp.url}/replication/ack", json={
+                "follower": "f", "seq": 10**6, "durable": True, "shard": i},
+                headers=ADMIN, timeout=TIMEOUT_S)
+        assert "replicated" not in submit(cp.url, [job("y-0", pools[0]),
+                                                   job("y-1", pools[1])])
+        for i, t in enumerate(polls):
+            t.join(timeout=TIMEOUT_S)
+            assert not t.is_alive()
+            assert any(e["kind"] == "job/created"
+                       for e in out[f"poll{i}"]["events"])
     finally:
         cp.stop()
 
