@@ -412,15 +412,53 @@ inside the slices' block, 22 and 24 after the elastic agreement (20):
                   max, SIGKILL to promotion, B's cycle walls per pool,
                   placements and launches per pool, beside the card.
 
+The native host solvers and the multi-process runtime, both host-only
+(no kernel launches; the `kernels` line is unchanged by them):
+
+ N1. native     — `native/cook_native.cc` built with `g++` into
+                  cook_tpu_torch/_build/libcook_native.so
+                  (`build.load_native`, `ops/native.py`); `greedy_match`,
+                  `dru_rank` and `find_preemption` identical to the port's
+                  `ops/cpu_reference` at the CPU tests' seeds and at
+                  bench.py's CPU sizing (16,000 x 2,000 real of 16,384 x
+                  2,048; DRU 16,000 tasks of 64 users; the victim search
+                  at 16,384 tasks x 2,048 hosts); then the host walls
+                  (median of 5) of native `greedy_match` at bench.py's
+                  full sizing (100,000 x 10,000 real) and `dru_rank`
+                  (110,000 of 131,072 tasks, 64 users), beside the card's
+                  exact `greedy_match` (one CUDA-event timing; its
+                  placements and the share of jobs on the native's node)
+                  and `dru_rank` (median of 5) on the same inputs.
+                  Printed, not judged: the CPU baseline a benchmark sets
+                  the card against.
+ 28. mp fleet   — `python3 -m cook_tpu_torch --mp 2 --mp-shards 4
+                  --mp-standbys 1 --data-dir <tmp>` as a subprocess (real
+                  worker processes); 10,000 jobs of the synth trace's
+                  shapes in 100 POSTs of 100 from 10 users, the even POSTs
+                  each to one group's pool, the odd ones half in each (a
+                  cross-group 2PC each); a one-group and a cross-group
+                  kill; the submit walls p50 / p99 of both kinds and the
+                  front end's per-hop split (`/debug/frontend`).  The
+                  first pool's worker SIGKILLed: the kill to the route map
+                  showing the adopter alive, and to the front end's map.
+                  Fails unless every acked job reads back through the
+                  front end (200, in its pool; a killed one not waiting), a
+                  POST to the victim's pool answers 201, the decision log
+                  holds one commit per 2PC and nothing outstanding, no
+                  fleet process holds a CUDA context (`nvidia-smi
+                  --query-compute-apps=pid`, and no /dev/nvidiaN open),
+                  and SIGTERM ends the front end with exit 0 and no worker
+                  left.
+
 Order and processes: 1-7 (with the walls replays) run in this process,
 which times the kernel rows.  Then three worker processes run the rest
 at once, each its own part (PARTS), each resetting and reading the
 counts around the paths it drives: `speculation` S1-S4, 12 and 11;
-`multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` 8-8c, 9-10, 21,
-13-15, 22 and 24.  Their output is printed once all three have ended
+`multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` N1, 8-8c, 9-10,
+21, 13-15, 22 and 24.  Their output is printed once all three have ended
 (their phase lines count from this process's start, so they overlap),
-and their launches and errors join this process's.  25, 26 and 27 run
-last, in this process, with nothing beside them.
+and their launches and errors join this process's.  25, 26, 27 and 28
+run last, in this process, with nothing beside them.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -645,17 +683,23 @@ def phase(name):
     print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
+def card_line():
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def device_phase():
     import torch
 
     phase("device")
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     return card
 
@@ -6782,6 +6826,618 @@ def sharded_failover_phase(card):
     return launches, max_err
 
 
+# the mp fleet phase (28): `python -m cook_tpu_torch --mp` with real worker
+# processes, 10,000 jobs in 100 POSTs over the pools of both groups
+MP_FLEET_GROUPS = 2
+MP_FLEET_SHARDS = 4
+MP_FLEET_STANDBYS = 1
+MP_FLEET_JOBS = 10_000
+MP_FLEET_POSTS = 100
+MP_FLEET_USERS = 10
+MP_FLEET_READ_BATCH = 500
+MP_FLEET_BOOT_S = 90.0
+MP_FLEET_ADOPT_S = 30.0
+
+
+def _quantiles_ms(walls):
+    walls = sorted(walls)
+    return {"n": len(walls),
+            "p50_ms": round(1e3 * walls[len(walls) // 2], 3),
+            "p99_ms": round(1e3 * walls[min(len(walls) - 1,
+                                            int(0.99 * len(walls)))], 3)}
+
+
+def _fleet_pids(data_dir):
+    """pid of every worker and standby the fleet started (their ready
+    files)."""
+    mp_dir = os.path.join(data_dir, "mp")
+    pids = set()
+    for name in os.listdir(mp_dir):
+        if name.startswith("ready-") and name.endswith(".json"):
+            with open(os.path.join(mp_dir, name)) as f:
+                pids.add(json.load(f)["pid"])
+    return pids
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def cuda_context_holders(pids):
+    """The pids of `pids` that hold a CUDA context: listed by `nvidia-smi
+    --query-compute-apps=pid`, or holding a /dev/nvidiaN device file
+    open.  This process holds one, so it must be found by one of the two
+    ways, or the check sees nothing and fails.  Returns (whether
+    nvidia-smi lists this process, the holders among `pids`)."""
+    import re
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    listed = {int(word) for word in smi.stdout.split() if word.isdigit()}
+    holders = set(listed & (set(pids) | {os.getpid()}))
+    for pid in set(pids) | {os.getpid()}:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                holders.add(pid)
+    if os.getpid() not in holders:
+        raise AssertionError("mp fleet: neither nvidia-smi nor /proc shows "
+                             "this process's CUDA context: the check "
+                             "cannot see one")
+    return os.getpid() in listed, sorted(holders - {os.getpid()})
+
+
+def mp_fleet_posts(specs, pools):
+    """MP_FLEET_POSTS bodies of the synth trace's job shapes, uuids pinned
+    here: the even POSTs each to one group's pool (alternating), the odd
+    ones half in each group's (a cross-group 2PC each)."""
+    import uuid as uuid_mod
+
+    per_post = len(specs) // MP_FLEET_POSTS
+    posts = []
+    for i in range(MP_FLEET_POSTS):
+        chunk = specs[i * per_post:(i + 1) * per_post]
+        jobs = []
+        for k, spec in enumerate(chunk):
+            pool = (pools[(i // 2) % 2] if i % 2 == 0
+                    else pools[k % 2])
+            jobs.append(dict(spec, pool=pool, uuid=str(uuid_mod.uuid4())))
+        posts.append((i % 2 == 1, f"user{i % MP_FLEET_USERS}", jobs))
+    return posts
+
+
+def mp_fleet_read_back(url, acked, group_of, killed):
+    """Every acked uuid through the front end's GET /jobs?uuid=...,
+    MP_FLEET_READ_BATCH of one group at a time: 200, in its pool, and a
+    killed job no longer waiting."""
+    from urllib.parse import urlencode
+
+    by_group = {}
+    for uuid, pool in acked.items():
+        by_group.setdefault(group_of(pool), []).append(uuid)
+    read = 0
+    for uuids in by_group.values():
+        for i in range(0, len(uuids), MP_FLEET_READ_BATCH):
+            chunk = uuids[i:i + MP_FLEET_READ_BATCH]
+            status, body, *_ = http(
+                "GET", f"{url}/jobs?" + urlencode([("uuid", u)
+                                                   for u in chunk]))
+            if status != 200 or sorted(j["uuid"] for j in body) \
+                    != sorted(chunk):
+                raise AssertionError(f"mp fleet: GET /jobs of {len(chunk)} "
+                                     f"acked jobs answered {status} "
+                                     f"{str(body)[:300]}")
+            for job in body:
+                if job["pool"] != acked[job["uuid"]]:
+                    raise AssertionError(f"mp fleet: {job['uuid']} in pool "
+                                         f"{job['pool']}, acked in "
+                                         f"{acked[job['uuid']]}")
+                if job["uuid"] in killed and job["status"] == "waiting":
+                    raise AssertionError(f"mp fleet: killed {job['uuid']} "
+                                         "still waiting")
+            read += len(body)
+    return read
+
+
+def mp_fleet_run(workdir, n_jobs=MP_FLEET_JOBS, cuda=True):
+    """28 in `workdir`: `python -m cook_tpu_torch --mp` as a subprocess,
+    n_jobs in MP_FLEET_POSTS POSTs, kills, a worker SIGKILLed and adopted,
+    every ack read back, a POST to the victim's pool, the decision log
+    settled, no CUDA context in the fleet (`cuda`), SIGTERM and no worker
+    left.  Prints its lines; returns its numbers."""
+    from cook_tpu_torch.mp.topology import ShardGroupTopology, read_route_map
+    from cook_tpu_torch.obs import distributed
+    from cook_tpu_torch.rest.server import free_port
+
+    t_phase = time.perf_counter()
+    _hosts, specs = service_fleet(n_hosts=1, n_jobs=n_jobs)
+    topology = ShardGroupTopology(MP_FLEET_SHARDS, MP_FLEET_GROUPS)
+    pools = topology.pools_for_distinct_groups()
+    data_dir = os.path.join(workdir, "data")
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log = os.path.join(workdir, "frontend.log")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    with open(log, "ab") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cook_tpu_torch",
+             "--mp", str(MP_FLEET_GROUPS),
+             "--mp-shards", str(MP_FLEET_SHARDS),
+             "--mp-standbys", str(MP_FLEET_STANDBYS),
+             "--data-dir", data_dir, "--port", str(port)],
+            cwd=ROOT, env=env, stdout=out, stderr=out)
+    pids = set()
+    try:
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + MP_FLEET_BOOT_S
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"mp fleet: the front end exited "
+                                     f"{proc.returncode} at boot")
+            try:
+                if http("GET", f"{url}/debug/shards",
+                        timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"mp fleet: no front end within {MP_FLEET_BOOT_S} s")
+            time.sleep(0.1)
+        boot_s = time.perf_counter() - t0
+        pids = _fleet_pids(data_dir)
+        # the submits: one-group POSTs and cross-group 2PC POSTs
+        acked = {}
+        walls = {"one_group": [], "two_pc": []}
+        for two_pc, user, jobs in mp_fleet_posts(specs, pools):
+            status, body, wall, headers = http(
+                "POST", f"{url}/jobs", {"jobs": jobs}, user=user)
+            if status != 201 or sorted(body["jobs"]) != sorted(
+                    j["uuid"] for j in jobs):
+                raise AssertionError(f"mp fleet: POST /jobs answered "
+                                     f"{status} {str(body)[:300]}")
+            groups = headers.get("X-Cook-Shard-Group", "")
+            if ("," in groups) != two_pc:
+                kind = "2PC" if two_pc else "one-group"
+                raise AssertionError(f"mp fleet: a {kind} POST went to "
+                                     f"groups {groups!r}")
+            walls["two_pc" if two_pc else "one_group"].append(wall)
+            acked.update((j["uuid"], j["pool"]) for j in jobs)
+        # kills: one group's jobs in one DELETE, then a cross-group one
+        uuids = list(acked)
+        one = [u for u in uuids if acked[u] == pools[0]][:5]
+        cross = ([u for u in uuids if acked[u] == pools[0]][5:8]
+                 + [u for u in uuids if acked[u] == pools[1]][:3])
+        kill_walls = []
+        for batch in (one, cross):
+            query = "&".join(f"job={u}" for u in batch)
+            status, body, wall, _ = http(
+                "DELETE", f"{url}/jobs?{query}", user="admin")
+            if status != 204:
+                raise AssertionError(f"mp fleet: DELETE /jobs answered "
+                                     f"{status} {str(body)[:300]}")
+            kill_walls.append(round(wall, 4))
+        killed = set(one) | set(cross)
+        status, frontend, *_ = http("GET", f"{url}/debug/frontend")
+        hops = {g: {"forwarded": row["forwarded"],
+                    "p50_ms": row["p50_ms"], "p99_ms": row["p99_ms"],
+                    "hops": {h: {k: round(v, 3) if k != "count" else v
+                                 for k, v in s.items()}
+                             for h, s in row["hops"].items()}}
+                for g, row in frontend["per_group"].items()}
+        print("mp fleet submits " + json.dumps({
+            "boot_s": round(boot_s, 3), "jobs": len(acked),
+            "one_group": _quantiles_ms(walls["one_group"]),
+            "two_pc": _quantiles_ms(walls["two_pc"]),
+            "kills_s": kill_walls, "twopc": frontend["twopc"]}),
+            flush=True)
+        print("mp fleet front end per group " + json.dumps(hops),
+              flush=True)
+        # SIGKILL the worker of the first pool's group; time until the
+        # route map shows its adopter alive
+        victim = topology.group_for_pool(pools[0])
+        map_path = os.path.join(data_dir, "mp", "routemap.json")
+        before = read_route_map(map_path)["groups"][victim]
+        with open(os.path.join(data_dir, "mp",
+                               f"ready-g{victim}.json")) as f:
+            victim_pid = json.load(f)["pid"]
+        t_kill = time.perf_counter()
+        os.kill(victim_pid, signal.SIGKILL)
+        adopted = _until("the adopter alive in the route map",
+                         MP_FLEET_ADOPT_S, lambda: (lambda e: e if e[
+                             "alive"] and e["url"] != before["url"]
+                             else None)(read_route_map(map_path)[
+                                 "groups"][victim]))
+        adopt_s = time.perf_counter() - t_kill
+        _until("the front end on the adopter's map", MP_FLEET_ADOPT_S,
+               lambda: http("GET", f"{url}/debug/shards")[1]["groups"][
+                   victim]["url"] == adopted["url"])
+        frontend_s = time.perf_counter() - t_kill
+        t0 = time.perf_counter()
+        read = mp_fleet_read_back(url, acked, topology.group_for_pool,
+                                  killed)
+        read_s = time.perf_counter() - t0
+        if read != len(acked):
+            raise AssertionError(f"mp fleet: read back {read} of "
+                                 f"{len(acked)} acked jobs")
+        status, body, *_ = http("POST", f"{url}/jobs", {"jobs": [dict(
+            specs[0], pool=pools[0])]})
+        if status != 201:
+            raise AssertionError(f"mp fleet: POST to the victim's pool "
+                                 f"after adoption answered {status} "
+                                 f"{str(body)[:300]}")
+        tail = distributed.decision_log_tail(
+            os.path.join(data_dir, "mp", "2pc-decisions.jsonl"),
+            limit=10 ** 6)
+        commits = sum(r.get("decision") == "commit"
+                      for r in tail["records"])
+        if tail["outstanding"] or commits != MP_FLEET_POSTS // 2 + 1:
+            raise AssertionError(
+                f"mp fleet: decision log has {commits} commits and "
+                f"outstanding {tail['outstanding'][:5]}")
+        pids |= _fleet_pids(data_dir)
+        fleet = pids | {proc.pid}
+        smi_sees_self, holders = (cuda_context_holders(fleet) if cuda
+                                  else (None, []))
+        if holders:
+            raise AssertionError(f"mp fleet: processes {holders} hold "
+                                 "a CUDA context")
+    finally:
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+            rc = None
+        stop_s = time.perf_counter() - t0
+        left = sorted(pid for pid in pids if _pid_alive(pid))
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+    if rc != 0 or left:
+        with open(log) as f:
+            sys.stderr.write(f.read()[-4000:])
+        raise AssertionError(f"mp fleet: the front end exited {rc} "
+                             f"after SIGTERM, workers left: {left}")
+    result = {
+        "kill_to_adopter_alive_s": round(adopt_s, 3),
+        "kill_to_front_end_map_s": round(frontend_s, 3),
+        "read_back": read, "read_back_s": round(read_s, 3),
+        "decisions": commits, "fleet_pids": len(pids),
+        "cuda_context_holders_in_fleet": 0 if cuda else None,
+        "nvidia_smi_lists_this_process": smi_sees_self,
+        "sigterm_to_exit_s": round(stop_s, 3),
+        "run_s": round(time.perf_counter() - t_phase, 3)}
+    print("mp fleet failover " + json.dumps(result), flush=True)
+    return result
+
+
+def mp_fleet_phase(card):
+    """28. The mp fleet (see the docstring)."""
+    phase("mp fleet (28)")
+    with tempfile.TemporaryDirectory(prefix="cook-mp-fleet-") as workdir:
+        mp_fleet_run(workdir)
+    print(f"mp fleet on {card}", flush=True)
+
+
+# the native host solvers (N1): bench.py's CPU sizing, J 16,384 x N 2,048
+# with 16,000 x 2,000 real (bench.py:139-142), its full sizing, 131,072 x
+# 16,384 with 100,000 x 10,000 real (bench.py:143-145), and bench_dru's
+# T 131,072 tasks (110,000 real) of 64 users
+NATIVE_CPU = dict(j=16_384, n=2_048, j_real=16_000, n_real=2_000)
+NATIVE_FULL = dict(j=131_072, n=16_384, j_real=100_000, n_real=10_000)
+NATIVE_DRU = dict(t=131_072, u=64, t_real=110_000)
+NATIVE_DRU_CPU = dict(t=16_384, u=64, t_real=16_000)
+NATIVE_PREEMPT_CPU = dict(t=16_384, h=2_048)
+NATIVE_WALL_REPS = 5
+# the seeds of tests/test_native.py (and tests/test_torch_native.py)
+NATIVE_MATCH_SEEDS = range(3)
+NATIVE_DRU_SEEDS = range(3)
+NATIVE_PREEMPT_SEEDS = range(300, 305)
+
+
+def native_match_problem(j, n, seed):
+    """bench.make_problem (bench.py:39-57), written here: demands [j, 3]
+    of 512-8192 MB and 0.5-4 cpus, no gpus; hosts of 64 GB / 32 cpus with
+    a uniform 0.2-1.0 fraction free."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    demands = np.stack([
+        rng.choice([512, 1024, 2048, 4096, 8192], j).astype(np.float32),
+        rng.choice([0.5, 1, 2, 4], j).astype(np.float32),
+        np.zeros(j, dtype=np.float32)], axis=-1)
+    totals = np.stack([np.full(n, 65536.0, dtype=np.float32),
+                       np.full(n, 32.0, dtype=np.float32)], axis=-1)
+    frac = rng.uniform(0.2, 1.0, (n, 1)).astype(np.float32)
+    avail = np.concatenate([totals * frac, np.zeros((n, 1), np.float32)],
+                           axis=-1)
+    return demands, avail, totals
+
+
+def native_dru_problem(t, u, t_real, seed=3):
+    """bench.make_dru_problem's host columns (bench.py:219-240): user,
+    mem, cpus, order key, the valid mask, and one divisor array for all
+    three resources."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    user = rng.integers(0, u, t).astype(np.int32)
+    mem = rng.uniform(100, 8000, t).astype(np.float32)
+    cpus = rng.uniform(0.5, 8, t).astype(np.float32)
+    order = rng.permutation(t).astype(np.float32)
+    valid = np.arange(t) < t_real
+    div = rng.uniform(100, 1000, u).astype(np.float32)
+    return user, mem, cpus, order, valid, div
+
+
+def parity_match_problem(rng, j=150, n=40):
+    """tests/test_ops_parity.random_match_problem, written here."""
+    import numpy as np
+
+    demands = np.stack([
+        rng.uniform(10, 500, size=j), rng.uniform(0.5, 8, size=j),
+        (rng.uniform(0, 1, size=j) < 0.1) * rng.integers(1, 4, size=j)],
+        axis=-1)
+    totals = np.stack([rng.uniform(1000, 8000, size=n),
+                       rng.uniform(8, 64, size=n)], axis=-1)
+    frac = rng.uniform(0.3, 1.0, size=(n, 1))
+    avail = np.concatenate(
+        [totals * frac, rng.integers(0, 5, size=(n, 1)).astype(float)],
+        axis=-1)
+    feasible = rng.uniform(size=(j, n)) > 0.05
+    return demands, avail, totals, feasible
+
+
+def parity_dru_problem(rng, t=200, u=13):
+    """tests/test_ops_parity.random_dru_problem, written here."""
+    import numpy as np
+
+    user = rng.integers(0, u, size=t)
+    mem = rng.uniform(1, 100, size=t)
+    cpus = rng.uniform(0.1, 8, size=t)
+    gpus = rng.integers(0, 3, size=t).astype(float)
+    order_key = rng.permutation(t).astype(np.float64)
+    return (user, mem, cpus, gpus, order_key, rng.uniform(100, 1000, size=u),
+            rng.uniform(1, 50, size=u), rng.uniform(1, 8, size=u))
+
+
+def parity_rebalance_problem(rng, t=300, h=25):
+    """tests/test_ops_parity.random_rebalance_problem, written here."""
+    import numpy as np
+
+    task_host = rng.integers(0, h, size=t)
+    task_dru = rng.uniform(0, 5, size=t)
+    task_res = np.stack([
+        rng.uniform(10, 500, size=t), rng.uniform(0.5, 8, size=t),
+        (rng.uniform(size=t) < 0.1) * rng.integers(1, 4, size=t)], axis=-1)
+    eligible = rng.uniform(size=t) > 0.2
+    spare = np.stack([rng.uniform(0, 300, size=h), rng.uniform(0, 4, size=h),
+                      np.zeros(h)], axis=-1)
+    host_ok = rng.uniform(size=h) > 0.1
+    return task_host, task_dru, task_res, eligible, spare, host_ok
+
+
+def _same_match(label, got, want):
+    import numpy as np
+
+    if not np.array_equal(got, want):
+        bad = np.flatnonzero(got != want)
+        raise AssertionError(f"native {label}: greedy_match differs from "
+                             f"cpu_reference at {len(bad)} jobs, first "
+                             f"{bad[:5].tolist()}")
+
+
+def _same_dru(label, got, want):
+    import numpy as np
+
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError(
+            f"native {label}: dru_rank differs from cpu_reference (dru max "
+            f"abs diff {float(np.max(np.abs(got[0] - want[0]))):.3g}, "
+            f"{int(np.sum(got[1] != want[1]))} order positions)")
+
+
+def _same_preemption(label, got, want):
+    def norm(decision):
+        return None if decision is None else (decision[0],
+                                              sorted(decision[1]))
+
+    if norm(got) != norm(want):
+        raise AssertionError(f"native {label}: find_preemption gave "
+                             f"{norm(got)}, cpu_reference {norm(want)}")
+
+
+def _host_ms(fn, reps=NATIVE_WALL_REPS):
+    """(median of `reps` host-clock walls of fn() in ms, its last
+    result)."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[reps // 2], out
+
+
+def _event_ms(fn):
+    """One CUDA-event timing of fn(), its host dispatch included: the card
+    waits on each launch of a host-driven loop."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def native_parity():
+    """N1's checks: the native solvers identical to ops/cpu_reference at
+    the CPU tests' seeds (the plain-Python oracles) and at bench.py's CPU
+    sizing (the vectorized greedy, the DRU merge, the victim search)."""
+    import numpy as np
+
+    from cook_tpu_torch.ops import cpu_reference as ref
+    from cook_tpu_torch.ops import native
+
+    for seed in NATIVE_MATCH_SEEDS:
+        d, a, t, feas = parity_match_problem(np.random.default_rng(seed))
+        _same_match(f"seed {seed} masked",
+                    native.greedy_match(d, a, t, feas),
+                    ref.ref_greedy_match(d, a, t, feas))
+        _same_match(f"seed {seed}", native.greedy_match(d, a, t),
+                    ref.ref_greedy_match(d, a, t))
+    for seed in NATIVE_DRU_SEEDS:
+        problem = parity_dru_problem(np.random.default_rng(seed))
+        for gpu_mode in (False, True):
+            _same_dru(f"seed {seed} gpu_mode {gpu_mode}",
+                      native.dru_rank(*problem, gpu_mode=gpu_mode),
+                      ref.ref_dru_order(*problem, gpu_mode=gpu_mode))
+    demand = (400.0, 6.0, 0.0)
+    for seed in NATIVE_PREEMPT_SEEDS:
+        th, td, tr, el, sp, ok = parity_rebalance_problem(
+            np.random.default_rng(seed))
+        _same_preemption(
+            f"seed {seed}",
+            native.find_preemption(th, td, tr, el, sp, ok,
+                                   np.asarray(demand), 0.4, 1.0, 0.5),
+            ref.ref_preemption_decision(th, td, tr[:, 0], tr[:, 1],
+                                        tr[:, 2], el, sp, ok, demand,
+                                        0.4, 1.0, 0.5))
+    c = NATIVE_CPU
+    d, a, t = native_match_problem(c["j"], c["n"], seed=2)
+    d, a, t = d[:c["j_real"]], a[:c["n_real"]], t[:c["n_real"]]
+    got = native.greedy_match(d, a, t)
+    _same_match("CPU sizing", got, ref.np_greedy_match(d, a, t))
+    dc = NATIVE_DRU_CPU
+    user, mem, cpus, order, _valid, div = native_dru_problem(
+        dc["t"], dc["u"], dc["t_real"])
+    r = slice(0, dc["t_real"])
+    # float64 columns, as the native solver computes: the oracle sums in
+    # its inputs' dtype (numpy keeps float32 + a Python float in float32)
+    args = (user[r], *(np.asarray(col[r], np.float64)
+                       for col in (mem, cpus)),
+            np.zeros(dc["t_real"]), np.asarray(order[r], np.float64),
+            *([np.asarray(div, np.float64)] * 3))
+    _same_dru("CPU sizing", native.dru_rank(*args), ref.ref_dru_order(*args))
+    pc = NATIVE_PREEMPT_CPU
+    th, td, tr, el, sp, ok = parity_rebalance_problem(
+        np.random.default_rng(7), t=pc["t"], h=pc["h"])
+    found = 0
+    for demand in ((400.0, 6.0, 0.0), (900.0, 10.0, 0.0), (60.0, 1.0, 0.0),
+                   (9e9, 1.0, 0.0)):
+        want = ref.ref_preemption_decision(
+            th, td, tr[:, 0], tr[:, 1], tr[:, 2], el, sp, ok, demand,
+            0.4, 1.0, 0.5)
+        _same_preemption(
+            f"CPU sizing demand {demand}",
+            native.find_preemption(th, td, tr, el, sp, ok,
+                                   np.asarray(demand), 0.4, 1.0, 0.5),
+            want)
+        found += want is not None
+    print(f"native: identical to ops/cpu_reference at the CPU tests' seeds "
+          f"and at {c['j_real']:,} x {c['n_real']:,} "
+          f"({int((got >= 0).sum()):,} placed), dru {dc['t_real']:,} tasks "
+          f"x {dc['u']} users, preemption {pc['t']:,} tasks x {pc['h']:,} "
+          f"hosts ({found} of 4 demands found a host)", flush=True)
+
+
+def native_phase():
+    """N1. The native host solvers (see the docstring): built from the
+    checkout and held identical to ops/cpu_reference (`native_parity`);
+    then the CPU baseline's host walls at bench.py's full sizing beside
+    the card's exact greedy and DRU rank on the same inputs.  The walls
+    are printed, not judged."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch import build
+    from cook_tpu_torch.ops import dru as dru_ops
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.ops import native
+
+    phase("native host solvers (N1)")
+    t0 = time.perf_counter()
+    build.load_native()
+    print(f"native: built {os.path.relpath(build.native_path(), ROOT)} "
+          f"(g++ {' '.join(build.GXX_FLAGS)}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    native_parity()
+    f = NATIVE_FULL
+    jr, nr = f["j_real"], f["n_real"]
+    d, a, t = native_match_problem(f["j"], f["n"], seed=2)
+    d, a, t = d[:jr], a[:nr], t[:nr]
+    greedy_ms, native_assign = _host_ms(
+        lambda: native.greedy_match(d, a, t))
+    df = NATIVE_DRU
+    user, mem, cpus, order, valid, div = native_dru_problem(
+        df["t"], df["u"], df["t_real"])
+    r = slice(0, df["t_real"])
+    dru_ms, _ = _host_ms(lambda: native.dru_rank(
+        user[r], mem[r], cpus[r], np.zeros(df["t_real"]), order[r], div,
+        div, div))
+    # the card on the same arrays (every row valid): its exact greedy is
+    # a host-driven loop of ~12 launches a job, so a padded row costs as
+    # much as a real one
+    problem = match_ops.from_numpy(d, np.ones(jr, bool), a, t,
+                                   np.ones(nr, bool), device="cuda")
+    match_ops.greedy_match(match_ops.from_numpy(
+        d[:64], np.ones(64, bool), a[:64], t[:64], np.ones(64, bool),
+        device="cuda"))  # loads the solve's kernels
+    out = []
+    card_greedy_ms = _event_ms(lambda: out.append(
+        match_ops.greedy_match(problem).assignment))
+    card_assign = out[0].cpu().numpy()
+    tasks = dru_ops.from_numpy(user, mem, cpus, np.zeros(df["t"]), order,
+                               valid, device="cuda")
+    div_t = torch.as_tensor(div, device="cuda")
+    dru_ops.dru_rank(tasks, div_t, div_t, div_t)
+    card_dru_ms = sorted(
+        _event_ms(lambda: dru_ops.dru_rank(tasks, div_t, div_t, div_t))
+        for _ in range(NATIVE_WALL_REPS))[NATIVE_WALL_REPS // 2]
+    print("native walls " + json.dumps({
+        "greedy_match": {
+            "shape": f"{jr} x {nr} (bench's {f['j']} x {f['n']} padded "
+                     "problem's real rows)",
+            "native_host_ms": round(greedy_ms, 3),
+            "card_event_ms": round(card_greedy_ms, 3),
+            "placed_native": int((native_assign >= 0).sum()),
+            "placed_card": int((card_assign >= 0).sum()),
+            "same_node_fraction": round(float(np.mean(
+                native_assign == card_assign)), 6)},
+        "dru_rank": {
+            "shape": f"{df['t_real']} real of {df['t']} tasks x {df['u']} "
+                     "users",
+            "native_host_ms": round(dru_ms, 3),
+            "card_event_ms": round(card_dru_ms, 3)},
+        "native_reps": NATIVE_WALL_REPS, "card_greedy_reps": 1,
+        "card_dru_reps": NATIVE_WALL_REPS}), flush=True)
+    print(f"native: host walls (median of {NATIVE_WALL_REPS}, one core, "
+          f"beside the other parts) and CUDA-event times on {card_line()}",
+          flush=True)
+
+
 # The phases after the kernel rows run in worker processes, all at once:
 # each part below is `python3 chip_smoke.py --part NAME SHARED EPOCH`,
 # given the flat slice's trace and what the later phases compare with in
@@ -6892,9 +7548,11 @@ def part_multipool(shared, workdir, tally):
 
 
 def part_agreement(shared, workdir, tally):
-    """8-8c, the gang slice and agreement (9-10), the superblock slice
-    (21), the rebalance phases (13-15), the superblock layer at 1M x 100k
-    (22) and faults, incidents and admission (24)."""
+    """The native host solvers (N1), 8-8c, the gang slice and agreement
+    (9-10), the superblock slice (21), the rebalance phases (13-15), the
+    superblock layer at 1M x 100k (22) and faults, incidents and admission
+    (24)."""
+    native_phase()
     agreement_phase(workdir)
     default_agreement_phase(workdir)
     resident_default_agreement_phase(workdir)
@@ -7076,6 +7734,8 @@ def main() -> int:
     n, err = sharded_failover_phase(card)
     launches["best_node"] += n
     errs["best_node"] = max(errs["best_node"], err)
+    # the mp fleet (28): host-only, no kernel launches
+    mp_fleet_phase(card)
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{

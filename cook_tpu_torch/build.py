@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its C++ host
+solvers.
 
 `csrc/<name>.cu` (with the shared `csrc/score_tile.cuh`) compiles with
 `nvcc` into `_build/lib<name>.so`, a shared library with a plain C
@@ -6,6 +7,12 @@ interface that the kernel's wrapper loads with `ctypes` (no PyTorch
 headers, so a build takes seconds).  The build
 happens at first use, inside the process that launches the kernel, and
 `_build/` is never committed.
+
+`load_native` does the same for the host solvers of `native/cook_native.cc`
+(`ops/native.py`): `g++` with `native/Makefile`'s flags into
+`_build/libcook_native.so`, rebuilt when the source is newer.  It never
+writes into `native/` and never runs its Makefile (which also builds the
+`cook_cli` client).
 """
 from __future__ import annotations
 
@@ -15,10 +22,13 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NATIVE_SRC = os.path.join(os.path.dirname(PKG_DIR), "native",
+                          "cook_native.cc")
 
 # --fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch versions compute them, so kernel and plain version can be
@@ -26,7 +36,14 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
+# native/Makefile's CXXFLAGS, plus -shared as its library rule adds.  The
+# solvers hold no multiply feeding an add, so -march=native's FMA cannot
+# contract one and flip a tie against ops/cpu_reference
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+             "-shared")
+
 _libs: dict[str, ctypes.CDLL] = {}
+_native_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -123,3 +140,39 @@ def bind(lib: ctypes.CDLL, name: str, n_ptrs: int, n_ints: int):
 def launcher(name: str, n_ptrs: int, n_ints: int):
     """`bind` of kernel library `name`, built at first use."""
     return bind(load(name), name, n_ptrs, n_ints)
+
+
+def native_path() -> str:
+    return os.path.join(BUILD_DIR, "libcook_native.so")
+
+
+def load_native() -> ctypes.CDLL:
+    """`native/cook_native.cc` as a loaded library, compiled first with
+    `g++` when `_build/libcook_native.so` is missing or older than the
+    source.  The compiler writes a file of its own that then replaces the
+    library in one rename, so a process loading it meanwhile never reads
+    half a file.  Raises, with the compiler's output, if the build fails."""
+    with _native_lock:
+        lib = _libs.get("cook_native")
+        if lib is not None:
+            return lib
+        path = native_path()
+        if (not os.path.exists(path)
+                or os.path.getmtime(path) < os.path.getmtime(NATIVE_SRC)):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found on PATH: the native host "
+                                   "solvers cannot be built")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, NATIVE_SRC],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(
+                    f"g++ failed for native/cook_native.cc (exit "
+                    f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        lib = _libs["cook_native"] = ctypes.CDLL(path)
+        return lib

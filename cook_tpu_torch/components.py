@@ -29,8 +29,13 @@ index and caches through the store's watchers on the follower's thread,
 all host-side bookkeeping — none touches the card — and the first match
 cycle after promotion runs on an index checked against the store.
 
-What waits raises a clear error when configured: the fleet observatory
-(`peers`) and the `k8s` / `k8s-http` cluster kinds.
+The leader also runs the fleet observatory (`obs/fleet.py`, every
+`fleet_poll_s`): it polls `Settings.peers` and every standby that acked
+the replication feed with its URL, and serves the merged verdict at
+`GET /debug/fleet`.
+
+What waits raises a clear error when configured: the `k8s` / `k8s-http`
+cluster kinds.
 """
 from __future__ import annotations
 
@@ -182,6 +187,7 @@ class CookProcess:
     follower: object = None  # standby-side journal replication
     # durable multi-resolution metrics history (obs/tsdb.py)
     history: object = None
+    fleet: object = None     # leader-side fleet observatory (obs/fleet.py)
     # set by shutdown under `duties_lock`: a standby promoting on another
     # thread starts no loop once it is set
     stopping: bool = False
@@ -192,8 +198,6 @@ class CookProcess:
 
 
 def _check_ported(settings: Settings) -> None:
-    if settings.peers:
-        raise _not_ported("the fleet observatory (peers)")
     for conf in settings.clusters:
         kind = conf.get("kind", "mock")
         if kind in ("k8s", "k8s-http"):
@@ -504,6 +508,33 @@ def _take_leadership(process: CookProcess) -> None:
     process.api.staleness_fn = None
     log_info("leadership acquired", component="leader",
              member=process.member_id)
+    if settings.fleet_poll_s > 0:
+        # fleet observatory (obs/fleet.py), a LEADER duty: poll every
+        # known peer — the configured Settings.peers list plus every
+        # standby that registered itself (with its URL) through the
+        # replication ack registry — and serve the merged verdict at
+        # GET /debug/fleet.  A peer's ok->degraded edge captures a
+        # federated entry in THIS node's incident ring.
+        from cook_tpu_torch.obs.fleet import FleetObservatory
+
+        def peer_urls():
+            urls = set(settings.peers)
+            for meta in list(process.api.replication_ack_meta.values()):
+                url = meta.get("url") or ""
+                if url.startswith("http"):
+                    urls.add(url)
+            return sorted(urls)
+
+        process.fleet = FleetObservatory(
+            self_url=(settings.advertised_url
+                      or f"http://127.0.0.1:{settings.port}"),
+            peers_fn=peer_urls,
+            poll_s=settings.fleet_poll_s,
+            incidents=process.api.incidents,
+            self_verdict_fn=process.api.health_verdict,
+            as_user=settings.replication_user,
+        ).start()
+        process.api.fleet = process.fleet
     fail_stop_journals = [
         j for j in (process.journals or [process.journal])
         if j is not None and getattr(j, "fsync_policy", "") == "fail-stop"]
@@ -690,10 +721,10 @@ def _take_leadership(process: CookProcess) -> None:
 
 def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
     """Stop the loops (waiting up to `join_s` for each one's current run
-    to end, so no cycle outlives its process's teardown), the history
-    sampler, a standby's journal follower, the election and the REST
-    server, then close the journal, or every shard's segment (its
-    unsynced tail fsynced)."""
+    to end, so no cycle outlives its process's teardown), the fleet
+    observatory, the history sampler, a standby's journal follower, the
+    election and the REST server, then close the journal, or every
+    shard's segment (its unsynced tail fsynced)."""
     with process.duties_lock:
         process.stopping = True
     for loop in process.loops:
@@ -701,6 +732,8 @@ def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
     deadline = time.monotonic() + join_s
     for loop in process.loops:
         loop.join(max(0.0, deadline - time.monotonic()))
+    if process.fleet is not None:
+        process.fleet.stop()
     if process.history is not None:
         process.history.stop()
     if process.follower is not None:

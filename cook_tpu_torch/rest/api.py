@@ -11,7 +11,7 @@ of aiohttp, which the card's machine does not have:
   /failure_reasons, /progress/:uuid, /heartbeat/:uuid, /metrics,
   /compute-clusters, /incremental-config, /pool-move, /debug and
   /debug/{health, contention, faults, elastic, device, predictions,
-  cycles, spans, trace, incidents, history, fairness, profile},
+  cycles, spans, trace, incidents, history, fleet, fairness, profile},
   /jobs/:uuid/timeline, /swagger-docs, /swagger-ui, /shutdown-leader,
   /replication/{journal, snapshot, ack}, /debug/replica.
 
@@ -22,7 +22,7 @@ both layouts: the leader's committed-event feed with long-poll and the
 snapshot bootstrap (shard i's with `?shard=i` on a sharded store), durable
 acks per shard, sync-ack commits that wait once per shard they touched,
 and a standby's replica-read gate with the per-shard staleness split.
-/debug/fleet (the fleet observatory) waits and answers 404.
+/debug/fleet serves the leader's fleet observatory (`obs/fleet.py`).
 
 Concurrency.  aiohttp runs every handler on one event loop, so the
 reference's API-level state (the shedder, the rate limiters, the queue
@@ -95,6 +95,7 @@ from cook_tpu_torch.models.entities import (
 from cook_tpu_torch.models.reasons import _REASONS, REASONS_BY_CODE
 from cook_tpu_torch.models.state import all_attempts_consumed, attempts_consumed
 from cook_tpu_torch.models.store import JobStore, TransactionVetoed
+from cook_tpu_torch.obs import distributed
 from cook_tpu_torch.obs.contention import (
     ContentionObservatory,
     ContentionParams,
@@ -119,18 +120,6 @@ from cook_tpu_torch.scheduler.ratelimit import (
 from cook_tpu_torch.shard.router import MisroutedKey
 from cook_tpu_torch.txn import TransactionLog, TxnOutcome
 from cook_tpu_torch.utils.metrics import global_registry
-
-# the cross-process tracing headers (the reference's obs/distributed.py,
-# whose port waits with the multi-process runtime): a commit's span is
-# parented under X-Cook-Parent-Span, and every response carries its
-# server-side phase walls in X-Cook-Hop-Walls
-PARENT_SPAN_HEADER = "X-Cook-Parent-Span"
-HOP_WALLS_HEADER = "X-Cook-Hop-Walls"
-
-
-def encode_hop_walls(walls: dict) -> str:
-    """`{"apply": 0.0012, ...}` -> `apply=0.001200;...`."""
-    return ";".join(f"{k}={float(v):.6f}" for k, v in sorted(walls.items()))
 
 
 @dataclass
@@ -264,6 +253,10 @@ class CookApi:
         # (components.py) points this at its journal follower's
         # staleness_view; None = no replica-read surface on this node
         self.staleness_fn = None
+        # merged-trace process identity (obs/distributed.py): an mp worker
+        # stamps "worker-gN" here so this node's REST-side spans route to
+        # its pid track; None on single-process servers
+        self.process_label = None
         # long-poll / sync-ack wakeups (module docstring, "Lock order"):
         # a generation counter bumped under its own condition by every
         # commit (the store watcher) and every ack; waiters park on the
@@ -331,6 +324,10 @@ class CookApi:
             history = MetricsHistory()
         self.history = history
         self.incidents.add_collector("history", self.history.incident_slice)
+        # fleet observatory (obs/fleet.py): the leader's wiring
+        # (components.py) attaches a started FleetObservatory; None =
+        # this node does not federate (GET /debug/fleet says so)
+        self.fleet = None
         # fairness observatory (obs/fairness.py): adopt the scheduler's
         # (rank/rebalance cycles feed it) or stand up a local one on
         # scheduler-less nodes, so the incident bundle carries fairness
@@ -418,6 +415,7 @@ class CookApi:
         r.add_get("/debug/incidents", self.get_debug_incidents)
         r.add_get("/debug/incidents/{incident_id}", self.get_debug_incident)
         r.add_get("/debug/history", self.get_debug_history)
+        r.add_get("/debug/fleet", self.get_debug_fleet)
         r.add_get("/debug/fairness", self.get_debug_fairness)
         r.add_get("/debug/profile", self.get_debug_profile)
         r.add_post("/debug/profile", self.post_debug_profile)
@@ -730,9 +728,7 @@ class CookApi:
             return json_response(tracing.chrome_trace(spans=spans))
         if fmt == "raw":
             return json_response(
-                # "process": the multi-process runtime's label in the
-                # reference, None on a single-process server
-                {"spans": spans, "process": None,
+                {"spans": spans, "process": self.process_label,
                  "txn_id": txn_id})
         return _err(400, f"unknown format {fmt!r} (chrome | raw)")
 
@@ -789,6 +785,23 @@ class CookApi:
         except ValueError as e:
             return _err(400, str(e))
         return json_response(body)
+
+    def get_debug_fleet(self, request: Request) -> Response:
+        """Merged fleet verdict (obs/fleet.py): one row per node (self +
+        every polled peer) with poll-age staleness, federation-level
+        reasons (`peer-unreachable` / `peer-degraded` with the peer's own
+        reasons attached), and the worst replication shard across the
+        fleet.  `enabled: false` on nodes without a fleet observatory
+        (non-leaders, or `fleet_poll_s` <= 0)."""
+        if self.fleet is None:
+            return json_response({
+                "enabled": False,
+                "nodes": [],
+                "reasons": [],
+                "detail": "no fleet observatory on this node (leader-only "
+                          "duty; Settings.peers / fleet_poll_s)",
+            })
+        return json_response(self.fleet.verdict())
 
     def get_debug_fairness(self, request: Request) -> Response:
         """Fairness observatory (cook_tpu/obs/fairness.py): per-(pool,
@@ -873,7 +886,8 @@ class CookApi:
             # request["phase_walls"] (_commit)
             walls = dict(request.get("phase_walls") or {})
             walls["server"] = time.perf_counter() - t0
-            response.headers[HOP_WALLS_HEADER] = encode_hop_walls(walls)
+            response.headers[distributed.HOP_WALLS_HEADER] = \
+                distributed.encode_hop_walls(walls)
             return response
         except HTTPException as e:
             status = e.status
@@ -1115,11 +1129,15 @@ class CookApi:
             outcome.phase_walls = walls
             request["phase_walls"] = walls
         # the server-side commit span, parented under the caller's span
-        # when the request carried X-Cook-Parent-Span
+        # when the request carried X-Cook-Parent-Span (the mp front end's
+        # forward span)
+        span_tags = {"op": op}
+        if self.process_label:
+            span_tags["process"] = self.process_label
         tracing.record_span(
             "rest.commit", time.perf_counter() - t0,
-            parent=request.headers.get(PARENT_SPAN_HEADER),
-            txn_id=outcome.txn_id, op=op)
+            parent=request.headers.get(distributed.PARENT_SPAN_HEADER),
+            txn_id=outcome.txn_id, **span_tags)
         return outcome
 
     @staticmethod

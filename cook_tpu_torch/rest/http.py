@@ -140,9 +140,9 @@ class Response:
 
 
 def json_response(data, *, status: int = 200,
-                  dumps: Callable = json.dumps) -> Response:
+                  dumps: Callable = json.dumps, headers=None) -> Response:
     return Response(status=status, body=dumps(data).encode("utf-8"),
-                    content_type="application/json")
+                    content_type="application/json", headers=headers)
 
 
 class HTTPException(Response, Exception):
@@ -186,17 +186,21 @@ class Route:
 
 
 class Router:
-    """aiohttp's route table: `{name}` segments match one path segment;
-    routes resolve in registration order; a path registered under other
-    methods only answers 405."""
+    """aiohttp's route table: `{name}` segments match one path segment and
+    `{name:regex}` ones the regex (`{tail:.*}`, a catch-all); method `*`
+    takes every method; routes resolve in registration order; a path
+    registered under other methods only answers 405."""
 
     def __init__(self):
         self._routes: list[Route] = []
 
     def add_route(self, method: str, template: str, handler) -> None:
-        parts = re.split(r"\{(\w+)\}", template)
-        regex = "".join(re.escape(p) if i % 2 == 0 else f"(?P<{p}>[^{{}}/]+)"
-                        for i, p in enumerate(parts))
+        # re.split with two groups: text, name, regex-or-None, text, ...
+        parts = re.split(r"\{(\w+)(?::([^{}]+))?\}", template)
+        regex = "".join(
+            re.escape(parts[i]) if i % 3 == 0 else
+            f"(?P<{parts[i]}>{parts[i + 1] or '[^{}/]+'})"
+            for i in range(len(parts)) if i % 3 != 2)
         self._routes.append(Route(method, template,
                                   re.compile(f"^{regex}$"), handler))
 
@@ -224,7 +228,7 @@ class Router:
             m = route.pattern.match(request.path)
             if m is None:
                 continue
-            if route.method != method:
+            if route.method not in (method, "*"):
                 allowed.add(route.method)
                 continue
             request.match_info = m.groupdict()

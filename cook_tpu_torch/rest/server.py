@@ -65,8 +65,40 @@ class _Server(ThreadingHTTPServer):
     # resets connections once a handful of clients connect at once
     request_queue_size = 128
 
+    def server_activate(self) -> None:
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        super().server_activate()
+
+    def process_request(self, request, client_address) -> None:
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request) -> None:
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def end_reads(self) -> None:
+        """Shut the read side of every open connection, as aiohttp's
+        cleanup closes its connections: an idle keep-alive connection's
+        thread reads end-of-file and ends (server_close joins it, and the
+        client's next request on it fails instead of reaching a stopped
+        app), while a request in flight still writes its response."""
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RD)
+            except OSError:
+                pass
+
 
 class ServerThread:
+    """Serves `api.build_app()` (a `CookApi`, or any app with `build_app`:
+    the mp runtime's front end and worker RPC surface) on a thread."""
+
     def __init__(self, api: CookApi, host: str = "127.0.0.1",
                  port: Optional[int] = None):
         self.api = api
@@ -92,13 +124,24 @@ class ServerThread:
 
     def stop(self) -> None:
         # parked replication long-polls and sync-ack waits answer now:
-        # server_close joins every handler thread
-        self.api.close_replication_waits()
+        # server_close joins every handler thread (an app with no such
+        # waits, as the mp runtime's RPC surface and front end, has no
+        # hook)
+        close_waits = getattr(self.api, "close_replication_waits", None)
+        if close_waits is not None:
+            close_waits()
         if self._server is not None:
             self._server.shutdown()
+            self._server.end_reads()
             self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        # the app's own teardown once no request runs (aiohttp's
+        # on_cleanup): the mp front end closes its connections and its
+        # decision log here
+        cleanup = getattr(self.api, "on_cleanup", None)
+        if cleanup is not None:
+            cleanup()
 
 
 class InprocessControlPlane:

@@ -256,10 +256,9 @@ def test_journal_recovery_across_a_restart(P, tmp_path):
 
 
 @pytest.mark.parametrize("conf", [
-    {"peers": ("http://127.0.0.1:1",)},
     {"clusters": [{"kind": "k8s", "name": "k"}]},
     {"clusters": [{"kind": "k8s-http", "name": "k", "url": "http://x"}]},
-], ids=["fleet", "k8s", "k8s-http"])
+], ids=["k8s", "k8s-http"])
 def test_what_waits_refuses_to_start(conf):
     with pytest.raises(ValueError, match="not ported yet"):
         port_components.build_process(
@@ -267,15 +266,16 @@ def test_what_waits_refuses_to_start(conf):
 
 
 @pytest.mark.parametrize("case", ["file-lease", "lease-service",
-                                  "sync-ack", "shards-2"])
+                                  "sync-ack", "shards-2", "peers"])
 def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
-    """The election, replication and sharding configs that waited for
-    the control-plane slices boot now: a file lease or the lease service
-    elect the first node, a second one on the lease service stands by
-    with a journal follower, a sync-ack leader with no standby commits
+    """The election, replication, sharding and fleet configs that waited
+    for the control-plane slices boot now: a file lease or the lease
+    service elect the first node, a second one on the lease service stands
+    by with a journal follower, a sync-ack leader with no standby commits
     and says "replicated": false, a 2-shard leader commits to both
-    shards' journal segments and snapshots them; every node stops with no
-    thread left behind."""
+    shards' journal segments and snapshots them, a leader with `peers`
+    polls them and serves a row for each at /debug/fleet; every node
+    stops with no thread left behind."""
     from cook_tpu_torch.control.lease_server import LeaseServer
 
     lease = LeaseServer().start() if case == "lease-service" else None
@@ -283,7 +283,9 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
             "lease-service": {"leader_endpoint": lease and lease.url},
             "sync-ack": {"replication_sync_ack": True,
                          "replication_ack_timeout_s": 0.2},
-            "shards-2": {"shards": 2}}[case]
+            "shards-2": {"shards": 2},
+            "peers": {"peers": ("http://127.0.0.1:1",),
+                      "fleet_poll_s": 0.1}}[case]
     nodes, threads = [], []
     try:
         for i in range(2 if lease else 1):
@@ -327,6 +329,19 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
                     leader.settings.data_dir, i), "snapshot.json"))
             assert shard_journal.read_manifest(
                 leader.settings.data_dir)["shards"] == 2
+        if case == "peers":
+            deadline = time.monotonic() + TIMEOUT_S
+            while True:
+                fleet = requests.get(f"{url}/debug/fleet", headers=H,
+                                     timeout=TIMEOUT_S).json()
+                rows = {n["url"]: n for n in fleet["nodes"]}
+                if "http://127.0.0.1:1" in rows:
+                    break
+                assert time.monotonic() < deadline, fleet
+                time.sleep(0.05)
+            assert fleet["enabled"] and rows[url]["self"]
+            assert not rows["http://127.0.0.1:1"]["ok"]
+            assert fleet["reasons"] == ["peer-unreachable"]
     finally:
         for p in nodes:
             port_components.shutdown(p)
@@ -341,6 +356,7 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
                        for f in followers)
         assert not p.loops or not any(
             loop._thread.is_alive() for loop in p.loops)
+        assert p.fleet is None or p.fleet._thread is None
     if case == "shards-2":
         from cook_tpu_torch.shard import journal as shard_journal
 

@@ -200,7 +200,22 @@ SHARD_MODULES = ("cook_tpu_torch.shard",
                  "cook_tpu_torch.shard.journal")
 
 
-@pytest.mark.parametrize("module", SERVICE_MODULES + SHARD_MODULES)
+# the multi-process runtime's modules, the cross-process tracing and fleet
+# observatory they import, and the native host solvers' binding
+MP_MODULES = ("cook_tpu_torch.mp",
+              "cook_tpu_torch.mp.topology",
+              "cook_tpu_torch.mp.twopc",
+              "cook_tpu_torch.mp.worker",
+              "cook_tpu_torch.mp.router",
+              "cook_tpu_torch.mp.supervisor",
+              "cook_tpu_torch.obs.distributed",
+              "cook_tpu_torch.obs.fleet",
+              "cook_tpu_torch.ops.native",
+              "cook_tpu_torch.build")
+
+
+@pytest.mark.parametrize("module", SERVICE_MODULES + SHARD_MODULES
+                         + MP_MODULES)
 def test_service_module_loads_no_jax_reference_or_http_library(module):
     code = (
         "import importlib, sys\n"
@@ -253,6 +268,52 @@ def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_worker_entry_point_loads_no_jax_reference_or_http_library(
+        tmp_path):
+    """`python -m cook_tpu_torch.mp.worker`, booted as a standby and made
+    to adopt a group (every lazy import of a serving worker runs), with
+    `-X importtime` listing each module it imports."""
+    import json
+    import signal
+    import time
+    import urllib.request
+
+    ready = tmp_path / "ready.json"
+    log = tmp_path / "stderr"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    with open(log, "w") as stderr:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "cook_tpu_torch.mp.worker", "--data-dir",
+             str(tmp_path / "data"), "--n-shards", "2", "--ready-file",
+             str(ready)],
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=stderr)
+    try:
+        deadline = time.monotonic() + 90
+        while not ready.exists():
+            assert proc.poll() is None, log.read_text()[-2000:]
+            assert time.monotonic() < deadline, "worker never ready"
+            time.sleep(0.05)
+        describe = json.loads(ready.read_text())
+        request = urllib.request.Request(
+            describe["rpc_url"] + "/rpc/adopt", method="POST",
+            data=json.dumps({"group": 1, "shards": [1]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=60) as r:
+            assert json.loads(r.read())["active"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    err = log.read_text()
+    assert proc.returncode == 0, err[-2000:]
+    imported = [line.split("|")[-1].strip() for line in err.splitlines()
+                if line.startswith("import time:")]
+    assert "cook_tpu_torch.rest.api" in imported
+    bad = sorted(m for m in imported
+                 if _forbidden(m) or _http_lib(m))
+    assert not bad, bad
 
 
 def _source_files():
