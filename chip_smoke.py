@@ -450,6 +450,41 @@ The native host solvers and the multi-process runtime, both host-only
                   and SIGTERM ends the front end with exit 0 and no worker
                   left.
 
+The client tier, whose node launches `best_node` (counted in the
+`kernels` line):
+
+ 29. clients    — the client tier on phase 25's fleet and matcher (0.5 s
+                  loops, load shedding off), the node in this process
+                  (`build_process`, `start_leader_duties`), counts reset
+                  just before it boots and every `best_node` call kept;
+                  tasks end at their expected runtime (jobs naming none
+                  run 600 s, ended by their kills).  (b) Open-loop
+                  arrivals: `python3 -m cook_tpu_torch.sim.cli loadgen`
+                  (the port's `run_load` with `LoadConfig`: 3,000 jobs,
+                  8 users, Poisson at 60,000 a minute, batches of at
+                  most 20, the reference's runtime / memory / cpu
+                  choices) in a process of its own; it must report
+                  3,000 submitted and completed, none failed; its
+                  summary (submit and schedule p50 / p99, throughput,
+                  wall) printed.  (c) `python3 -m
+                  cook_tpu_torch.client.cli` as subprocesses: submit,
+                  show, jobs, why, timeline, kill, wait, show; the load
+                  generator again with 100 jobs; `WorkerPool.scale` 8
+                  then 2; `SparkCookBackend.request_total_executors` 4
+                  then 1, then `stop`; one job's command run by the
+                  port's `TaskRunner` (its progress posted to the node
+                  under the task's id) and its sandbox served by `python3
+                  -m cook_tpu_torch.sidecar.fileserver` at the mock
+                  cluster's `sandbox_url_fn`: `cs ls`, `cs cat` of stdout
+                  and stderr and `cs tail --bytes 1000` equal to the
+                  files byte for byte; the sidecar exits 0 on SIGTERM.
+                  (d) The loops stopped, the counts read: `best_node`
+                  launched once per kept call, every kept launch
+                  identical to its plain version, no host over-committed,
+                  no `solve-failed` skip.  Prints the summaries and the
+                  walls (boot, open loop, each `cs` call, the small
+                  loadgen, the executor, the phase) beside the card.
+
 Order and processes: 1-7 (with the walls replays) run in this process,
 which times the kernel rows.  Then three worker processes run the rest
 at once, each its own part (PARTS), each resetting and reading the
@@ -457,8 +492,8 @@ counts around the paths it drives: `speculation` S1-S4, 12 and 11;
 `multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` N1, 8-8c, 9-10,
 21, 13-15, 22 and 24.  Their output is printed once all three have ended
 (their phase lines count from this process's start, so they overlap),
-and their launches and errors join this process's.  25, 26, 27 and 28
-run last, in this process, with nothing beside them.
+and their launches and errors join this process's.  25, 26, 27, 28 and
+29 run last, in this process, with nothing beside them.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -7137,6 +7172,356 @@ def mp_fleet_phase(card):
     print(f"mp fleet on {card}", flush=True)
 
 
+# the clients phase (29): phase 25's fleet and matcher driven through the
+# client tier over HTTP, as a deployment's users drive it: the load
+# generator's open-loop arrivals from a process of its own, then the `cs`
+# CLI and a small load generator run as subprocesses, the worker-pool and
+# Spark integrations, and one job's command under the executor, its
+# sandbox served by the sidecar (a subprocess) and read back through `cs
+# ls/cat/tail`.  The node runs in this process, so that its best_node
+# launches are counted and kept.
+# Poisson arrivals at 1,000 jobs/s.  The node places 43-53 jobs/s on
+# SERVICE_MATCH over these identical hosts (a median ~60 a match cycle,
+# cycles ~1.2 s apart: PERF.md §5), so the backlog drains long after the
+# arrivals end: 10,000 jobs took 188-232 s, and the script 931-1,081 s of
+# the 1,200 s it may take.  3,000 (cut: depth) drain in ~60-70 s
+CLIENT_JOBS = 3_000
+CLIENT_USERS = 8
+CLIENT_RATE_PER_MINUTE = 60_000
+CLIENT_WAIT_S = 180.0
+# a task's runtime when its job names none (the `cs` jobs, the pool's
+# workers, the Spark executors): long-lived, as those are, and ended by
+# their kills; the load generator's jobs name 0.5-2 s
+CLIENT_DEFAULT_RUNTIME_MS = 600_000
+CLIENT_CLI_JOBS = 100
+CLIENT_CLI_RATE_PER_MINUTE = 12_000
+CLIENT_WORKERS = (8, 2)
+CLIENT_EXECUTORS = (4, 1)
+# the sandbox job's stdout (~109 KB: `cs cat` pages it in 64 KiB reads)
+CLIENT_SANDBOX_LINES = 20_000
+CLIENT_TAIL_BYTES = 1_000
+CLIENT_CMD_TIMEOUT_S = 120.0
+
+
+def clients_config(port, data_dir, hosts, device="cuda"):
+    """Phase 25's node config with tasks that end at their expected
+    runtime (or CLIENT_DEFAULT_RUNTIME_MS) and no load shedding (phase 25
+    says why)."""
+    cfg = service_config(port, data_dir, hosts, device)
+    cfg["clusters"][0]["default_runtime_ms"] = CLIENT_DEFAULT_RUNTIME_MS
+    cfg["load_shedding"] = False
+    return cfg
+
+
+def _client_env():
+    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+
+def _run_module(module, *argv, timeout=CLIENT_CMD_TIMEOUT_S):
+    """`python -m module argv...` from the checkout's root: (exit code,
+    stdout bytes, stderr text, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT,
+                          env=_client_env(), capture_output=True,
+                          timeout=timeout)
+    return (proc.returncode, proc.stdout,
+            proc.stderr.decode(errors="replace"), time.perf_counter() - t0)
+
+
+def _cs(walls, cfg_path, *argv, user="alice"):
+    """`python -m cook_tpu_torch.client.cli` as a subprocess: its stdout;
+    raises unless it exits 0."""
+    rc, out, err, wall = _run_module("cook_tpu_torch.client.cli",
+                                     "--config", cfg_path, "--user", user,
+                                     *argv)
+    walls.setdefault(f"cs {argv[0]}", []).append(round(wall, 3))
+    if rc != 0:
+        raise AssertionError(f"clients: cs {' '.join(argv)} exited {rc}: "
+                             f"{err[-1500:]}")
+    return out
+
+
+def _loadgen(url, n_jobs, rate, users, seed, out):
+    """`python -m cook_tpu_torch.sim.cli loadgen` as a subprocess (its
+    own process, as a deployment's clients are): the printed summary;
+    raises unless it exits 0."""
+    rc, stdout, err, wall = _run_module(
+        "cook_tpu_torch.sim.cli", "loadgen", "--url", url, "--jobs",
+        str(n_jobs), "--rate", str(rate), "--users", str(users), "--seed",
+        str(seed), "--wait-timeout-s", str(CLIENT_WAIT_S), "--out", out,
+        timeout=CLIENT_WAIT_S + 120)
+    if rc != 0:
+        raise AssertionError(f"clients: loadgen of {n_jobs} exited {rc}: "
+                             f"{stdout.decode()[-500:]} {err[-1500:]}")
+    summary = json.loads(stdout.decode().strip().splitlines()[-1])
+    with open(out) as f:
+        if json.load(f) != summary:
+            raise AssertionError("clients: loadgen --out differs from "
+                                 "its stdout")
+    if not (summary["submitted"] == summary["completed"] == n_jobs
+            and summary["failed"] == 0):
+        raise AssertionError(f"clients: loadgen of {n_jobs}: {summary}")
+    return summary, wall
+
+
+def _until_status(client, uuids, status, timeout_s=60.0):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        jobs = client.query(uuids)
+        if all(j["status"] == status for j in jobs):
+            return jobs
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"clients: not all {status} within {timeout_s} s: "
+                f"{sorted({j['status'] for j in jobs})}")
+        time.sleep(0.1)
+
+
+def _sidecar(workdir, sandbox):
+    """`python -m cook_tpu_torch.sidecar.fileserver` over the sandbox on
+    a free port: (process, url) once it answers."""
+    from cook_tpu_torch.rest.server import free_port
+
+    port = free_port()
+    with open(os.path.join(workdir, "sidecar.log"), "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cook_tpu_torch.sidecar.fileserver",
+             "--port", str(port), "--workdir", sandbox],
+            cwd=ROOT, env=_client_env(), stdout=log, stderr=log)
+    url = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 60
+    while not _answers(f"{url}/files/browse"):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise AssertionError(f"clients: the sidecar never answered "
+                                 f"(exit {proc.returncode})")
+        time.sleep(0.05)
+    return proc, url
+
+
+def _answers(url):
+    try:
+        return http("GET", url, timeout=5)[0] == 200
+    except OSError:
+        return False
+
+
+def clients_cli_steps(url, process, workdir, cli_jobs, walls):
+    """(c) The CLI, the small load generator, the integrations, and the
+    executor with the sidecar."""
+    from cook_tpu_torch.client.jobclient import JobClient
+    from cook_tpu_torch.executor.runner import (ExecutorConfig,
+                                                RestUpdateSink, TaskRunner)
+    from cook_tpu_torch.integrations.spark import (SparkCookBackend,
+                                                   SparkExecutorSpec)
+    from cook_tpu_torch.integrations.workerpool import WorkerPool, WorkerSpec
+
+    out = {}
+    cfg = os.path.join(workdir, "cs.json")
+    with open(cfg, "w") as f:
+        json.dump({"clusters": [{"name": "card", "url": url}]}, f)
+    # cs: submit, show, jobs, why, timeline, kill, wait
+    uuid = _cs(walls, cfg, "submit", "--mem", "256", "--cpus", "1",
+               "--name", "cs-job", "echo", "from", "cs").decode().strip()
+    client = JobClient(url, user="alice")
+    _until_status(client, [uuid], "running")
+    shown = _cs(walls, cfg, "show", uuid).decode()
+    jobs = _cs(walls, cfg, "jobs").decode()
+    why = _cs(walls, cfg, "why", uuid).decode()
+    timeline = _cs(walls, cfg, "timeline", uuid).decode()
+    if not (f"{uuid}  running" in shown and uuid in jobs
+            and f"{uuid} is running" in why
+            and "matched to" in timeline and "launched task" in timeline):
+        raise AssertionError(f"clients: cs read back {shown!r} {jobs!r} "
+                             f"{why!r} {timeline!r}")
+    killed = _cs(walls, cfg, "kill", uuid).decode()
+    waited = _cs(walls, cfg, "wait", uuid, "--timeout", "60").decode()
+    after = _cs(walls, cfg, "show", uuid).decode()
+    if killed.strip() != f"killed {uuid} on card" or \
+            waited.strip() != "completed" or "completed" not in after:
+        raise AssertionError(f"clients: cs kill/wait {killed!r} {waited!r} "
+                             f"{after!r}")
+    # the load generator as a subprocess, a few hundred jobs
+    out["loadgen_cli"], walls["loadgen_cli_s"] = _loadgen(
+        url, cli_jobs, CLIENT_CLI_RATE_PER_MINUTE, 4, 1,
+        os.path.join(workdir, "loadgen-cli.json"))
+    # the worker pool up then down
+    pool = WorkerPool(JobClient(url, user="dask-user"),
+                      WorkerSpec(command_template="worker --join {address}",
+                                 mem=1024, cpus=2), "tcp://sched:8786")
+    up, down = CLIENT_WORKERS
+    workers = pool.scale(up)
+    _until_status(pool.client, workers, "running")
+    gone = pool.worker_uuids[down:]
+    pool.scale(down)
+    _until_status(pool.client, gone, "completed")
+    if pool.status() != {"running": down}:
+        raise AssertionError(f"clients: worker pool {pool.status()}")
+    pool.close()
+    out["worker_pool"] = {"up": up, "down": down}
+    # the Spark backend: total executors up then down, then stop
+    backend = SparkCookBackend(
+        f"cook://spark-user@127.0.0.1:{url.rsplit(':', 1)[1]}",
+        driver_url="spark://CoarseGrainedScheduler@driver:7077",
+        spec=SparkExecutorSpec(executor_cores=2, executor_mem=2048))
+    up, down = CLIENT_EXECUTORS
+    backend.request_total_executors(up)
+    _until_status(backend.client, list(backend.executors.values()),
+                  "running")
+    backend.request_total_executors(down)
+    if set(backend.executor_status().values()) != {"running"} or \
+            sorted(backend.executors) != ["0"]:
+        raise AssertionError(f"clients: spark {backend.executor_status()}")
+    live = list(backend.executors.values())
+    backend.stop()
+    _until_status(backend.client, live, "completed")
+    out["spark"] = {"up": up, "down": down}
+    # one job's command under the executor, its sandbox served by the
+    # sidecar at the task's output_url
+    command = (f"seq 1 {CLIENT_SANDBOX_LINES}; echo 'progress: 40 warm'; "
+               "echo 'progress: 100 done'; echo to-stderr >&2")
+    [sb_uuid] = client.submit([{"command": command, "mem": 256, "cpus": 1,
+                                "name": "sandbox"}])
+    [job] = _until_status(client, [sb_uuid], "running")
+    task_id = job["instances"][-1]["task_id"]
+    sandbox = os.path.join(workdir, "sandbox")
+    updates = []
+    rest = RestUpdateSink(url)
+
+    def sink(update):
+        updates.append(update)
+        rest(update)
+
+    t0 = time.perf_counter()
+    code = TaskRunner(task_id, command, sink, ExecutorConfig(
+        sandbox_dir=sandbox, progress_sample_interval_s=0.0)).run()
+    walls["executor_s"] = round(time.perf_counter() - t0, 3)
+    status, progress, *_ = http("GET", f"{url}/progress/{task_id}")
+    if code != 0 or [u.status for u in updates if u.kind == "status"] != [
+            "running", "success"] or status != 200 or progress != {
+            "progress": 100, "progress_message": "done"}:
+        raise AssertionError(f"clients: executor exit {code}, progress "
+                             f"{status} {progress}")
+    sidecar, sidecar_url = _sidecar(workdir, sandbox)
+    try:
+        process.clusters[0].sandbox_url_fn = lambda tid: sidecar_url
+        listed = _cs(walls, cfg, "ls", sb_uuid).decode()
+        cat = _cs(walls, cfg, "cat", sb_uuid, "stdout")
+        tail = _cs(walls, cfg, "tail", sb_uuid, "stdout", "--bytes",
+                   str(CLIENT_TAIL_BYTES))
+        err = _cs(walls, cfg, "cat", sb_uuid, "stderr")
+    finally:
+        sidecar.send_signal(signal.SIGTERM)
+        try:
+            sidecar_rc = sidecar.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            sidecar.kill()
+            sidecar.wait(timeout=30)
+            raise AssertionError("clients: the sidecar outlived SIGTERM")
+    with open(os.path.join(sandbox, "stdout"), "rb") as f:
+        stdout = f.read()
+    if not ("stdout" in listed and "stderr" in listed and cat == stdout
+            and tail == stdout[-CLIENT_TAIL_BYTES:]
+            and err == b"to-stderr\n" and sidecar_rc == 0):
+        raise AssertionError(
+            f"clients: sandbox read back {len(cat)} of {len(stdout)} "
+            f"bytes (equal: {cat == stdout}), tail equal "
+            f"{tail == stdout[-CLIENT_TAIL_BYTES:]}, stderr {err!r}, "
+            f"sidecar exit {sidecar_rc}")
+    _cs(walls, cfg, "kill", sb_uuid)
+    out["sandbox"] = {"stdout_bytes": len(stdout), "cat": "byte-equal",
+                      "tail_bytes": len(tail)}
+    return out
+
+
+def clients_run(workdir, hosts, n_jobs=CLIENT_JOBS, cli_jobs=CLIENT_CLI_JOBS,
+                device="cuda"):
+    """29. (a) the node in this process, (b) the open-loop arrivals, (c)
+    the CLI steps.  Returns (best_node launches, the kept best_node calls,
+    the summary printed)."""
+    from cook_tpu_torch.components import (build_process, shutdown,
+                                           start_leader_duties)
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+    from cook_tpu_torch.rest.server import free_port
+    from cook_tpu_torch.utils.config import read_config
+
+    port = free_port()
+    cfg = os.path.join(workdir, "clients.json")
+    with open(cfg, "w") as f:
+        json.dump(clients_config(port, os.path.join(workdir, "data"), hosts,
+                                 device), f)
+    settings = read_config(cfg)
+    url = f"http://127.0.0.1:{port}"
+    walls, calls, process = {}, [], None
+    t_phase = time.perf_counter()
+    try:
+        with kept_calls(match, "best_node", calls):
+            _reset_launches()
+            process = build_process(settings)
+            if process.scheduler.device.type != device:
+                raise AssertionError(f"clients: the scheduler runs on "
+                                     f"{process.scheduler.device}")
+            start_leader_duties(process, block=False)
+            walls["boot_s"] = round(time.perf_counter() - t_phase, 3)
+            # (b) open-loop arrivals from the load generator's process
+            load, walls["open_loop_s"] = _loadgen(
+                url, n_jobs, CLIENT_RATE_PER_MINUTE, CLIENT_USERS, 0,
+                os.path.join(workdir, "loadgen.json"))
+            print("clients open-loop " + json.dumps(load), flush=True)
+            t0 = time.perf_counter()
+            steps = clients_cli_steps(url, process, workdir, cli_jobs,
+                                      walls)
+            walls["cli_steps_s"] = round(time.perf_counter() - t0, 3)
+            for loop in process.loops:
+                loop.stop()
+            for loop in process.loops:
+                loop.join(60)
+            launches = bn.launches
+        busy = check_cluster_capacity(process.clusters[0])
+        records = process.scheduler.recorder.records_json(limit=10_000)
+        skipped = [s for r in records for s in r["skipped"]
+                   if s["code"] == "solve-failed"]
+        if skipped:
+            raise AssertionError(f"clients: {len(skipped)} solve-failed "
+                                 "skips")
+    finally:
+        if process is not None:
+            shutdown(process)
+    walls["open_loop_s"] = round(walls["open_loop_s"], 3)
+    walls["loadgen_cli_s"] = round(walls["loadgen_cli_s"], 3)
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    # the match cycles that had a window: how fast the node placed
+    full = [r for r in records if r["considered"] > 0]
+    cycle_walls = sorted(r["total_s"] for r in full)
+    matched = sorted(r["matched_count"] for r in full)
+    cycles = dict(
+        n=len(full), wall_p50_s=round(cycle_walls[len(full) // 2], 4),
+        wall_max_s=round(cycle_walls[-1], 4),
+        considered_max=max(r["considered"] for r in full),
+        matched_p50=matched[len(full) // 2], matched_sum=sum(matched),
+        recorded=len(records)) if full else {}
+    summary = dict(open_loop=load, best_node_launches=launches,
+                   busy_hosts_at_end=busy, match_cycles=cycles, walls=walls,
+                   **steps)
+    return launches, calls, summary
+
+
+def clients_phase(card):
+    """29. The clients (see the docstring)."""
+    phase("clients (29)")
+    hosts, _ = service_fleet()
+    with tempfile.TemporaryDirectory(prefix="cook-clients-") as workdir:
+        launches, calls, summary = clients_run(workdir, hosts)
+        print("clients " + json.dumps(summary), flush=True)
+        _check_launches("clients", launches, calls, "cuda")
+        max_err = hold_launches("best_node", calls, "clients")
+        del calls
+    print(f"clients on {card}", flush=True)
+    return launches, max_err
+
+
 # the native host solvers (N1): bench.py's CPU sizing, J 16,384 x N 2,048
 # with 16,000 x 2,000 real (bench.py:139-142), its full sizing, 131,072 x
 # 16,384 with 100,000 x 10,000 real (bench.py:143-145), and bench_dru's
@@ -7736,6 +8121,11 @@ def main() -> int:
     errs["best_node"] = max(errs["best_node"], err)
     # the mp fleet (28): host-only, no kernel launches
     mp_fleet_phase(card)
+    # the clients (29): the node's counts reset just before it boots and
+    # read once its loops stop
+    n, err = clients_phase(card)
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], err)
     # the card's name and power limit again, beside the numbers above
     print(card)
     print(json.dumps({"kernels": [{

@@ -9,3 +9,30 @@ ported path is a hand-written Hopper kernel under `csrc/`.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy convenience exports, as `cook_tpu/__init__.py`'s (kept lazy so
+    `import cook_tpu_torch` stays cheap and torch-free for clients that
+    only need the REST client)."""
+    if name in ("Job", "Instance", "Pool", "Resources"):
+        from cook_tpu_torch.models import entities
+
+        return getattr(entities, name)
+    if name == "JobStore":
+        from cook_tpu_torch.models.store import JobStore
+
+        return JobStore
+    if name == "Scheduler":
+        from cook_tpu_torch.scheduler.core import Scheduler
+
+        return Scheduler
+    if name == "JobClient":
+        from cook_tpu_torch.client import JobClient
+
+        return JobClient
+    if name == "Simulator":
+        from cook_tpu_torch.sim.simulator import Simulator
+
+        return Simulator
+    raise AttributeError(f"module 'cook_tpu_torch' has no attribute {name!r}")

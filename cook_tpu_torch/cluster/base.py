@@ -151,10 +151,13 @@ class KillLock:
                 self.lock._cond.notify_all()
 
     class _Write:
-        def __init__(self, lock):
+        def __init__(self, lock, held=False):
             self.lock = lock
+            self.held = held
 
         def __enter__(self):
+            if self.held:
+                return
             with self.lock._cond:
                 while self.lock._writer or self.lock._readers:
                     self.lock._cond.wait()
@@ -170,6 +173,15 @@ class KillLock:
 
     def write(self):
         return self._Write(self)
+
+    def try_write(self):
+        """The write side, taken now, as a context manager that releases
+        it; None if a launch (or a kill) holds the lock."""
+        with self._cond:
+            if self._writer or self._readers:
+                return None
+            self._writer = True
+        return self._Write(self, held=True)
 
 
 def wait_all_launches(clusters, timeout: Optional[float] = None) -> list:
@@ -306,13 +318,21 @@ class ComputeCluster(abc.ABC):
     def kill_task(self, task_id: str) -> None:
         ...
 
-    def safe_kill_task(self, task_id: str) -> None:
+    def safe_kill_task(self, task_id: str, *, wait: bool = True) -> bool:
         """Kill that tolerates backend errors (reference safe-kill-task).
         Never gated by the circuit breaker — a sick cluster must still
         honor kills — but outcomes feed its error window (the
-        `cluster.kill` fault point sits in front of the RPC)."""
+        `cluster.kill` fault point sits in front of the RPC).
+
+        `wait=False` kills only if no launch holds the kill lock's read
+        side now, and returns False (nothing done) if one does: for a
+        caller holding a lock that the launch's status report may be
+        waiting for (the store's, in its event fan-out)."""
+        lock = self.kill_lock.write() if wait else self.kill_lock.try_write()
+        if lock is None:
+            return False
         try:
-            with self.kill_lock.write():
+            with lock:
                 fault_schedule = faults.ACTIVE
                 if fault_schedule is not None:
                     fault_schedule.hit(faults.CLUSTER_KILL,
@@ -320,8 +340,9 @@ class ComputeCluster(abc.ABC):
                 self.kill_task(task_id)
         except Exception:  # noqa: BLE001 — kill must never propagate
             self.breaker.note_failure()
-            return
+            return True
         self.breaker.note_success()
+        return True
 
     # --- async launch fan-out (scheduler/pipeline.py) ---
 

@@ -19,14 +19,15 @@ staleness / replication headers back out.  What lands where:
   * GET /debug/shards — the route map, for shard-aware clients that want
     to skip the hop.
 
-Forwarding keeps connections alive per worker (`_ConnectionPool`, the
-reference's pooled aiohttp session) with a per-worker `CircuitBreaker`:
-transport failures open the breaker and requests for that group fail
-fast with 503 + Retry-After until the cooldown's half-open probe closes
-it — a dead worker degrades ONLY the keys it owns.  The supervisor
-rewrites the route map on failover; the front end re-reads it on mtime
-change, clears its resolve cache, and replays outstanding 2PC decisions
-against the promoted standby's urls (on a thread of its own).
+Forwarding keeps connections alive per worker (the job client's
+`Session`, the reference's pooled aiohttp session) with a per-worker
+`CircuitBreaker`: transport failures open the breaker and requests for
+that group fail fast with 503 + Retry-After until the cooldown's
+half-open probe closes it — a dead worker degrades ONLY the keys it
+owns.  The supervisor rewrites the route map on failover; the front end
+re-reads it on mtime change, clears its resolve cache, and replays
+outstanding 2PC decisions against the promoted standby's urls (on a
+thread of its own).
 
 Concurrency.  The app runs on the standard library's threaded server
 (`rest/server.ServerThread`), whose handlers hold one loop lock in place
@@ -38,7 +39,6 @@ pool, concurrently as the reference's `asyncio.gather`.
 """
 from __future__ import annotations
 
-import http.client
 import json
 import logging
 import os
@@ -49,6 +49,7 @@ import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
+from cook_tpu_torch.client.jobclient import Session
 from cook_tpu_torch.faults.breaker import BreakerParams, CircuitBreaker
 from cook_tpu_torch.mp.topology import read_route_map, topology_of
 from cook_tpu_torch.mp.twopc import DecisionLog, TwoPCCoordinator
@@ -146,79 +147,6 @@ class _Reservoir:
                                int(q * len(ordered)))]
 
 
-class _ConnectionPool:
-    """Keep-alive HTTP/1.1 connections per worker address, the pooled
-    session of the reference's front end.  A connection is checked out
-    for one request and back in once its response is read, at most
-    `per_host` idle ones kept per address.  `http.client` sends a
-    request's head and body in one write and sets TCP_NODELAY, so a
-    keep-alive request waits on no delayed ACK.  A request that fails on
-    a reused connection before any answer (the worker closed it while it
-    sat idle) is sent once more on a fresh one."""
-
-    def __init__(self, per_host: int = 16):
-        self.per_host = per_host
-        self._idle: dict[tuple, list] = {}
-        self._lock = threading.Lock()
-        self._closed = False
-
-    def _checkout(self, key: tuple, timeout: float):
-        with self._lock:
-            idle = self._idle.get(key)
-            if idle:
-                conn = idle.pop()
-                conn.timeout = timeout
-                if conn.sock is not None:
-                    conn.sock.settimeout(timeout)
-                return conn, True
-        return http.client.HTTPConnection(key[0], key[1],
-                                          timeout=timeout), False
-
-    def _checkin(self, key: tuple, conn) -> None:
-        with self._lock:
-            idle = self._idle.setdefault(key, [])
-            if not self._closed and len(idle) < self.per_host:
-                idle.append(conn)
-                return
-        conn.close()
-
-    def request(self, method: str, url: str, *, body: Optional[bytes] = None,
-                headers: Optional[dict] = None, timeout: float = 30.0):
-        """(status, [(name, value), ...], body bytes); raises on a
-        transport failure."""
-        parts = urllib.parse.urlsplit(url)
-        key = (parts.hostname, parts.port)
-        path = parts.path + (f"?{parts.query}" if parts.query else "")
-        while True:
-            conn, reused = self._checkout(key, timeout)
-            try:
-                conn.request(method, path, body=body, headers=headers or {})
-                resp = conn.getresponse()
-                payload = resp.read()
-            except (ConnectionResetError, BrokenPipeError,
-                    http.client.BadStatusLine):
-                conn.close()
-                if reused:
-                    continue
-                raise
-            except BaseException:
-                conn.close()
-                raise
-            if resp.will_close:
-                conn.close()
-            else:
-                self._checkin(key, conn)
-            return resp.status, resp.getheaders(), payload
-
-    def close(self) -> None:
-        with self._lock:
-            self._closed = True
-            conns = [c for idle in self._idle.values() for c in idle]
-            self._idle.clear()
-        for conn in conns:
-            conn.close()
-
-
 class FrontEnd:
     """ServerThread-compatible (build_app) forwarding app."""
 
@@ -246,7 +174,7 @@ class FrontEnd:
         # the event loop's stand-in: held by every handler, released
         # around every call to a worker
         self.loop = LoopLock()
-        self._http = _ConnectionPool()
+        self._http = Session(per_host=16)
         self._scatter = ThreadPoolExecutor(
             max_workers=SCATTER_THREADS, thread_name_prefix="mp-scatter")
         params = breaker_params or BreakerParams(
@@ -352,10 +280,11 @@ class FrontEnd:
         """The 2PC transport (twopc.PostFn); `headers` carry the
         coordinator's trace context (X-Cook-Txn-Id +
         X-Cook-Parent-Span)."""
-        status, _headers, raw = self._http.request(
+        resp = self._http.send(
             "POST", url, body=json.dumps(body).encode("utf-8"),
             headers={"Content-Type": "application/json", **(headers or {})},
             timeout=timeout_s)
+        status, raw = resp.status_code, resp.content
         try:
             payload = json.loads(raw)
         except ValueError:  # non-JSON reply
@@ -401,7 +330,7 @@ class FrontEnd:
         queue_s = max(0.0, t0 - request.get("t_arrival", t0))
         try:
             with self.loop.released():
-                status, resp_headers, payload = self._http.request(
+                resp = self._http.send(
                     request.method, target, body=body, headers=headers,
                     timeout=self.forward_timeout_s)
         except Exception as e:  # noqa: BLE001 — transport failure, not
@@ -417,6 +346,8 @@ class FrontEnd:
                         f"{type(e).__name__}",
                         headers={"X-Cook-Shard-Group": str(group)})
         elapsed = time.perf_counter() - t0
+        status, resp_headers, payload = (resp.status_code,
+                                         resp.headers.items(), resp.content)
         breaker.note_success()
         self._latency[group].add(elapsed)
         self._forward_seconds.observe(elapsed, {"group": str(group)})
@@ -467,8 +398,8 @@ class FrontEnd:
             if not rpc:
                 return group, {}
             try:
-                status, _h, raw = self._http.request(
-                    "GET", f"{rpc}/rpc/resolve?{query}", timeout=3.0)
+                raw = self._http.send("GET", f"{rpc}/rpc/resolve?{query}",
+                                      timeout=3.0).content
                 return group, json.loads(raw).get("owned", {})
             except Exception:  # noqa: BLE001 — dead worker: its keys
                 # resolve nowhere until the standby adopts

@@ -7,8 +7,9 @@ This module is the shim between the two: a `Request` with the names the
 handlers read from an aiohttp request (`method`, `path`, `path_qs`,
 `query` with `get` / `getall`, `match_info`, `headers`, `json()`,
 `can_read_body`, and `request["key"]` storage), the responses they build
-(`Response`, `json_response`, `HTTPException` and the 307 redirect), and a
-route table of aiohttp's `{name}` path templates with its middlewares.
+(`Response`, `StreamResponse`, `json_response`, `HTTPException` and the
+307 redirect), and a route table of aiohttp's `{name}` path templates with
+its middlewares.
 
 `Application.handle` resolves a request, runs the middleware chain and
 the handler holding `LoopLock` (one lock standing in for aiohttp's event
@@ -137,6 +138,23 @@ class Response:
     @property
     def text(self) -> str:
         return self.body.decode("utf-8")
+
+
+class StreamResponse(Response):
+    """A response whose body the server writes chunk by chunk once the
+    handler has returned (aiohttp's StreamResponse): `chunks` yields the
+    bytes, sent with chunked transfer encoding; `close()` runs once they
+    are written, or the connection failed."""
+
+    def __init__(self, chunks: Iterable[bytes], *, status: int = 200,
+                 headers=None, on_close: Optional[Callable] = None):
+        super().__init__(status=status, headers=headers)
+        self.chunks = chunks
+        self._on_close = on_close
+
+    def close(self) -> None:
+        if self._on_close is not None:
+            self._on_close()
 
 
 def json_response(data, *, status: int = 200,

@@ -6,7 +6,9 @@ runs its aiohttp app on an event loop in a thread; here
 its own and hands every request to the app (`rest/http.Application`),
 which holds the API's loop lock while it runs.  Used by tests and by
 `components.py`, which runs the REST layer beside the scheduler loops in
-one process (the reference runs jetty in-process, components.clj:260-294).
+one process (the reference runs jetty in-process, components.clj:260-294),
+and by the sandbox file server (`sidecar/fileserver.py`): this module
+loads `rest/api.py` only where `InprocessControlPlane` builds one.
 
 `InprocessControlPlane` is the reference's full write path in one process
 (store + journal with real fsyncs + transaction pipeline + API, no
@@ -18,10 +20,12 @@ from __future__ import annotations
 import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-from cook_tpu_torch.rest.api import CookApi
-from cook_tpu_torch.rest.http import Application, Request
+from cook_tpu_torch.rest.http import Application, Request, StreamResponse
+
+if TYPE_CHECKING:
+    from cook_tpu_torch.rest.api import CookApi
 
 
 def free_port() -> int:
@@ -45,13 +49,31 @@ class _Handler(BaseHTTPRequestHandler):
         body = self.rfile.read(length) if length > 0 else b""
         request = Request(self.command, self.path, self.headers, body)
         response = self.app.handle(request)
-        self.send_response(response.status)
-        for key, value in response.headers.items():
-            self.send_header(key, value)
-        self.send_header("Content-Length", str(len(response.body)))
-        self.end_headers()
-        if self.command != "HEAD":
-            self.wfile.write(response.body)
+        chunks = (response.chunks if isinstance(response, StreamResponse)
+                  else None)
+        try:
+            self.send_response(response.status)
+            for key, value in response.headers.items():
+                self.send_header(key, value)
+            if chunks is None:
+                self.send_header("Content-Length", str(len(response.body)))
+            else:
+                self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            if self.command == "HEAD":
+                return
+            if chunks is None:
+                self.wfile.write(response.body)
+                return
+            # a StreamResponse: its chunks written after the handler (and
+            # the loop lock) let go, as aiohttp's response.write
+            for chunk in chunks:
+                if chunk:
+                    self.wfile.write(b"%X\r\n%s\r\n" % (len(chunk), chunk))
+            self.wfile.write(b"0\r\n\r\n")
+        finally:
+            if chunks is not None:
+                response.close()
 
     do_GET = do_POST = do_PUT = do_DELETE = do_HEAD = _serve
 
@@ -163,7 +185,7 @@ class InprocessControlPlane:
         from cook_tpu_torch.models.entities import Pool
         from cook_tpu_torch.models.store import JobStore
         from cook_tpu_torch.obs.tsdb import HistoryConfig, MetricsHistory
-        from cook_tpu_torch.rest.api import ApiConfig
+        from cook_tpu_torch.rest.api import ApiConfig, CookApi
         from cook_tpu_torch.txn import TransactionLog
 
         self._own_dir = data_dir is None

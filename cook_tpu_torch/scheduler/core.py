@@ -78,6 +78,7 @@ import functools
 import statistics
 import itertools
 import logging
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -463,7 +464,16 @@ class Scheduler:
         for inst in self.store.live_instances_of_job(job_uuid):
             cluster = self.cluster_by_name(inst.compute_cluster)
             if cluster is not None:
-                cluster.safe_kill_task(inst.task_id)
+                # this runs in the store's event fan-out, under its lock;
+                # a launch holding the cluster's kill lock (read side) may
+                # be waiting for that lock to report its tasks running, so
+                # waiting here for the write side would deadlock (the
+                # reference does: ROADMAP Queue C).  Kill now if no launch
+                # runs, else on a thread once the launch lets go
+                if not cluster.safe_kill_task(inst.task_id, wait=False):
+                    threading.Thread(
+                        target=cluster.safe_kill_task, args=(inst.task_id,),
+                        daemon=True, name=f"kill-{inst.task_id}").start()
                 self.store.update_instance_state(
                     inst.task_id, InstanceStatus.FAILED, "killed-by-user"
                 )

@@ -1,8 +1,10 @@
 """Simulator CLI: trace replay from the command line.
 
-Port of `cook_tpu/sim/cli.py` (`run`, `synth`, `compare`): JSON trace in,
-CSV run-trace out, plus `compare` for determinism/equivalence checking
-between two run traces — of either package, the formats are the same.
+Port of `cook_tpu/sim/cli.py` (`run`, `synth`, `compare`, `loadgen`):
+JSON trace in, CSV run-trace out, plus `compare` for determinism/
+equivalence checking between two run traces — of either package, the
+formats are the same — and `loadgen`, which drives a running service over
+HTTP.
 
     python -m cook_tpu_torch.sim.cli run --trace trace.json --out run.csv [--device cpu]
     python -m cook_tpu_torch.sim.cli run --trace trace.json --rebalance-every 1 ...
@@ -15,6 +17,7 @@ between two run traces — of either package, the formats are the same.
     python -m cook_tpu_torch.sim.cli synth --completion-heavy --jobs 48 --out trace.json
     python -m cook_tpu_torch.sim.cli synth --imbalanced --jobs 24 --out trace.json
     python -m cook_tpu_torch.sim.cli compare run1.csv run2.csv
+    python -m cook_tpu_torch.sim.cli loadgen --url http://host:port --jobs 500 --rate 600
 
 `run` solves on the CUDA card unless `--device cpu` is given; with no card
 and no `--device cpu` it fails rather than run on the CPU.
@@ -207,6 +210,29 @@ def cmd_compare(args) -> int:
     return 1
 
 
+def cmd_loadgen(args) -> int:
+    """Replay a generated workload against a deployed service over HTTP
+    (`sim/loadgen.run_load`); exit 0 only when nothing failed and every
+    submitted job completed."""
+    import sys
+
+    from cook_tpu_torch.sim.loadgen import LoadConfig, run_load
+
+    config = LoadConfig(
+        n_jobs=args.jobs, rate_per_minute=args.rate, n_users=args.users,
+        seed=args.seed, speedup=args.speedup, pool=args.pool,
+    )
+    report = run_load(args.url, config, wait_timeout_s=args.wait_timeout_s,
+                      log=lambda *a: print(*a, file=sys.stderr))
+    summary = report.summary()
+    print(json.dumps(summary))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f)
+    return 0 if summary["failed"] == 0 and \
+        summary["completed"] == summary["submitted"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cook-tpu-torch-sim")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -277,6 +303,22 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("trace1")
     c.add_argument("trace2")
     c.set_defaults(fn=cmd_compare)
+
+    lg = sub.add_parser(
+        "loadgen",
+        help="generate + replay a workload against a DEPLOYED service "
+             "over HTTP (the deploy-scale simulator, simulator/README.md)")
+    lg.add_argument("--url", required=True)
+    lg.add_argument("--jobs", type=int, default=200)
+    lg.add_argument("--rate", type=float, default=600.0,
+                    help="arrival rate, jobs/minute")
+    lg.add_argument("--users", type=int, default=8)
+    lg.add_argument("--seed", type=int, default=0)
+    lg.add_argument("--speedup", type=float, default=1.0)
+    lg.add_argument("--pool", default=None)
+    lg.add_argument("--wait-timeout-s", type=float, default=300.0)
+    lg.add_argument("--out", default="")
+    lg.set_defaults(fn=cmd_loadgen)
     return p
 
 

@@ -1,18 +1,104 @@
-"""Scenario traces for the simulator.
+"""Deploy-scale workload generator and the simulator's scenario traces.
 
-Port of the four trace generators of `cook_tpu/sim/loadgen.py` that the
-port's slices replay: `imbalanced_pool_trace` (the elastic slice's),
-`completion_heavy_trace`, `preemption_heavy_trace` and
-`gang_topology_trace` (:259), each returning
-(jobs, hosts) as the port's `TraceJob` / `TraceHost` lists, equal to the
-reference's for the same arguments.  The HTTP load generator of that module drives a running
-service through the reference's client and is not ported.
+Port of `cook_tpu/sim/loadgen.py` (Cook's simulator/, simulator/README.md):
+distinct from the in-process trace simulator (sim/simulator.py), the load
+generator makes a randomized multi-user workload and replays it against a
+fully deployed scheduler through the public REST API, measuring what a
+user of the deployment measures: submission latency, time-to-first-
+schedule, completion.
+
+    python -m cook_tpu_torch.sim.cli loadgen --url http://host:port \
+        --jobs 500 --rate 600 --users 10 --seed 7 --out results.json
+
+The arrival process is Poisson at `--rate` jobs/minute (compressed by
+`--speedup`), job shapes are drawn from skewed size distributions, and
+every job carries a short mock runtime so a mock/k8s-backed deployment
+completes it quickly.  `run_load` drives the service through the port's
+job client (`client/jobclient.py`, on the standard library).
+
+The scenario traces (`imbalanced_pool_trace`, `completion_heavy_trace`,
+`preemption_heavy_trace`, `gang_topology_trace`, `rest_traffic_trace`
+with `traffic_trace_jobs`) return the port's `TraceJob` / `TraceHost`
+lists, equal to the reference's for the same arguments.
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
 import numpy as np
 
+from cook_tpu_torch.client.jobclient import JobClient
 from cook_tpu_torch.sim.simulator import TraceHost, TraceJob
+
+
+@dataclass
+class LoadConfig:
+    n_jobs: int = 200
+    rate_per_minute: float = 600.0
+    n_users: int = 8
+    seed: int = 0
+    speedup: float = 1.0            # >1 compresses inter-arrival gaps
+    pool: Optional[str] = None
+    runtime_ms_choices: tuple = (500, 1000, 2000)
+    mem_choices: tuple = (128, 256, 512, 1024, 4096)
+    cpus_choices: tuple = (0.5, 1, 2, 4)
+    batch_max: int = 20             # jobs per submit call (burst arrivals)
+
+
+@dataclass
+class LoadReport:
+    submitted: int = 0
+    completed: int = 0
+    failed: int = 0
+    wall_s: float = 0.0
+    submit_latency_ms: list = field(default_factory=list)
+    schedule_latency_ms: dict = field(default_factory=dict)  # uuid -> ms
+
+    def summary(self) -> dict:
+        lat = sorted(self.submit_latency_ms)
+        sched = sorted(self.schedule_latency_ms.values())
+
+        def pct(values, q):
+            if not values:
+                return None
+            return round(float(np.percentile(values, q)), 1)
+
+        return {
+            "submitted": self.submitted,
+            "completed": self.completed,
+            "failed": self.failed,
+            "wall_s": round(self.wall_s, 2),
+            "throughput_jobs_per_s": round(
+                self.completed / self.wall_s, 2) if self.wall_s else 0,
+            "submit_ms_p50": pct(lat, 50),
+            "submit_ms_p99": pct(lat, 99),
+            "schedule_ms_p50": pct(sched, 50),
+            "schedule_ms_p99": pct(sched, 99),
+        }
+
+
+def generate_workload(config: LoadConfig) -> list[tuple[float, dict]]:
+    """(arrival_offset_s, job_spec) pairs — Poisson arrivals, skewed
+    shapes, round-robin-ish user mix."""
+    rng = np.random.default_rng(config.seed)
+    gaps = rng.exponential(60.0 / config.rate_per_minute, config.n_jobs)
+    offsets = np.cumsum(gaps) / config.speedup
+    out = []
+    for i in range(config.n_jobs):
+        spec = {
+            "command": "true",
+            "name": f"loadgen-{i}",
+            "mem": float(rng.choice(config.mem_choices)),
+            "cpus": float(rng.choice(config.cpus_choices)),
+            "max_retries": 3,
+            "expected_runtime": int(rng.choice(config.runtime_ms_choices)),
+            "labels": {"loadgen-user": f"user{int(rng.integers(config.n_users))}"},
+            **({"pool": config.pool} if config.pool else {}),
+        }
+        out.append((float(offsets[i]), spec))
+    return out
 
 
 def imbalanced_pool_trace(
@@ -218,3 +304,170 @@ def gang_topology_trace(
         for i in range(block_hosts)
     ]
     return jobs, hosts
+
+
+@dataclass(frozen=True)
+class TrafficOp:
+    """One control-plane request in a rest_traffic_trace schedule."""
+
+    offset_s: float
+    kind: str                     # "submit" | "query" | "kill"
+    user: str
+    spec: Optional[dict] = None   # submit payload
+    ref: int = -1                 # trace index of the submit this
+    #                               query/kill targets
+
+
+def rest_traffic_trace(
+    *,
+    duration_s: float = 10.0,
+    rps: float = 50.0,
+    mix: tuple = (0.7, 0.2, 0.1),   # submit : query : kill
+    n_users: int = 8,
+    burst_every_s: float = 2.0,
+    burst_len_s: float = 0.4,
+    burstiness: float = 4.0,
+    seed: int = 0,
+    pool: Optional[str] = None,
+) -> list[TrafficOp]:
+    """Seeded bursty submit/query/kill schedule — the ONE load shape
+    shared by the reference's `tools/loadtest.py` (replayed over HTTP
+    against a live control plane) and the simulator
+    (`traffic_trace_jobs` converts the submit ops to TraceJobs), so
+    live runs and offline replays drive the same reproducible traffic;
+    equal to the reference's for the same arguments.
+
+    Arrivals are a non-homogeneous Poisson process: every
+    `burst_every_s` a `burst_len_s` window runs at `burstiness` x the
+    base rate (the base is scaled down so the long-run average stays at
+    `rps`) — the thundering-herd pattern that exposes lock and fsync
+    contention, which a smooth arrival stream hides.  Query/kill ops
+    target a uniformly-drawn earlier submit (before any submit exists
+    they degrade to submits), so the trace is self-contained."""
+    rng = np.random.default_rng(seed)
+    frac = min(burst_len_s / max(burst_every_s, 1e-9), 1.0)
+    # solve mean rate == rps: frac*burst_rate + (1-frac)*base == rps
+    base = max(rps * (1.0 - burstiness * frac) / max(1.0 - frac, 1e-9),
+               rps * 0.05)
+    burst_rate = rps * burstiness
+    kinds = ("submit", "query", "kill")
+    p = np.asarray(mix, dtype=float)
+    p = p / p.sum()
+    ops: list[TrafficOp] = []
+    submit_indices: list[int] = []
+    t = 0.0
+    i = 0
+    while True:
+        rate = burst_rate if (t % burst_every_s) < burst_len_s else base
+        t += float(rng.exponential(1.0 / max(rate, 1e-9)))
+        if t >= duration_s:
+            break
+        kind = kinds[int(rng.choice(3, p=p))]
+        user = f"user{int(rng.integers(n_users))}"
+        if kind != "submit" and not submit_indices:
+            kind = "submit"
+        if kind == "submit":
+            spec = {
+                "command": "true",
+                "name": f"loadtest-{i}",
+                "mem": float(rng.choice((128, 256, 512, 1024))),
+                "cpus": float(rng.choice((0.5, 1, 2))),
+                "max_retries": 1,
+                **({"pool": pool} if pool else {}),
+            }
+            ops.append(TrafficOp(offset_s=t, kind=kind, user=user,
+                                 spec=spec))
+            submit_indices.append(i)
+        else:
+            ref = int(submit_indices[int(rng.integers(
+                len(submit_indices)))])
+            ops.append(TrafficOp(offset_s=t, kind=kind, user=user,
+                                 ref=ref))
+        i += 1
+    return ops
+
+
+def traffic_trace_jobs(ops: list[TrafficOp], *, runtime_ms: int = 1000,
+                       mem=None, cpus=None):
+    """The simulator view of a rest_traffic_trace: submit ops become
+    TraceJobs at their arrival offsets (kills/queries are REST-side
+    concerns the trace simulator's completion model doesn't replay), so
+    the same seeded load shape drives both the live harness and
+    offline sim runs."""
+    jobs = []
+    for i, op in enumerate(ops):
+        if op.kind != "submit":
+            continue
+        jobs.append(TraceJob(
+            uuid=f"traffic-{i:06d}",
+            user=op.user,
+            submit_time_ms=int(op.offset_s * 1000),
+            runtime_ms=runtime_ms,
+            mem=float(mem if mem is not None else op.spec["mem"]),
+            cpus=float(cpus if cpus is not None else op.spec["cpus"]),
+            pool=op.spec.get("pool", "default"),
+        ))
+    return jobs
+
+
+def run_load(url: str, config: LoadConfig, *,
+             wait_timeout_s: float = 120.0,
+             log=lambda *a: None) -> LoadReport:
+    """Replay the workload against a live deployment and wait for every
+    job to finish."""
+    workload = generate_workload(config)
+    clients = [JobClient(url, user=f"user{u}")
+               for u in range(config.n_users)]
+    report = LoadReport()
+    submitted: dict[str, float] = {}  # uuid -> submit wall time
+    start = time.time()
+
+    i = 0
+    while i < len(workload):
+        now = time.time() - start
+        due = []
+        while i < len(workload) and workload[i][0] <= now \
+                and len(due) < config.batch_max:
+            due.append(workload[i][1])
+            i += 1
+        if not due:
+            time.sleep(min(workload[i][0] - now, 0.05))
+            continue
+        client = clients[i % len(clients)]
+        t0 = time.time()
+        uuids = client.submit(due)
+        report.submit_latency_ms.append((time.time() - t0) * 1000)
+        for uuid in uuids:
+            submitted[uuid] = time.time()
+        report.submitted += len(uuids)
+        if report.submitted % 100 == 0:
+            log(f"submitted {report.submitted}/{config.n_jobs}")
+
+    # wait for completion, recording time-to-first-instance; every poll
+    # sweep covers the ENTIRE pending set (batched requests), or jobs
+    # beyond the first window would get inflated schedule latencies and
+    # a wedged prefix would starve the rest
+    deadline = time.time() + wait_timeout_s
+    pending = set(submitted)
+    poll_client = clients[0]
+    while pending and time.time() < deadline:
+        snapshot = list(pending)
+        for batch_start in range(0, len(snapshot), 256):
+            for job in poll_client.query(
+                    snapshot[batch_start:batch_start + 256]):
+                uuid = job["uuid"]
+                if uuid not in report.schedule_latency_ms \
+                        and job["instances"]:
+                    report.schedule_latency_ms[uuid] = (
+                        (time.time() - submitted[uuid]) * 1000)
+                if job["status"] == "completed":
+                    pending.discard(uuid)
+                    if any(i.get("status") == "success"
+                           for i in job["instances"]):
+                        report.completed += 1
+                    else:
+                        report.failed += 1
+        if pending:
+            time.sleep(0.2)
+    report.wall_s = time.time() - start
+    return report

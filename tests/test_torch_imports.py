@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of `cook_tpu_torch`, and not
 `chip_smoke.py`, imports JAX or anything of the `cook_tpu` reference, nor
-aiohttp or requests (the card's machine has neither: the service runs on
-the standard library), and its entry points refuse to run without a card
-unless asked for the CPU."""
+aiohttp or requests (the card's machine has neither: the service and the
+client tier run on the standard library); the client tier (`client`,
+`executor`, `sidecar`, `integrations`) and its entry points load no
+torch; and the solver's entry points refuse to run without a card unless
+asked for the CPU."""
 import ast
 import os
 import subprocess
@@ -214,8 +216,27 @@ MP_MODULES = ("cook_tpu_torch.mp",
               "cook_tpu_torch.build")
 
 
+# the client tier: the job client and `cs`, the executor, the sidecar, the
+# integrations (none of which may load torch either: a submit host needs
+# no GPU stack), and the load generator (whose trace generators do)
+CLIENT_MODULES = ("cook_tpu_torch",
+                  "cook_tpu_torch.client",
+                  "cook_tpu_torch.client.models",
+                  "cook_tpu_torch.client.jobclient",
+                  "cook_tpu_torch.client.cli",
+                  "cook_tpu_torch.executor",
+                  "cook_tpu_torch.executor.runner",
+                  "cook_tpu_torch.sidecar",
+                  "cook_tpu_torch.sidecar.fileserver",
+                  "cook_tpu_torch.integrations",
+                  "cook_tpu_torch.integrations.spark",
+                  "cook_tpu_torch.integrations.workerpool")
+LOADGEN_MODULES = ("cook_tpu_torch.sim.loadgen",
+                   "cook_tpu_torch.sim.cli")
+
+
 @pytest.mark.parametrize("module", SERVICE_MODULES + SHARD_MODULES
-                         + MP_MODULES)
+                         + MP_MODULES + CLIENT_MODULES + LOADGEN_MODULES)
 def test_service_module_loads_no_jax_reference_or_http_library(module):
     code = (
         "import importlib, sys\n"
@@ -230,6 +251,43 @@ def test_service_module_loads_no_jax_reference_or_http_library(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", CLIENT_MODULES)
+def test_client_tier_module_loads_no_torch(module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'numpy'))\n"
+        "assert not bad, bad[:5]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", ["cook_tpu_torch.client.cli",
+                                    "cook_tpu_torch.sidecar.fileserver"])
+def test_client_entry_point_help_loads_no_torch_jax_or_http_library(
+        module):
+    """`python -m <entry point> --help` with `-X importtime` listing each
+    module it imports."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", module, "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "usage:" in proc.stdout
+    imported = [line.split("|")[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    assert module in imported or module.rsplit(".", 1)[0] in imported
+    bad = sorted(m for m in imported
+                 if _forbidden(m) or _http_lib(m)
+                 or m.split(".")[0] in ("torch", "numpy"))
+    assert not bad, bad
 
 
 def test_importing_every_port_module_loads_no_http_library():

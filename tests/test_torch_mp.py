@@ -906,20 +906,22 @@ def test_scatter_reads_fan_out_concurrently(slow_front_end):
 
 
 def test_keep_alive_forwards_wait_on_no_delayed_ack(slow_front_end):
-    from cook_tpu_torch.mp.router import _ConnectionPool
+    from cook_tpu_torch.client.jobclient import Session
 
     server, topo = slow_front_end
     fast_users = [f"u{i}" for i in range(1000)
                   if topo.group_for_user(f"u{i}") == 0][:40]
-    pool = _ConnectionPool()
+    # the front end's own forwarding pool
+    pool = Session(per_host=16)
     walls = []
     try:
         for user in fast_users:
             t0 = time.perf_counter()
-            status, _h, _b = pool.request(
+            status = pool.send(
                 "POST", f"{server.url}/share?user={user}",
                 body=json.dumps({"pad": "x" * 2000}).encode(),
-                headers={"Content-Type": "application/json"}, timeout=5)
+                headers={"Content-Type": "application/json"},
+                timeout=5).status_code
             walls.append(time.perf_counter() - t0)
             assert status == 200
         # one connection to the front end, reused for every request
