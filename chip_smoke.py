@@ -485,6 +485,52 @@ The client tier, whose node launches `best_node` (counted in the
                   walls (boot, open loop, each `cs` call, the small
                   loadgen, the executor, the phase) beside the card.
 
+The Kubernetes backend, whose node launches `best_node` (counted in the
+`kernels` line):
+
+ 30. k8s        — `python -m cook_tpu_torch --config` (run through `runpy`,
+                  as `-m` runs it, by `python3 chip_smoke.py --k8s-node`,
+                  which keeps each `best_node` call of the matcher and, as
+                  the node exits, saves them with the launch count, set to
+                  0 just before the node starts) on one `k8s-http` cluster:
+                  tests/fake_apiserver.py (loaded by its path, in this
+                  process) with 5,000 nodes of 64 GB / 32 cpus
+                  (Kubernetes' documented per-cluster limit), phase 25's
+                  matcher and 0.5 s loops, load shedding off, watch
+                  timeout 5 s, no placeholder pods (the fake has no
+                  cluster autoscaler).  A kubelet thread here moves each
+                  pod Pending -> Running after 0.2 s and -> Succeeded
+                  after its command's `sleep`.  3,000 jobs of phase 29's
+                  LoadConfig memory and cpu choices, runtimes 1, 2 or 5
+                  s, in POSTs of 100 from 8 users through the port's
+                  `JobClient`; the first 10 run 600 s and are killed over
+                  REST once running (their pods must leave the
+                  apiserver).  After 300 pods succeeded, one watch gap
+                  (the history compacted past changes no watch has
+                  streamed): the watches must answer the 410 with a
+                  re-list.  After 1,000, the last 20 jobs (60 s,
+                  priority 100) are POSTed, and once each has started
+                  and one still runs, SIGTERM (exit 0) and a reboot on
+                  the same data_dir against the same apiserver: the new
+                  node rebuilds its expected state, then watches.  Fails
+                  unless every job not killed completes on its one
+                  instance, the killed ones complete, no pod name is
+                  POSTed twice, the pods POSTed are the store's
+                  instances, no live pod is deleted but the killed ones,
+                  a pod runs across the reboot, every pod on the
+                  apiserver before and after the reboot is a task the
+                  store knows, none is left at the end, and every kept
+                  `best_node` launch of both node processes is identical
+                  to its plain version.  Also: the port's server with
+                  `{"kind": "spnego", "gssapi": true}` answers a garbage
+                  Negotiate token 401 with the challenge (through
+                  libgssapi_krb5 where it loads, else the closed
+                  acceptor).  Prints pods created, 410s and re-lists, the
+                  walls (boot, submit, reboot to adoption, drain, phase),
+                  each node's match cycles (count, wall and phase p50s,
+                  placements), one `list_nodes` at 5,000 nodes (5 times)
+                  and the launches, beside the card.
+
 Order and processes: 1-7 (with the walls replays) run in this process,
 which times the kernel rows.  Then three worker processes run the rest
 at once, each its own part (PARTS), each resetting and reading the
@@ -492,8 +538,8 @@ counts around the paths it drives: `speculation` S1-S4, 12 and 11;
 `multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` N1, 8-8c, 9-10,
 21, 13-15, 22 and 24.  Their output is printed once all three have ended
 (their phase lines count from this process's start, so they overlap),
-and their launches and errors join this process's.  25, 26, 27, 28 and
-29 run last, in this process, with nothing beside them.
+and their launches and errors join this process's.  25, 26, 27, 28,
+29 and 30 run last, in this process, with nothing beside them.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -7522,6 +7568,621 @@ def clients_phase(card):
     return launches, max_err
 
 
+# the Kubernetes phase (30): `python -m cook_tpu_torch` on a `k8s-http`
+# cluster against tests/fake_apiserver.py at Kubernetes' documented
+# per-cluster limit of 5,000 nodes ("Considerations for large clusters",
+# kubernetes.io), each 64 GB / 32 cpus (the slices' host shape); phase
+# 25's matcher and loops.  A kubelet thread here moves each pod Pending ->
+# Running after K8S_START_S and -> Succeeded after its command's `sleep`.
+K8S_NODES = 5_000
+K8S_NODE_MEM_MB = 65_536
+K8S_NODE_CPUS = 32
+K8S_JOBS = 3_000
+K8S_USERS = 8
+K8S_POST = 100
+# the runtimes of phase 29's LoadConfig, stretched to 1-5 s so that pods
+# run across the watch gap; the kill targets run until killed, and the
+# adoption jobs run across the reboot (a reboot takes ~10-20 s)
+K8S_RUNTIMES_MS = (1_000, 2_000, 5_000)
+K8S_KILLS = 10
+K8S_KILL_RUNTIME_MS = 600_000
+K8S_ADOPT = 20
+K8S_ADOPT_RUNTIME_MS = 60_000
+K8S_START_S = 0.2
+K8S_WATCH_TIMEOUT_S = 5
+# pods succeeded before the watch gap, and before the reboot
+K8S_GAP_AFTER = 300
+K8S_REBOOT_AFTER = 1_000
+# from the last submit: the drain took ~177 s on one H100 (PERF.md §5),
+# its placements a cycle falling as the queue shrinks
+K8S_DEADLINE_S = 360.0
+K8S_LIST_NODES_REPS = 5
+
+
+def _fake_apiserver_module():
+    """tests/fake_apiserver.py, loaded by its path (it is a test double,
+    not part of the package)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "tests", "fake_apiserver.py")
+    spec = importlib.util.spec_from_file_location("fake_apiserver", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def k8s_apiserver(n_nodes):
+    """The fake apiserver on a free port with `n_nodes` nodes, counting
+    per pod name its POSTs, each delete with the pod's phase, and each
+    pod LIST / WATCH / 410 with its time: (server, state, url)."""
+    from collections import Counter
+    from http.server import ThreadingHTTPServer
+    from urllib.parse import parse_qs, urlsplit
+
+    fake = _fake_apiserver_module()
+
+    class State(fake.FakeApiServerState):
+        def __init__(self):
+            super().__init__()
+            self.posts = Counter()
+            self.deletes = []
+            self.requests = []
+
+        def create_pod(self, manifest):
+            with self.lock:
+                self.posts[manifest["metadata"]["name"]] += 1
+                return super().create_pod(manifest)
+
+        def delete_pod(self, name):
+            with self.lock:
+                pod = self.pods.get(name)
+                if pod is not None:
+                    self.deletes.append((name, pod["status"]["phase"]))
+                return super().delete_pod(name)
+
+        def note(self, kind, managed):
+            with self.lock:
+                self.requests.append((time.monotonic(), kind, managed))
+
+    class Handler(fake._Handler):
+        def do_GET(self):
+            parts = urlsplit(self.path)
+            if parts.path.endswith("/pods"):
+                query = parse_qs(parts.query)
+                self.state.note("watch" if query.get("watch") == ["1"]
+                                else "list", "labelSelector" in query)
+            return super().do_GET()
+
+        def _json(self, code, body):
+            if code == 410:
+                self.state.note("gone", None)
+            return super()._json(code, body)
+
+    class Server(ThreadingHTTPServer):
+        def handle_error(self, request, client_address):
+            # a watch's client going away mid-stream is no fault
+            if not isinstance(sys.exc_info()[1], ConnectionError):
+                super().handle_error(request, client_address)
+
+    state = State()
+    for i in range(n_nodes):
+        state.add_node(f"node-{i:04d}", K8S_NODE_MEM_MB, K8S_NODE_CPUS)
+    server = Server(("127.0.0.1", 0),
+                    type("K8sHandler", (Handler,), {"state": state}))
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="fake-apiserver").start()
+    host, port = server.server_address
+    return server, state, f"http://{host}:{port}"
+
+
+class Kubelet:
+    """Runs the fake apiserver's pods: Pending -> Running K8S_START_S
+    after the pod is first seen, Running -> Succeeded once its command's
+    `sleep N` has passed.  Keeps when each pod started and ended.
+
+    `gap()` asks for one watch gap: at the end of the next tick that
+    changed a pod, with the apiserver's lock still held (so no watch has
+    streamed those changes), the history is compacted and the watches
+    severed: each must answer the 410 with a re-list, whose diff is the
+    only way those changes reach the node."""
+
+    def __init__(self, state, tick_s=0.05):
+        self.state = state
+        self.tick_s = tick_s
+        self.seen, self.started, self.ended = {}, {}, {}
+        self.gap_at = None
+        self._gap = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="kubelet")
+
+    @staticmethod
+    def runtime_s(manifest):
+        """The pod's `sleep N` (any other command ends at once)."""
+        words = manifest["spec"]["containers"][0]["command"][-1].split()
+        return float(words[1]) if words[:1] == ["sleep"] else 0.0
+
+    def _run(self):
+        st = self.state
+        while not self._stop.wait(self.tick_s):
+            now = time.monotonic()
+            with st.lock:
+                changed = 0
+                for name, manifest in list(st.pods.items()):
+                    phase_ = manifest["status"]["phase"]
+                    if phase_ == "Pending":
+                        if now - self.seen.setdefault(name, now) \
+                                >= K8S_START_S:
+                            st.set_phase(name, "Running")
+                            self.started[name] = now
+                            changed += 1
+                    elif phase_ == "Running" and name in self.started \
+                            and now - self.started[name] \
+                            >= self.runtime_s(manifest):
+                        st.set_phase(name, "Succeeded")
+                        self.ended[name] = now
+                        changed += 1
+                if changed and self._gap.is_set():
+                    st.inject_gap()
+                    self._gap.clear()
+                    self.gap_at = time.monotonic()
+
+    def gap(self):
+        self._gap.set()
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(30)
+
+
+def k8s_jobs(n_jobs=K8S_JOBS):
+    """The traffic: phase 29's LoadConfig memory and cpu choices, runtimes
+    of K8S_RUNTIMES_MS as each job's `sleep`; the first K8S_KILLS jobs run
+    K8S_KILL_RUNTIME_MS (killed over REST); the last K8S_ADOPT run
+    K8S_ADOPT_RUNTIME_MS at priority 100 (POSTed just before the reboot,
+    first of their user's queue, and running across it)."""
+    from cook_tpu_torch.sim.loadgen import LoadConfig, generate_workload
+
+    out = []
+    for i, (_, spec) in enumerate(generate_workload(LoadConfig(
+            n_jobs=n_jobs, n_users=K8S_USERS, seed=0,
+            runtime_ms_choices=K8S_RUNTIMES_MS))):
+        runtime = spec["expected_runtime"]
+        if i < K8S_KILLS:
+            runtime = K8S_KILL_RUNTIME_MS
+        elif i >= n_jobs - K8S_ADOPT:
+            runtime = K8S_ADOPT_RUNTIME_MS
+            spec = dict(spec, priority=100)
+        out.append(dict(spec, command=f"sleep {runtime / 1000}",
+                        expected_runtime=runtime, max_retries=1))
+    return out
+
+
+def k8s_config(port, data_dir, url, device="cuda"):
+    """Phase 25's node (flat `pallas`, 0.5 s loops, load shedding off) on
+    one `k8s-http` cluster.  No placeholder pods: the fleet holds every
+    job at once, and the fake apiserver has no cluster autoscaler (nor
+    kube-scheduler) to act on a pod that names no node."""
+    return {"port": port, "pools": [{"name": "default"}],
+            "platform": "" if device == "cuda" else device,
+            "match": dict(SERVICE_MATCH), "data_dir": data_dir,
+            "rank_interval_s": 0.5, "match_interval_s": 0.5,
+            "load_shedding": False,
+            "clusters": [{"kind": "k8s-http", "name": "kube", "url": url,
+                          "watch_timeout_s": K8S_WATCH_TIMEOUT_S,
+                          "synthetic_pods": {"max-pods-outstanding": 0}}]}
+
+
+def k8s_node_main(cfg, out) -> int:
+    """The phase's node: `python -m cook_tpu_torch --config cfg`, run as
+    `-m` runs it (`runpy`), with every `best_node` call of the matcher
+    kept; when the node returns (SIGTERM), its launch count and the kept
+    calls' arguments, on the CPU, are saved to `out`."""
+    import runpy
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+
+    calls = []
+    original = match.best_node
+
+    def keep(*args):
+        calls.append(args)
+        return original(*args)
+
+    match.best_node = keep
+    bn.launches = 0
+    sys.argv = ["cook_tpu_torch", "--config", cfg]
+    try:
+        runpy.run_module("cook_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    finally:
+        torch.save({"launches": bn.launches, "calls": [
+            tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                  for a in args) for args in calls]}, out)
+    return 0
+
+
+def _k8s_node(cfg, dump, log):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    with open(log, "ab") as f:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--k8s-node", cfg, dump], cwd=ROOT, env=env, stdout=f,
+            stderr=f)
+
+
+def _k8s_states(client, uuids, batch=200):
+    """{uuid: job} read back over GET /jobs in batches."""
+    out = {}
+    for i in range(0, len(uuids), batch):
+        for job in client.query(uuids[i:i + batch]):
+            out[job["uuid"]] = job
+    return out
+
+
+def _k8s_until(what, deadline, probe, every_s=0.2):
+    while not probe():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"k8s: {what} by the deadline")
+        time.sleep(every_s)
+
+
+def _k8s_cycle_summary(url):
+    """How the node's match cycles with a window went: their count, the
+    p50 of their walls and of each phase, and the placements."""
+    try:
+        body = http("GET", f"{url}/debug/cycles?limit=10000", timeout=10)[1]
+    except OSError as e:
+        return f"unread ({e})"
+    full = [r for r in body["cycles"] if r["considered"] > 0]
+    if not full:
+        return "none with a window"
+
+    def p50(values):
+        values = sorted(values)
+        return round(values[len(values) // 2], 4)
+
+    phases = {name: p50([r["phases"].get(name, 0.0) for r in full])
+              for name in full[-1]["phases"]}
+    return dict(n=len(full), wall_p50_s=p50([r["total_s"] for r in full]),
+                phases_p50_s=phases,
+                matched_p50=p50([r["matched_count"] for r in full]),
+                considered_max=max(r["considered"] for r in full))
+
+
+def _k8s_known(state, client, uuids):
+    """Every pod on the apiserver now is a task the node's store knows:
+    the pods read first, then the store's instances."""
+    with state.lock:
+        pods = set(state.pods)
+    tasks = {i["task_id"] for job in _k8s_states(client, uuids).values()
+             for i in job["instances"]}
+    unknown = pods - tasks
+    if unknown:
+        raise AssertionError(f"k8s: {len(unknown)} pods the store does "
+                             f"not know, e.g. {sorted(unknown)[:3]}")
+    return len(pods)
+
+
+def k8s_list_nodes_walls(url, reps=K8S_LIST_NODES_REPS):
+    """The wall of one `HttpKubeApi.list_nodes` (a GET of every node and
+    their parse), `reps` times, on the host clock."""
+    from cook_tpu_torch.cluster.k8s_http import HttpKubeApi
+
+    api = HttpKubeApi(url)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        n = len(api.list_nodes())
+        walls.append(round(time.perf_counter() - t0, 4))
+    return n, walls
+
+
+def k8s_run(workdir, n_nodes=K8S_NODES, n_jobs=K8S_JOBS, device="cuda"):
+    """30. The node as a subprocess against the fake apiserver: boot, the
+    traffic, the kills, the watch gap, SIGTERM and the reboot on the same
+    data_dir, the drain, the checks.  Returns (best_node launches, the
+    kept calls, the summary printed)."""
+    import torch
+
+    from cook_tpu_torch.client.jobclient import JobClient
+    from cook_tpu_torch.rest.server import free_port
+
+    server, state, api_url = k8s_apiserver(n_nodes)
+    kubelet = Kubelet(state).start()
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    cfg = os.path.join(workdir, "k8s.json")
+    with open(cfg, "w") as f:
+        json.dump(k8s_config(port, os.path.join(workdir, "data"), api_url,
+                             device), f)
+    log = os.path.join(workdir, "k8s-node.log")
+    dumps = [os.path.join(workdir, f"k8s-calls-{i}.pt") for i in (0, 1)]
+    walls, out, proc = {}, {}, None
+    t_phase = time.perf_counter()
+    try:
+        n_listed, out["list_nodes_walls_s"] = k8s_list_nodes_walls(api_url)
+        if n_listed != n_nodes:
+            raise AssertionError(f"k8s: list_nodes gave {n_listed} nodes")
+        t0 = time.perf_counter()
+        proc = _k8s_node(cfg, dumps[0], log)
+        if _healthy(url, proc, 180.0) != {"healthy": True, "leader": True}:
+            raise AssertionError("k8s: the node is not the leader")
+        walls["boot_s"] = round(time.perf_counter() - t0, 3)
+        # the traffic: POSTs of K8S_POST, one user each, round robin; the
+        # adoption jobs held back
+        specs = k8s_jobs(n_jobs)
+        held = specs[len(specs) - K8S_ADOPT:]
+        specs = specs[:len(specs) - K8S_ADOPT]
+        clients = [JobClient(url, user=f"user{u}") for u in range(K8S_USERS)]
+        acked, t0 = [], time.perf_counter()
+        t_drain = time.monotonic()
+        for b in range(0, len(specs), K8S_POST):
+            acked += clients[(b // K8S_POST) % K8S_USERS].submit(
+                specs[b:b + K8S_POST])
+        walls["submit_s"] = round(time.perf_counter() - t0, 3)
+        client = clients[0]
+        kills = acked[:K8S_KILLS]
+        deadline = time.monotonic() + K8S_DEADLINE_S
+
+        def note(what):
+            print(f"k8s +{time.monotonic() - t_drain:.1f} s: {what}; "
+                  f"{len(kubelet.ended)} pods succeeded, {len(state.pods)} "
+                  "on the apiserver", flush=True)
+
+        note(f"{len(acked)} jobs acked in {walls['submit_s']} s")
+
+        def running(uuids):
+            # each job running, its last pod Running on the apiserver
+            jobs = _k8s_states(client, uuids)
+            return all(j["status"] == "running" and j["instances"]
+                       and state.pods.get(j["instances"][-1]["task_id"],
+                                          {}).get("status", {}).get("phase")
+                       == "Running" for j in jobs.values())
+
+        # the REST kill of K8S_KILLS running jobs: their pods must leave
+        _k8s_until("the kill targets not running", deadline,
+                   lambda: running(kills))
+        kill_tasks = {j["instances"][-1]["task_id"]
+                      for j in _k8s_states(client, kills).values()}
+        note(f"{K8S_KILLS} kill targets running")
+        clients[0].kill(kills)
+        _k8s_until("the killed jobs' pods not gone", deadline,
+                   lambda: not kill_tasks & set(state.pods))
+        _k8s_until("the killed jobs not completed", deadline, lambda: all(
+            j["status"] == "completed"
+            for j in _k8s_states(client, kills).values()))
+        note("killed, their pods gone")
+        # one watch gap during the drain: the watches must re-list
+        _k8s_until(f"{K8S_GAP_AFTER} pods not succeeded", deadline,
+                   lambda: len(kubelet.ended) >= K8S_GAP_AFTER)
+        with state.lock:
+            lists_before = sum(1 for _, kind, _ in state.requests
+                               if kind == "list")
+        kubelet.gap()
+        _k8s_until("no watch gap", deadline,
+                   lambda: kubelet.gap_at is not None)
+        t_gap = kubelet.gap_at
+        note("watch gap")
+        # SIGTERM and the reboot while pods run: the adoption jobs POSTed
+        # and running first
+        _k8s_until(f"{K8S_REBOOT_AFTER} pods not succeeded", deadline,
+                   lambda: len(kubelet.ended) >= K8S_REBOOT_AFTER)
+        adopt = clients[len(acked) // K8S_POST % K8S_USERS].submit(held)
+        acked += adopt
+
+        def adoption_running():
+            tasks = [j["instances"][-1]["task_id"]
+                     for j in _k8s_states(client, adopt).values()
+                     if j["instances"]]
+            return (len(tasks) == len(adopt)
+                    and all(t in kubelet.started for t in tasks)
+                    and any(t not in kubelet.ended for t in tasks))
+
+        # every adoption pod started, and one at least still running
+        _k8s_until("the adoption jobs not running", deadline,
+                   adoption_running)
+        out["pods_known_before_reboot"] = _k8s_known(state, client, acked)
+        note(f"{K8S_ADOPT} adoption jobs started")
+        out["node_cycles"] = _k8s_cycle_summary(url)
+        t0 = time.perf_counter()
+        _terminate(proc, "k8s node")
+        walls["sigterm_exit_s"] = round(time.perf_counter() - t0, 3)
+        with state.lock:
+            live = {n: m["status"]["phase"] for n, m in state.pods.items()}
+        t_spawn = time.monotonic()
+        proc = _k8s_node(cfg, dumps[1], log)
+        if _healthy(url, proc, 180.0) != {"healthy": True, "leader": True}:
+            raise AssertionError("k8s: the rebooted node is not the leader")
+        # adopted: the rebooted node's controller watches (its watch
+        # starts once its expected state is rebuilt)
+        _k8s_until("the rebooted node not watching", deadline, lambda: any(
+            t > t_spawn and kind == "watch" and managed
+            for t, kind, managed in list(state.requests)))
+        t_adopted = min(t for t, kind, managed in list(state.requests)
+                        if t > t_spawn and kind == "watch" and managed)
+        walls["reboot_to_adoption_s"] = round(t_adopted - t_spawn, 3)
+        out["pods_known_after_reboot"] = _k8s_known(state, client, acked)
+        note(f"rebooted, adopted {walls['reboot_to_adoption_s']} s after "
+             "its start")
+        # the drain: every job not killed completes.  Watched through the
+        # kubelet's count first, so that no poll of the node's REST API
+        # takes its interpreter from the match loop, then read back
+        killed = set(kills)
+        rest = [u for u in acked if u not in killed]
+        noted = [time.monotonic()]
+
+        def pods_done():
+            if time.monotonic() - noted[0] >= 15:
+                noted[0] = time.monotonic()
+                note("draining")
+            return len(kubelet.ended) >= len(rest) and not state.pods
+
+        _k8s_until(f"{len(rest)} pods not succeeded", deadline, pods_done,
+                   every_s=0.5)
+
+        def drained():
+            nonlocal rest
+            jobs = _k8s_states(client, rest)
+            rest = [u for u in rest if jobs[u]["status"] != "completed"]
+            return not rest
+
+        _k8s_until("jobs not completed", deadline, drained, every_s=0.5)
+        walls["drain_s"] = round(time.monotonic() - t_drain, 3)
+        _k8s_until("pods left on the apiserver", deadline,
+                   lambda: not state.pods)
+        out["rebooted_node_cycles"] = _k8s_cycle_summary(url)
+        final = _k8s_states(client, acked)
+        note("drained")
+        _terminate(proc, "rebooted k8s node")
+        proc = None
+    except BaseException:
+        # what the node said, for the failure's reader
+        if proc is not None:
+            print(f"k8s: the node's match cycles {_k8s_cycle_summary(url)}",
+                  flush=True)
+        with open(log, errors="replace") as f:
+            lines = [line for line in f.read().splitlines()
+                     if "passport" not in line]
+        errors = [line for line in lines
+                  if " ERROR " in line or " WARNING " in line][-20:]
+        print("k8s node log (its errors and warnings, then its last "
+              "lines):\n" + "\n".join(errors + ["..."] + lines[-30:]),
+              flush=True)
+        raise
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        kubelet.stop()
+        server.shutdown()
+        server.server_close()
+    walls["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    # the checks
+    bad = {u: (j["status"], [(i["task_id"], i["status"],
+                              i.get("reason_string"))
+                             for i in j["instances"]])
+           for u, j in final.items() if u not in killed
+           and (j["status"] != "completed" or len(j["instances"]) != 1
+                or j["instances"][0]["status"] != "success")}
+    if bad:
+        raise AssertionError(f"k8s: {len(bad)} jobs not completed on their "
+                             f"one instance, e.g. {list(bad.items())[:3]}")
+    alive = {u: (final[u]["status"], [(i["task_id"], i["status"])
+                                      for i in final[u]["instances"]])
+             for u in kills if final[u]["status"] != "completed"}
+    if alive:
+        raise AssertionError(f"k8s: killed jobs not completed: {alive}")
+    twice = {n: c for n, c in state.posts.items() if c > 1}
+    if twice:
+        raise AssertionError(f"k8s: pods POSTed twice: {twice}")
+    tasks = {i["task_id"] for j in final.values() for i in j["instances"]}
+    if set(state.posts) != tasks:
+        raise AssertionError("k8s: the pods created are not the store's "
+                             "instances")
+    # no live pod deleted but the killed ones: the reboot adopted its
+    # predecessor's pods, and no orphan branch ran
+    orphaned = [(n, p) for n, p in state.deletes
+                if p != "Succeeded" and n not in kill_tasks]
+    if orphaned:
+        raise AssertionError(f"k8s: live pods deleted: {orphaned[:5]}")
+    running_at_adoption = sorted(
+        n for n, p in live.items() if p == "Running"
+        and kubelet.ended.get(n, float("inf")) > t_adopted)
+    if not running_at_adoption:
+        raise AssertionError("k8s: no pod ran across the reboot")
+    lists_after = [t for t, kind, _ in state.requests
+                   if kind == "list" and t > t_gap]
+    gone = [t for t, kind, _ in state.requests if kind == "gone"]
+    if not gone or not [t for t in lists_after if t < t_spawn]:
+        raise AssertionError(f"k8s: the watch gap gave {len(gone)} 410s and "
+                             "no re-list before the reboot")
+    out.update(
+        nodes=n_nodes, jobs=len(acked), pods_created=sum(state.posts.values()),
+        killed=len(kills), live_at_sigterm=len(live),
+        running_at_adoption=len(running_at_adoption),
+        gone_410=len(gone), relists_after_gap=len(lists_after),
+        relists_before_gap=lists_before, walls=walls)
+    launches, calls = 0, []
+    for dump in dumps:
+        kept = torch.load(dump)
+        launches += kept["launches"]
+        target = "cuda" if device == "cuda" else "cpu"
+        calls += [tuple(a.to(target) if isinstance(a, torch.Tensor) else a
+                        for a in args) for args in kept["calls"]]
+    out["best_node_launches"] = launches
+    return launches, calls, out
+
+
+def gssapi_check():
+    """The Kerberos login the Kubernetes deployments sit behind: the
+    port's server with `{"kind": "spnego", "gssapi": true}` answers a
+    garbage Negotiate token 401 with the challenge, through
+    libgssapi_krb5 if it loads, else through the closed acceptor (the
+    reference's posture).  Returns what it printed."""
+    import base64
+
+    from cook_tpu_torch.models.entities import Pool
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.rest import gssapi
+    from cook_tpu_torch.rest.api import ApiConfig, CookApi
+    from cook_tpu_torch.rest.auth import authenticator_from_config
+    from cook_tpu_torch.rest.server import ServerThread
+
+    store = JobStore()
+    store.set_pool(Pool(name="default"))
+    auth = authenticator_from_config({"kind": "spnego", "gssapi": True})
+    loaded = gssapi._load_lib() is not None
+    if loaded != (auth.gss_accept is not None):
+        raise AssertionError("gssapi: the acceptor and the library disagree")
+    srv = ServerThread(CookApi(store, config=ApiConfig(
+        authenticator=auth))).start()
+    try:
+        from http.client import HTTPConnection
+
+        conn = HTTPConnection("127.0.0.1", srv.port, timeout=30)
+        token = base64.b64encode(b"\x00garbage-token").decode()
+        conn.request("GET", "/pools",
+                     headers={"Authorization": f"Negotiate {token}"})
+        resp = conn.getresponse()
+        resp.read()
+        status, challenge = resp.status, resp.getheader("WWW-Authenticate")
+        conn.close()
+    finally:
+        srv.stop()
+    if status != 401 or challenge != "Negotiate":
+        raise AssertionError(f"gssapi: garbage token answered {status} "
+                             f"{challenge!r}")
+    line = ("gssapi: libgssapi_krb5 loaded; a garbage Negotiate token "
+            "answered 401 Negotiate" if loaded else
+            "gssapi: libgssapi_krb5 not found, the acceptor is closed; a "
+            "garbage Negotiate token answered 401 Negotiate")
+    print(line, flush=True)
+    return line
+
+
+def k8s_phase(card):
+    """30. The Kubernetes backend (see the docstring)."""
+    phase("k8s (30)")
+    gssapi_check()
+    with tempfile.TemporaryDirectory(prefix="cook-k8s-") as workdir:
+        launches, calls, summary = k8s_run(workdir)
+        print("k8s " + json.dumps(summary), flush=True)
+        _check_launches("k8s", launches, calls, "cuda")
+        max_err = hold_launches("best_node", calls, "k8s")
+        del calls
+    print(f"k8s on {card}", flush=True)
+    return launches, max_err
+
+
 # the native host solvers (N1): bench.py's CPU sizing, J 16,384 x N 2,048
 # with 16,000 x 2,000 real (bench.py:139-142), its full sizing, 131,072 x
 # 16,384 with 100,000 x 10,000 real (bench.py:143-145), and bench_dru's
@@ -8051,6 +8712,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--part"]:
         return part_main(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--k8s-node"]:
+        return k8s_node_main(*sys.argv[2:4])
     sys.path.insert(0, ROOT)
     import torch
 
@@ -8124,6 +8787,11 @@ def main() -> int:
     # the clients (29): the node's counts reset just before it boots and
     # read once its loops stop
     n, err = clients_phase(card)
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], err)
+    # the Kubernetes backend (30): each node process's counts set to 0
+    # just before it runs `python -m cook_tpu_torch` and read as it exits
+    n, err = k8s_phase(card)
     launches["best_node"] += n
     errs["best_node"] = max(errs["best_node"], err)
     # the card's name and power limit again, beside the numbers above

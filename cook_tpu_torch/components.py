@@ -34,8 +34,13 @@ The leader also runs the fleet observatory (`obs/fleet.py`, every
 the replication feed with its URL, and serves the merged verdict at
 `GET /debug/fleet`.
 
-What waits raises a clear error when configured: the `k8s` / `k8s-http`
-cluster kinds.
+The Kubernetes backend (`cluster/k8s.py`, `cluster/k8s_http.py`) is a
+cluster kind like the mock: `k8s` over the in-memory `FakeKubeApi`,
+`k8s-http` over a real apiserver.  Its controller takes up its duties
+with leadership (`start_cluster_backend`): the expected state rebuilt
+from the store's live instances first, then the apiserver watch, then a
+30 s anti-entropy scan loop.  A standby never watches, so it never acts
+on the leader's pods.
 """
 from __future__ import annotations
 
@@ -123,9 +128,68 @@ def _mock_factory(conf: dict, clock) -> ComputeCluster:
                            conf.get("default_runtime_ms", 60_000)))
 
 
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it waits for a later "
-                      "control-plane slice of the port")
+@register_cluster_factory("k8s")
+def _k8s_factory(conf: dict, clock) -> ComputeCluster:
+    from cook_tpu_torch.cluster.k8s import FakeKubeApi, KubeCluster
+
+    api = conf.get("api") or FakeKubeApi()
+    return KubeCluster(conf["name"], api, clock,
+                       synthetic_pod_limits=conf.get("synthetic_pods", {}))
+
+
+@register_cluster_factory("k8s-http")
+def _k8s_http_factory(conf: dict, clock) -> ComputeCluster:
+    """A real apiserver-backed cluster (kubernetes/api.clj analog):
+
+        {"kind": "k8s-http", "name": "prod", "url": "https://apiserver",
+         "namespace": "cook", "token_file": "/var/run/.../token",
+         "ca_file": "...", "file_server_port": 8000}
+
+    Its pod watch starts with leadership (`start_cluster_backend`), not
+    here: the reference starts it here, so that on every node, a standby
+    or a restarted leader included, the watch's first re-list reaches a
+    controller that expects nothing and deletes every live pod as an
+    orphan."""
+    from cook_tpu_torch.cluster.k8s import KubeCluster
+    from cook_tpu_torch.cluster.k8s_http import HttpKubeApi
+
+    api = HttpKubeApi(
+        conf["url"],
+        namespace=conf.get("namespace", "default"),
+        token_file=conf.get("token_file"),
+        ca_file=conf.get("ca_file"),
+        insecure_skip_verify=bool(conf.get("insecure_skip_verify", False)),
+        default_image=conf.get("default_image", "busybox:stable"),
+        file_server_port=int(conf.get("file_server_port", 0)),
+        file_server_image=conf.get("file_server_image", ""),
+        watch_timeout_s=float(conf.get("watch_timeout_s", 300.0)),
+        checkpoint_tools_image=conf.get("checkpoint_tools_image", ""),
+    )
+    return KubeCluster(conf["name"], api, clock,
+                       synthetic_pod_limits=conf.get("synthetic_pods", {}))
+
+
+def start_cluster_backend(cluster, store) -> None:
+    """A k8s cluster's controller takes up its duties on the leader
+    (determine-expected-state-on-startup, compute_cluster.clj:269): its
+    expected state from the store's live instances on it, then its
+    apiserver watch (initialize-pod-watch).  In that order, so that the
+    watch's first re-list finds each live pod expected.  A no-op for
+    other kinds."""
+    determine = getattr(cluster, "determine_expected_state_on_startup",
+                        None)
+    if determine is None:
+        return
+    determine({i.task_id for i in store.instances.values()
+               if not i.status.terminal
+               and i.compute_cluster == cluster.name})
+    start = getattr(cluster.api, "start", None)
+    if start is not None:
+        start()
+
+
+def _scannable(clusters) -> list:
+    return [c for c in clusters if hasattr(c, "scan_all")]
 
 
 class TriggerLoop:
@@ -197,20 +261,12 @@ class CookProcess:
         return self.selector is not None and self.selector.is_leader
 
 
-def _check_ported(settings: Settings) -> None:
-    for conf in settings.clusters:
-        kind = conf.get("kind", "mock")
-        if kind in ("k8s", "k8s-http"):
-            raise _not_ported(f"cluster kind {kind!r}")
-
-
 def build_process(
     settings: Settings,
     *,
     clock: Callable[[], int] = wall_clock_ms,
     start_rest: bool = True,
 ) -> CookProcess:
-    _check_ported(settings)
     device = device_for_platform(settings.platform)
     sharded = settings.shards > 1
     store = None
@@ -629,6 +685,12 @@ def _take_leadership(process: CookProcess) -> None:
     process.heartbeats = HeartbeatMonitor(store, kill_via_cluster)
     scheduler.heartbeats = process.heartbeats  # REST /heartbeat delivery
 
+    # k8s-style clusters: failover recovery, then the watch
+    # (determine-expected-state-on-startup + initialize-pod-watch)
+    scannable = _scannable(scheduler.clusters)
+    for cluster in scannable:
+        start_cluster_backend(cluster, store)
+
     process.loops = [
         TriggerLoop("rank", settings.rank_interval_s, rank_all).start(),
         TriggerLoop("progress-publish", 2.0,
@@ -645,6 +707,14 @@ def _take_leadership(process: CookProcess) -> None:
         process.loops.append(
             TriggerLoop("health-watch", settings.health_watch_interval_s,
                         lambda: process.api.health_verdict()).start())
+    if scannable:
+        # periodic anti-entropy scans (scan-process), over the clusters
+        # created over REST since, too
+        process.loops.append(
+            TriggerLoop("k8s-scan", 30.0,
+                        lambda: [c.scan_all()
+                                 for c in _scannable(scheduler.clusters)]
+                        ).start())
     # mock clusters complete tasks by virtual time; in a live service the
     # wall clock drives them (the simulator drives advance_to itself)
     advanceable = [c for c in process.clusters if hasattr(c, "advance_to")]
@@ -723,8 +793,9 @@ def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
     """Stop the loops (waiting up to `join_s` for each one's current run
     to end, so no cycle outlives its process's teardown), the fleet
     observatory, the history sampler, a standby's journal follower, the
-    election and the REST server, then close the journal, or every
-    shard's segment (its unsynced tail fsynced)."""
+    election, the REST server and the clusters' apiserver watches, then
+    close the journal, or every shard's segment (its unsynced tail
+    fsynced)."""
     with process.duties_lock:
         process.stopping = True
     for loop in process.loops:
@@ -742,5 +813,11 @@ def shutdown(process: CookProcess, *, join_s: float = 30.0) -> None:
         process.selector.stop()
     if process.server is not None:
         process.server.stop()
+    # backend clients own watch threads (HttpKubeApi): stopped before the
+    # journals close, so that no pod event reaches the torn-down store
+    for cluster in process.scheduler.clusters:
+        api_stop = getattr(getattr(cluster, "api", None), "stop", None)
+        if api_stop is not None:
+            api_stop()
     for journal in process.journals:
         journal.close()

@@ -415,7 +415,12 @@ def apply_journal(store: JobStore, events: list[dict],
     applied = 0
     max_seq = store.last_seq()
     fan: list[Event] = []
-    for entry in events:
+    # in commit (seq) order, not file order: an event emitted inside a
+    # batch's fan-out (a killed job's task, reported failed by its
+    # cluster's kill as the batch fans out) is journaled before the
+    # batch's later events, and replaying the file as written would skip
+    # those as already seen (the reference does: ROADMAP Queue C)
+    for entry in sorted(events, key=lambda e: e.get("seq", 0)):
         seq = entry.get("seq", 0)
         if seq <= after_seq or seq <= max_seq:
             continue

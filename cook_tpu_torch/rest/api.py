@@ -2148,7 +2148,10 @@ class CookApi:
                 return _err(404, f"unknown cluster {name}")
             # dynamic cluster creation (compute-clusters CRUD,
             # rest/api.clj:3914 + compute_cluster.clj:450-530)
-            from cook_tpu_torch.components import CLUSTER_FACTORIES
+            from cook_tpu_torch.components import (
+                CLUSTER_FACTORIES,
+                start_cluster_backend,
+            )
 
             factory = CLUSTER_FACTORIES.get(body["kind"])
             if factory is None:
@@ -2158,6 +2161,10 @@ class CookApi:
                 self.scheduler.add_cluster(cluster)
             except (ValueError, KeyError) as e:
                 return _err(400, str(e))
+            if self.leader and self.scheduler.active:
+                # a k8s cluster's controller and watch (a standby's start
+                # with its leadership)
+                start_cluster_backend(cluster, self.store)
             return json_response(
                 {"name": name, "state": cluster.state.value}, status=201)
         try:

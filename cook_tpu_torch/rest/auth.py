@@ -2,8 +2,7 @@
 
 A copy of `cook_tpu/rest/auth.py` without aiohttp: an authenticator reads
 only `request.headers` (the shim's `Request`, rest/http.py).  The
-`gssapi` acceptor (the reference's ctypes binding of libgssapi_krb5,
-`rest/gssapi.py`) is not ported yet: configuring it raises.
+`gssapi` acceptor is `rest/gssapi.py`'s ctypes binding of libgssapi_krb5.
 
 Reference: the middleware stack assembled in components.clj:267-284 picks
 an authenticator — Kerberos SPNEGO (rest/spnego.clj), HTTP basic
@@ -174,10 +173,13 @@ def authenticator_from_config(conf: dict):
             if not callable(acceptor):
                 acceptor = acceptor.gss_accept
         elif conf.get("gssapi"):
-            raise NotImplementedError(
-                "auth {'kind': 'spnego', 'gssapi': true}: the port has no "
-                "libgssapi_krb5 acceptor yet (rest/gssapi.py); configure "
-                "'gss_accept' with a dotted path instead")
+            # real Kerberos via libgssapi_krb5 (KRB5_KTNAME supplies the
+            # keytab in deployment); None when the library is absent,
+            # which keeps the closed-by-default posture
+            from cook_tpu_torch.rest.gssapi import make_gssapi_acceptor
+
+            acceptor = make_gssapi_acceptor(
+                libname=conf.get("gssapi_lib") or None)
         return SpnegoAuthenticator(gss_accept=acceptor)
     if kind == "composite":
         return CompositeAuthenticator(

@@ -4,9 +4,9 @@ the single-process cases of tests/test_components.py on both packages
 (`P` over `ref` / `port`: the electors and the selector, the reaction
 wiring, a whole node booted from config and driven over HTTP), journal
 recovery across a restart, a 2-shard leader's fail-stop demotion when
-either journal segment fails its fsync, what waits for a later
-control-plane slice refusing to start and what waited booting (a 2-shard
-leader among them), the device a config names, `python -m
+either journal segment fails its fsync, what waited for later slices
+booting (a 2-shard leader and a `k8s-http` cluster among them), the
+device a config names, `python -m
 cook_tpu_torch` itself: booted on the CPU, stopped with SIGTERM, and
 restarted on the same data_dir with every acknowledged job readable, and
 `chip_smoke.py`'s service and failover phases at a CPU test's size."""
@@ -255,42 +255,88 @@ def test_journal_recovery_across_a_restart(P, tmp_path):
         P.components.shutdown(p2)
 
 
-@pytest.mark.parametrize("conf", [
-    {"clusters": [{"kind": "k8s", "name": "k"}]},
-    {"clusters": [{"kind": "k8s-http", "name": "k", "url": "http://x"}]},
-], ids=["k8s", "k8s-http"])
-def test_what_waits_refuses_to_start(conf):
-    with pytest.raises(ValueError, match="not ported yet"):
-        port_components.build_process(
-            settings(PORT, **conf), start_rest=False)
+@pytest.mark.parametrize("P,second", [(REF, "running"),
+                                       (PORT, "completed")],
+                         ids=["ref", "port"])
+def test_a_batched_kill_survives_a_restart(P, second, tmp_path):
+    """Two running jobs killed in one DELETE: the kill's two job events
+    take seqs n and n + 1, and the mock cluster reports the first job's
+    task failed (seq n + 2) while the batch fans out, so the journal holds
+    n, n + 2, n + 1.  The reference's replay skips n + 1 as already seen:
+    after a restart the second job reads "running", with its one
+    instance failed and nothing left to run it.  The port replays in seq
+    order (ROADMAP Queue C, reference item 20)."""
+    data = str(tmp_path / "data")
+    s = _mock_settings(P, data_dir=data, port=P.server.free_port())
+    p1 = P.components.build_process(s)
+    try:
+        url = f"http://127.0.0.1:{s.port}"
+        r = requests.post(f"{url}/jobs", json={"jobs": [
+            {"command": f"k{i}", "mem": 100, "cpus": 1} for i in range(2)]},
+            headers=H, timeout=TIMEOUT_S)
+        assert r.status_code == 201
+        acked = r.json()["jobs"]
+        P.components.start_leader_duties(p1, block=False,
+                                         on_loss=lambda: None)
+        loops = {loop.name: loop for loop in p1.loops}
+        loops["rank"].fire()
+        loops["match"].fire()
+        assert [_job_status(url, u) for u in acked] == ["running"] * 2
+        assert requests.delete(f"{url}/jobs", params=[("job", u)
+                                                      for u in acked],
+                               headers=H, timeout=TIMEOUT_S
+                               ).status_code == 204
+        assert [_job_status(url, u) for u in acked] == ["completed"] * 2
+    finally:
+        P.components.shutdown(p1)
+    s2 = _mock_settings(P, data_dir=data, port=P.server.free_port())
+    p2 = P.components.build_process(s2)
+    try:
+        url = f"http://127.0.0.1:{s2.port}"
+        assert [_job_status(url, u) for u in acked] == ["completed", second]
+        assert [i.status.value for u in acked
+                for i in p2.store.job_instances(u)] == ["failed"] * 2
+    finally:
+        P.components.shutdown(p2)
 
 
 @pytest.mark.parametrize("case", ["file-lease", "lease-service",
-                                  "sync-ack", "shards-2", "peers"])
+                                  "sync-ack", "shards-2", "peers",
+                                  "k8s-http"])
 def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
-    """The election, replication, sharding and fleet configs that waited
-    for the control-plane slices boot now: a file lease or the lease
+    """The election, replication, sharding, fleet and Kubernetes configs
+    that waited for later slices boot now: a file lease or the lease
     service elect the first node, a second one on the lease service stands
     by with a journal follower, a sync-ack leader with no standby commits
     and says "replicated": false, a 2-shard leader commits to both
     shards' journal segments and snapshots them, a leader with `peers`
-    polls them and serves a row for each at /debug/fleet; every node
-    stops with no thread left behind."""
+    polls them and serves a row for each at /debug/fleet, a leader on a
+    `k8s-http` cluster places its job as one pod on a fake apiserver;
+    every node stops with no thread left behind (the apiserver watches'
+    among them)."""
     from cook_tpu_torch.control.lease_server import LeaseServer
+    from tests.fake_apiserver import make_server
 
     lease = LeaseServer().start() if case == "lease-service" else None
+    apiserver = make_server() if case == "k8s-http" else None
     conf = {"file-lease": {"leader_lease_path": str(tmp_path / "lease")},
             "lease-service": {"leader_endpoint": lease and lease.url},
             "sync-ack": {"replication_sync_ack": True,
                          "replication_ack_timeout_s": 0.2},
             "shards-2": {"shards": 2},
             "peers": {"peers": ("http://127.0.0.1:1",),
-                      "fleet_poll_s": 0.1}}[case]
+                      "fleet_poll_s": 0.1},
+            "k8s-http": {}}[case]
     nodes, threads = [], []
     try:
         for i in range(2 if lease else 1):
             s = _mock_settings(PORT, port=port_server.free_port(),
                                data_dir=str(tmp_path / f"n{i}"), **conf)
+            if apiserver:
+                _, state, api_url = apiserver
+                state.add_node("n1", 8192, 16)
+                s.clusters = [{"kind": "k8s-http", "name": "k",
+                               "url": api_url, "watch_timeout_s": 5}]
             nodes.append(port_components.build_process(s))
             t = threading.Thread(
                 target=port_components.start_leader_duties,
@@ -329,6 +375,16 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
                     leader.settings.data_dir, i), "snapshot.json"))
             assert shard_journal.read_manifest(
                 leader.settings.data_dir)["shards"] == 2
+        if apiserver:
+            loops = {loop.name: loop for loop in nodes[0].loops}
+            loops["rank"].fire()
+            loops["match"].fire()
+            deadline = time.monotonic() + TIMEOUT_S
+            while len(state.pods) != 1:
+                assert time.monotonic() < deadline, "no pod"
+                time.sleep(0.05)
+            [api] = [c.api for c in nodes[0].clusters]
+            assert api._watch_thread.is_alive()
         if case == "peers":
             deadline = time.monotonic() + TIMEOUT_S
             while True:
@@ -349,7 +405,11 @@ def test_what_waited_boots_and_stops_cleanly(case, tmp_path):
             t.join(timeout=TIMEOUT_S)
         if lease:
             lease.stop()
+        if apiserver:
+            apiserver[0].shutdown()
     assert not any(t.is_alive() for t in threads)
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("kube-")]
     for p in nodes:
         followers = getattr(p.follower, "followers", [p.follower])
         assert not any(f is not None and f._thread.is_alive()

@@ -1,8 +1,7 @@
 """The elastic capacity plane of `cook_tpu_torch` against `cook_tpu` on the
-CPU: the ports of tests/test_elastic.py's cases (all but the three k8s
-scale cases, which wait for the k8s backend), each run on both packages
-(`ref` / `port`) with the reference's assertions, and their decisions
-compared:
+CPU: the ports of tests/test_elastic.py's cases, each run on both
+packages (`ref` / `port`) with the reference's assertions, and their
+decisions compared:
 
 - the solve (`ops/elastic.py`): weighted demand and the plan against the
   numpy oracles and the JAX functions on the same numpy inputs, amounts
@@ -16,7 +15,9 @@ compared:
   (clamp, net, validation, idempotency, journal and snapshot replay,
   racing pool moves);
 - the mock cluster's `scale` (the `elastic@{pool}` host, withheld
-  capacity, the draining of a busy elastic host);
+  capacity, the draining of a busy elastic host) and the k8s cluster's
+  (node-pool resize requests, cordons, sibling pools, the request ring),
+  each over the package's `FakeKubeApi`;
 - the planner and the scheduler (loans and their record, the single-pool
   no-op, bucket padding with no recompile storm, reclaim before
   preemption across a failover, the reclaim replay after a second
@@ -38,6 +39,7 @@ import jax.numpy as jnp
 from cook_tpu import txn as ref_txn
 from cook_tpu import elastic as ref_elastic
 from cook_tpu.cluster import base as ref_base
+from cook_tpu.cluster import k8s as ref_k8s
 from cook_tpu.cluster import mock as ref_mock
 from cook_tpu.models import entities as ref_ent
 from cook_tpu.models import persistence as ref_persist
@@ -55,6 +57,7 @@ from cook_tpu.utils import metrics as ref_metrics
 from cook_tpu_torch import elastic as port_elastic
 from cook_tpu_torch import txn as port_txn
 from cook_tpu_torch.cluster import base as port_base
+from cook_tpu_torch.cluster import k8s as port_k8s
 from cook_tpu_torch.cluster import mock as port_mock
 from cook_tpu_torch.elastic import planner as port_planner
 from cook_tpu_torch.models import entities as port_ent
@@ -80,13 +83,14 @@ REF = SimpleNamespace(name="ref", ent=ref_ent, store=ref_store,
                       rb=ref_rb, persist=ref_persist, txn=ref_txn,
                       elastic=ref_elastic, tel=ref_tel, dp=ref_dp,
                       sim=ref_sim, loadgen=ref_loadgen,
-                      metrics=ref_metrics, kw={})
+                      metrics=ref_metrics, k8s=ref_k8s, kw={})
 PORT = SimpleNamespace(name="port", ent=port_ent, store=port_store,
                        mock=port_mock, base=port_base, core=port_core,
                        rb=port_rb, persist=port_persist, txn=port_txn,
                        elastic=port_elastic, tel=port_tel, dp=port_dp,
                        sim=port_sim, loadgen=port_loadgen,
-                       metrics=port_metrics, kw={"device": "cpu"})
+                       metrics=port_metrics, k8s=port_k8s,
+                       kw={"device": "cpu"})
 PKGS = pytest.mark.parametrize("P", [REF, PORT], ids=["ref", "port"])
 
 RTOL, ATOL, SHORT_ATOL = 1e-4, 1e-2, 1e-1
@@ -518,6 +522,74 @@ def _scale_drain(P):
 
 def test_mock_scale_drains_busy_elastic_host():
     assert _scale_drain(PORT) == _scale_drain(REF)
+
+
+@PKGS
+def test_k8s_scale_resize_request_and_cordon(P):
+    k = P.k8s
+    api = k.FakeKubeApi([
+        k.KubeNode(name="n0", mem=16000, cpus=16, pool="lender"),
+        k.KubeNode(name="n1", mem=16000, cpus=16, pool="lender"),
+        k.KubeNode(name="b0", mem=16000, cpus=16, pool="borrower"),
+    ])
+    cluster = k.KubeCluster("k", api, FakeClock())
+    cluster.scale("borrower", {"mem": 20000.0, "cpus": 20.0, "gpus": 0.0})
+    assert cluster.resize_requests[-1]["pool"] == "borrower"
+    elastic = [n for n in api.list_nodes()
+               if n.name.startswith("elastic-borrower-")]
+    assert len(elastic) == 2  # ceil(20 / 16-cpu template nodes)
+    # lender side: empty nodes cordoned, capacity leaves the offers
+    before = len(cluster.pending_offers("lender"))
+    cluster.scale("lender", {"mem": -16000.0, "cpus": -16.0, "gpus": 0.0})
+    after = len(cluster.pending_offers("lender"))
+    assert after == before - 1
+    # reclaim: uncordon + drop the now-empty elastic nodes
+    cluster.scale("lender", {"mem": 0.0, "cpus": 0.0, "gpus": 0.0})
+    cluster.scale("borrower", {"mem": 0.0, "cpus": 0.0, "gpus": 0.0})
+    assert len(cluster.pending_offers("lender")) == before
+    assert not [n for n in api.list_nodes()
+                if n.name.startswith("elastic-borrower-")]
+
+
+@PKGS
+def test_k8s_scale_prefix_sibling_pools_do_not_collide(P):
+    """Pool 'gpu' must not claim (or shrink away) pool 'gpu-west's
+    elastic nodes: 'elastic-gpu-west-0'.startswith('elastic-gpu-'), so
+    ownership needs the node's pool, not just the name prefix."""
+    k = P.k8s
+    api = k.FakeKubeApi([
+        k.KubeNode(name="g0", mem=16000, cpus=16, pool="gpu"),
+        k.KubeNode(name="w0", mem=16000, cpus=16, pool="gpu-west"),
+    ])
+    cluster = k.KubeCluster("k", api, FakeClock())
+    cluster.scale("gpu-west", {"mem": 16000.0, "cpus": 16.0, "gpus": 0.0})
+    assert [n.name for n in api.list_nodes()
+            if n.name.startswith("elastic-gpu-west-")] == \
+        ["elastic-gpu-west-0"]
+    # converging pool "gpu" to zero must leave gpu-west's node alone
+    cluster.scale("gpu", {"mem": 0.0, "cpus": 0.0, "gpus": 0.0})
+    assert [n.name for n in api.list_nodes()
+            if n.name.startswith("elastic-gpu-west-")] == \
+        ["elastic-gpu-west-0"]
+
+
+@PKGS
+def test_k8s_resize_request_ring_skips_unchanged_targets(P):
+    """reconcile() converges every interval; only target CHANGES may
+    enter the bounded resize-request ring or no-ops would rotate real
+    requests out before an external controller sees them."""
+    k = P.k8s
+    api = k.FakeKubeApi([k.KubeNode(name="n0", mem=16000, cpus=16,
+                                    pool="p")])
+    cluster = k.KubeCluster("k", api, FakeClock())
+    for _ in range(10):
+        cluster.scale("p", {"mem": 0.0, "cpus": 0.0, "gpus": 0.0})
+    assert cluster.resize_requests == []  # all-zero never-loaned: noise
+    for _ in range(10):
+        cluster.scale("p", {"mem": 8000.0, "cpus": 8.0, "gpus": 0.0})
+    assert len(cluster.resize_requests) == 1
+    cluster.scale("p", {"mem": 0.0, "cpus": 0.0, "gpus": 0.0})
+    assert len(cluster.resize_requests) == 2  # shrink-to-zero IS a change
 
 
 def test_inelastic_backend_scale_is_a_no_op():

@@ -235,8 +235,16 @@ LOADGEN_MODULES = ("cook_tpu_torch.sim.loadgen",
                    "cook_tpu_torch.sim.cli")
 
 
+# the Kubernetes backend (the controller, the apiserver client on the
+# standard library) and the Kerberos acceptor (ctypes)
+K8S_MODULES = ("cook_tpu_torch.cluster.k8s",
+               "cook_tpu_torch.cluster.k8s_http",
+               "cook_tpu_torch.rest.gssapi")
+
+
 @pytest.mark.parametrize("module", SERVICE_MODULES + SHARD_MODULES
-                         + MP_MODULES + CLIENT_MODULES + LOADGEN_MODULES)
+                         + MP_MODULES + CLIENT_MODULES + LOADGEN_MODULES
+                         + K8S_MODULES)
 def test_service_module_loads_no_jax_reference_or_http_library(module):
     code = (
         "import importlib, sys\n"
