@@ -139,6 +139,34 @@ and prints no result line):
                   delta written in place on one pipelined stage's stream
                   into buffers another stage read; resident serial,
                   resident pipelined and classic serial run traces equal.
+ 11g. mesh      — `parallel/mesh.py` on `torch.distributed`, each mesh a
+                  group of spawned ranks (`run_on_mesh`).  (a) NCCL at
+                  one rank a card (`torch.cuda.device_count()`, 1 here):
+                  `pool_sharded_match` on 11a's stacked batched problems
+                  identical to the single-device `chunked_match_pools`
+                  (assignment and availability bit for bit).  (b) gloo,
+                  D = 2 and D = 4 ranks sharing the card: every rank
+                  replays 11a's slice (8 pools, 100k x 10k, MP_CYCLES
+                  cycles) on the batched route through
+                  `Scheduler.match_cycle_all_pools(mesh)` (alpha two-level
+                  with the mesh, the flat pools sharded over the ranks),
+                  counts reset just before the replay and read just after;
+                  every rank's run trace identical to 11a's batched route.
+                  Prints each rank's walls and device memory peak beside
+                  the card; the ranks' launches join the `kernels` line
+                  (their run traces equal 11a's, whose launches are each
+                  held against the plain version).
+ 11h. mesh node axis — `node_sharded_chunked_match` on 100,000 jobs x
+                  10,000 hosts (bench.py's family, a seeded mask with one
+                  pair in 20 forbidden) at one NCCL rank identical to
+                  `chunked_match`; then on 2 gloo ranks sharing the card
+                  `node_sharded_greedy_match` identical to `greedy_match`
+                  on 16,384 jobs x 2,048 hosts (masked), and
+                  `node_sharded_chunked_match` on the 100k x 10k problem:
+                  no host over-committed, the mask kept, >= 0.99 of the
+                  exact greedy's placements and cpus (the native host
+                  solver, run here while the ranks solve).  Prints the
+                  walls beside the card.
  12. coarse_pass paged — `coarse_pass` past its shared memory (B 1024 at
                   R 4 and R 8, B 512 at R 8, and both sides of the edge at
                   R 8): identical to the plain version, bit-identical over
@@ -500,7 +528,7 @@ The Kubernetes backend, whose node launches `best_node` (counted in the
                   timeout 5 s, no placeholder pods (the fake has no
                   cluster autoscaler).  A kubelet thread here moves each
                   pod Pending -> Running after 0.2 s and -> Succeeded
-                  after its command's `sleep`.  3,000 jobs of phase 29's
+                  after its command's `sleep`.  2,000 jobs of phase 29's
                   LoadConfig memory and cpu choices, runtimes 1, 2 or 5
                   s, in POSTs of 100 from 8 users through the port's
                   `JobClient`; the first 10 run 600 s and are killed over
@@ -534,8 +562,8 @@ The Kubernetes backend, whose node launches `best_node` (counted in the
 Order and processes: 1-7 (with the walls replays) run in this process,
 which times the kernel rows.  Then three worker processes run the rest
 at once, each its own part (PARTS), each resetting and reading the
-counts around the paths it drives: `speculation` S1-S4, 12 and 11;
-`multipool` 11a-11f, 17-20, 7a-7d and 23; `agreement` N1, 8-8c, 9-10,
+counts around the paths it drives: `speculation` S1-S4, 12, 11 and 11h;
+`multipool` 11a-11g, 17-20, 7a-7d and 23; `agreement` N1, 8-8c, 9-10,
 21, 13-15, 22 and 24.  Their output is printed once all three have ended
 (their phase lines count from this process's start, so they overlap),
 and their launches and errors join this process's.  25, 26, 27, 28,
@@ -3004,14 +3032,18 @@ def kept_results(module, name, calls):
 
 
 def multipool_sim(jobs, hosts, pools, match, device, route, cycles,
-                  resident=False):
+                  resident=False, mesh=None):
     """A Simulator on the multi-pool trace driving `route`: the serial
     per-pool loop, the pool-batched pass (`SimConfig.batched_match`), or
     the pipelined pass on the same store, clusters and clock steps (the
     Simulator's batched loop, its pass swapped for
     `Scheduler.match_cycle_pipelined`: the reference's Simulator has no
     pipelined knob, and bench.py:576-657 drives it so); `resident` turns
-    device residency on (SimConfig.resident)."""
+    device residency on (SimConfig.resident); `mesh` shards the batched
+    pass over a `parallel/mesh.py` mesh (`match_cycle_all_pools(mesh)`,
+    as the reference's bench.py drives configuration 5)."""
+    import functools
+
     from cook_tpu_torch.scheduler.core import SchedulerConfig
     from cook_tpu_torch.sim.simulator import SimConfig, Simulator
 
@@ -3022,6 +3054,9 @@ def multipool_sim(jobs, hosts, pools, match, device, route, cycles,
     if route == "pipelined":
         sim.scheduler.match_cycle_all_pools = \
             sim.scheduler.match_cycle_pipelined
+    elif mesh is not None:
+        sim.scheduler.match_cycle_all_pools = functools.partial(
+            sim.scheduler.match_cycle_all_pools, mesh=mesh)
     return sim, RouteProbe(sim)
 
 
@@ -3062,7 +3097,7 @@ def check_multipool_records(label, result, threshold, big="alpha"):
 
 
 def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
-                    match_overrides=None, serial_csv=None):
+                    match_overrides=None, serial_csv=None, batched=None):
     """The multi-pool slice at full width (8 pools, 100k x 10k): routes
     serial, batched and pipelined, `cycles` cycles each at the default
     SchedulerConfig, counts reset just before each route and read just
@@ -3073,8 +3108,10 @@ def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
     problem solved again lane by lane with `chunked_match` on `xla`,
     identical.  Returns ({kernel: launches over the routes}, {kernel:
     kept calls}, (jobs, hosts, SimConfig pools) of the trace), and appends
-    the serial route's run trace to `serial_csv` when given.  The tests
-    run it on the CPU at small `pools`."""
+    the serial route's run trace to `serial_csv` when given; `batched`, a
+    dict, receives the batched route's run trace (`csv`) and its stacked
+    flat problems with their knobs (`stacked`).  The tests run it on the
+    CPU at small `pools`."""
     import torch
 
     from cook_tpu_torch.ops import best_node as bn
@@ -3173,6 +3210,10 @@ def multipool_phase(device="cuda", pools=MP_POOLS, cycles=MP_CYCLES,
           flush=True)
     if serial_csv is not None:
         serial_csv.append(results["serial"].to_csv())
+    if batched is not None:
+        batched.update(csv=results["batched"].to_csv(),
+                       stacked=[(args[0], kwargs)
+                                for args, kwargs, _ in stacked])
     # the batched pass's flat lanes against the per-pool xla solve
     if not stacked or any(kw.get("use_pallas") for _, kw, _ in stacked):
         raise AssertionError(f"multipool: {len(stacked)} batched solves "
@@ -3488,6 +3529,474 @@ def multipool_agreement_phase(devices=("cuda", "cpu"),
     if not ok:
         raise AssertionError("multipool agreement: pipelined differs from "
                              "serial:\n" + "\n".join(diffs))
+
+
+# ------------------------------------------------------------------ mesh
+
+# the mesh phase (11g): gloo meshes of D ranks sharing the card replay the
+# multi-pool slice's batched route
+MESH_SIZES = (2, 4)
+# each rank group's deadline, spawn and imports included
+MESH_TIMEOUT_S = 300.0
+# the node axis, at D = 2: the exact greedy (16,384 jobs x 2,048 hosts) and
+# the chunked matcher at the slice's knobs (100,000 x 10,000, rows padded
+# to a whole chunk), on bench.py's problem family with a seeded mask
+MESH_NODE_RANKS = 2
+MESH_GREEDY = dict(j=16_384, n=2_048, seed=11)
+MESH_CHUNKED = dict(j=100_352, n=10_000, j_real=100_000, seed=12)
+MESH_KNOBS = dict(chunk=1024, rounds=3, kc=128, passes=2)
+# the reference's bar for the chunked matcher (tests/test_parallel.py:145)
+MESH_PLACED_FLOOR = 0.99
+# gathers of a greedy step's D pairs from host memory, timed alone
+MESH_GATHER_REPS = 500
+MESH_FIELDS = ("demands", "job_valid", "avail", "totals", "node_valid",
+               "feasible")
+
+
+def mesh_problem(j, n, seed, j_real=None):
+    """native_match_problem's arrays at [j, n] with a seeded mask (one
+    (job, host) pair in 20 forbidden) and the rows past `j_real`
+    invalid."""
+    import numpy as np
+
+    demands, avail, totals = native_match_problem(j, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    return dict(demands=demands,
+                job_valid=np.arange(j) < (j if j_real is None else j_real),
+                avail=avail, totals=totals, node_valid=np.ones(n, bool),
+                feasible=rng.integers(0, 20, (j, n), dtype=np.uint8) != 0)
+
+
+def save_problem(dirname, arrays):
+    import numpy as np
+
+    os.makedirs(dirname, exist_ok=True)
+    for name in MESH_FIELDS:
+        np.save(os.path.join(dirname, name + ".npy"), arrays[name])
+    return dirname
+
+
+def load_problem(dirname):
+    """A saved problem as host arrays, the mask memory-mapped (copy on
+    write): a node-sharded rank copies only its host columns to its
+    device."""
+    import numpy as np
+
+    from cook_tpu_torch.ops.match import MatchProblem
+
+    return MatchProblem(**{
+        name: np.load(os.path.join(dirname, name + ".npy"),
+                      mmap_mode="c" if name == "feasible" else None)
+        for name in MESH_FIELDS})
+
+
+def _on(problem, device):
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops.match import MatchProblem
+
+    return MatchProblem(*(None if t is None else
+                          torch.as_tensor(np.asarray(t)).to(device)
+                          for t in problem))
+
+
+def _synced(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _same(a, b):
+    """Equal assignments and bit-equal availability."""
+    import torch
+
+    return (torch.equal(a.assignment.cpu(), b.assignment.cpu())
+            and torch.equal(a.new_avail.float().cpu().view(torch.int32),
+                            b.new_avail.float().cpu().view(torch.int32)))
+
+
+def _peak(device):
+    import torch
+
+    return (torch.cuda.max_memory_reserved(device)
+            if torch.device(device).type == "cuda" else 0)
+
+
+def mesh_one_rank(mesh, stacked_path):
+    """11g (a), on a mesh of one rank: `pool_sharded_match` on each of
+    11a's stacked batched problems against `chunked_match_pools` at its
+    knobs, on this rank's device."""
+    import torch
+
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.parallel import mesh as mesh_ops
+
+    _torch_setup(torch)
+    dev = mesh.device
+    out = dict(backend=mesh.backend, size=mesh.size, device=str(dev),
+               lanes=[])
+    for problem, kw in torch.load(stacked_path, map_location=dev,
+                                  weights_only=False):
+        if kw.get("use_pallas") or kw.get("bucketed"):
+            raise AssertionError(f"a batched solve on {kw}: expected xla")
+        t0 = _synced(dev)
+        want = match_ops.chunked_match_pools(problem, **kw)
+        t1 = _synced(dev)
+        got = mesh_ops.pool_sharded_match(
+            mesh, problem, chunk=kw["chunk"], rounds=kw["rounds"],
+            passes=kw["passes"], kc=kw["kc"], backend="xla")
+        t2 = _synced(dev)
+        out["lanes"].append(dict(shape=list(problem.feasible.shape),
+                                 identical=_same(got, want),
+                                 single_s=t1 - t0, sharded_s=t2 - t1))
+    out["peak"] = _peak(dev)
+    return out
+
+
+def mesh_chunked_one_rank(mesh, node_dir, knobs):
+    """11h, on a mesh of one rank: `node_sharded_chunked_match` against
+    `chunked_match` at the same knobs, on this rank's device."""
+    import torch
+
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.parallel import mesh as mesh_ops
+
+    _torch_setup(torch)
+    dev = mesh.device
+    host = load_problem(node_dir)
+    t0 = _synced(dev)
+    got = mesh_ops.node_sharded_chunked_match(mesh, host, **knobs)
+    t1 = _synced(dev)
+    want = match_ops.chunked_match(_on(host, dev), **knobs)
+    t2 = _synced(dev)
+    return dict(backend=mesh.backend, size=mesh.size, device=str(dev),
+                identical=_same(got, want),
+                placed=int((got.assignment >= 0).sum()),
+                sharded_s=t1 - t0, single_s=t2 - t1, peak=_peak(dev))
+
+
+def mesh_slice_rank(mesh, pools, overrides, cycles, threads):
+    """11g (b), on every rank: the multi-pool slice's batched route with
+    the mesh (`match_cycle_all_pools(mesh)`), the launch counts reset just
+    before the replay and read just after.  Returns this rank's run trace
+    and, gathered over the ranks, each one's trace digest, launches,
+    device peak and walls (replay, then each cycle's flat solve)."""
+    import hashlib
+
+    import torch
+
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import best_node_batched as bnb
+    from cook_tpu_torch.ops import coarse_pass as cp
+    from cook_tpu_torch.parallel.mesh import all_gather
+    from cook_tpu_torch.utils.config import default_match_config
+
+    _torch_setup(torch)
+    torch.set_num_threads(threads)
+    jobs, hosts, sim_pools = multipool_trace(pools)
+    sim, _ = multipool_sim(jobs, hosts, sim_pools,
+                           default_match_config(**overrides), mesh.device,
+                           "batched", cycles, mesh=mesh)
+    bn.launches = bnb.launches = cp.launches = 0
+    t0 = time.perf_counter()
+    result = sim.run()
+    wall = time.perf_counter() - t0
+    launches = [bn.launches, bnb.launches, cp.launches]
+    check_multipool_records(f"mesh rank {mesh.rank}", result,
+                            overrides["hierarchical_threshold"])
+    csv = result.to_csv()
+    digest = int.from_bytes(hashlib.sha256(csv.encode()).digest()[:7],
+                            "big")
+    solves = [max((r["phases"].get("solve", 0.0) for r in recs
+                   if r["solve_shape"] and not r["backend"].startswith(
+                       "hier-")), default=0.0)
+              for recs in _records_by_cycle(result.cycle_records)]
+    dev = mesh.device
+    ints = all_gather(mesh, torch.tensor(
+        [digest, *launches, _peak(dev)], dtype=torch.int64, device=dev))
+    walls = all_gather(mesh, torch.tensor([wall, *solves],
+                                          dtype=torch.float64, device=dev))
+    return dict(csv=csv, placed=n_placed(result.rows),
+                device=str(sim.scheduler.device), ranks=ints.tolist(),
+                walls=walls.tolist())
+
+
+def mesh_node_axis(mesh, greedy_dir, chunked_dir, knobs):
+    """11h, on every rank: the node-sharded exact greedy and chunked
+    matcher; rank 0's results and every rank's walls and peak."""
+    import torch
+
+    from cook_tpu_torch.parallel import mesh as mesh_ops
+
+    dev = mesh.device
+    t0 = _synced(dev)
+    greedy = mesh_ops.node_sharded_greedy_match(mesh,
+                                                load_problem(greedy_dir))
+    t1 = _synced(dev)
+    chunked = mesh_ops.node_sharded_chunked_match(
+        mesh, load_problem(chunked_dir), **knobs)
+    t2 = _synced(dev)
+    # the transport alone: a greedy step's gather of D pairs, from host
+    # memory, MESH_GATHER_REPS times
+    pair = torch.zeros(2, dtype=torch.float64)
+    t3 = time.perf_counter()
+    for _ in range(MESH_GATHER_REPS):
+        mesh_ops.all_gather(mesh, pair)
+    host_gather_ms = (time.perf_counter() - t3) / MESH_GATHER_REPS * 1e3
+    walls = mesh_ops.all_gather(mesh, torch.tensor(
+        [t1 - t0, t2 - t1, host_gather_ms, _peak(dev)],
+        dtype=torch.float64, device=dev))
+    return dict(greedy=tuple(t.cpu() for t in greedy),
+                chunked=tuple(t.cpu() for t in chunked),
+                walls=walls.tolist())
+
+
+def mesh_exact(greedy_dir, chunked_arrays, device, out):
+    """The answers 11h is held to, computed in the phase's process while
+    the ranks run: `greedy_match` on the card, and the native host
+    solver's exact greedy on the chunked problem's real rows."""
+    import numpy as np
+
+    from cook_tpu_torch.ops import native
+    from cook_tpu_torch.ops.match import greedy_match
+
+    try:
+        t0 = _synced(device)
+        want = greedy_match(_on(load_problem(greedy_dir), device))
+        out["greedy"] = tuple(t.cpu() for t in want)
+        out["greedy_s"] = _synced(device) - t0
+        t0 = time.perf_counter()
+        real = np.asarray(chunked_arrays["job_valid"])
+        exact = np.full(len(real), -1)
+        exact[real] = native.greedy_match(
+            chunked_arrays["demands"][real], chunked_arrays["avail"],
+            chunked_arrays["totals"], chunked_arrays["feasible"][real])
+        out["native"] = exact
+        out["native_s"] = time.perf_counter() - t0
+    except Exception as err:  # noqa: BLE001 — raised by the phase
+        out["error"] = err
+
+
+# `torchrun --nproc-per-node N chip_smoke.py --mesh-torchrun`: 8 pools of
+# 2,048 jobs x 512 hosts, the slice's chunked knobs at chunk 512
+TORCHRUN_POOLS = 8
+TORCHRUN_POOL = dict(j=2_048, n=512)
+
+
+def mesh_torchrun_main() -> int:
+    """One process of `torchrun --nproc-per-node N chip_smoke.py
+    --mesh-torchrun`, a card each: join the NCCL mesh from torchrun's
+    environment (`make_mesh(backend="nccl")`), solve this rank's pools of
+    an 8-pool batch with `pool_sharded_match` (exact greedy and chunked),
+    and on rank 0 hold the gathered result against the one-card
+    pool-batched solves; prints one JSON line, exits 1 on a
+    difference."""
+    import numpy as np
+    import torch
+
+    from cook_tpu_torch.ops import match as match_ops
+    from cook_tpu_torch.parallel import mesh as mesh_ops
+
+    _torch_setup(torch)
+    mesh = mesh_ops.make_mesh(backend="nccl")
+    pools = [mesh_problem(**TORCHRUN_POOL, seed=40 + p)
+             for p in range(TORCHRUN_POOLS)]
+    batch = match_ops.MatchProblem(**{
+        name: torch.as_tensor(np.stack([p[name] for p in pools]))
+        for name in MESH_FIELDS})
+    knobs = dict(MESH_KNOBS, chunk=512)
+    got = [mesh_ops.pool_sharded_match(mesh, batch),
+           mesh_ops.pool_sharded_match(mesh, batch, **knobs)]
+    ok = True
+    if mesh.rank == 0:
+        whole = _on(batch, mesh.device)
+        want = [match_ops.greedy_match_pools(whole),
+                match_ops.chunked_match_pools(whole, **knobs)]
+        ok = all(_same(g, w) for g, w in zip(got, want))
+        print(json.dumps({
+            "mesh": [mesh.backend, mesh.size, str(mesh.device)],
+            "pools": TORCHRUN_POOLS, **TORCHRUN_POOL,
+            "identical_to_one_card": ok,
+            "placed": [int((g.assignment >= 0).sum()) for g in got]}),
+            flush=True)
+    torch.distributed.destroy_process_group()
+    return 0 if ok else 1
+
+
+def check_node_chunked(label, arrays, assignment, new_avail, exact):
+    """No host over-committed, the mask kept, and at least
+    MESH_PLACED_FLOOR of the exact greedy's placements and cpus."""
+    import numpy as np
+
+    a = np.asarray(assignment)
+    ok = np.asarray(arrays["job_valid"])
+    placed = a >= 0
+    if (placed & ~ok).any():
+        raise AssertionError(f"{label}: a padding row placed")
+    demands, avail = arrays["demands"], arrays["avail"]
+    used = np.zeros_like(avail, dtype=np.float64)
+    np.add.at(used, a[placed], demands[placed])
+    if (used > avail + 1e-3).any() or (np.asarray(new_avail) < -1e-3).any():
+        raise AssertionError(f"{label}: a host over-committed")
+    if not arrays["feasible"][np.flatnonzero(placed), a[placed]].all():
+        raise AssertionError(f"{label}: a placement the mask forbids")
+    e = exact >= 0
+    got = (int(placed.sum()), float(demands[placed, 1].sum()))
+    want = (int(e.sum()), float(demands[e, 1].sum()))
+    if got[0] < MESH_PLACED_FLOOR * want[0] or \
+            got[1] < MESH_PLACED_FLOOR * want[1]:
+        raise AssertionError(f"{label}: placed {got} of the exact "
+                             f"greedy's {want}")
+    return got, want
+
+
+def mesh_phase(batched, workdir, device="cuda", pools=MP_POOLS,
+               cycles=MP_CYCLES, match_overrides=None, sizes=MESH_SIZES,
+               timeout_s=MESH_TIMEOUT_S):
+    """11g: `batched` is 11a's batched route (`multipool_phase(batched=)`).
+    Raises if a rank fails or outlives `timeout_s`, or any check fails;
+    returns {kernel: launches} summed over the gloo replays' ranks.  On
+    the CPU (the tests) (a) runs on gloo: NCCL needs a card."""
+    import torch
+
+    from cook_tpu_torch.parallel.mesh import run_on_mesh
+
+    phase("mesh")
+    card = card_line() if device == "cuda" else "cpu"
+    overrides = {**MP_MATCH, **(match_overrides or {})}
+    cores = len(os.sched_getaffinity(0))
+    t_phase = time.perf_counter()
+    stacked_path = os.path.join(workdir, "mesh-stacked.pt")
+    torch.save(batched["stacked"], stacked_path)
+
+    # (a) one rank a card: NCCL on the card (gloo on the CPU)
+    one = max(1, torch.cuda.device_count()) if device == "cuda" else 1
+    backend = "nccl" if device == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    out = run_on_mesh(one, mesh_one_rank, stacked_path, backend=backend,
+                      device=device, timeout_s=timeout_s)
+    wall = time.perf_counter() - t0
+    if (out["backend"], out["size"]) != (backend, one) or not out["lanes"] \
+            or not all(lane["identical"] for lane in out["lanes"]):
+        raise AssertionError(f"mesh {backend} x{one}: {json.dumps(out)}")
+    print(f"mesh {backend} x{one} on {out['device']}: {len(out['lanes'])} "
+          "stacked batched problems, pool_sharded_match identical to "
+          f"chunked_match_pools; group wall {wall:.2f} s; "
+          + json.dumps(out) + f" ({card})", flush=True)
+
+    # (b) gloo, D ranks sharing the card, the slice's batched route
+    launches = dict(best_node=0, best_node_batched=0, coarse_pass=0)
+    names = tuple(launches)
+    for d in sizes:
+        t0 = time.perf_counter()
+        out = run_on_mesh(d, mesh_slice_rank, pools, overrides, cycles,
+                          max(1, cores // (2 * d)), backend="gloo",
+                          device=device, timeout_s=timeout_s)
+        wall = time.perf_counter() - t0
+        digests = {r[0] for r in out["ranks"]}
+        if out["csv"] != batched["csv"] or len(digests) != 1 \
+                or len(out["ranks"]) != d \
+                or torch.device(out["device"]).type != device:
+            raise AssertionError(
+                f"mesh gloo x{d}: run trace differs from the single-device "
+                f"batched route, or ranks disagree ({len(digests)} digests "
+                f"of {len(out['ranks'])} ranks, on {out['device']})")
+        for k, name in enumerate(names):
+            launches[name] += sum(r[1 + k] for r in out["ranks"])
+        ranks = [dict(rank=k, launches=dict(zip(names, r[1:4])),
+                      peak_gib=round(r[4] / 2**30, 2),
+                      replay_s=round(w[0], 3),
+                      flat_solve_s=[round(x, 4) for x in w[1:]])
+                 for k, (r, w) in enumerate(zip(out["ranks"],
+                                                out["walls"]))]
+        print(f"mesh gloo x{d}: {out['placed']} placed, every rank's run "
+              f"trace identical to the single-device batched route; group "
+              f"wall {wall:.2f} s; ranks " + json.dumps(ranks)
+              + f" ({card})", flush=True)
+    if device == "cuda":
+        for name in ("best_node_batched", "coarse_pass"):
+            if launches[name] <= 0:
+                raise AssertionError(f"mesh: {name} never launched")
+    print(f"mesh launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.2f} s ({card})", flush=True)
+    return launches
+
+
+def mesh_node_phase(workdir, device="cuda", greedy=MESH_GREEDY,
+                    chunked=MESH_CHUNKED, knobs=MESH_KNOBS,
+                    node_ranks=MESH_NODE_RANKS, timeout_s=MESH_TIMEOUT_S):
+    """11h: the node axis.  `node_sharded_chunked_match` on one rank a
+    card (NCCL; gloo on the CPU) identical to `chunked_match`; then on
+    `node_ranks` gloo ranks sharing the card, while this process computes
+    what they are held to, `node_sharded_greedy_match` identical to
+    `greedy_match` and `node_sharded_chunked_match` over the bar of
+    `check_node_chunked`.  Raises on a failed rank, a deadline or a
+    check."""
+    import torch
+
+    from cook_tpu_torch.parallel.mesh import run_on_mesh
+
+    phase("mesh node axis")
+    card = card_line() if device == "cuda" else "cpu"
+    t_phase = time.perf_counter()
+    g_arrays = mesh_problem(**greedy)
+    c_arrays = mesh_problem(**chunked)
+    g_dir = save_problem(os.path.join(workdir, "mesh-greedy"), g_arrays)
+    c_dir = save_problem(os.path.join(workdir, "mesh-chunked"), c_arrays)
+    print(f"mesh node axis: problems built and saved in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    one = max(1, torch.cuda.device_count()) if device == "cuda" else 1
+    backend = "nccl" if device == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    out = run_on_mesh(one, mesh_chunked_one_rank, c_dir, knobs,
+                      backend=backend, device=device, timeout_s=timeout_s)
+    if (out["backend"], out["size"]) != (backend, one) \
+            or not out["identical"]:
+        raise AssertionError(f"mesh node chunked {backend} x{one}: "
+                             + json.dumps(out))
+    print(f"mesh node chunked {backend} x{one} on {out['device']}: "
+          "node_sharded_chunked_match identical to chunked_match; group "
+          f"wall {time.perf_counter() - t0:.2f} s; " + json.dumps(out)
+          + f" ({card})", flush=True)
+    exact = {}
+    worker = threading.Thread(target=mesh_exact, name="mesh-exact",
+                              args=(g_dir, c_arrays, torch.device(device),
+                                    exact))
+    worker.start()
+    try:
+        t0 = time.perf_counter()
+        node = run_on_mesh(node_ranks, mesh_node_axis, g_dir, c_dir, knobs,
+                           backend="gloo", device=device,
+                           timeout_s=timeout_s)
+        wall = time.perf_counter() - t0
+    finally:
+        worker.join()
+    if "error" in exact:
+        raise exact["error"]
+    got_a, got_avail = node["greedy"]
+    want_a, want_avail = exact["greedy"]
+    if not torch.equal(got_a, want_a) or not torch.allclose(
+            got_avail, want_avail, rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"mesh node greedy x{node_ranks}: differs "
+                             "from greedy_match")
+    got, exact_placed = check_node_chunked(
+        f"mesh node chunked x{node_ranks}", c_arrays, *node["chunked"],
+        exact["native"])
+    print(f"mesh node axis x{node_ranks}: node_sharded_greedy_match "
+          f"identical to greedy_match at {greedy['j']} x {greedy['n']} "
+          f"(single-device {exact['greedy_s']:.2f} s); "
+          f"node_sharded_chunked_match at "
+          f"{chunked.get('j_real', chunked['j'])} x {chunked['n']}: placed "
+          f"{got[0]} / {got[1]} cpus against the exact greedy's "
+          f"{exact_placed[0]} / {exact_placed[1]} (native, "
+          f"{exact['native_s']:.2f} s); group wall {wall:.2f} s; ranks "
+          f"(greedy s, chunked s, host pair gather ms, peak bytes) "
+          + json.dumps(node["walls"])
+          + f"; phase {time.perf_counter() - t_phase:.2f} s ({card})",
+          flush=True)
 
 
 # ------------------------------------------------------------- rebalance
@@ -7577,7 +8086,7 @@ def clients_phase(card):
 K8S_NODES = 5_000
 K8S_NODE_MEM_MB = 65_536
 K8S_NODE_CPUS = 32
-K8S_JOBS = 3_000
+K8S_JOBS = 2_000
 K8S_USERS = 8
 K8S_POST = 100
 # the runtimes of phase 29's LoadConfig, stretched to 1-5 s so that pods
@@ -8520,7 +9029,8 @@ class Tally:
 
 
 def part_speculation(shared, workdir, tally):
-    """S1-S4, the paged coarse pass (12) and the gang admission (11)."""
+    """S1-S4, the paged coarse pass (12), the gang admission (11) and the
+    mesh's node axis (11h)."""
     speculation_wave_phase()
     spec_launches, spec_calls = speculation_kernels_phase(
         shared["trace"], shared["classic"]["csv"])
@@ -8534,16 +9044,24 @@ def part_speculation(shared, workdir, tally):
     tally.add("coarse_pass", err=err)
     print("coarse_pass paged " + json.dumps(paged_rows), flush=True)
     gang_admission_phase()
+    # the mesh's node axis (11h)
+    mesh_node_phase(workdir)
 
 
 def part_multipool(shared, workdir, tally):
-    """11a-11f, the elastic plane (17-20), residency (7a-7d) and the
+    """11a-11g, the elastic plane (17-20), residency (7a-7d) and the
     quality audit (23)."""
-    mp_serial = []
-    mp_launches, mp_calls, mp_trace = multipool_phase(serial_csv=mp_serial)
+    mp_serial, mp_batched = [], {}
+    mp_launches, mp_calls, mp_trace = multipool_phase(serial_csv=mp_serial,
+                                                      batched=mp_batched)
     for name, err in multipool_launches_phase(mp_calls).items():
         tally.add(name, mp_launches[name], err)
     del mp_calls
+    # the mesh (11g): the slice's batched route sharded over gloo ranks
+    # sharing the card, NCCL at one rank a card, the node axis
+    for name, n in mesh_phase(mp_batched, workdir).items():
+        tally.add(name, n)
+    del mp_batched
     multipool_exact_phase(*mp_trace)
     mp_classic_placed = placements_by_cycle(mp_serial[0], MP_CYCLES)
     mp_launches, mp_calls = resident_multipool_phase(*mp_trace,
@@ -8714,6 +9232,9 @@ def main() -> int:
         return part_main(*sys.argv[2:5])
     if sys.argv[1:2] == ["--k8s-node"]:
         return k8s_node_main(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--mesh-torchrun"]:
+        sys.path.insert(0, ROOT)
+        return mesh_torchrun_main()
     sys.path.insert(0, ROOT)
     import torch
 

@@ -20,9 +20,12 @@ solves in three passes:
   3. **refine** — bounded extra coarse+fine rounds re-offer every leftover
      against the updated availability, at the same shapes.
 
-The block axis pads to a power-of-two bucket with all-invalid lanes
-(`parallel/mesh.invalid_match_problem`), as in the reference; on one card
-there is no mesh to shard it over.
+The block axis pads to a power-of-two bucket that is also a mesh
+multiple with all-invalid lanes (`parallel/mesh.invalid_match_problem`),
+as in the reference, and with a `mesh` the xla fine batch shards its
+blocks over the mesh's ranks (`parallel/mesh.pool_sharded_match`); the
+`pallas` fine pass keeps its batch whole, as the reference's fused path
+ignores the mesh.
 
 Gangs (`gang_id` / `gang_need`, reference :519-537, :649-697, :718-757,
 :890-915): each gang routes coarse as ONE row, its leader carrying the
@@ -46,8 +49,9 @@ coarse levels run the masked `xla` kernels, as in the reference (the
 `coarse_pass` kernel has no batched variant); the fine pass and the
 refine rounds are unchanged, their budget doubled.  The layer stands down
 below two superblocks.  Gangs keep the FINE block as their co-location
-domain.  The reference's mesh branch (`pool_sharded_coarse`) has no
-counterpart on one card.
+domain.  With a `mesh`, the batched coarse level shards its superblocks
+over the ranks (`parallel/mesh.pool_sharded_coarse`), on the axis the
+fine batch uses.
 
 The reference's data-plane families (`hier-coarse`, `hier-fine`) label
 the passes' fetches, its compile observatory hears each pass's padded
@@ -78,13 +82,18 @@ from cook_tpu_torch.ops.match import (
     conflict_round_batched,
     vmap_safe_backend,
 )
-from cook_tpu_torch.parallel.mesh import invalid_match_problem
+from cook_tpu_torch.parallel.mesh import (
+    invalid_match_problem,
+    pool_sharded_coarse,
+    pool_sharded_match,
+    shard_pools,
+)
 from cook_tpu_torch.utils.metrics import global_registry
 
 # tuned buckets for nodes-per-block: power-of-two block widths so the
 # (block-bucket, job-slot, node-slot) shape lattice stays bounded
 NODE_BLOCK_BUCKETS = (64, 128, 256, 512, 1024)
-# aim for at least this many blocks (the reference's mesh lanes)
+# aim for at least this many blocks, so that a mesh has lanes to shard
 MIN_BLOCKS = 8
 
 
@@ -343,26 +352,39 @@ def _fine_fused(problems: MatchProblem, *, rounds: int,
     return MatchResult(assignment=assignment, new_avail=avail)
 
 
-def _fine_solve(problems: MatchProblem, params: HierParams) -> MatchResult:
+def _fine_solve(problems: MatchProblem, params: HierParams,
+                mesh=None) -> MatchResult:
     if params.fine_backend == "pallas":
+        # the fused pass's kernel owns the block axis in its own grid: the
+        # mesh does not apply, as in the reference
         return _fine_fused(problems, rounds=params.rounds,
                            passes=max(params.passes, params.fine_passes))
     # the reference's jax.vmap of chunked_match: the block axis is the
     # pool-batched matcher's leading axis
     backend = vmap_safe_backend(params.backend)
     chunk = _chunk_for(params.chunk, problems.demands.shape[1])
+    if mesh is not None:
+        return pool_sharded_match(mesh, shard_pools(mesh, problems),
+                                  chunk=chunk, rounds=params.rounds,
+                                  passes=params.passes, kc=params.kc,
+                                  backend=backend)
     return chunked_match_pools(problems, chunk=chunk, rounds=params.rounds,
                                passes=params.passes, kc=params.kc,
                                **backend_flags(backend))
 
 
-def _coarse_batched_solve(problems: MatchProblem,
-                          params: HierParams) -> MatchResult:
+def _coarse_batched_solve(problems: MatchProblem, params: HierParams,
+                          mesh=None) -> MatchResult:
     """Batched per-superblock coarse routing (jobs x blocks per lane) with
     the flat coarse pass's exact single-candidate semantics (kc 1, exact
     top-1): the reference's `jax.vmap(chunked_match)` is the pool-batched
-    matcher with superblocks as pools."""
+    matcher with superblocks as pools, sharded on the fine batch's mesh
+    axis when there is a mesh."""
     chunk = _chunk_for(params.coarse_chunk, problems.demands.shape[1])
+    if mesh is not None:
+        return pool_sharded_coarse(mesh, shard_pools(mesh, problems),
+                                   chunk=chunk, rounds=params.coarse_rounds,
+                                   passes=params.coarse_passes)
     return chunked_match_pools(problems, chunk=chunk,
                                rounds=params.coarse_rounds,
                                passes=params.coarse_passes, kc=1,
@@ -411,6 +433,7 @@ def hierarchical_match(
     params: Optional[HierParams] = None,
     gang_id: Optional[np.ndarray] = None,
     gang_need: Optional[np.ndarray] = None,
+    mesh=None,
     observatory=None,
     pool: str = "",
 ) -> tuple[MatchResult, dict]:
@@ -424,8 +447,10 @@ def hierarchical_match(
     spill/refine accounting.  `observatory` (obs.CompileObservatory)
     receives one `match_coarse` and one `match_fine` solve per pass (and a
     `match_super_coarse` one with superblocks), keyed by their padded
-    shapes, as in the reference; its `mesh` argument has no counterpart
-    here.  `pool` labels the `hierarchical.*` metrics."""
+    shapes, as in the reference.  With a `mesh` (parallel/mesh.py; every
+    rank runs this solve), the block and superblock axes pad to mesh
+    multiples and the xla fine batch and the batched coarse level shard
+    over its ranks.  `pool` labels the `hierarchical.*` metrics."""
     params = params or HierParams()
     t_start = time.perf_counter()
     dev = problem.demands.device
@@ -475,9 +500,12 @@ def hierarchical_match(
         if feasible is not None:
             feasible = torch.nn.functional.pad(feasible, (0, pad_n))
 
-    # block axis pads to a power-of-two bucket: the fine batch shape is
-    # keyed by (b_pad, slots, npb), never by the raw block count
-    b_pad = bucket_size(b_real, minimum=MIN_BLOCKS)
+    # block axis pads to a power-of-two bucket that is also a mesh
+    # multiple: the fine batch shape is keyed by (b_pad, slots, npb),
+    # never by the raw block count
+    mesh_size = mesh.size if mesh is not None else 1
+    b_pad = bucket_size(b_real, minimum=max(mesh_size, MIN_BLOCKS))
+    b_pad += (-b_pad) % mesh_size
     coarse_chunk = _chunk_for(params.coarse_chunk, j)
     if params.jobs_per_block:
         # round an override up to a power of two: the chunked fine solve
@@ -490,7 +518,8 @@ def hierarchical_match(
     if use_superblocks:
         # the superblock axis pads like the block axis, so the batched
         # coarse solve is keyed by (s_pad, super_slots, sb_blocks)
-        s_pad = bucket_size(s_real, minimum=MIN_BLOCKS)
+        s_pad = bucket_size(s_real, minimum=max(mesh_size, MIN_BLOCKS))
+        s_pad += (-s_pad) % mesh_size
         super_slots = bucket_size(
             int(np.ceil(params.block_slack * j / s_real)))
         super_slots = min(super_slots, bucket_size(j))
@@ -681,7 +710,7 @@ def hierarchical_match(
             block_max, block_tot, block_valid, block_count, block_any,
             put(sup_idx, data_plane.FAM_HIER_COARSE), sb_blocks)
         result = _coarse_batched_solve(
-            _pad_block_axis(problems, sup_pad_axis, n_res), params)
+            _pad_block_axis(problems, sup_pad_axis, n_res), params, mesh)
         if observatory is not None:
             observatory.observe_solve(
                 "match_coarse", (s_pad, super_slots, sb_blocks), "xla")
@@ -720,7 +749,7 @@ def hierarchical_match(
                                totals, node_valid,
                                put(job_idx, data_plane.FAM_HIER_FINE), npb)
         result = _fine_solve(_pad_block_axis(problems, block_pad_axis,
-                                             n_res), params)
+                                             n_res), params, mesh)
         if observatory is not None:
             observatory.observe_solve(
                 "match_fine", (b_pad, slots, npb), fine_backend_label)

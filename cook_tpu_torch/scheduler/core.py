@@ -772,12 +772,13 @@ class Scheduler:
                 backfill_weight=self.config.backfill_weight,
                 backfill_norm_ms=self.config.backfill_norm_ms)
 
-    def match_cycle_all_pools(self) -> dict[str, MatchOutcome]:
+    def match_cycle_all_pools(self, mesh=None) -> dict[str, MatchOutcome]:
         """Pool-batched multi-pool match: every scheduling pool's flat
         problem solved in one device call, a pool at or over the
         hierarchical threshold through the two-level path alone
-        (matcher.match_pools_batched).  The reference's mesh argument has
-        no counterpart on one card."""
+        (matcher.match_pools_batched); with a `mesh` (parallel/mesh.py,
+        every rank driving the same scheduler), the flat batch's pools
+        shard over its ranks (the reference's configuration 5 path)."""
         pools, flights = self._begin_multi_pool_cycle()
         outcomes = match_pools_batched(
             self.store, pools, self.pool_queues, self.clusters,
@@ -793,6 +794,7 @@ class Scheduler:
             encode_cache=self.encode_cache,
             predictor=self.predictor,
             device_state=self.device_state,
+            mesh=mesh,
         )
         self._finish_multi_pool_cycle(pools, outcomes, flights)
         return outcomes

@@ -62,9 +62,11 @@ ladder (re-solving a failed device solve on the CPU) has no counterpart:
 here a solve error, injected or real, propagates out of the serial and
 batched passes (the pipelined pass skips the pool's jobs with
 `solve-failed`), so a fault of the card or the kernel is never hidden.
-Left for later slices: the roofline probe (XLA's cost analysis has no
-torch counterpart) and the reference's mesh branch of the pool-batched
-pass.
+Left out: the roofline probe (XLA's cost analysis has no torch
+counterpart).  The pool-batched pass takes the reference's mesh branch
+(`parallel/mesh.py`: each rank of a `torch.distributed` mesh solves its
+lanes of the batch), and the two-level path shards its fine and
+superblock coarse batches over `hier_mesh()`.
 
 Reference: `handle-fenzo-pool` / `handle-resource-offers!` / `launch-
 matched-tasks!` (Cook's scheduler.clj:617-1651) with the Fenzo solve
@@ -124,6 +126,12 @@ from cook_tpu_torch.ops.match import (
     greedy_match,
     greedy_match_pools,
     vmap_safe_backend,
+)
+from cook_tpu_torch.parallel.mesh import (
+    active_mesh,
+    invalid_match_problem,
+    pool_sharded_match,
+    shard_pools,
 )
 from cook_tpu_torch.scheduler.constraints import (
     MISSING_ATTR,
@@ -189,11 +197,9 @@ class MatchConfig:
     # coarse block-scoring backend: "xla" (masked chunked matcher) or
     # "pallas" (the coarse_pass kernel)
     hierarchical_coarse_backend: str = "xla"
-    # the reference shards the fine batch over its device mesh; one card
-    # has no mesh, so nothing in the port reads it: the field exists only
-    # so that a configuration loads here as it loads in the reference.  It
-    # goes (or gains a meaning) when the port's mesh is built (ROADMAP
-    # Queue A, A10)
+    # shard the two-level solve's fine batch (and the superblock coarse
+    # batch) over `hier_mesh()`, the mesh `parallel.mesh.make_mesh` set up
+    # in this process, when it spans more than one rank
     hierarchical_use_mesh: bool = True
     # fine-solve backend: "xla" (a chunked solve per block) or "pallas"
     # (the best_node_batched kernel)
@@ -491,6 +497,14 @@ def hier_params_from_config(config: MatchConfig):
     )
 
 
+def hier_mesh():
+    """The mesh `parallel.mesh.make_mesh` set up in this process when it
+    spans more than one rank, else None: on one rank the plain batched
+    solve is the schedule (the reference's `len(jax.devices()) > 1`)."""
+    mesh = active_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 class HierarchicalPending:
     """PendingResult stand-in for a pool solved by the two-level matcher:
     the coarse/scatter/fine/refine pipeline needs host round-trips, so the
@@ -510,9 +524,10 @@ class HierarchicalPending:
 
         observatory = (self.telemetry.observatory
                        if self.telemetry is not None else None)
+        mesh = hier_mesh() if self.config.hierarchical_use_mesh else None
         result, stats = hierarchical_match(
             self.prepared.problem,
-            params=hier_params_from_config(self.config),
+            params=hier_params_from_config(self.config), mesh=mesh,
             gang_id=self.prepared.gang_id,
             gang_need=self.prepared.gang_need,
             observatory=observatory,
@@ -1602,16 +1617,19 @@ def match_pool(
     return outcome
 
 
-def stack_pool_problems(problems: Sequence[MatchProblem]) -> MatchProblem:
+def stack_pool_problems(problems: Sequence[MatchProblem],
+                        lanes: Optional[slice] = None) -> MatchProblem:
     """Every pool's problem padded to shared (J, N) buckets and stacked
     on a leading pool axis: the [P, J, N] tensors are allocated once and
     each pool is copied into its corner (padding then stacking would hold
     two copies of the mask).  Padded lanes have job_valid and node_valid
     False, zero demand and zero capacity, so the solves place nothing
     there.  If any pool carries a topology node_bonus, every lane gets
-    one (zeros = no preference, decision-identical to absent)."""
+    one (zeros = no preference, decision-identical to absent).  `lanes`
+    stacks only those problems (a mesh rank's share), padded to the
+    buckets and dtypes of them all, so that every rank's lanes agree."""
     first = problems[0]
-    p = len(problems)
+    p = len(problems[lanes or slice(None)])
     max_j = max(q.demands.shape[0] for q in problems)
     max_n = max(q.avail.shape[0] for q in problems)
     n_res = first.demands.shape[-1]
@@ -1634,7 +1652,7 @@ def stack_pool_problems(problems: Sequence[MatchProblem]) -> MatchProblem:
         node_bonus=(zeros(p, max_n, dtype=torch.float32)
                     if any(q.node_bonus is not None for q in problems)
                     else None))
-    for i, q in enumerate(problems):
+    for i, q in enumerate(problems[lanes or slice(None)]):
         j, n = q.demands.shape[0], q.avail.shape[0]
         out.demands[i, :j] = q.demands
         out.job_valid[i, :j] = q.job_valid
@@ -1666,6 +1684,7 @@ def match_pools_batched(
     encode_cache=None,
     predictor=None,
     device_state=None,
+    mesh=None,
 ) -> dict[str, MatchOutcome]:
     """Solve EVERY pool's match problem in one batched device call (the
     reference's `match_pools_batched`, BASELINE configuration 5: pools
@@ -1686,9 +1705,15 @@ def match_pools_batched(
     two-level pool before its solve and once per flat pool before the
     shared solve (one injected error fails the whole batch, as a sick
     card would), and each flat lane's chunked solve counts toward its
-    pool's quality audit.  The reference's mesh branch and its
-    CPU-fallback tier are not ported: a solve error, injected or real,
-    propagates.
+    pool's quality audit.  The reference's CPU-fallback tier is not
+    ported: a solve error, injected or real, propagates.
+
+    With a `mesh` (parallel/mesh.py; every rank runs this pass on the
+    same store), the flat pools pad to a multiple of the mesh size with
+    all-invalid lanes (`invalid_match_problem`: the solves place nothing
+    there), each rank stacks only its own lanes and solves them
+    (`pool_sharded_match`), and the gathered assignments reach every
+    rank, which finalizes every pool as above.
 
     `outcome.phase_wall_s` per pool: its own encode and launch (and, for a
     two-level pool, its own solve and its split); the shared stack and
@@ -1750,14 +1775,31 @@ def match_pools_batched(
             for p in flat:
                 fault_schedule.hit(faults.DEVICE_SOLVE, pool=p.pool.name)
         t_stack = time.perf_counter()
-        stacked = stack_pool_problems([p.problem for p in flat])
+        problems = [p.problem for p in flat]
+        lanes = None
+        if mesh is not None:
+            # pool-axis padding, so the sharded solve engages for ANY pool
+            # count: the stack pads the dead lanes to the batch's buckets
+            first = problems[0]
+            problems += [invalid_match_problem(
+                1, 1, n_res=int(first.demands.shape[-1]),
+                dtype=first.demands.dtype, device=first.demands.device)] \
+                * ((-len(problems)) % mesh.size)
+            lanes = mesh.lanes(len(problems))
+        stacked = stack_pool_problems(problems, lanes)
         # the shared pad/stack is host work, not solve time: credit it as
         # tensor_build so device_s stays an honest accelerator figure
         stack_s = time.perf_counter() - t_stack
         for p in flat:
             pool_flight(p.pool.name).add_phase("tensor_build", stack_s)
         t_solve = time.perf_counter()
-        if config.chunk:
+        if mesh is not None:
+            result = pool_sharded_match(
+                mesh, shard_pools(mesh, stacked, total=len(problems)),
+                chunk=config.chunk or 0, rounds=config.chunk_rounds,
+                passes=config.chunk_passes, kc=config.chunk_kc,
+                backend=config.backend)
+        elif config.chunk:
             result = chunked_match_pools(
                 stacked, chunk=config.chunk, rounds=config.chunk_rounds,
                 passes=config.chunk_passes, kc=config.chunk_kc,
@@ -1771,7 +1813,7 @@ def match_pools_batched(
         # than the batch).  The recorded shape is the padded batch, the
         # device truth the compile observatory keys programs by
         solve_s = time.perf_counter() - t_solve
-        batch_shape = tuple(stacked.feasible.shape)
+        batch_shape = (len(problems),) + tuple(stacked.feasible.shape[1:])
         backend = (vmap_safe_backend(config.backend) if config.chunk
                    else "exact")
         compiled = False

@@ -235,6 +235,14 @@ LOADGEN_MODULES = ("cook_tpu_torch.sim.loadgen",
                    "cook_tpu_torch.sim.cli")
 
 
+# the device mesh on torch.distributed and the rank bodies of its tests
+# (which spawned ranks import); the modules that take a mesh are listed
+# above
+MESH_MODULES = ("cook_tpu_torch.parallel",
+                "cook_tpu_torch.parallel.mesh",
+                "tests.test_torch_mesh_ranks")
+
+
 # the Kubernetes backend (the controller, the apiserver client on the
 # standard library) and the Kerberos acceptor (ctypes)
 K8S_MODULES = ("cook_tpu_torch.cluster.k8s",
@@ -320,7 +328,8 @@ def test_importing_every_port_module_loads_no_http_library():
 @pytest.mark.parametrize("module", REBALANCE_MODULES + GANG_MODULES
                          + DEFAULT_CONFIG_MODULES + MULTIPOOL_MODULES
                          + RESIDENCY_MODULES + PREDICTION_MODULES
-                         + ELASTIC_MODULES + SUPERBLOCK_MODULES)
+                         + ELASTIC_MODULES + SUPERBLOCK_MODULES
+                         + MESH_MODULES)
 def test_rebalance_slice_module_loads_no_jax_or_reference(module):
     code = (
         "import importlib, sys\n"
@@ -329,6 +338,27 @@ def test_rebalance_slice_module_loads_no_jax_or_reference(module):
         "             if m.split('.')[0].startswith('jax')\n"
         "             or m.split('.')[0] == 'cook_tpu')\n"
         "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_spawned_mesh_ranks_load_no_jax_or_reference():
+    """`run_on_mesh` from a fresh interpreter: neither it nor its two
+    spawned gloo ranks (which import the rank bodies of the mesh tests)
+    load JAX, the reference or the test configuration."""
+    code = (
+        "import sys\n"
+        "from cook_tpu_torch.parallel.mesh import run_on_mesh\n"
+        "from tests import test_torch_mesh_ranks as ranks\n"
+        "ranked = run_on_mesh(2, ranks.loaded_modules, backend='gloo',\n"
+        "                     device='cpu', timeout_s=100)\n"
+        "here = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0].startswith('jax')\n"
+        "              or m.split('.')[0] in ('cook_tpu', 'conftest'))\n"
+        "assert ranked == [] and here == [], (ranked, here)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -143,6 +143,12 @@ class Rig:
             self.P.components.shutdown(p)
         for t in self.threads:
             t.join(timeout=TIMEOUT_S)
+        # a reference standby that won the lease while the nodes shut down
+        # (its leader's shutdown released it) starts its loops after its
+        # own shutdown ran, and they would run on in this process: stop them
+        for p in self.nodes:
+            for loop in p.loops:
+                loop.stop()
         if self.lease is not None:
             self.lease.stop()
         assert not any(t.is_alive() for t in self.threads)

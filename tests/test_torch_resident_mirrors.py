@@ -65,8 +65,15 @@ def both(fn):
     return fn(REF), fn(PORT)
 
 
-def fam_h2d(P, family):
-    return P.dp.LEDGER.family_totals().get(family, {}).get("h2d_bytes", 0)
+def own_h2d(P, family, fn):
+    """`fn()` and the `family` H2D bytes it noted: a data-plane scope,
+    which only this thread's transfers reach, counts them, so that no
+    other thread of the process (a service node's rebalancer loop an
+    earlier test left running) adds to them."""
+    scope = P.dp.CycleDataPlane()
+    with P.dp.activate(scope):
+        out = fn()
+    return out, scope.h2d.get(family, [0, 0])[0]
 
 
 def mirror(P, name, family=None):
@@ -135,10 +142,11 @@ def test_rebalancer_warm_cycles_cut_h2d_by_90_percent():
         pool = store.pools["default"]
         out = []
         for _ in range(3):
-            b0 = fam_h2d(P, P.dp.FAM_REBALANCE)
-            P.rb.rebalance_pool(store, pool, [], dict(spare),
-                                _params(P, True), resident=m, **P.kw)
-            out.append((fam_h2d(P, P.dp.FAM_REBALANCE) - b0, last(m)))
+            _, h2d = own_h2d(P, P.dp.FAM_REBALANCE, lambda: P.rb
+                             .rebalance_pool(store, pool, [], dict(spare),
+                                             _params(P, True), resident=m,
+                                             **P.kw))
+            out.append((h2d, last(m)))
         return out
 
     ref, port = both(run)
@@ -157,10 +165,9 @@ def test_rebalancer_classic_upload_is_accounted_like_the_reference():
     the resident path's cold cycle."""
     def run(P):
         store, spare = _rebalance_rig(P)
-        b0 = fam_h2d(P, P.dp.FAM_REBALANCE)
-        P.rb.rebalance_pool(store, store.pools["default"], [], dict(spare),
-                            _params(P, False), **P.kw)
-        return fam_h2d(P, P.dp.FAM_REBALANCE) - b0
+        return own_h2d(P, P.dp.FAM_REBALANCE, lambda: P.rb.rebalance_pool(
+            store, store.pools["default"], [], dict(spare),
+            _params(P, False), **P.kw))[1]
 
     ref, port = both(run)
     assert port == ref > 0
@@ -209,10 +216,11 @@ def test_rebalancer_termination_is_delta_scatter_not_rebuild():
             if i == 2:
                 store.update_instance_state("t-0-0",
                                             P.ent.InstanceStatus.SUCCESS)
-            b0 = fam_h2d(P, P.dp.FAM_REBALANCE)
-            P.rb.rebalance_pool(store, pool, [], dict(spare),
-                                _params(P, True), resident=m, **P.kw)
-            out.append((fam_h2d(P, P.dp.FAM_REBALANCE) - b0, last(m)))
+            _, h2d = own_h2d(P, P.dp.FAM_REBALANCE, lambda: P.rb
+                             .rebalance_pool(store, pool, [], dict(spare),
+                                             _params(P, True), resident=m,
+                                             **P.kw))
+            out.append((h2d, last(m)))
         return out
 
     ref, port = both(run)
@@ -292,9 +300,8 @@ def test_content_hit_moves_zero_rows_and_caches_perm():
     def run(P):
         rows = mirror(P, "warm", P.dp.FAM_OTHER)
         out1, s1 = rows.build(["x", "y"], _cols([3.0, 4.0]), out_len=8)
-        m0 = fam_h2d(P, P.dp.FAM_OTHER)
-        out2, s2 = rows.build(["x", "y"], _cols([3.0, 4.0]), out_len=8)
-        warm = fam_h2d(P, P.dp.FAM_OTHER) - m0
+        (out2, s2), warm = own_h2d(P, P.dp.FAM_OTHER, lambda: rows.build(
+            ["x", "y"], _cols([3.0, 4.0]), out_len=8))
         assert out1["a"] is not out2["a"]   # FRESH gathers
         return (s1["delta_rows"], s2["rebuild"], s2["delta_rows"], warm,
                 np.asarray(out2["a"]).tolist(),

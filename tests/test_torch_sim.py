@@ -32,8 +32,9 @@ CONFIGS = {
     "pallas": dict(chunk=16, backend="pallas", chunk_rounds=2,
                    chunk_passes=12),
     # the same, with every solve on the hierarchical path and both of its
-    # backends on the kernels (the reference's mesh off: its tests run 8
-    # virtual CPU devices, and one card has no mesh)
+    # backends on the kernels (the mesh off: the reference's tests run 8
+    # virtual CPU devices, and the port's mesh is one the caller makes;
+    # tests/test_torch_mesh_scheduler.py holds the two with meshes)
     "hier": dict(chunk=16, backend="pallas", chunk_rounds=2,
                  chunk_passes=12, hierarchical_threshold=1,
                  hierarchical_nodes_per_block=8,

@@ -83,7 +83,8 @@ def test_one_program_per_level_across_superblock_counts():
     """test_superblocks.py:52 on the port: superblock counts 5, 6, 7 pad
     onto the same (super-coarse, coarse, fine) shapes, so the port's
     CompileObservatory sees one shape per level (no mesh here: the
-    buckets alone do it)."""
+    buckets alone do it; tests/test_torch_mesh_superblocks.py runs it on
+    meshes)."""
     observatory = CompileObservatory()
     for n in (320, 384, 448):
         demands, avail, totals = dense_problem(512, n, seed=n)
