@@ -1643,15 +1643,81 @@ def _slice_summary(label, sim, hosts, result, wall, launches,
     print(f"capacity ok on {check_capacity(sim)} busy hosts", flush=True)
 
 
+# `sim.cli run`'s four dump files: (key, flag, name in the work dir)
+SIM_OUTPUTS = (("cycles", "--cycles-out", "cycles.json"),
+               ("trace", "--trace-out", "chrome-trace.json"),
+               ("health", "--health-out", "health.json"),
+               ("incidents", "--incidents-out", "incidents"))
+
+
+def sim_output_paths(workdir):
+    """{key: path} of the four dump files in `workdir`, and the `run`
+    flags that name them."""
+    paths = {key: os.path.join(workdir, name)
+             for key, _, name in SIM_OUTPUTS}
+    flags = [arg for key, flag, _ in SIM_OUTPUTS
+             for arg in (flag, paths[key])]
+    return paths, flags
+
+
+def check_sim_outputs(result, paths):
+    """Hold the four files `sim.cli.write_outputs` wrote for `result` to
+    it: the cycles file's `cycles` equal the cycle records after a JSON
+    round trip; the Chrome trace loads and holds, for every cycle record,
+    a complete ("X") `sim.match` / `sim.match_batched` event whose span
+    covers the record's start; the health file's status is the one the
+    run's summary prints; the incidents directory holds one loadable file
+    per captured bundle, named by its id.  Raises on any mismatch; returns
+    {key: bytes on disk} (the directory's files summed)."""
+    with open(paths["cycles"]) as f:
+        cycles = json.load(f)
+    if cycles != {"cycles": json.loads(json.dumps(result.cycle_records))}:
+        raise AssertionError(f"{paths['cycles']}: not the run's "
+                             f"{len(result.cycle_records)} cycle records")
+    with open(paths["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["args"].get("pool"))
+             for e in events if e.get("ph") == "X"
+             and e["name"] in ("sim.match", "sim.match_batched")]
+    # 1 ms of slack: an event's start is its end (time.time) less its
+    # perf_counter duration
+    uncovered = [rec["cycle"] for rec in result.cycle_records
+                 if not any(start - 1e3 <= rec["wall_time"] * 1e6
+                            <= end + 1e3 and pool in (None, rec["pool"])
+                            for start, end, pool in spans)]
+    if not result.cycle_records or uncovered:
+        raise AssertionError(f"{paths['trace']}: no match span for "
+                             f"cycle(s) {uncovered} of "
+                             f"{len(result.cycle_records)}")
+    with open(paths["health"]) as f:
+        status = json.load(f).get("status")
+    if status != result.health.get("status", "unknown"):
+        raise AssertionError(f"{paths['health']}: status {status!r}, the "
+                             f"summary's {result.health.get('status')!r}")
+    names = sorted(os.listdir(paths["incidents"]))
+    want = sorted(f"{bundle['id']}.json" for bundle in result.incidents)
+    if names != want:
+        raise AssertionError(f"{paths['incidents']}: files {names}, "
+                             f"bundles {want}")
+    for name in names:
+        with open(os.path.join(paths["incidents"], name)) as f:
+            json.load(f)
+    return {key: (sum(os.path.getsize(os.path.join(path, n))
+                      for n in os.listdir(path))
+                  if os.path.isdir(path) else os.path.getsize(path))
+            for key, path in paths.items()}
+
+
 def slice_phase(trace, workdir):
     from cook_tpu_torch.ops import best_node as bn
     from cook_tpu_torch.ops import match
     from cook_tpu_torch.sim import cli
 
     phase("slice")
+    outputs, output_flags = sim_output_paths(workdir)
     args = cli.build_parser().parse_args(
         ["run", "--trace", trace, "--out", os.path.join(workdir, "run.csv"),
-         "--device", "cuda", *SLICE_ARGS])
+         "--device", "cuda", *SLICE_ARGS, *output_flags])
     probe = []
     start = []
 
@@ -1674,6 +1740,16 @@ def slice_phase(trace, workdir):
     if launches <= 0 or len(calls) != launches:
         raise AssertionError(f"kept {len(calls)} best_node calls but the "
                              f"kernel counted {launches} launches")
+    # `run`'s four dump files, from the result the replay returned
+    t0 = time.perf_counter()
+    cli.write_outputs(args, result)
+    write_s = time.perf_counter() - t0
+    sizes = check_sim_outputs(result, outputs)
+    print("slice outputs: cycles, trace, health and incidents files hold "
+          "the run's " + json.dumps(dict(
+              write_s=round(write_s, 4), bytes=sizes,
+              cycles=len(result.cycle_records),
+              incidents=len(result.incidents))), flush=True)
     return launches, calls, _resident_view(result, totals)
 
 

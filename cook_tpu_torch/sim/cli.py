@@ -13,6 +13,7 @@ HTTP.
     python -m cook_tpu_torch.sim.cli run --trace trace.json --elastic [--elastic-every N] ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --faults faults.json ...
     python -m cook_tpu_torch.sim.cli run --trace trace.json --history-every 4 --history-out h.json ...
+    python -m cook_tpu_torch.sim.cli run --trace trace.json --cycles-out c.json --trace-out tr.json --incidents-out inc/ --health-out h.json ...
     python -m cook_tpu_torch.sim.cli synth --jobs 1000 --hosts 100 --out trace.json
     python -m cook_tpu_torch.sim.cli synth --completion-heavy --jobs 48 --out trace.json
     python -m cook_tpu_torch.sim.cli synth --imbalanced --jobs 24 --out trace.json
@@ -27,6 +28,7 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import os
 
 from cook_tpu_torch.scheduler.core import SchedulerConfig
 from cook_tpu_torch.scheduler.rebalancer import RebalancerParams
@@ -40,6 +42,7 @@ from cook_tpu_torch.sim.simulator import (
     load_trace,
     synth_trace,
 )
+from cook_tpu_torch.utils import tracing
 from cook_tpu_torch.utils.config import default_match_config
 
 
@@ -129,13 +132,43 @@ def replay(args, on_sim=None):
     return sim, hosts, result
 
 
-def cmd_run(args) -> int:
-    sim, hosts, result = replay(args)
+def write_outputs(args, result) -> None:
+    """`run`'s dump files, each in the reference's schema and each only
+    when its flag names a path: the flight-recorder cycle records
+    (`--cycles-out`, the GET /debug/cycles schema), the span ring as a
+    Chrome trace (`--trace-out`, GET /debug/trace?format=chrome), the
+    metrics history (`--history-out`, with `--history-every`), one JSON
+    file per captured incident bundle (`--incidents-out`, GET
+    /debug/incidents/{id}; tensors and profiler objects in a bundle are
+    written as their `str`) and the end-of-run health verdict
+    (`--health-out`, GET /debug/health)."""
+    if args.cycles_out:
+        with open(args.cycles_out, "w") as f:
+            f.write(result.cycle_records_json())
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            json.dump(tracing.chrome_trace(), f, default=str)
     if args.history_out and result.metrics_history:
-        # the run's metrics history (virtual-clock timestamps)
+        # virtual-clock timestamps
         with open(args.history_out, "w") as f:
             json.dump(result.metrics_history, f, indent=1)
+    if args.incidents_out:
+        os.makedirs(args.incidents_out, exist_ok=True)
+        for bundle in result.incidents:
+            with open(os.path.join(args.incidents_out,
+                                   f"{bundle['id']}.json"), "w") as f:
+                json.dump(bundle, f, indent=1, default=str)
+    if args.health_out:
+        with open(args.health_out, "w") as f:
+            json.dump(result.health, f, indent=1)
+
+
+def cmd_run(args) -> int:
+    sim, hosts, result = replay(args)
+    # the summary first, then the files (the reference writes the health
+    # file after its summary line)
     print(json.dumps(run_summary(result, sim.trace_jobs, hosts)))
+    write_outputs(args, result)
     return 0
 
 
@@ -242,6 +275,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--out", default="run.csv")
     r.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a card only cpu runs")
+    r.add_argument("--health-out", default="",
+                   help="write the end-of-run /debug/health verdict here")
+    r.add_argument("--cycles-out", default="",
+                   help="dump flight-recorder cycle records (JSON) here")
+    r.add_argument("--trace-out", default="",
+                   help="dump the run's span ring as a chrome-trace JSON "
+                        "(Perfetto-loadable) here")
+    r.add_argument("--incidents-out", default="",
+                   help="write captured incident bundles (one JSON per "
+                        "bundle) into this directory")
     r.add_argument("--cycle-ms", type=int, default=30_000)
     r.add_argument("--rebalance-every", type=int, default=0,
                    help="cycles between rebalance passes (0 = off)")

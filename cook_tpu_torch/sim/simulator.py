@@ -224,6 +224,11 @@ class SimResult:
                                   if latencies else 0.0),
         }
 
+    def cycle_records_json(self) -> str:
+        """The flight-recorder dump `sim.cli run --cycles-out` writes:
+        {"cycles": [...]}, the GET /debug/cycles schema."""
+        return json.dumps({"cycles": self.cycle_records}, indent=1)
+
     def gang_stats(self, jobs: Sequence["TraceJob"],
                    hosts: Sequence["TraceHost"] = (),
                    *, nodes_per_block: int = 0) -> dict:

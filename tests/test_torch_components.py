@@ -504,6 +504,54 @@ def test_shutdown_waits_for_a_running_cycle():
     assert done and not loop._thread.is_alive()
 
 
+@pytest.mark.parametrize("shut_down_first", [True, False],
+                         ids=["shutdown-first", "lease-first"])
+def test_standby_won_lease_after_shutdown_starts_no_loops(
+        monkeypatch, shut_down_first):
+    """A standby blocked in `wait_for_leadership` whose elector wins the
+    lease only once `shutdown(process)` has run: `start_leader_duties`
+    finds `stopping` set under `duties_lock` and starts none of the
+    leader's loops (the reference, `cook_tpu/components.py:452`, checks
+    only `is_leader` and starts them).  The lease-first case is the rig's
+    control: the same elector, the lease won before any shutdown, takes
+    leadership and starts the loops."""
+    acquiring = threading.Event()
+    proceed = threading.Event()
+
+    class LateLease(port_leader.InMemoryElector):
+        def try_acquire(self):
+            acquiring.set()
+            assert proceed.wait(TIMEOUT_S)
+            return super().try_acquire()
+
+    monkeypatch.setattr(port_components, "InMemoryElector", LateLease)
+    p = port_components.build_process(_mock_settings(PORT), start_rest=False)
+    duties = threading.Thread(
+        target=port_components.start_leader_duties, args=(p,),
+        kwargs=dict(on_loss=lambda: None, block=False), daemon=True)
+    try:
+        duties.start()
+        assert acquiring.wait(TIMEOUT_S)
+        if shut_down_first:
+            port_components.shutdown(p)
+        proceed.set()
+        duties.join(TIMEOUT_S)
+        assert not duties.is_alive()
+        # the lease was won in both cases
+        assert p.selector.is_leader
+        assert LateLease._leaders.get("cook") == p.member_id
+        if shut_down_first:
+            assert p.loops == []
+            assert not p.scheduler.active and not p.api.leader
+        else:
+            assert p.loops and p.scheduler.active and p.api.leader
+    finally:
+        proceed.set()
+        if not shut_down_first:
+            port_components.shutdown(p)
+        p.selector.elector.release()
+
+
 # --------------------------------------------- python -m cook_tpu_torch
 
 

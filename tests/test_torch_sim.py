@@ -9,6 +9,9 @@ and there the whole default `SchedulerConfig` runs on both sides: the
 encode cache, the flight recorder and the device telemetry too).  The two
 rank paths break equal-DRU ties in different (equally valid) orders, so
 the two settings give different traces."""
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -713,3 +716,162 @@ def test_default_match_config_reads_gang_keys():
         for name in ("gang_enabled", "topology_weight",
                      "topology_block_hosts"):
             assert getattr(got, name) == getattr(want, name), name
+
+
+# ------------------------------------------- run's four dump files
+
+
+# a `device.solve` delay from the tenth solve on: 8 undelayed samples (the
+# first solve of a shape is a compile and never feeds the latency
+# baseline), then 0.25 s solves, so the per-pool latency baseline (12
+# samples before it judges, the last 8 against the older ones) reads
+# `solve-latency-regression` from its first verdict, in both packages,
+# well clear of any host-clock jitter on sub-millisecond solves
+DUMP_FAULTS = {"rules": [{"point": "device.solve", "mode": "delay",
+                          "delay_s": 0.25, "after": 9}]}
+
+
+@pytest.fixture(scope="module")
+def dumps(tmp_path_factory):
+    """One synthesised trace (80 jobs over 18 cycles on 6 hosts) through
+    the port's CLI (`--device cpu --chunk 0`) and the reference's
+    `cmd_run`, each with DUMP_FAULTS armed (`--faults`) and all four dump
+    flags: {"port" | "ref": {flag key: path}}.  Each package's span ring
+    is emptied first: the ring is per process, and other tests' spans
+    would show in the trace file."""
+    from cook_tpu.utils import tracing as ref_tracing
+    from cook_tpu_torch.utils import tracing as port_tracing
+
+    root = tmp_path_factory.mktemp("dumps")
+    trace, faults = str(root / "trace.json"), str(root / "faults.json")
+    assert cli.main(["synth", "--jobs", "80", "--hosts", "6", "--users",
+                     "4", "--submit-span-ms", "540000", "--seed", "1",
+                     "--out", trace]) == 0
+    with open(faults, "w") as f:
+        json.dump(DUMP_FAULTS, f)
+    out = {}
+    for label, mod, tracing, extra in (
+            ("port", cli, port_tracing, ["--device", "cpu"]),
+            ("ref", ref_cli, ref_tracing, [])):
+        d = root / label
+        paths = dict(cycles=str(d / "cycles.json"),
+                     trace=str(d / "chrome.json"),
+                     health=str(d / "health.json"),
+                     incidents=str(d / "incidents"))
+        tracing._trace_ring.clear()
+        d.mkdir()
+        assert mod.main([
+            "run", "--trace", trace, "--out", str(d / "run.csv"),
+            "--chunk", "0", "--max-cycles", "20", "--faults", faults,
+            "--cycles-out", paths["cycles"], "--trace-out", paths["trace"],
+            "--health-out", paths["health"],
+            "--incidents-out", paths["incidents"], *extra]) == 0
+        out[label] = paths
+    return out
+
+
+def _load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_cycles_out_equals_reference_in_every_decision_field(dumps):
+    """The `--cycles-out` files ({"cycles": [...]}, GET /debug/cycles):
+    one record per cycle in both, each with the reference's keys and
+    equal in every decision field (tests/test_torch_flight_recorder.py's
+    comparison: walls for presence only)."""
+    from tests.test_torch_flight_recorder import _decisions
+
+    got = _load(dumps["port"]["cycles"])
+    want = _load(dumps["ref"]["cycles"])
+    assert set(got) == set(want) == {"cycles"}
+    assert len(got["cycles"]) == len(want["cycles"]) == 20
+    for g, w in zip(got["cycles"], want["cycles"]):
+        assert set(g) == set(w)
+        assert _decisions(g) == _decisions(w), g["cycle"]
+    assert sum(r["considered"] for r in got["cycles"]) > 0
+
+
+def test_health_out_equals_reference(dumps):
+    """The `--health-out` verdicts: the same status and reasons (the
+    injected delay's latency regression)."""
+    got = _load(dumps["port"]["health"])
+    want = _load(dumps["ref"]["health"])
+    for key in ("status", "reasons"):
+        assert got[key] == want[key], key
+    assert got["reasons"] == ["solve-latency-regression"]
+
+
+def test_trace_out_loads_with_the_reference_span_names(dumps):
+    """The `--trace-out` Chrome traces both load, hold complete ("X")
+    events, and name the same spans (no span is renamed in the port)."""
+    names = {}
+    for label, paths in dumps.items():
+        events = _load(paths["trace"])["traceEvents"]
+        assert any(e["ph"] == "X" for e in events)
+        names[label] = {e["name"] for e in events}
+    assert names["port"] == names["ref"]
+    assert {"sim.rank", "sim.match"} <= names["port"]
+
+
+def test_incidents_out_equals_reference(dumps):
+    """The `--incidents-out` directories: the delay captured a bundle in
+    each package; the same number of files, each loadable, named by its
+    bundle's id, with the same top-level keys."""
+    bundles = {}
+    for label, paths in dumps.items():
+        names = sorted(os.listdir(paths["incidents"]))
+        bundles[label] = [(name, _load(os.path.join(paths["incidents"],
+                                                    name)))
+                          for name in names]
+    got, want = bundles["port"], bundles["ref"]
+    assert len(got) == len(want) >= 1
+    for (gname, g), (wname, w) in zip(got, want):
+        assert gname == f"{g['id']}.json" and wname == f"{w['id']}.json"
+        assert set(g) == set(w)
+        assert g["reasons"] == w["reasons"] == ["solve-latency-regression"]
+
+
+def test_write_outputs_passes_chip_smokes_check_and_a_tampered_file_fails(
+        tmp_path):
+    """chip_smoke.py's check of `run`'s four files on a small CPU replay:
+    `cli.write_outputs` writes them from the result `cli.replay` returned,
+    `check_sim_outputs` passes; a cycles file with one record changed, a
+    trace file without the match spans, another health status or an
+    extra incident file each make it raise."""
+    from chip_smoke import check_sim_outputs, sim_output_paths
+
+    trace = str(tmp_path / "t.json")
+    assert cli.main(["synth", "--jobs", "40", "--hosts", "4", "--users",
+                     "3", "--seed", "2", "--out", trace]) == 0
+    paths, flags = sim_output_paths(str(tmp_path))
+    args = cli.build_parser().parse_args(
+        ["run", "--trace", trace, "--out", str(tmp_path / "r.csv"),
+         "--device", "cpu", *flags])
+    _, _, result = cli.replay(args)
+    cli.write_outputs(args, result)
+    sizes = check_sim_outputs(result, paths)
+    assert set(sizes) == {"cycles", "trace", "health", "incidents"}
+    assert sizes["cycles"] > 0 and sizes["trace"] > 0
+
+    def tamper(key, change):
+        saved = open(paths[key]).read()
+        body = json.loads(saved)
+        change(body)
+        with open(paths[key], "w") as f:
+            json.dump(body, f)
+        with pytest.raises(AssertionError):
+            check_sim_outputs(result, paths)
+        with open(paths[key], "w") as f:
+            f.write(saved)
+        check_sim_outputs(result, paths)
+
+    tamper("cycles", lambda b: b["cycles"][-1].update(considered=-1))
+    tamper("trace", lambda b: b.update(traceEvents=[
+        e for e in b["traceEvents"] if e["name"] != "sim.match"]))
+    tamper("health", lambda b: b.update(status="degraded"))
+    extra = os.path.join(paths["incidents"], "inc-999999.json")
+    with open(extra, "w") as f:
+        json.dump({"id": "inc-999999"}, f)
+    with pytest.raises(AssertionError):
+        check_sim_outputs(result, paths)
