@@ -488,11 +488,11 @@ The client tier, whose node launches `best_node` (counted in the
                   tasks end at their expected runtime (jobs naming none
                   run 600 s, ended by their kills).  (b) Open-loop
                   arrivals: `python3 -m cook_tpu_torch.sim.cli loadgen`
-                  (the port's `run_load` with `LoadConfig`: 3,000 jobs,
+                  (the port's `run_load` with `LoadConfig`: 1,000 jobs,
                   8 users, Poisson at 60,000 a minute, batches of at
                   most 20, the reference's runtime / memory / cpu
                   choices) in a process of its own; it must report
-                  3,000 submitted and completed, none failed; its
+                  1,000 submitted and completed, none failed; its
                   summary (submit and schedule p50 / p99, throughput,
                   wall) printed.  (c) `python3 -m
                   cook_tpu_torch.client.cli` as subprocesses: submit,
@@ -528,7 +528,7 @@ The Kubernetes backend, whose node launches `best_node` (counted in the
                   timeout 5 s, no placeholder pods (the fake has no
                   cluster autoscaler).  A kubelet thread here moves each
                   pod Pending -> Running after 0.2 s and -> Succeeded
-                  after its command's `sleep`.  2,000 jobs of phase 29's
+                  after its command's `sleep`.  600 jobs of phase 29's
                   LoadConfig memory and cpu choices, runtimes 1, 2 or 5
                   s, in POSTs of 100 from 8 users through the port's
                   `JobClient`; the first 10 run 600 s and are killed over
@@ -536,7 +536,7 @@ The Kubernetes backend, whose node launches `best_node` (counted in the
                   apiserver).  After 300 pods succeeded, one watch gap
                   (the history compacted past changes no watch has
                   streamed): the watches must answer the 410 with a
-                  re-list.  After 1,000, the last 20 jobs (60 s,
+                  re-list.  After 400, the last 20 jobs (30 s,
                   priority 100) are POSTed, and once each has started
                   and one still runs, SIGTERM (exit 0) and a reboot on
                   the same data_dir against the same apiserver: the new
@@ -559,6 +559,32 @@ The Kubernetes backend, whose node launches `best_node` (counted in the
                   placements), one `list_nodes` at 5,000 nodes (5 times)
                   and the launches, beside the card.
 
+ 31. tools      — the operator tools (`cook_tpu_torch/tools/`,
+                  `cook_tpu_torch/examples/`) on the card, alone; in this
+                  process, through each tool's `main` or functions: the
+                  chaos drill's smoke set (`--smoke --device cuda`:
+                  fsync stall, launch breaker, device error -> health
+                  `device-degraded` with one bundle and no CPU re-solve,
+                  wedged shard, killed worker), the debug smoke (every
+                  /debug route of a full node on the card and of an mp
+                  fleet, 200 with JSON) and the load test's smoke (40
+                  requests/s for 2 s) on the in-process plane, on 2
+                  shards and through a 2-worker mp fleet (commit-ack p50
+                  / p99 printed; no errors); as `python -m` from the
+                  checkout's root (a process group, killed whole at its
+                  time limit), `migrate_journal` on a single-journal
+                  data_dir this phase writes (1,000 jobs and an
+                  instance), its segments read back whole
+                  (`recover_sharded`); `match_sweep --backend pallas
+                  --limit 2` in this process at the full 131,072 x
+                  16,384 (100k x 10k real) against the native greedy, its
+                  `best_node` count reset just before and read just after
+                  and every kept launch held against the plain version;
+                  `multihost_dryrun` (`python -m`) at 2 gloo ranks
+                  sharing the card, its assignment equal to
+                  `greedy_match_pools` on one card.  Prints each tool's
+                  wall beside the card.
+
 Order and processes: 1-7 (with the walls replays) run in this process,
 which times the kernel rows.  Then three worker processes run the rest
 at once, each its own part (PARTS), each resetting and reading the
@@ -567,7 +593,7 @@ counts around the paths it drives: `speculation` S1-S4, 12, 11 and 11h;
 21, 13-15, 22 and 24.  Their output is printed once all three have ended
 (their phase lines count from this process's start, so they overlap),
 and their launches and errors join this process's.  25, 26, 27, 28,
-29 and 30 run last, in this process, with nothing beside them.
+29, 30 and 31 run last, in this process, with nothing beside them.
 
 Imports nothing of JAX and nothing of `cook_tpu`.
 """
@@ -7815,8 +7841,9 @@ def mp_fleet_phase(card):
 # SERVICE_MATCH over these identical hosts (a median ~60 a match cycle,
 # cycles ~1.2 s apart: PERF.md §5), so the backlog drains long after the
 # arrivals end: 10,000 jobs took 188-232 s, and the script 931-1,081 s of
-# the 1,200 s it may take.  3,000 (cut: depth) drain in ~60-70 s
-CLIENT_JOBS = 3_000
+# the 1,200 s it may take.  3,000 (cut: depth) drained in 80.9-111.5 s;
+# 1,000 make room for phase 31
+CLIENT_JOBS = 1_000
 CLIENT_USERS = 8
 CLIENT_RATE_PER_MINUTE = 60_000
 CLIENT_WAIT_S = 180.0
@@ -8162,7 +8189,7 @@ def clients_phase(card):
 K8S_NODES = 5_000
 K8S_NODE_MEM_MB = 65_536
 K8S_NODE_CPUS = 32
-K8S_JOBS = 2_000
+K8S_JOBS = 600
 K8S_USERS = 8
 K8S_POST = 100
 # the runtimes of phase 29's LoadConfig, stretched to 1-5 s so that pods
@@ -8172,12 +8199,12 @@ K8S_RUNTIMES_MS = (1_000, 2_000, 5_000)
 K8S_KILLS = 10
 K8S_KILL_RUNTIME_MS = 600_000
 K8S_ADOPT = 20
-K8S_ADOPT_RUNTIME_MS = 60_000
+K8S_ADOPT_RUNTIME_MS = 30_000
 K8S_START_S = 0.2
 K8S_WATCH_TIMEOUT_S = 5
 # pods succeeded before the watch gap, and before the reboot
 K8S_GAP_AFTER = 300
-K8S_REBOOT_AFTER = 1_000
+K8S_REBOOT_AFTER = 400
 # from the last submit: the drain took ~177 s on one H100 (PERF.md §5),
 # its placements a cycle falling as the queue shrinks
 K8S_DEADLINE_S = 360.0
@@ -8768,6 +8795,183 @@ def k8s_phase(card):
     return launches, max_err
 
 
+# the operator tools (31)
+# the load test's smoke (`loadtest --smoke`'s rate and duration) on the
+# in-process plane, 2 shards and a 2-worker mp fleet with its standby
+TOOLS_LOADTEST_SMOKE = dict(rps=40.0, duration_s=2.0)
+TOOLS_LOADTESTS = (("loadtest", "run_inprocess", dict(shards=1)),
+                   ("loadtest_shards2", "run_inprocess", dict(shards=2)),
+                   ("loadtest_mp2", "run_mp", dict(groups=2, standbys=1)))
+# the single-journal data_dir migrate_journal converts
+TOOLS_MIGRATE_JOBS = 1_000
+# match_sweep's configurations on the pallas grid, at its full size
+TOOLS_SWEEP_LIMIT = 2
+
+
+def _tool(label, module, args, timeout_s, walls):
+    """`python -m module args` from the checkout's root in a process group
+    of its own (killed whole past `timeout_s`); its output printed, its
+    wall in `walls[label]`.  Raises unless it exits 0.  Returns its
+    standard output."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out, flush=True)
+        raise AssertionError(f"tools: {label} ran past {timeout_s} s")
+    walls[label] = round(time.perf_counter() - t0, 3)
+    print(out, end="" if out.endswith("\n") else "\n", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: {label} exited {proc.returncode}")
+    return out
+
+
+def _tools_migrate(workdir, walls):
+    """migrate_journal on a single-journal data_dir written here; the
+    segments read back whole."""
+    from cook_tpu_torch.models import persistence
+    from cook_tpu_torch.models.entities import Job, Pool, Resources
+    from cook_tpu_torch.models.store import JobStore
+    from cook_tpu_torch.shard import ShardRouter
+    from cook_tpu_torch.shard import journal as shard_journal
+
+    data_dir = os.path.join(workdir, "single")
+    os.makedirs(data_dir)
+    store = JobStore()
+    journal = persistence.attach_journal(
+        store, os.path.join(data_dir, "journal.jsonl"))
+    pools = ShardRouter(4).pools_for_distinct_shards()
+    for name in pools:
+        store.set_pool(Pool(name=name))
+    store.submit_jobs([Job(uuid=f"mig-{i:05d}", user=f"u{i % 8}",
+                           pool=pools[i % 4], command="true",
+                           resources=Resources(mem=512, cpus=1))
+                       for i in range(TOOLS_MIGRATE_JOBS)])
+    store.create_instance("mig-00000", "mig-task-0", hostname="h0")
+    journal.close()
+    out = _tool("migrate_journal", "cook_tpu_torch.tools.migrate_journal",
+                (data_dir, "--shards", "4", "--json"), 120, walls)
+    summary = json.loads(out)
+    if not summary["migrated"] or summary["jobs"] != TOOLS_MIGRATE_JOBS:
+        raise AssertionError(f"tools: migrate_journal summary {summary}")
+    recovered = shard_journal.recover_sharded(data_dir, 4)
+    if set(recovered.jobs) != set(store.jobs) or recovered.job_instances(
+            "mig-00000")[0].task_id != "mig-task-0":
+        raise AssertionError("tools: the migrated segments do not read "
+                             "back the single journal's store")
+    print(f"tools: migrate_journal {summary['per_shard_jobs']} jobs a "
+          f"shard, {len(recovered.jobs)} read back", flush=True)
+
+
+def _tools_sweep(workdir, walls):
+    """match_sweep at full size on the pallas grid in this process: the
+    best_node count reset just before and read just after, every kept
+    launch held.  Returns (launches, max error)."""
+    from cook_tpu_torch.ops import best_node as bn
+    from cook_tpu_torch.ops import match
+    from cook_tpu_torch.tools import match_sweep
+
+    out = os.path.join(workdir, "match_sweep.jsonl")
+    calls = []
+    t0 = time.perf_counter()
+    with kept_calls(match, "best_node", calls):
+        bn.launches = 0
+        match_sweep.main(["--backend", "pallas", "--limit",
+                          str(TOOLS_SWEEP_LIMIT), "--out", out])
+        launches = bn.launches
+    walls["match_sweep"] = round(time.perf_counter() - t0, 3)
+    with open(out) as f:
+        records = [json.loads(line) for line in f if "p50_ms" in line
+                   or "error" in line]
+    bad = [r for r in records if "error" in r or r["platform"] != "cuda"]
+    if len(records) != TOOLS_SWEEP_LIMIT or bad:
+        raise AssertionError(f"tools: match_sweep records {records}")
+    _check_launches("match_sweep", launches, calls, "cuda")
+    err = hold_launches("best_node", calls, "match_sweep")
+    print(f"tools: match_sweep {launches} best_node launches", flush=True)
+    return launches, err
+
+
+def _tools_dryrun(workdir, walls):
+    """The multi-host dry run at 2 gloo ranks sharing the card: its
+    assignment equals the exact greedy's on one card."""
+    import torch
+
+    from cook_tpu_torch.examples import multihost_dryrun as dryrun
+    from cook_tpu_torch.ops.match import MatchProblem, greedy_match_pools
+
+    out = os.path.join(workdir, "dryrun.json")
+    _tool("multihost_dryrun", "cook_tpu_torch.examples.multihost_dryrun",
+          ("--workers", "2", "--device", "cuda", "--out", out), 240, walls)
+    with open(out) as f:
+        got = json.load(f)
+    n_pools = 2 * dryrun.POOLS_PER_PROCESS
+    demands, avail, totals = dryrun.make_problems(n_pools)
+    dev = torch.device("cuda")
+    ones = torch.ones((n_pools, dryrun.JOBS, dryrun.HOSTS),
+                      dtype=torch.bool, device=dev)
+    want = greedy_match_pools(MatchProblem(
+        demands=torch.from_numpy(demands).to(dev), job_valid=ones[:, :, 0],
+        avail=torch.from_numpy(avail).to(dev),
+        totals=torch.from_numpy(totals).to(dev),
+        node_valid=ones[:, 0, :], feasible=ones)).assignment.cpu()
+    if got["backend"] != "gloo" or not torch.equal(
+            torch.tensor(got["assignment"], dtype=want.dtype), want):
+        raise AssertionError("tools: the dry run's assignment differs from "
+                             "one card's")
+    print(f"tools: multihost_dryrun placed {got['placed']} on "
+          f"{got['device']} ({got['backend']}), = one card", flush=True)
+
+
+def _tools_loadtests(walls):
+    """The load test's smoke forms in this process: no errors, commit-ack
+    p50 / p99 printed."""
+    from cook_tpu_torch.tools import loadtest
+
+    acks = {}
+    for label, form, kw in TOOLS_LOADTESTS:
+        t0 = time.perf_counter()
+        report = getattr(loadtest, form)(**kw, **TOOLS_LOADTEST_SMOKE)
+        walls[label] = round(time.perf_counter() - t0, 3)
+        if report["errors"] or not report["commit_ack"]["count"]:
+            raise AssertionError(f"tools: {label} {report}")
+        acks[label] = dict(report["commit_ack"],
+                           achieved_rps=report["achieved_rps"])
+    print("tools loadtest commit_ack " + json.dumps(acks), flush=True)
+
+
+def tools_phase(card):
+    """31. The operator tools (see the docstring).  Returns (best_node
+    launches, max error)."""
+    from cook_tpu_torch.tools import chaos, debug_smoke
+
+    phase("tools (31)")
+    walls = {}
+    t_phase = time.perf_counter()
+    for label, tool, argv in (
+            ("chaos", chaos, ["--smoke", "--device", "cuda"]),
+            ("debug_smoke", debug_smoke, ["--device", "cuda"])):
+        t0 = time.perf_counter()
+        if tool.main(argv) != 0:
+            raise AssertionError(f"tools: {label} failed")
+        walls[label] = round(time.perf_counter() - t0, 3)
+    _tools_loadtests(walls)
+    with tempfile.TemporaryDirectory(prefix="cook-tools-") as workdir:
+        _tools_migrate(workdir, walls)
+        launches, err = _tools_sweep(workdir, walls)
+        _tools_dryrun(workdir, walls)
+    walls["phase"] = round(time.perf_counter() - t_phase, 3)
+    print("tools walls " + json.dumps(walls), flush=True)
+    print(f"tools on {card}", flush=True)
+    return launches, err
+
+
 # the native host solvers (N1): bench.py's CPU sizing, J 16,384 x N 2,048
 # with 16,000 x 2,000 real (bench.py:139-142), its full sizing, 131,072 x
 # 16,384 with 100,000 x 10,000 real (bench.py:143-145), and bench_dru's
@@ -8785,22 +8989,13 @@ NATIVE_PREEMPT_SEEDS = range(300, 305)
 
 
 def native_match_problem(j, n, seed):
-    """bench.make_problem (bench.py:39-57), written here: demands [j, 3]
-    of 512-8192 MB and 0.5-4 cpus, no gpus; hosts of 64 GB / 32 cpus with
-    a uniform 0.2-1.0 fraction free."""
-    import numpy as np
+    """bench.make_problem (bench.py:39-57), the port's copy in
+    `tools/match_sweep.py`: demands [j, 3] of 512-8192 MB and 0.5-4 cpus,
+    no gpus; hosts of 64 GB / 32 cpus with a uniform 0.2-1.0 fraction
+    free."""
+    from cook_tpu_torch.tools.match_sweep import make_problem
 
-    rng = np.random.default_rng(seed)
-    demands = np.stack([
-        rng.choice([512, 1024, 2048, 4096, 8192], j).astype(np.float32),
-        rng.choice([0.5, 1, 2, 4], j).astype(np.float32),
-        np.zeros(j, dtype=np.float32)], axis=-1)
-    totals = np.stack([np.full(n, 65536.0, dtype=np.float32),
-                       np.full(n, 32.0, dtype=np.float32)], axis=-1)
-    frac = rng.uniform(0.2, 1.0, (n, 1)).astype(np.float32)
-    avail = np.concatenate([totals * frac, np.zeros((n, 1), np.float32)],
-                           axis=-1)
-    return demands, avail, totals
+    return make_problem(j, n, seed)
 
 
 def native_dru_problem(t, u, t_real, seed=3):
@@ -9389,6 +9584,11 @@ def main() -> int:
     # the Kubernetes backend (30): each node process's counts set to 0
     # just before it runs `python -m cook_tpu_torch` and read as it exits
     n, err = k8s_phase(card)
+    launches["best_node"] += n
+    errs["best_node"] = max(errs["best_node"], err)
+    # the operator tools (31): the sweep's counts reset just before it
+    # runs and read just after
+    n, err = tools_phase(card)
     launches["best_node"] += n
     errs["best_node"] = max(errs["best_node"], err)
     # the card's name and power limit again, beside the numbers above

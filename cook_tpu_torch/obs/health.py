@@ -35,10 +35,9 @@ RECOMPILE_STORM = "recompile-storm"
 QUALITY_DRIFT = "quality-drift"
 SOLVE_LATENCY_REGRESSION = "solve-latency-regression"
 DEVICE_OOM_RISK = "device-oom-risk"
-# the matcher degraded the pool to the CPU reference solver after a
-# device solve error or a latency-guard breach (scheduler/matcher device
-# fallback — docs/resilience.md reaction (c)); clears when the periodic
-# device probe succeeds
+# a device solve of the pool failed (scheduler/matcher.note_solve_failed;
+# the port re-solves nothing on the CPU); clears at the pool's next
+# successful solve on the card
 DEVICE_DEGRADED = "device-degraded"
 
 DEGRADATION_REASONS = (RECOMPILE_STORM, QUALITY_DRIFT,
@@ -110,12 +109,11 @@ class HealthMonitor:
             degradations.append({
                 "reason": DEVICE_DEGRADED, "pool": pool,
                 "detail": (
-                    f"pool {pool} match solves degraded to the CPU "
-                    f"reference ({evidence.get('cause', '?')}, "
-                    f"{evidence.get('cycles', 0)} cycles so far, "
-                    f"{evidence.get('cycles_left', 0)} before the next "
-                    f"device probe) — placements continue; investigate "
-                    f"the device"),
+                    f"pool {pool} device solve failed "
+                    f"({evidence.get('cause', '?')}, "
+                    f"{evidence.get('cycles', 0)} cycles so far) — its "
+                    f"jobs wait until a solve on the card succeeds; "
+                    f"investigate the device"),
                 **evidence,
             })
 

@@ -59,9 +59,9 @@ class DeviceTelemetry:
             self._latency_args["rel_floor"] = latency_rel_floor
         self._latency: dict[str, RollingBaseline] = {}
         self._last_solve: dict[str, dict] = {}
-        # pools currently degraded to the CPU reference solver
-        # (scheduler/matcher device fallback): pool -> evidence for the
-        # `device-degraded` health reason
+        # pools whose last device solve failed (scheduler/matcher.
+        # note_solve_failed): pool -> evidence for the `device-degraded`
+        # health reason
         self._fallbacks: dict[str, dict] = {}
         self._lock = threading.Lock()
         # incident hook (obs/incident.IncidentRecorder.observe): every
@@ -71,8 +71,7 @@ class DeviceTelemetry:
         self._update_memory_gauges = update_memory_gauges
         self._fallback_gauge = global_registry.gauge(
             "obs.device_fallback_active",
-            "1 while the pool's match solve is degraded to the CPU "
-            "reference solver")
+            "1 while the pool's last device match solve failed")
         self._memory_stats_fn = memory_stats_fn
         self._solve_hist = global_registry.histogram(
             "obs.solve.seconds",
@@ -169,9 +168,13 @@ class DeviceTelemetry:
 
     def note_device_fallback(self, pool: str, reason: str, *,
                              cycles_left: int = 0) -> None:
-        """The matcher solved this pool on the CPU reference this cycle
-        (the reference's scheduler/matcher.record_fallback_outcome; the
-        port has no device-fallback ladder, so nothing calls this yet)."""
+        """A device solve of this pool failed this cycle: the serial,
+        batched and pipelined passes call this through scheduler/matcher.
+        note_solve_failed before the error propagates (or the pipelined
+        pass skips the pool), with `reason` "solve-error".  The port
+        re-solves nothing on the CPU, so `cycles_left` stays 0; the
+        verdict clears at the pool's next successful solve on the card
+        (`clear_device_fallback`, through matcher.note_solve_ok)."""
         with self._lock:
             entry = self._fallbacks.get(pool)
             if entry is None:
@@ -186,7 +189,7 @@ class DeviceTelemetry:
         self._fallback_gauge.set(1.0, {"pool": pool})
 
     def clear_device_fallback(self, pool: str) -> None:
-        """The device probe succeeded; the pool is healthy again."""
+        """A device solve of the pool succeeded; it is healthy again."""
         with self._lock:
             self._fallbacks.pop(pool, None)
         self._fallback_gauge.set(0.0, {"pool": pool})

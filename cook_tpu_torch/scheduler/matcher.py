@@ -62,6 +62,10 @@ ladder (re-solving a failed device solve on the CPU) has no counterpart:
 here a solve error, injected or real, propagates out of the serial and
 batched passes (the pipelined pass skips the pool's jobs with
 `solve-failed`), so a fault of the card or the kernel is never hidden.
+Each failed solve notes the pool on the telemetry first
+(`note_solve_failed`): health reads `device-degraded` with the pool's
+evidence, and the incident recorder captures its bundle on that edge,
+until the pool's next solve on the card succeeds (`note_solve_ok`).
 Left out: the roofline probe (XLA's cost analysis has no torch
 counterpart).  The pool-batched pass takes the reference's mesh branch
 (`parallel/mesh.py`: each rank of a `torch.distributed` mesh solves its
@@ -76,6 +80,7 @@ kill-lock read side (scheduler.clj:962-1048).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import threading
@@ -562,6 +567,39 @@ def dispatch_pool_solve(prepared: "PreparedPool", config: MatchConfig,
     else:
         result = greedy_match(prepared.problem)
     return PendingResult(result.assignment[: len(prepared.considerable)])
+
+
+# the cause a failed solve notes on the `device-degraded` verdict (the
+# reference's cause when a solve raises: matcher.enter_device_fallback)
+SOLVE_ERROR = "solve-error"
+
+
+def note_solve_failed(telemetry, pool_name: str) -> None:
+    """A device solve of the pool raised: health reads `device-degraded`
+    with the pool's evidence until `note_solve_ok`.  Nothing is re-solved
+    on the CPU; the caller re-raises (serial and batched passes) or skips
+    the pool's jobs (the pipelined pass)."""
+    if telemetry is not None:
+        telemetry.note_device_fallback(pool_name, SOLVE_ERROR)
+
+
+@contextlib.contextmanager
+def noting_solve_failures(telemetry, pool_names):
+    """The block solves these pools on the card: if it raises, each pool's
+    failure is noted (`note_solve_failed`) and the error propagates."""
+    try:
+        yield
+    except Exception:
+        for name in pool_names:
+            note_solve_failed(telemetry, name)
+        raise
+
+
+def note_solve_ok(telemetry, pool_name: str) -> None:
+    """A device solve of the pool succeeded: clear its `device-degraded`
+    verdict, if a failed solve set one."""
+    if telemetry is not None and pool_name in telemetry.device_fallbacks():
+        telemetry.clear_device_fallback(pool_name)
 
 
 def record_solve_outcome(prepared: "PreparedPool", assignment: np.ndarray,
@@ -1589,7 +1627,8 @@ def match_pool(
     solve_s = 0.0
     assignment = np.empty(0, dtype=np.int32)
     if prepared.solvable:
-        with data_plane.activate(flight.dp), \
+        with noting_solve_failures(telemetry, [pool.name]), \
+                data_plane.activate(flight.dp), \
                 data_plane.family(data_plane.FAM_SOLVE), \
                 flight.phase("solve", device=True):
             assignment = dispatch_pool_solve(prepared, config,
@@ -1597,6 +1636,7 @@ def match_pool(
         solve_s = time.perf_counter() - t1
         record_solve_outcome(prepared, assignment, config, state,
                              pool.name, solve_s, flight, telemetry)
+        note_solve_ok(telemetry, pool.name)
     t2 = time.perf_counter()
     with data_plane.activate(flight.dp), flight.phase("launch"):
         outcome = finalize_pool_match(
@@ -1755,25 +1795,30 @@ def match_pools_batched(
         name = p.pool.name
         flight = pool_flight(name)
         t_solve = time.perf_counter()
-        if fault_schedule is not None:
-            fault_schedule.hit(faults.DEVICE_SOLVE, pool=name)
-        with data_plane.activate(flight.dp), \
-                flight.phase("solve", device=True):
-            assignments[name] = HierarchicalPending(p, config,
-                                                    telemetry).fetch()
+        with noting_solve_failures(telemetry, [name]):
+            if fault_schedule is not None:
+                fault_schedule.hit(faults.DEVICE_SOLVE, pool=name)
+            with data_plane.activate(flight.dp), \
+                    flight.phase("solve", device=True):
+                assignments[name] = HierarchicalPending(p, config,
+                                                        telemetry).fetch()
         solve_s = time.perf_counter() - t_solve
         record_solve_outcome(p, assignments[name], config, states[name],
                              name, solve_s, flight, telemetry)
+        note_solve_ok(telemetry, name)
         hier = p.hier_stats
         walls[name].update(solve=solve_s, coarse_solve=hier["coarse_s"],
                            fine_solve=hier["fine_s"],
                            refine=hier["refine_s"])
     if flat:
+        # one shared solve: its failure is every flat pool's
+        flat_names = [p.pool.name for p in flat]
         if fault_schedule is not None:
             # rules match per participating pool; one injected error
             # fails the SHARED solve
-            for p in flat:
-                fault_schedule.hit(faults.DEVICE_SOLVE, pool=p.pool.name)
+            with noting_solve_failures(telemetry, flat_names):
+                for name in flat_names:
+                    fault_schedule.hit(faults.DEVICE_SOLVE, pool=name)
         t_stack = time.perf_counter()
         problems = [p.problem for p in flat]
         lanes = None
@@ -1793,21 +1838,22 @@ def match_pools_batched(
         for p in flat:
             pool_flight(p.pool.name).add_phase("tensor_build", stack_s)
         t_solve = time.perf_counter()
-        if mesh is not None:
-            result = pool_sharded_match(
-                mesh, shard_pools(mesh, stacked, total=len(problems)),
-                chunk=config.chunk or 0, rounds=config.chunk_rounds,
-                passes=config.chunk_passes, kc=config.chunk_kc,
-                backend=config.backend)
-        elif config.chunk:
-            result = chunked_match_pools(
-                stacked, chunk=config.chunk, rounds=config.chunk_rounds,
-                passes=config.chunk_passes, kc=config.chunk_kc,
-                **backend_flags(vmap_safe_backend(config.backend)))
-        else:
-            result = greedy_match_pools(stacked)
-        with data_plane.family(data_plane.FAM_SOLVE):
-            stacked_assignment = fetch_result(result.assignment)
+        with noting_solve_failures(telemetry, flat_names):
+            if mesh is not None:
+                result = pool_sharded_match(
+                    mesh, shard_pools(mesh, stacked, total=len(problems)),
+                    chunk=config.chunk or 0, rounds=config.chunk_rounds,
+                    passes=config.chunk_passes, kc=config.chunk_kc,
+                    backend=config.backend)
+            elif config.chunk:
+                result = chunked_match_pools(
+                    stacked, chunk=config.chunk, rounds=config.chunk_rounds,
+                    passes=config.chunk_passes, kc=config.chunk_kc,
+                    **backend_flags(vmap_safe_backend(config.backend)))
+            else:
+                result = greedy_match_pools(stacked)
+            with data_plane.family(data_plane.FAM_SOLVE):
+                stacked_assignment = fetch_result(result.assignment)
         # one shared device call solved every flat pool: each one's record
         # carries the full solve wall (no pool's cycle can finish sooner
         # than the batch).  The recorded shape is the padded batch, the
@@ -1831,6 +1877,7 @@ def match_pools_batched(
                 telemetry.quality.observe_cycle(p, assignments[name], name)
             note_chunked_solve(p, assignments[name], config, states[name],
                                name)
+            note_solve_ok(telemetry, name)
         first = walls[flat[0].pool.name]
         first.update(encode=first["encode"] + stack_s, solve=solve_s)
 

@@ -43,7 +43,9 @@ runs the multi-pool match pass as a pipeline:
   * a solve raising for pool k surfaces at ITS fetch: the pool's jobs are
     skipped with `solve-failed` and pools k±1 proceed untouched.  There
     is no CPU re-solve behind the card (the reference's fallback tier is
-    not ported), so a fault of the card or a kernel is never hidden;
+    not ported), so a fault of the card or a kernel is never hidden; the
+    failure is noted on the telemetry (health `device-degraded` for the
+    pool until its next solve on the card succeeds);
   * a pool at or over `hierarchical_threshold` solves through
     `HierarchicalPending`, whose two-level solve runs at `fetch()` on the
     host's schedule: it overlaps nothing, in the reference too;
@@ -84,6 +86,8 @@ from cook_tpu_torch.scheduler.matcher import (
     dispatch_pool_solve,
     fail_launched_specs,
     finalize_pool_match,
+    note_solve_failed,
+    note_solve_ok,
     prepare_pool_problem,
     record_solve_outcome,
 )
@@ -253,6 +257,7 @@ def match_pools_pipelined(
                 flight.add_phase("solve", solve_s - wait_s, device=False)
             walls["solve"] = solve_s
             if solve_failed:
+                note_solve_failed(telemetry, stage.pool.name)
                 outcome = stage.prepared.outcome
                 outcome.unmatched = list(stage.prepared.considerable)
                 outcome.head_matched = False
@@ -269,6 +274,7 @@ def match_pools_pipelined(
             record_solve_outcome(stage.prepared, assignment, config,
                                  stage.state, stage.pool.name, solve_s,
                                  flight, telemetry, overlapped=True)
+            note_solve_ok(telemetry, stage.pool.name)
             hier = stage.prepared.hier_stats
             if hier is not None:
                 walls.update(coarse_solve=hier["coarse_s"],

@@ -21,6 +21,15 @@ every reference item without its port counterpart:
   class of a reference module is defined under the same name in the
   counterpart module, or is in `ALLOWED` with its reason.
 
+- (f) `tools`: every script of the repository outside the package (at
+  its top level, under `tools/` and under `examples/`) that imports
+  `cook_tpu` or `jax` has a counterpart module under
+  `cook_tpu_torch/tools/` or `cook_tpu_torch/examples/` (a top-level
+  script under `cook_tpu_torch/tools/`), or a `TOOLS_ALLOWED` entry with
+  its reason; each such pair, and each other script that has a
+  counterpart, is held to checks (c) and (e): the same `argparse` flags,
+  functions and methods.
+
 `ALLOWED` is the list of what the port leaves out or names otherwise:
 each entry is renamed (the port's name, which must exist), left out by
 design (ROADMAP.md, "Deliberately not ported"), or aiohttp plumbing that
@@ -173,6 +182,38 @@ ALLOWED = {
         unused("a flag no code of cook_tpu/ reads"),
     "scheduler/flight_recorder.py::FlightRecorder.note_job_reason":
         unused("a method no code of cook_tpu/ calls"),
+}
+
+REPO_ROOT = REPO
+PORT_TOOLS = os.path.join(PORT_ROOT, "tools")
+
+
+def pending(why):
+    """Ported by a later piece of work, named in ROADMAP.md."""
+    return ("pending", why)
+
+
+# the scripts outside the package, as "<path from the repo root>" (a
+# script without its counterpart) or "<path>::<name>" (a function or
+# method of a paired script): its reason
+TOOLS_ALLOWED = {
+    "bench.py": pending(
+        "the reference's benchmark harness; the port's benchmark is "
+        "ROADMAP.md N1"),
+    "__graft_entry__.py": (
+        "by design", "JAX compile-check entry points for TPU runs (one "
+        "chip's compile check, the multi-chip dry run); the port's check "
+        "on the card is chip_smoke.py"),
+    # the port runs on the card, not a TPU
+    "tools/tpu_sweep.py": renamed("tools/match_sweep.py"),
+    # by design: the port has no device-fallback ladder (ROADMAP.md,
+    # Deliberately not ported), so its scenario holds the port's own
+    # reaction to a failed solve instead of a CPU re-solve
+    "tools/chaos.py::scenario_device_fallback":
+        renamed("scenario_device_error"),
+    # a class, whose close() closes every thread's session after the run
+    "tools/loadtest.py::_thread_sessions":
+        renamed("_ThreadSessions.__call__"),
 }
 
 
@@ -442,6 +483,34 @@ def _chip_smoke_replaces(path):
     return set()
 
 
+def _module_gaps(rel, ref_tree, port_tree, allowed, gaps, missing):
+    """Checks (c)-(e) and `fields` of one module pair, `rel` naming the
+    reference module in gaps and allowlist keys: each gap appended to
+    `gaps[check]`, each missing name's key added to `missing`."""
+    ref_s, port_s = _Surface(ref_tree), _Surface(port_tree)
+    for path in sorted(ref_s.commands - port_s.commands):
+        gaps["cli"].append(f"{rel}: subcommand {' '.join(path)}")
+    for path, flag in sorted(ref_s.flags - port_s.flags):
+        where = " ".join(path) or "(top level)"
+        gaps["cli"].append(f"{rel}: {where} {flag}")
+    for method, path in sorted(ref_s.routes - port_s.routes):
+        gaps["routes"].append(f"{rel}: {method} {path}")
+    port_names = set(_defs(port_tree)) | _fields(port_tree) \
+        | _assigned(port_tree)
+    for check, names in (("names", set(_defs(ref_tree))),
+                         ("fields", _fields(ref_tree))):
+        for name in sorted(names - port_names):
+            key = f"{rel}::{name}"
+            missing.add(key)
+            if key not in allowed:
+                gaps[check].append(f"{key}: no counterpart")
+    for key, (kind, why) in allowed.items():
+        if key.startswith(f"{rel}::") and kind == "renamed" \
+                and why not in port_names:
+            gaps["allowlist"].append(
+                f"{key}: renamed to {why}, which {rel} lacks")
+
+
 def coverage_gaps(ref_root, port_root, chip_smoke, allowed=None):
     """{check: [gap, ...]}: `modules`, `kernels`, `cli`, `routes`, `names`
     (the module docstring's (a)-(e)) and `fields` (every field of a
@@ -470,29 +539,8 @@ def coverage_gaps(ref_root, port_root, chip_smoke, allowed=None):
             if rel not in REPLACED_MODULES:
                 gaps["modules"].append(f"{rel}: no counterpart module")
             continue
-        port_tree = _parse(port_path)
-        ref_s, port_s = _Surface(ref_tree), _Surface(port_tree)
-        for path in sorted(ref_s.commands - port_s.commands):
-            gaps["cli"].append(f"{rel}: subcommand {' '.join(path)}")
-        for path, flag in sorted(ref_s.flags - port_s.flags):
-            where = " ".join(path) or "(top level)"
-            gaps["cli"].append(f"{rel}: {where} {flag}")
-        for method, path in sorted(ref_s.routes - port_s.routes):
-            gaps["routes"].append(f"{rel}: {method} {path}")
-        port_names = set(_defs(port_tree)) | _fields(port_tree) \
-            | _assigned(port_tree)
-        for check, names in (("names", set(_defs(ref_tree))),
-                             ("fields", _fields(ref_tree))):
-            for name in sorted(names - port_names):
-                key = f"{rel}::{name}"
-                missing.add(key)
-                if key not in allowed:
-                    gaps[check].append(f"{key}: no counterpart")
-        for key, (kind, why) in allowed.items():
-            if key.partition("::")[0] == rel and kind == "renamed" \
-                    and why not in port_names:
-                gaps["allowlist"].append(
-                    f"{key}: renamed to {why}, which {rel} lacks")
+        _module_gaps(rel, ref_tree, _parse(port_path), allowed, gaps,
+                     missing)
     for key, (kind, _) in sorted(allowed.items()):
         if key not in missing:
             gaps["allowlist"].append(f"{key}: allowed, but not a gap")
@@ -504,6 +552,78 @@ def coverage_gaps(ref_root, port_root, chip_smoke, allowed=None):
                 gaps["allowlist"].append(
                     f"{key}: allowed as unused, but {package}/ names it "
                     f"{uses} times")
+    return gaps
+
+
+def _imports_reference(tree):
+    """True when the script imports `cook_tpu` or `jax` anywhere (its top
+    level or inside a function)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.partition(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            roots = [node.module.partition(".")[0]]
+        else:
+            continue
+        if {"cook_tpu", "jax"} & set(roots):
+            return True
+    return False
+
+
+def _scripts(repo_root):
+    """Paths, from the repo root, of its top-level scripts and of every
+    `*.py` directly under `tools/` and `examples/`."""
+    out = []
+    for sub in ("", "tools", "examples"):
+        directory = os.path.join(repo_root, sub)
+        if os.path.isdir(directory):
+            out += [os.path.join(sub, name).replace(os.sep, "/")
+                    for name in sorted(os.listdir(directory))
+                    if name.endswith(".py")]
+    return out
+
+
+def _script_counterpart(rel):
+    """The port path (from the port root) that answers script `rel`."""
+    sub, _, name = rel.rpartition("/")
+    return f"{sub or 'tools'}/{name}"
+
+
+def tool_gaps(repo_root, port_root, allowed=None):
+    """{check: [gap, ...]} for check (f): `modules` (a script that imports
+    `cook_tpu` or `jax` without a counterpart or an entry), `cli`,
+    `routes`, `names` and `fields` of each pair, and `allowlist`, as in
+    `coverage_gaps`."""
+    allowed = TOOLS_ALLOWED if allowed is None else allowed
+    gaps = {k: [] for k in ("modules", "cli", "routes", "names", "fields",
+                            "allowlist")}
+    missing = set()
+    for rel in _scripts(repo_root):
+        ref_tree = _parse(os.path.join(repo_root, rel))
+        kind, target = allowed.get(rel, (None, None))
+        port_rel = (target if kind == "renamed"
+                    else _script_counterpart(rel))
+        port_path = os.path.join(port_root, port_rel)
+        if not os.path.exists(port_path):
+            if kind == "renamed":
+                gaps["allowlist"].append(
+                    f"{rel}: renamed to {target}, which "
+                    f"{os.path.basename(port_root)}/ lacks")
+            if _imports_reference(ref_tree):
+                missing.add(rel)
+                if rel not in allowed:
+                    gaps["modules"].append(
+                        f"{rel}: imports cook_tpu or jax, no counterpart "
+                        f"{os.path.basename(port_root)}/{port_rel}")
+            continue
+        if kind == "renamed":
+            missing.add(rel)
+        _module_gaps(rel, ref_tree, _parse(port_path), allowed, gaps,
+                     missing)
+    for key in sorted(allowed):
+        if key not in missing:
+            gaps["allowlist"].append(f"{key}: allowed, but not a gap")
     return gaps
 
 
@@ -678,3 +798,95 @@ def test_the_checker_names_every_gap_of_a_synthetic_pair(tmp_path):
                      '("m", "o.cu", "refpkg/ops/pallas_match.py:9")}\n')
     assert coverage_gaps(str(ref), str(port), str(smoke), {}) == {
         k: [] for k in gaps}
+
+
+@pytest.fixture(scope="module")
+def script_gaps():
+    return tool_gaps(REPO_ROOT, PORT_ROOT)
+
+
+def test_every_reference_script_has_a_counterpart(script_gaps):
+    """(f): every script outside the package that imports `cook_tpu` or
+    `jax` has its counterpart under `cook_tpu_torch/tools/` or
+    `cook_tpu_torch/examples/` (or a `TOOLS_ALLOWED` entry), with the same
+    flags, functions and methods; the standard-library lint and CI
+    pipeline, which have counterparts, are held to them too."""
+    for check in ("modules", "cli", "routes", "names", "fields",
+                  "allowlist"):
+        assert script_gaps[check] == [], _report(script_gaps, check)
+    required = {rel for rel in _scripts(REPO_ROOT) if _imports_reference(
+        _parse(os.path.join(REPO_ROOT, rel)))}
+    assert required == {
+        "__graft_entry__.py", "bench.py", "tools/chaos.py",
+        "tools/debug_smoke.py", "tools/loadtest.py",
+        "tools/migrate_journal.py", "tools/tpu_sweep.py",
+        "examples/multihost_dryrun.py"}
+    for rel in ("tools/chaos.py", "tools/debug_smoke.py",
+                "tools/loadtest.py", "tools/migrate_journal.py",
+                "tools/lint_metrics.py", "tools/ci_checks.py",
+                "examples/multihost_dryrun.py"):
+        assert os.path.exists(os.path.join(PORT_ROOT,
+                                           _script_counterpart(rel))), rel
+    sweep = _Surface(_parse(os.path.join(PORT_TOOLS, "match_sweep.py")))
+    assert {((), "--backend"), ((), "--pallas"), ((), "--limit"),
+            ((), "--device")} <= sweep.flags
+    kinds = {kind for kind, _ in TOOLS_ALLOWED.values()}
+    assert kinds <= {"renamed", "by design", "pending"}
+    assert all(why for _, why in TOOLS_ALLOWED.values())
+
+
+SYNTH_SCRIPTS = {
+    "bench.py": "import jax\n",
+    "plain.py": "import json\n",
+    "tools/drill.py": (
+        "import argparse\n\n\ndef scenario():\n"
+        "    from cook_tpu import faults\n\n\ndef main():\n"
+        "    p = argparse.ArgumentParser()\n"
+        "    p.add_argument('--smoke')\n    p.add_argument('--json')\n"),
+    "tools/sweep.py": "import argparse\nimport jax\n\n\ndef main():\n"
+                      "    argparse.ArgumentParser().add_argument('--out')\n",
+    "tools/gate.py": "import json\n\n\ndef main():\n    pass\n",
+    "examples/dry.py": "from jax.sharding import Mesh\n\n\ndef worker():\n"
+                       "    pass\n",
+}
+
+
+def test_the_checker_names_every_gap_of_a_synthetic_tool_pair(tmp_path):
+    """A tiny repository and port: the checker names, at once, a script
+    importing `jax` with no counterpart (`examples/dry.py`), a flag its
+    pair lacks (`--json`), a function its pair lacks (`scenario`), a
+    renamed script whose target is missing, and a stale entry; a script
+    importing neither (`plain.py`, `tools/gate.py`) needs nothing.  With
+    the counterparts added, nothing."""
+    repo, port = tmp_path / "repo", tmp_path / "port"
+    _write_tree(repo, SYNTH_SCRIPTS)
+    _write_tree(port, {
+        "tools/drill.py": "import argparse\n\n\ndef main():\n"
+                          "    p = argparse.ArgumentParser()\n"
+                          "    p.add_argument('--smoke')\n"})
+    allowed = {"bench.py": pending("a later benchmark"),
+               "tools/sweep.py": renamed("tools/knob_sweep.py"),
+               "plain.py": ("by design", "why")}
+    gaps = tool_gaps(str(repo), str(port), allowed)
+    assert gaps == {
+        "modules": ["examples/dry.py: imports cook_tpu or jax, no "
+                    "counterpart port/examples/dry.py"],
+        "cli": ["tools/drill.py: (top level) --json"],
+        "routes": [],
+        "names": ["tools/drill.py::scenario: no counterpart"],
+        "fields": [],
+        "allowlist": ["tools/sweep.py: renamed to tools/knob_sweep.py, "
+                      "which port/ lacks",
+                      "plain.py: allowed, but not a gap"],
+    }
+    _write_tree(port, {
+        "tools/drill.py": SYNTH_SCRIPTS["tools/drill.py"],
+        "tools/knob_sweep.py": SYNTH_SCRIPTS["tools/sweep.py"],
+        "examples/dry.py": "def worker():\n    pass\n"})
+    del allowed["plain.py"]
+    assert tool_gaps(str(repo), str(port), allowed) == {
+        k: [] for k in gaps}
+    # the renamed script's pair is held to its flags too
+    _write_tree(port, {"tools/knob_sweep.py": "def main():\n    pass\n"})
+    assert tool_gaps(str(repo), str(port), allowed)["cli"] == [
+        "tools/sweep.py: (top level) --out"]
